@@ -1,0 +1,149 @@
+// K1: packed lane best against mixed-length references.
+//
+// Replaces the TPU kernels
+//   sparksmithwaterman_tpu/ops/pallas_score.py:_diag_kernel_packed_varlen
+//   sparksmithwaterman_tpu/ops/pallas_score.py:_chunked_kernel_packed_multi
+// with their shared contract: packed read rows (ROWS, M) int32 (read code
+// in the low byte, START_BIT = 256 on each segment's first lane) against C
+// references with true lengths lens (C,) int32 give out (C, ROWS, M) int32
+// where each segment's start lane holds that read's best local-alignment
+// score against the reference.  Reference c is the lens[c] bytes at
+// refs + offs[c] (int64 offsets), so a batch is one flat buffer with no
+// padding; a (C, N) padded batch is the case offs[c] = c * N.
+//
+// What bounds it on the H100: the sweep is integer ALU work, about ten
+// instructions per DP cell, with no memory traffic in the inner loop; the
+// output (C*ROWS*M int32) is written once.  So it is compute bound, and
+// the design keeps every cell in registers: one warp per packed row, L
+// lanes per thread, neighbour lanes through one warp shuffle per diagonal
+// (no block barrier per diagonal), the reference streamed through a 4 KB
+// shared-memory ring shared by the block's four rows.  Each reference runs
+// exactly m + len - 1 diagonals (0 for len == 0), so a mixed-length batch
+// pays no length padding, and a 131 kb or 1 Mb reference needs no other
+// form: different references are different blocks, which is what made
+// the TPU's multi-ref fold unnecessary here.
+//
+// Lanes a caller may read: the start lane of every segment.  Other lanes
+// hold the suffix max of their segment from that lane on, which the TPU
+// kernel (which also sweeps padding diagonals) need not match.
+#include "wavefront.cuh"
+
+namespace {
+
+using namespace swt;
+
+template <int L>
+__global__ void __launch_bounds__(kThreads)
+lane_best_kernel(const int32_t* __restrict__ packed, int rows, int m,
+                 int row_blocks, const uint8_t* __restrict__ refs,
+                 const long long* __restrict__ offs,
+                 const int32_t* __restrict__ lens,
+                 int match, int mismatch, int gap,
+                 int32_t* __restrict__ out) {
+  __shared__ uint8_t ring[kRing];
+  const int c = blockIdx.x / row_blocks;
+  const int row = (blockIdx.x % row_blocks) * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  const int first = lane * L;
+  const bool live = row < rows;
+  const int len = lens[c];
+  const int nd = len > 0 ? m + len - 1 : 0;
+
+  int rd[L];
+  uint32_t start = 0;  // bit k: lane first+k starts a segment
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    const int i = first + k;
+    // Lanes past m (and rows past ROWS) form isolated all-pad segments.
+    const int raw =
+        (live && i < m) ? packed[(long long)row * m + i] : kStartBit;
+    rd[k] = raw & 255;
+    if (raw >= kStartBit || i == 0) start |= 1u << k;
+  }
+
+  int best[L];
+#pragma unroll
+  for (int k = 0; k < L; ++k) best[k] = 0;
+  sweep<L>(rd, start, nd, refs + offs[c], len, match,
+           mismatch, gap, ring,
+           [&](int k, int, int h) { best[k] = max(best[k], h); });
+
+  // Segmented suffix max.  First within the thread, right to left,
+  // restarting at segment starts; `open` marks lanes whose segment runs
+  // past this thread's last lane.
+  int run = 0;
+  bool is_open = true;
+  uint32_t open = 0;
+#pragma unroll
+  for (int k = L - 1; k >= 0; --k) {
+    if (k < L - 1 && ((start >> (k + 1)) & 1u)) {
+      run = 0;
+      is_open = false;
+    }
+    run = max(run, best[k]);
+    best[k] = run;
+    if (is_open) open |= 1u << k;
+  }
+  // Then the carry from the threads to the right: walk right while the
+  // segment continues.  head = max over this thread's first local segment;
+  // flag bit 0 = lane `first` starts a segment, bit 1 = a segment starts
+  // inside this thread after lane `first`.
+  const int head = best[0];
+  const int flags = (start & 1u) | ((open & 1u) ? 0 : 2);
+  int carry = 0;
+  bool stop = false;
+  for (int u = 1; u < 32; ++u) {
+    const int hv = __shfl_sync(0xffffffffu, head, u);
+    const int fl = __shfl_sync(0xffffffffu, flags, u);
+    if (u > lane && !stop) {
+      if (fl & 1) {
+        stop = true;
+      } else {
+        carry = max(carry, hv);
+        if (fl & 2) stop = true;
+      }
+    }
+  }
+  if (!live) return;
+  int32_t* o = out + ((long long)c * rows + row) * m;
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    if (first + k < m) o[first + k] = ((open >> k) & 1u) ? max(best[k], carry) : best[k];
+  }
+}
+
+}  // namespace
+
+extern "C" int swt_lane_best_varlen(const void* packed, int rows, int m,
+                                    const void* refs, const void* offs,
+                                    const void* lens, int c, int match,
+                                    int mismatch, int gap, void* out,
+                                    int device, void* stream) {
+  const int L = swt::pick_lanes(m);
+  if (L == 0 || rows <= 0 || c <= 0) return (int)cudaErrorInvalidValue;
+  const long long row_blocks = (rows + swt::kWarps - 1) / swt::kWarps;
+  const long long blocks = row_blocks * c;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (L) {
+#define SWT_LAUNCH(l)                                                       \
+  case l:                                                                   \
+    lane_best_kernel<l><<<(unsigned)blocks, swt::kThreads, 0, s>>>(              \
+        (const int32_t*)packed, rows, m, (int)row_blocks,                   \
+        (const uint8_t*)refs, (const long long*)offs,                       \
+        (const int32_t*)lens, match,                                        \
+        mismatch, gap, (int32_t*)out);                                      \
+    break;
+    SWT_FOR_EACH_L(SWT_LAUNCH)
+#undef SWT_LAUNCH
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* swt_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

@@ -1,0 +1,273 @@
+"""The scoring kernels: CUDA for tensors on the card, plain PyTorch on CPU.
+
+Two kernels, each with its plain PyTorch version of the same function:
+
+- K1 :func:`lane_best_packed_varlen` (``csrc/lane_best.cu``) replaces
+  ``pallas_score.py:_diag_kernel_packed_varlen`` and
+  ``pallas_score.py:_chunked_kernel_packed_multi``;
+- K2 :func:`argmax_lane` (``csrc/argmax.cu``) replaces
+  ``pallas_score.py:_chunked_argmax_kernel``.
+
+A wrapper takes the plain version only for tensors on the CPU.  For CUDA
+tensors it launches the kernel or raises; it never falls back.  Each
+launch adds one to :data:`LAUNCHES`, so a run can show that its main path
+went through the kernels.
+
+The recurrence (``pallas_score.py:_make_step``), on anti-diagonals d with
+lane i holding read position i and column j = d - i:
+
+    D_d[i] = max(0, D_{d-2}[i-1] + sub(read[i], ref[d-i]),
+                    max(D_{d-1}[i-1], D_{d-1}[i]) + gap)
+
+with both shifted terms zero at lane 0 (and, packed, at segment starts).
+``ref[j]`` reads as REF_PAD outside ``[0, len)`` and READ_PAD matches
+nothing.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sparksmithwaterman_tpu_torch.io.fasta import REF_PAD
+from sparksmithwaterman_tpu_torch.ops import _cuda
+from sparksmithwaterman_tpu_torch.ops.packing import START_BIT
+
+# Launches per kernel since the last reset_launches().
+LAUNCHES = {"lane_best_packed_varlen": 0, "argmax_lane": 0}
+
+# Widest lane row the kernels take (32 threads x 32 lanes).
+MAX_LANES = 1024
+
+
+def reset_launches() -> None:
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def _device_of(*tensors: torch.Tensor) -> torch.device:
+    device = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != device:
+            raise ValueError(f"tensors on different devices: {device} and {t.device}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+def _launch_target(device: torch.device):
+    """(device index, current stream handle) for a C entry point."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return index, torch.cuda.current_stream(device).cuda_stream
+
+
+def _shift_lanes_right(x: torch.Tensor) -> torch.Tensor:
+    """x[..., i-1] at lane i, zero at lane 0."""
+    return torch.nn.functional.pad(x[..., :-1], (1, 0))
+
+
+def _ref_window(refs_i: torch.Tensor, lens: torch.Tensor, d: int, m: int):
+    """(C, M) reference code seen by each lane on diagonal d."""
+    j = d - torch.arange(m, device=refs_i.device)
+    valid = (j >= 0)[None, :] & (j[None, :] < lens[:, None])
+    if refs_i.shape[1] == 0:
+        return torch.full(valid.shape, REF_PAD, dtype=torch.int32, device=refs_i.device)
+    col = refs_i[:, j.clamp(0, refs_i.shape[1] - 1)]
+    return torch.where(valid, col, REF_PAD)
+
+
+# -- K1: packed lane best ------------------------------------------------------
+
+
+def segmented_suffix_max(x: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
+    """Lane i becomes max(x[..., i .. end of its segment)); segments begin
+    at lanes where ``start`` (broadcastable to x) is true.  Log doubling
+    with a blocked mask, as ``pallas_score._segmented_suffix_max``."""
+    m = x.shape[-1]
+
+    def shift_left(v, s, fill):
+        return torch.nn.functional.pad(v[..., s:], (0, s), value=fill)
+
+    blocked = shift_left(start.to(torch.int32), 1, 1).expand_as(x)
+    s = 1
+    while s < m:
+        x = torch.where(blocked > 0, x, torch.maximum(x, shift_left(x, s, 0)))
+        if 2 * s < m:
+            blocked = blocked | shift_left(blocked, s, 1)
+        s *= 2
+    return x
+
+
+def _clamped_lens(lens: torch.Tensor, n: int) -> torch.Tensor:
+    return lens.to(torch.int64).clamp(0, n)
+
+
+def _padded_refs(flat: torch.Tensor, lens: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """(C, max len) uint8 view of a flat reference buffer, REF_PAD-padded."""
+    n = int(lens.max()) if lens.numel() else 0
+    j = torch.arange(n, device=flat.device)
+    idx = (offsets.to(torch.int64)[:, None] + j).clamp(0, max(flat.numel() - 1, 0))
+    return torch.where(j < lens.to(torch.int64)[:, None], flat[idx], REF_PAD).to(torch.uint8)
+
+
+def lane_best_packed_varlen_plain(packed, refs_u8, lens, match, mismatch, gap, offsets=None):
+    """Plain PyTorch version of K1 (any device): the diagonal loop on a
+    (C, ROWS, M) state.  Reference c runs exactly m + len_c - 1 diagonals
+    (none when len_c == 0); lens are clamped to [0, N]."""
+    if offsets is not None:
+        refs_u8 = _padded_refs(refs_u8, lens, offsets)
+    rows, m = packed.shape
+    c, n = refs_u8.shape
+    device = packed.device
+    read = (packed & (START_BIT - 1)).to(torch.int32)
+    start = packed >= START_BIT
+    zero = start.clone()
+    zero[:, 0] = True
+    lens = _clamped_lens(lens, n)
+    nd = torch.where(lens > 0, m + lens - 1, 0)
+    refs_i = refs_u8.to(torch.int32)
+    shape = (c, rows, m)
+    d1 = torch.zeros(shape, dtype=torch.int32, device=device)
+    r1 = torch.zeros_like(d1)
+    r2 = torch.zeros_like(d1)
+    best = torch.zeros_like(d1)
+    for d in range(int(nd.max()) if c else 0):
+        refwin = _ref_window(refs_i, lens, d, m)[:, None, :]
+        sub = torch.where(read[None] == refwin, match, mismatch).to(torch.int32)
+        c1 = torch.clamp_min(torch.maximum(r2 + sub, torch.maximum(r1, d1) + gap), 0)
+        active = (d < nd)[:, None, None]
+        best = torch.where(active, torch.maximum(best, c1), best)
+        rc = _shift_lanes_right(c1).masked_fill_(zero, 0)
+        d1, r2, r1 = c1, r1, rc
+    return segmented_suffix_max(best, start)
+
+
+def lane_best_packed_varlen(packed, refs_u8, lens, match, mismatch, gap, offsets=None):
+    """(C, ROWS, M) int32 per-lane best of packed read rows against
+    mixed-length references.
+
+    packed: (ROWS, M) int32, read code | START_BIT on segment starts
+    (``ops.packing.pack_reads``); lens: (C,) int32 true lengths.  The
+    references are either refs_u8 (C, N) uint8, REF_PAD-padded (lens
+    clamped to [0, N]), or, with ``offsets`` (C,) int64, one flat uint8
+    buffer refs_u8 holding reference c at ``offsets[c] : offsets[c] +
+    lens[c]`` (every range inside the buffer).
+
+    Contract: each segment's START lane holds that read's best score
+    against the reference.  Read only start lanes (``packing.read_best``,
+    ``packing.packed_col_sums``); other lanes are not part of the
+    contract and differ from the TPU kernel, which sweeps padding too.
+    """
+    device = _device_of(packed, refs_u8, lens, *(() if offsets is None else (offsets,)))
+    if packed.dim() != 2 or packed.dtype != torch.int32:
+        raise ValueError("packed must be a (ROWS, M) int32 tensor")
+    if refs_u8.dtype != torch.uint8 or refs_u8.dim() != (2 if offsets is None else 1):
+        raise ValueError("refs_u8 must be a (C, N) uint8 tensor, or a 1-D uint8 buffer with offsets")
+    c = refs_u8.shape[0] if offsets is None else offsets.shape[0]
+    if offsets is not None and (offsets.shape != (c,) or offsets.dtype != torch.int64):
+        raise ValueError("offsets must be a (C,) int64 tensor")
+    if lens.shape != (c,) or lens.dtype != torch.int32:
+        raise ValueError("lens must be a (C,) int32 tensor")
+    match, mismatch, gap = int(match), int(mismatch), int(gap)
+    if device.type == "cpu":
+        return lane_best_packed_varlen_plain(packed, refs_u8, lens, match, mismatch, gap, offsets)
+    rows, m = packed.shape
+    if m > MAX_LANES:
+        raise ValueError(f"lane_best_packed_varlen takes rows of at most {MAX_LANES} lanes, got {m}")
+    out = torch.empty((c, rows, m), dtype=torch.int32, device=device)
+    if c == 0 or rows == 0:
+        return out
+    if offsets is None:
+        n = refs_u8.shape[1]
+        lens = _clamped_lens(lens, n).to(torch.int32)
+        offsets = torch.arange(c, dtype=torch.int64, device=device) * n
+    packed = packed.contiguous()
+    refs_u8 = refs_u8.contiguous()
+    lens = lens.contiguous()
+    offsets = offsets.contiguous()
+    rc = _cuda.lib().swt_lane_best_varlen(
+        packed.data_ptr(), rows, m,
+        refs_u8.data_ptr(), offsets.data_ptr(), lens.data_ptr(), c,
+        match, mismatch, gap,
+        out.data_ptr(), *_launch_target(device),
+    )
+    _cuda.check(rc, "lane_best_packed_varlen")
+    LAUNCHES["lane_best_packed_varlen"] += 1
+    return out
+
+
+# -- K2: per-lane argmax ---------------------------------------------------------
+
+
+def argmax_lane_plain(reads_u8, refs_u8, match, mismatch, gap):
+    """Plain PyTorch version of K2 (any device): the diagonal loop on an
+    (R, C, M) state, exactly m + n - 1 diagonals."""
+    r, m = reads_u8.shape
+    c, n = refs_u8.shape
+    device = reads_u8.device
+    reads_i = reads_u8.to(torch.int32)[:, None, :]
+    refs_i = refs_u8.to(torch.int32)
+    lens = torch.full((c,), n, dtype=torch.int64, device=device)
+    shape = (r, c, m)
+    d1 = torch.zeros(shape, dtype=torch.int32, device=device)
+    r1 = torch.zeros_like(d1)
+    r2 = torch.zeros_like(d1)
+    best = torch.zeros_like(d1)
+    bestd = torch.zeros_like(d1)
+    count = torch.zeros_like(d1)
+    for d in range(m + n - 1 if n > 0 else 0):
+        refwin = _ref_window(refs_i, lens, d, m)[None]
+        sub = torch.where(reads_i == refwin, match, mismatch).to(torch.int32)
+        c1 = torch.clamp_min(torch.maximum(r2 + sub, torch.maximum(r1, d1) + gap), 0)
+        gt = c1 > best
+        eq = (c1 == best) & (best > 0)
+        best = torch.where(gt, c1, best)
+        bestd = torch.where(gt, d, bestd)
+        count = torch.where(gt, 1, count + eq.to(torch.int32))
+        d1, r2, r1 = c1, r1, _shift_lanes_right(c1)
+    return best, bestd, count
+
+
+def argmax_lane(reads_u8, refs_u8, match, mismatch, gap):
+    """Per-lane (best, first diagonal, tie count), three (R, C, M) int32.
+
+    reads_u8: (R, M) uint8 unpacked reads (READ_PAD-padded); refs_u8:
+    (C, N) uint8.  Lane i of pair (r, c) covers DP row i + 1: its max,
+    the first anti-diagonal d = i + j reaching it (strict >), and how
+    many of the row's cells equal it (counted only while best > 0).
+
+    Contract: exact on lanes whose best equals the read's max — the
+    lanes from which ``longseq.find_max_cells_batched`` rebuilds cells
+    as (lane, bestd - lane).  Other lanes are not part of the contract.
+    """
+    device = _device_of(reads_u8, refs_u8)
+    if reads_u8.dim() != 2 or reads_u8.dtype != torch.uint8:
+        raise ValueError("reads_u8 must be an (R, M) uint8 tensor")
+    if refs_u8.dim() != 2 or refs_u8.dtype != torch.uint8:
+        raise ValueError("refs_u8 must be a (C, N) uint8 tensor")
+    match, mismatch, gap = int(match), int(mismatch), int(gap)
+    if device.type == "cpu":
+        return argmax_lane_plain(reads_u8, refs_u8, match, mismatch, gap)
+    r, m = reads_u8.shape
+    c, n = refs_u8.shape
+    if m > MAX_LANES:
+        raise ValueError(f"argmax_lane takes reads of at most {MAX_LANES} positions, got {m}")
+    outs = tuple(
+        torch.empty((r, c, m), dtype=torch.int32, device=device) for _ in range(3)
+    )
+    if r == 0 or c == 0 or m == 0:
+        return outs
+    if n == 0:
+        for o in outs:
+            o.zero_()
+        return outs
+    reads_u8 = reads_u8.contiguous()
+    refs_u8 = refs_u8.contiguous()
+    rc = _cuda.lib().swt_argmax_lane(
+        reads_u8.data_ptr(), r, m,
+        refs_u8.data_ptr(), n, c, n,
+        match, mismatch, gap,
+        *(o.data_ptr() for o in outs), *_launch_target(device),
+    )
+    _cuda.check(rc, "argmax_lane")
+    LAUNCHES["argmax_lane"] += 1
+    return outs

@@ -1,0 +1,176 @@
+"""On-device traceback: batched fill, max-cell extraction and walks.
+
+Port of :mod:`sparksmithwaterman_tpu.ops.device_traceback`.  The fill's
+direction codes stay on the device; each pair's max cells are extracted
+row-major up to a fixed capacity (a cumulative-sum rank and a scatter);
+every (pair, cell) walk advances in lock step as one gather per step; only
+(cells, beginnings, walk codes) go to the host, where the strings are
+assembled.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+from sparksmithwaterman_tpu_torch.io.report import Site
+from sparksmithwaterman_tpu_torch.ops.recurrence import DIR_ALIGN, DIR_DEL, DIR_INS, fill_pairs
+from sparksmithwaterman_tpu_torch.ops.traceback import degenerate_sites
+
+# Walks are checked for completion every this many steps (one host sync).
+_DONE_CHECK = 32
+
+
+def path_cap(m: int, match: int, gap: int) -> int:
+    """Walk steps provably enough for any positive-score path of a
+    length-m read.
+
+    Every step consumes a read position (at most m of those) or is a
+    deletion; a path with score >= 1 has deletions * |gap| < match * m.
+    So steps < m + match*m/|gap|.  The floor of 4m keeps the walk arrays
+    the JAX package's shape at the default scheme (5/-3/-4), where the
+    bound is 2.25m.
+    """
+    m = max(m, 1)
+    return max(4 * m, m + -(-match * m // -gap) + 1)
+
+
+def argwhere_rows(eq: torch.Tensor, capacity: int) -> torch.Tensor:
+    """Row-major positions of the true cells of each (M, N) plane.
+
+    eq: (B, M, N) bool.  Returns (B, capacity, 2) int32 (i, j), the first
+    ``capacity`` true cells of each plane in row-major order, -1-filled.
+    """
+    b, _, n = eq.shape
+    flat = eq.reshape(b, -1)
+    rank = torch.cumsum(flat, dim=1, dtype=torch.int32) - 1
+    keep = flat & (rank < capacity)
+    pos = torch.full((b, capacity + 1), -1, dtype=torch.int64, device=eq.device)
+    slot = torch.where(keep, rank.to(torch.int64), capacity)  # spill slot
+    src = torch.arange(flat.shape[1], device=eq.device).expand(b, -1)
+    pos.scatter_(1, slot, torch.where(keep, src, -1))
+    pos = pos[:, :capacity]
+    cells = torch.stack(
+        [torch.div(pos, n, rounding_mode="floor"), torch.remainder(pos, n)], dim=-1
+    )
+    return torch.where(pos[..., None] >= 0, cells, -1).to(torch.int32)
+
+
+def trace_cells(dirs: torch.Tensor, cells: torch.Tensor, cap: int):
+    """Walk every start cell over its pair's (M, N) direction codes.
+
+    dirs: (B, M, N) int8; cells: (B, K, 2) int32 0-based, -1 for none.
+    Returns (begins (B, K) int32 1-based start columns, codes (B, K, cap)
+    int8 walk codes end-to-start, 0 after the stop).
+    """
+    b, m, n = dirs.shape
+    k = cells.shape[1]
+    flat = dirs.reshape(b, m * n)
+    i = cells[..., 0].to(torch.int64) + 1
+    j = cells[..., 1].to(torch.int64) + 1
+    begins = torch.zeros((b, k), dtype=torch.int64, device=dirs.device)
+    codes = torch.zeros((b, k, cap), dtype=torch.int8, device=dirs.device)
+    for step in range(cap):
+        in_bounds = (i > 0) & (j > 0)
+        idx = ((i - 1).clamp_min(0) * n + (j - 1).clamp_min(0)).reshape(b, k)
+        d = torch.where(in_bounds, flat.gather(1, idx), 0)
+        active = d != 0
+        if step % _DONE_CHECK == 0 and not bool(active.any()):
+            break
+        begins = torch.where(active, j, begins)
+        i = i - (active & ((d == DIR_ALIGN) | (d == DIR_INS))).to(torch.int64)
+        j = j - (active & ((d == DIR_ALIGN) | (d == DIR_DEL))).to(torch.int64)
+        codes[..., step] = d
+    return begins.to(torch.int32), codes
+
+
+def fill_and_trace(
+    reads,
+    refs,
+    match: int,
+    mismatch: int,
+    gap: int,
+    *,
+    capacity: int,
+    cap: int,
+    tie_semantics: str = "serial",
+):
+    """Fill + max-cell extraction + traceback, all on the tensors' device.
+
+    reads: (B, M) uint8; refs: (B, N) or (1, N) uint8.  Returns
+      best:   (B,) int32 max score per pair
+      counts: (B,) int32 number of max cells (may exceed capacity; the
+              caller falls back for those pairs)
+      cells:  (B, capacity, 2) int32 row-major max cells, -1-filled
+      begins: (B, capacity) int32 1-based start columns
+      codes:  (B, capacity, cap) int8 walk codes (end-to-start)
+    """
+    h, dirs = fill_pairs(reads, refs, match, mismatch, gap, tie_semantics=tie_semantics)
+    best = h.amax(dim=(1, 2))
+    eq = h == best[:, None, None]
+    counts = eq.sum(dim=(1, 2), dtype=torch.int32)
+    cells = argwhere_rows(eq, capacity)
+    begins, codes = trace_cells(dirs, cells, cap)
+    return best, counts, cells, begins, codes
+
+
+def assemble_site(
+    codes: np.ndarray,
+    begin: int,
+    cell,
+    ref_seq: str,
+    read_seq: str,
+    gap_char: str = "_",
+) -> Site:
+    """Host assembly of one site from walk codes (vectorized numpy)."""
+    nz = np.flatnonzero(codes == 0)
+    length = int(nz[0]) if nz.size else codes.shape[0]
+    if length == 0:
+        return (0, ("", ""))
+    c = codes[:length].astype(np.int64)
+    move_i = (c == 1) | (c == 2)
+    move_j = (c == 1) | (c == 3)
+    i_end, j_end = int(cell[0]) + 1, int(cell[1]) + 1
+    # Position BEFORE each step (the walk emits end-to-start).
+    i_pos = i_end - np.concatenate([[0], np.cumsum(move_i)[:-1]])
+    j_pos = j_end - np.concatenate([[0], np.cumsum(move_j)[:-1]])
+    ref_arr = np.frombuffer(ref_seq.encode("latin-1"), dtype="S1")
+    read_arr = np.frombuffer(read_seq.encode("latin-1"), dtype="S1")
+    gap_b = gap_char.encode("latin-1")
+    ref_chars = np.where(c == 2, gap_b, ref_arr[j_pos - 1])
+    read_chars = np.where(c == 3, gap_b, read_arr[i_pos - 1])
+    return (
+        int(begin),
+        (
+            ref_chars[::-1].tobytes().decode("latin-1"),
+            read_chars[::-1].tobytes().decode("latin-1"),
+        ),
+    )
+
+
+def sites_from_trace(
+    best: int,
+    count: int,
+    cells: np.ndarray,
+    begins: np.ndarray,
+    codes: np.ndarray,
+    ref_seq: str,
+    read_seq: str,
+    gap_char: str = "_",
+) -> List[Site]:
+    """Per-pair site list from device outputs (oracle-parity order).
+
+    Only cells inside the real (m, n) region count: padded regions can
+    tie a zero max but never a positive one.
+    """
+    m, n = len(read_seq), len(ref_seq)
+    if m == 0 or n == 0:
+        return []
+    if best == 0:
+        return degenerate_sites(m, n)
+    return [
+        assemble_site(codes[t], int(begins[t]), cells[t], ref_seq, read_seq, gap_char)
+        for t in range(count)
+    ]

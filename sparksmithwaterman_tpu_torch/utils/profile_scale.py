@@ -1,0 +1,141 @@
+"""Where the time goes in the scale workload, on one CUDA card.
+
+    python -m sparksmithwaterman_tpu_torch.utils.profile_scale [--out FILE] [--corpus-bp N]
+
+Builds the scale workload (``metrics.engineer_data.scale_corpus``: a
+RefSeq-shaped corpus plus 8 references of 131,072 bp, 512 reads), runs
+``run_pipeline`` once to build and warm up, twice timed, then once under
+``torch.profiler`` with the pipeline's layers wrapped in named spans:
+
+- ``L1.parse``: reference-file parsing;
+- ``L2.score_flush``: one scoring flush on the host (encode, upload, K1
+  dispatches, gather-sums); ``L2.encode_refs`` its reference encoding,
+  ``L2a.K1`` its K1 calls;
+- ``L3.traceback``: one winner's traceback; ``L3a.max_cells`` (K2 and the
+  in-lane-tie fallback), ``L3b.window_fill_walk`` and ``L3c.full_fill``
+  its parts.
+
+A span's time is its wall time on the host (nested spans count inside
+their parents).  Device time is summed per kernel or copy, over device
+events only: summing spans or ``aten`` operators too would count each
+kernel again.  The idle share is 1 - busy / wall of the profiled pass.
+The span wrappers exist only in this script; with ``--out`` the summary
+and the full operator table are also written to that file.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import functools
+import os
+import sys
+import tempfile
+import time
+
+
+def _wrap(owner, name: str, span: str) -> None:
+    from torch.profiler import record_function
+
+    fn = getattr(owner, name)
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with record_function(span):
+            return fn(*args, **kwargs)
+
+    setattr(owner, name, wrapped)
+
+
+SPANS = {
+    "L1.parse": ("pipeline", "get_ref_seqs"),
+    "L2.score_flush": ("backend", "_totals_dev"),
+    "L2.encode_refs": ("batch_backend", "encode_concat"),
+    "L2a.K1": ("batch_backend", "lane_best_packed_varlen"),
+    "L3.traceback": ("backend", "sites_for_ref"),
+    "L3a.max_cells": ("batch_backend", "find_max_cells_batched"),
+    "L3b.window_fill_walk": ("batch_backend", "sites_for_ref_long_batched"),
+    "L3c.full_fill": ("backend", "_sites_full_fill"),
+}
+
+
+def _instrument() -> None:
+    from sparksmithwaterman_tpu_torch.models import batch_backend, pipeline
+
+    owners = {"pipeline": pipeline, "batch_backend": batch_backend, "backend": batch_backend.TorchBatchBackend}
+    for span, (owner, name) in SPANS.items():
+        _wrap(owners[owner], name, span)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--out", default=None, help="also write the summary and operator table here")
+    parser.add_argument("--corpus-bp", type=int, default=64_000_000)
+    parser.add_argument("--seed", type=int, default=20261016)
+    args = parser.parse_args(argv)
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sparksmithwaterman_tpu_torch.config import AlignConfig
+    from sparksmithwaterman_tpu_torch.metrics.engineer_data import scale_corpus
+    from sparksmithwaterman_tpu_torch.models.batch_backend import TorchBatchBackend
+    from sparksmithwaterman_tpu_torch.models.pipeline import run_pipeline
+
+    if not torch.cuda.is_available():
+        print("profile_scale: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory(prefix="swtorch_profile_") as work:
+        corpus = scale_corpus(work, corpus_bp=args.corpus_bp, seed=args.seed)
+        cells = corpus["ref_bp"] * corpus["read_bp"]
+        config = AlignConfig(
+            ref_dir=os.path.join(work, "refs"),
+            in_dir=os.path.join(work, "inputs"),
+            out_dir=os.path.join(work, "out"),
+        )
+        backend = TorchBatchBackend(config, dev)
+
+        def run() -> float:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run_pipeline(config, backend=backend, device=dev)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+
+        walls = [run() for _ in range(3)]  # first: build and warm-up
+        _instrument()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall = run()
+
+    host = collections.defaultdict(lambda: [0, 0.0])  # span -> [calls, host us]
+    kernels = collections.defaultdict(float)  # device event -> device us
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name in SPANS:
+            host[e.name][0] += 1
+            host[e.name][1] += e.time_range.elapsed_us()
+        elif e.device_type == DeviceType.CUDA and e.name not in SPANS:
+            kernels[e.name] += e.time_range.elapsed_us()
+    busy = sum(kernels.values()) / 1e6
+    lines = [
+        f"profile_scale: {corpus['read_bp']} read bp x {corpus['ref_bp']} ref bp ({corpus['files']} files)",
+        "walls s (the first builds and warms up): " + ", ".join(f"{w:.3f}" for w in walls)
+        + "; real GCUPS of the warm ones: " + ", ".join(f"{cells / w / 1e9:.1f}" for w in walls[1:]),
+        f"profiled pass: wall {wall:.3f} s, device busy {busy:.3f} s, idle share {1 - busy / wall:.3f}",
+        "host spans:",
+        *(f"  {name:<22} calls {host[name][0]:>5}  {host[name][1] / 1e6:8.3f} s" for name in SPANS if name in host),
+        "device time by kernel or copy:",
+        *(f"  {us / 1e6:8.3f} s  {name[:110]}" for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:15]),
+    ]
+    print("\n".join(lines))
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write("\n".join(lines) + "\n\n" + prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
+        print(f"operator table: {args.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,69 @@
+"""The port stands alone: copied into a tree that holds only the port and
+the C sources it builds (no JAX package), every module imports and a tiny
+CPU pipeline runs, with neither ``jax`` nor ``sparksmithwaterman_tpu``
+loaded."""
+
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+import textwrap
+
+_REPO = pathlib.Path(__file__).resolve().parents[1]
+_FORBIDDEN = ("jax", "jaxlib", "sparksmithwaterman_tpu")
+
+_SCRIPT = textwrap.dedent(
+    """
+    import pkgutil, sys
+    import torch
+    torch.set_num_threads(1)
+    import sparksmithwaterman_tpu_torch as pkg
+    for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+        __import__(mod.name)
+    from sparksmithwaterman_tpu_torch.config import AlignConfig
+    from sparksmithwaterman_tpu_torch.models.pipeline import run_pipeline
+    root = sys.argv[1]
+    paths = run_pipeline(
+        AlignConfig(ref_dir=root + "/refs", in_dir=root + "/inputs", out_dir=root + "/out",
+                    read_bucket=8, ref_bucket=8),
+        device="cpu",
+    )
+    assert "Maximum alignment score = 60" in open(paths[0]).read()
+    forbidden = %r
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in forbidden)
+    assert not loaded, loaded
+    print("standalone-ok")
+    """
+    % (_FORBIDDEN,)
+)
+
+
+def test_port_runs_without_loading_jax(tmp_path):
+    tree = tmp_path / "tree"
+    shutil.copytree(
+        _REPO / "sparksmithwaterman_tpu_torch", tree / "sparksmithwaterman_tpu_torch",
+        ignore=shutil.ignore_patterns("__pycache__"),
+    )
+    shutil.copytree(_REPO / "csrc", tree / "csrc", ignore=shutil.ignore_patterns("*.so"))
+    data = tmp_path / "data"
+    (data / "refs").mkdir(parents=True)
+    (data / "inputs").mkdir()
+    (data / "refs" / "ref1.rna.fna").write_text(">gi|1|alpha\nAACGTACGTTT\n>gi|2|beta\nGGGGGGGG\n")
+    (data / "refs" / "ref2.rna.fna").write_text(">gi|3|gamma\nTTACGTACGTAA\n")
+    (data / "inputs" / "input1.fa").write_text("ACGTACGT\nCGTA\n")
+    env = dict(os.environ, PYTHONPATH=str(tree))
+    proc = subprocess.run(
+        [sys.executable, "-c", _SCRIPT, str(data)],
+        capture_output=True, text=True, env=env, cwd=tree, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "standalone-ok" in proc.stdout
+
+
+def test_sources_do_not_import_jax():
+    for path in [*(_REPO / "sparksmithwaterman_tpu_torch").rglob("*.py"), _REPO / "chip_smoke.py"]:
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if len(words) >= 2 and words[0] in ("import", "from"):
+                assert words[1].split(".")[0] not in _FORBIDDEN, f"{path}: {line}"
