@@ -20,12 +20,34 @@ port's main path (``swtorch align --strategy batch``) end to end:
    winners must equal those from totals computed by the row-form
    recurrence, and the sites of the first 16 reads must equal the oracle's;
 4. scale leg: ``run_pipeline`` on a 64 Mbp RefSeq-shaped corpus plus
-   8 refs of 131,072 bp, 512 reads; wall time, real GCUPS, parse time.
+   8 refs of 131,072 bp, 512 reads; wall time, real GCUPS, parse time;
+5. K3 (band lane best) against its plain version: 512 reads x 32 refs of
+   500-4,000 bp cut into 1, 2 and 4 segments with random left columns,
+   every start lane and every bnd_out lane; the same at the shard_seq
+   leg's read shape (256 reads) on 8-16 kb segments; edge cases; four chained K3
+   segments equal to K1 at 64 reads x 8 refs of 131,072 bp;
+6. ``swtorch align --strategy shard_seq`` on a 16 Mbp corpus of 8 kb-1 Mb
+   refs with 256 reads, on the default mesh (every card): its report
+   equals ``--strategy batch``'s apart from the time line, its winners'
+   totals equal the row-form recurrence, and ``SeqParallelBackend`` on a
+   4-entry mesh of this card gives batch's totals;
+7. ``--strategy shard_refs`` and ``shard_reads`` on the phase-3 corpus:
+   reports equal to batch's apart from the time line; a (2, 2) mesh of
+   this card gives batch's totals.
 
-Launch counts are reset just before phase 3 and read just after phase 4;
-both kernels must have launched there.  Any failure raises and exits
-non-zero.  The second-to-last line is the kernels' JSON summary; the last
-line is ``{"ok": true, "device": {...}}``.
+Launch counts are reset just before each main-path leg and read just
+after it: phases 3-4 (batch; K1 and K2 must launch), 6 (shard_seq; K3)
+and 7 (shard_refs and shard_reads; K1).  A kernel's ``launches`` in the
+summary is its sum over those legs.  Each kernel's ``bound_ms`` is the
+larger of its integer operations (the recurrence's 5 add/max per real
+cell, ``csrc/wavefront.cuh``) over the card's INT32 rate (SMs x 64
+results per clock, from the arithmetic-instruction throughput table of
+NVIDIA's CUDA C++ documentation for compute capability 9.0, at the max
+SM clock ``nvidia-smi`` reports) and its bytes (inputs read once,
+outputs written once) over 3.35 TB/s.  No single PyTorch call computes
+any of the three functions, so ``library_ms`` is null.  Any failure raises and exits non-zero.  The
+second-to-last line is the kernels' JSON summary; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -43,6 +65,23 @@ import numpy as np
 SEED = 20261016
 PARAMS = (5, -3, -4)
 LONG_N = 131_072
+
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+INT32_PER_SM_CLOCK = 64  # NVIDIA CUDA C++ docs, arithmetic throughput table, cc 9.0
+OPS_PER_CELL = 5  # wavefront.cuh: two adds and three max per DP cell
+
+
+def bound(cells: int, nbytes: int, sms: int, clock_mhz: float):
+    """(least ms, "operations" or "bytes") for this work on the card."""
+    ops_ms = cells * OPS_PER_CELL / (sms * INT32_PER_SM_CLOCK * clock_mhz * 1e6) * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def stripped(path):
+    """A report's lines without its Execution Time line."""
+    return [l for l in open(path).read().splitlines() if "Execution Time" not in l]
 
 
 def fail_unless(cond, what: str) -> None:
@@ -118,13 +157,14 @@ def main() -> int:
     from sparksmithwaterman_tpu_torch.core import oracle
     from sparksmithwaterman_tpu_torch.io import get_reads, get_ref_seqs, iter_files
     from sparksmithwaterman_tpu_torch.io.fasta import READ_PAD, REF_PAD, encode_batch, encode_concat
-    from sparksmithwaterman_tpu_torch.metrics.engineer_data import reads_file, refseq_like, scale_corpus
+    from sparksmithwaterman_tpu_torch.metrics.engineer_data import long_ref_corpus, reads_file, refseq_like, scale_corpus
     from sparksmithwaterman_tpu_torch.models.batch_backend import TorchBatchBackend
     from sparksmithwaterman_tpu_torch.models.pipeline import run_pipeline
     from sparksmithwaterman_tpu_torch.ops import _cuda, cuda_score
     from sparksmithwaterman_tpu_torch.ops.longseq import find_max_cells_batched, sites_for_ref_long_batched
     from sparksmithwaterman_tpu_torch.ops.packing import pack_reads, read_best
     from sparksmithwaterman_tpu_torch.ops.recurrence import score_grid
+    from sparksmithwaterman_tpu_torch.parallel import SeqParallelBackend, ShardedBackend, build_mesh
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
@@ -133,6 +173,13 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(f"[0] card: {smi}")
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"[0] {sms} SMs, max SM clock {clock_mhz:.0f} MHz: INT32 rate "
+          f"{sms * INT32_PER_SM_CLOCK * clock_mhz * 1e6 / 1e12:.2f} T ops/s, {OPS_PER_CELL} ops per DP cell")
     print(f"[0] torch {torch.__version__} cuda {torch.version.cuda}; {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     _cuda.lib()
@@ -181,8 +228,12 @@ def main() -> int:
     torch.cuda.synchronize()
     k1_plain_ms = (time.perf_counter() - t) * 1e3
     cells_1 = sum(map(len, reads_1)) * sum(map(len, refs_1))
+    k1_bytes = sum(t.numel() * t.element_size() for t in args_1) + len(refs_1) * args_1[0].numel() * 4
+    k1_bound_ms, k1_bound_by = bound(cells_1, k1_bytes, sms, clock_mhz)
     print(f"[1] K1 512 reads x 256 refs (500-4000 bp, flat buffer), rows {tuple(args_1[0].shape)}: max abs err 0; "
-          f"kernel {k1_ms:.3f} ms ({cells_1 / k1_ms / 1e6:.1f} GCUPS real cells), plain {k1_plain_ms:.1f} ms", flush=True)
+          f"kernel {k1_ms:.3f} ms ({cells_1 / k1_ms / 1e6:.1f} GCUPS real cells), plain {k1_plain_ms:.1f} ms; "
+          f"bound {k1_bound_ms:.3f} ms by {k1_bound_by} ({cells_1:.3e} cells, {k1_bytes} bytes) = "
+          f"{100 * k1_bound_ms / k1_ms:.1f}% of the kernel's time", flush=True)
 
     reads_l = rand_seqs(rng, rng.integers(80, 151, size=64))
     refs_l = rand_seqs(rng, [LONG_N] * 8)
@@ -197,8 +248,12 @@ def main() -> int:
     fail_unless(err_l == 0, f"K1 at 131 kb refs differs from the row-form recurrence ({err_l})")
     kl_ms = cuda_ms(lambda: k1(cuda_score.lane_best_packed_varlen, args_l), 3)
     cells_l = sum(map(len, reads_l)) * 8 * LONG_N
+    kl_bound_ms, kl_bound_by = bound(
+        cells_l, sum(t.numel() * t.element_size() for t in args_l) + 8 * args_l[0].numel() * 4, sms, clock_mhz
+    )
     print(f"[1] K1 64 reads x 8 refs of {LONG_N} bp vs row-form recurrence: max abs err 0; "
-          f"kernel {kl_ms:.3f} ms ({cells_l / kl_ms / 1e6:.1f} GCUPS real cells)", flush=True)
+          f"kernel {kl_ms:.3f} ms ({cells_l / kl_ms / 1e6:.1f} GCUPS real cells); bound {kl_bound_ms:.3f} ms "
+          f"by {kl_bound_by} = {100 * kl_bound_ms / kl_ms:.1f}%", flush=True)
 
     edge_reads = ["", "A", "ACGT" * 10, ""] + rand_seqs(rng, rng.integers(1, 120, size=20))
     edge_refs = ["", "A", "C"] + rand_seqs(rng, [2, 700, 2049])
@@ -236,11 +291,21 @@ def main() -> int:
     cuda_score.argmax_lane_plain(*args_2, *PARAMS)
     torch.cuda.synchronize()
     k2_plain_ms = (time.perf_counter() - t) * 1e3
-    print(f"[2] K2 2000 reads x 2 kb ref: max abs err 0; kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.1f} ms", flush=True)
+    cells_2 = sum(map(len, reads_2)) * len(ref_2)
+    k2_bytes = sum(t.numel() * t.element_size() for t in args_2) + 3 * args_2[0].numel() * 4
+    k2_bound_ms, k2_bound_by = bound(cells_2, k2_bytes, sms, clock_mhz)
+    print(f"[2] K2 2000 reads x 2 kb ref: max abs err 0; kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.1f} ms; "
+          f"bound {k2_bound_ms:.3f} ms by {k2_bound_by} ({cells_2:.3e} cells, {k2_bytes} bytes) = "
+          f"{100 * k2_bound_ms / k2_ms:.1f}% of the kernel's time", flush=True)
     err, args_2l = k2_err(reads_l, refs_l[0])
     fail_unless(err == 0, f"K2 at a 131 kb ref differs from plain ({err})")
     k2l_ms = cuda_ms(lambda: cuda_score.argmax_lane(*args_2l, *PARAMS), 3)
-    print(f"[2] K2 64 reads x {LONG_N} bp ref: max abs err 0; kernel {k2l_ms:.3f} ms", flush=True)
+    k2l_bound_ms, k2l_bound_by = bound(
+        sum(map(len, reads_l)) * LONG_N,
+        sum(t.numel() * t.element_size() for t in args_2l) + 3 * args_2l[0].numel() * 4, sms, clock_mhz,
+    )
+    print(f"[2] K2 64 reads x {LONG_N} bp ref: max abs err 0; kernel {k2l_ms:.3f} ms; bound {k2l_bound_ms:.3f} ms "
+          f"by {k2l_bound_by} = {100 * k2l_bound_ms / k2l_ms:.1f}%", flush=True)
 
     with tempfile.TemporaryDirectory(prefix="swtorch_smoke_") as work:
         # -- 3/4: the main path; launch counts cover exactly these runs ----
@@ -275,7 +340,8 @@ def main() -> int:
         torch.cuda.synchronize()
         scale_s = time.perf_counter() - t
         launches = dict(cuda_score.LAUNCHES)
-        fail_unless(all(n > 0 for n in launches.values()), f"a kernel of the main path never launched: {launches}")
+        fail_unless(launches["lane_best_packed_varlen"] > 0 and launches["argmax_lane"] > 0,
+                    f"a kernel of the batch path never launched: {launches}")
 
         ref_bp, scale_read_bp = corpus["ref_bp"], corpus["read_bp"]
         parse_t = time.perf_counter()
@@ -338,6 +404,174 @@ def main() -> int:
         print(f"[4] {os.path.basename(scale_report)}: max score {max_score}, winners {sorted(winners)} "
               f"(lengths {[len(scale_seqs[w]) for w in winners]}), totals equal the row-form recurrence", flush=True)
 
+        # -- 5. K3 against its plain version ---------------------------------
+        def k3_case(reads, refs, m_pack, segs, row_multiple=8, plain=True):
+            """K3's inputs for each of ``segs`` segments of every ref (one
+            flat buffer read by offset, random left columns), the start
+            lanes, and the max abs error against the plain version over
+            every start lane and every bnd_out lane."""
+            packed, start = pack_reads(reads, m_pack, row_multiple)
+            flat, lens = encode_concat(refs)
+            offsets = np.concatenate(([0], np.cumsum(lens)[:-1])).astype(np.int64)
+            ns = np.maximum(1, -(-lens // segs)).astype(np.int32)
+            packed_t, flat_t, ns_t = up(packed), up(flat), up(ns)
+            start_t = up(start.astype(np.int64))
+            calls, err = [], 0
+            for k in range(segs):
+                seg_lens = np.clip(lens - k * ns, 0, ns).astype(np.int32)
+                seg_offs = np.where(seg_lens > 0, offsets + k * ns, 0).astype(np.int64)
+                bnd = up(rng.integers(0, 120, size=(len(refs),) + packed.shape).astype(np.int32))
+                args = (packed_t, flat_t, up(seg_offs), up(seg_lens), ns_t, bnd, *PARAMS)
+                calls.append(args)
+                if plain:
+                    (kl, kb), (pl, pb) = cuda_score.band_lane_best(*args), cuda_score.band_lane_best_plain(*args)
+                    lane_err = (kl.reshape(len(refs), -1)[:, start_t] - pl.reshape(len(refs), -1)[:, start_t]).abs().max()
+                    err = max(err, int(lane_err), int((kb - pb).abs().max()))
+            return calls, start_t, err
+
+        reads_5 = rand_seqs(rng, rng.integers(80, 151, size=512))
+        refs_5 = rand_seqs(rng, rng.integers(500, 4000, size=32))
+        k3_max_err = 0
+        for segs in (1, 2, 4):
+            calls_5, _, err = k3_case(reads_5, refs_5, 256, segs)
+            k3_max_err = max(k3_max_err, err)
+            if segs == 1:
+                args_5 = calls_5[0]
+        fail_unless(k3_max_err == 0, f"K3 differs from plain (max abs err {k3_max_err})")
+        # The shard_seq leg's read shape (256 reads, m_pack 256) on segments
+        # of 8-16 kb, as phase 6 gives K3.
+        reads_5m = rand_seqs(rng, rng.integers(80, 151, size=256))
+        refs_5m = rand_seqs(rng, rng.integers(16_000, 32_001, size=4))
+        _, _, err = k3_case(reads_5m, refs_5m, 256, 2)
+        fail_unless(err == 0, f"K3 at 8-16 kb segments differs from plain ({err})")
+        k3_max_err = max(k3_max_err, err)
+        for m_pack in (128, 512):
+            _, _, err = k3_case(edge_reads, edge_refs, m_pack, 3, row_multiple=32)
+            fail_unless(err == 0, f"K3 edge cases differ at m_pack={m_pack} ({err})")
+        k3_ms = cuda_ms(lambda: cuda_score.band_lane_best(*args_5), 10)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cuda_score.band_lane_best_plain(*args_5)
+        torch.cuda.synchronize()
+        k3_plain_ms = (time.perf_counter() - t) * 1e3
+        cells_5 = sum(map(len, reads_5)) * sum(map(len, refs_5))
+        k3_bytes = sum(t.numel() * t.element_size() for t in args_5[:6]) + 2 * args_5[5].numel() * 4
+        k3_bound_ms, k3_bound_by = bound(cells_5, k3_bytes, sms, clock_mhz)
+        print(f"[5] K3 512 reads x 32 refs (500-4000 bp) in 1, 2 and 4 segments, random left columns: max abs err 0 "
+              f"at every start lane and bnd_out lane; 256 reads x 4 refs of 16-32 kb in 2 segments (8-16 kb) equal; "
+              f"edge cases (m_pack 128 and 512, 3 segments) equal; one segment: "
+              f"kernel {k3_ms:.3f} ms, plain {k3_plain_ms:.1f} ms; bound {k3_bound_ms:.3f} ms by {k3_bound_by} "
+              f"({cells_5:.3e} cells, {k3_bytes} bytes) = {100 * k3_bound_ms / k3_ms:.1f}% of the kernel's time", flush=True)
+
+        calls_l, start_l_t, _ = k3_case(reads_l, refs_l, 256, 4, plain=False)
+
+        def chain():
+            bnd, best = torch.zeros_like(calls_l[0][5]), None
+            for args in calls_l:
+                lane, bnd = cuda_score.band_lane_best(*args[:5], bnd, *PARAMS)
+                got = lane.reshape(len(refs_l), -1)[:, start_l_t]
+                best = got if best is None else torch.maximum(best, got)
+            return best
+
+        k1_l = read_best(k1(cuda_score.lane_best_packed_varlen, args_l), start_l).T
+        fail_unless(torch.equal(chain(), k1_l), "4 chained K3 segments differ from K1 at 131 kb")
+        args_5l = calls_l[1]  # the second segment, with a random left column
+        k3l_ms = cuda_ms(lambda: cuda_score.band_lane_best(*args_5l), 5)
+        chain_ms = cuda_ms(chain, 3)
+        cells_5l = sum(map(len, reads_l)) * int(calls_l[1][3].sum())
+        k3l_bytes = sum(t.numel() * t.element_size() for t in args_5l[:6]) + 2 * args_5l[5].numel() * 4
+        k3l_bound_ms, k3l_bound_by = bound(cells_5l, k3l_bytes, sms, clock_mhz)
+        print(f"[5] K3 64 reads x 8 refs of {LONG_N} bp in 4 segments: chained equal to K1 at every start lane; "
+              f"one segment {k3l_ms:.3f} ms (bound {k3l_bound_ms:.3f} ms by {k3l_bound_by}, "
+              f"{100 * k3l_bound_ms / k3l_ms:.1f}%), the chain of 4 with its start-lane max {chain_ms:.3f} ms "
+              f"(K1 on the whole refs {kl_ms:.3f} ms)", flush=True)
+
+        # -- 6. shard_seq at real size ---------------------------------------
+        seq_root = os.path.join(work, "seq")
+        seq_corpus = long_ref_corpus(seq_root, 16_000_000, 256, seed=SEED + 7)
+        seq_cells = seq_corpus["read_bp"] * seq_corpus["ref_bp"]
+
+        def align(root, strategy, out):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rc = cli.main([
+                "align", "--strategy", strategy, "--ref-dir", os.path.join(root, "refs"),
+                "--in-dir", os.path.join(root, "inputs"), "--out-dir", os.path.join(root, out),
+            ])
+            torch.cuda.synchronize()
+            fail_unless(rc == 0, f"swtorch align --strategy {strategy} exited {rc}")
+            return time.perf_counter() - t
+
+        cuda_score.reset_launches()
+        seq_s = align(seq_root, "shard_seq", "out_seq")
+        seq_launches = dict(cuda_score.LAUNCHES)
+        fail_unless(seq_launches["band_lane_best"] > 0, f"K3 never launched on the shard_seq path: {seq_launches}")
+        batch_s = align(seq_root, "batch", "out_batch")
+        fail_unless(stripped(os.path.join(seq_root, "out_seq", "result1.txt"))
+                    == stripped(os.path.join(seq_root, "out_batch", "result1.txt")),
+                    "shard_seq report differs from batch's")
+        print(f"[6] swtorch align on {seq_corpus['n_refs']} refs of 8 kb-1 Mb ({seq_corpus['ref_bp']} bp) x 256 reads "
+              f"({seq_corpus['read_bp']} bp): shard_seq {seq_s:.3f} s ({seq_cells / seq_s / 1e9:.1f} real GCUPS), "
+              f"batch {batch_s:.3f} s ({seq_cells / batch_s / 1e9:.1f} real GCUPS); reports equal apart from the time "
+              f"line; shard_seq launches {seq_launches}", flush=True)
+
+        seq_reads = get_reads(os.path.join(seq_root, "inputs", "input1.fa"), ">gi")
+        seq_refs = [rec for path in iter_files(os.path.join(seq_root, "refs")) for rec in get_ref_seqs(path, ">gi")]
+        seq_seqs = [seq for _, seq in seq_refs]
+        seq_config = AlignConfig(ref_dir=seq_root, in_dir=seq_root, out_dir=seq_root, strategy="shard_seq")
+
+        def timed_totals(backend):
+            backend.totals(seq_reads, seq_seqs[:2])  # warm
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            totals = backend.totals(seq_reads, seq_seqs)
+            return totals, time.perf_counter() - t
+
+        want_seq, batch_tot_s = timed_totals(TorchBatchBackend(seq_config, dev))
+        one_seq, one_tot_s = timed_totals(SeqParallelBackend(seq_config, device=dev))
+        four = SeqParallelBackend(seq_config, build_mesh(axis_names=("seq",), devices=[dev] * 4))
+        four_seq, four_tot_s = timed_totals(four)
+        fail_unless(np.array_equal(one_seq, want_seq), "shard_seq totals differ from batch's")
+        fail_unless(np.array_equal(four_seq, want_seq), "shard_seq totals on a 4-entry mesh differ from batch's")
+        max_score, winners = parse_report(os.path.join(seq_root, "out_seq", "result1.txt"))
+        seq_by_meta = dict(seq_refs)
+        seq_reads_t = up(encode_batch(seq_reads, 152, READ_PAD))
+        for meta in winners:
+            seq = seq_by_meta[meta]
+            total = int(score_grid(seq_reads_t, up(encode_batch([seq], len(seq), REF_PAD)), *PARAMS).sum())
+            fail_unless(total == max_score, f"shard_seq winner {meta}: total {total} != reported {max_score}")
+        print(f"[6] totals only: batch {batch_tot_s:.3f} s, shard_seq {one_tot_s:.3f} s, shard_seq on 4 entries of "
+              f"{dev} {four_tot_s:.3f} s: all equal; winners {sorted(winners)} (lengths "
+              f"{[len(seq_by_meta[w]) for w in winners]}) total {max_score}, equal to the row-form recurrence", flush=True)
+
+        # -- 7. shard_refs and shard_reads -------------------------------------
+        cuda_score.reset_launches()
+        for strategy in ("shard_refs", "shard_reads"):
+            shard_s = align(slice_root, strategy, f"out_{strategy}")
+            for k in (1, 2):
+                fail_unless(stripped(os.path.join(slice_root, f"out_{strategy}", f"result{k}.txt"))
+                            == stripped(os.path.join(slice_root, "out", f"result{k}.txt")),
+                            f"{strategy} result{k}.txt differs from batch's")
+            print(f"[7] swtorch align --strategy {strategy}: 2 inputs x 1 Mbp in {shard_s:.2f} s, reports equal to "
+                  f"batch's apart from the time line", flush=True)
+        shard_launches = dict(cuda_score.LAUNCHES)
+        fail_unless(shard_launches["lane_best_packed_varlen"] > 0, f"K1 never launched on the sharded path: {shard_launches}")
+        mesh22 = ShardedBackend(
+            AlignConfig(ref_dir=".", in_dir=".", out_dir=".", strategy="shard_refs"),
+            build_mesh((2, 2), devices=[dev] * 4),
+        )
+        slice_seqs = [seq for _, seq in slice_refs]
+        for k in (1, 2):
+            reads = get_reads(os.path.join(slice_root, "inputs", f"input{k}.fa"), ">gi")
+            want = TorchBatchBackend(config, dev).totals(reads, slice_seqs)
+            fail_unless(np.array_equal(mesh22.totals(reads, slice_seqs), want), f"(2, 2) mesh totals differ for input{k}")
+        print(f"[7] ShardedBackend on a (2, 2) mesh of {dev}: totals equal batch's for both inputs; "
+              f"sharded launches {shard_launches}", flush=True)
+
+    main_launches = {
+        name: launches[name] + seq_launches[name] + shard_launches[name] for name in cuda_score.LAUNCHES
+    }
+
     kernels = [
         {
             "name": "lane_best_packed_varlen",
@@ -345,20 +579,41 @@ def main() -> int:
             "source": "sparksmithwaterman_tpu_torch/csrc/lane_best.cu",
             "replaces": "sparksmithwaterman_tpu/ops/pallas_score.py:865",
             "also_replaces": "sparksmithwaterman_tpu/ops/pallas_score.py:1801",
-            "launches": launches["lane_best_packed_varlen"],
+            "launches": main_launches["lane_best_packed_varlen"],
             "max_abs_err": k1_max_err,
             "ms": k1_ms,
             "plain_ms": k1_plain_ms,
+            "bound_ms": k1_bound_ms,
+            "bound_by": k1_bound_by,
+            "library_ms": None,
         },
         {
             "name": "argmax_lane",
             "route": "cuda",
             "source": "sparksmithwaterman_tpu_torch/csrc/argmax.cu",
             "replaces": "sparksmithwaterman_tpu/ops/pallas_score.py:2214",
-            "launches": launches["argmax_lane"],
+            "launches": main_launches["argmax_lane"],
             "max_abs_err": k2_max_err,
             "ms": k2_ms,
             "plain_ms": k2_plain_ms,
+            "bound_ms": k2_bound_ms,
+            "bound_by": k2_bound_by,
+            "library_ms": None,
+        },
+        {
+            "name": "band_lane_best",
+            "route": "cuda",
+            "source": "sparksmithwaterman_tpu_torch/csrc/band.cu",
+            "replaces": "sparksmithwaterman_tpu/ops/pallas_score.py:2379",
+            "launches": main_launches["band_lane_best"],
+            "max_abs_err": k3_max_err,
+            "ms": k3_ms,
+            "plain_ms": k3_plain_ms,
+            "bound_ms": k3_bound_ms,
+            "bound_by": k3_bound_by,
+            "library_ms": None,
+            "long_ms": k3l_ms,
+            "long_bound_ms": k3l_bound_ms,
         },
     ]
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sparksmithwaterman_tpu"))

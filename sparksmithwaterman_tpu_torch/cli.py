@@ -98,11 +98,7 @@ def main(argv=None) -> int:
         ),
         strategy=args.strategy,
     )
-    try:
-        backend = get_backend(config, device)
-    except NotImplementedError as e:
-        print(f"swtorch: {e}", file=sys.stderr)
-        return 2
+    backend = get_backend(config, device)
     with _profiled(args.profile_dir, device):
         paths = run_pipeline(config, backend=backend, resume=args.resume)
     for p in paths:

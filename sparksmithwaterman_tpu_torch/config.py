@@ -3,8 +3,8 @@
 The scoring scheme and the pipeline settings of
 :mod:`sparksmithwaterman_tpu.config`, kept here so the port runs from a
 checkout that holds no JAX package.  The engine knobs of the TPU build
-(Pallas, kernel form, shard stripes) have no counterpart: the port has
-one scoring kernel.
+(Pallas, kernel form, VMEM modes) have no counterpart: the port has one
+scoring kernel per path.
 """
 
 from __future__ import annotations
@@ -51,8 +51,12 @@ class AlignConfig:
     out_ext: str = ".txt"
     delimiter: str = ">gi"
     scoring: ScoringScheme = dataclasses.field(default_factory=ScoringScheme)
-    strategy: str = "batch"  # serial | batch | wavefront (alias of batch)
+    # serial | batch | wavefront (alias of batch) | shard_refs | shard_reads | shard_seq
+    strategy: str = "batch"
     read_bucket: int = 128  # traceback fills pad reads to multiples of this
     ref_bucket: int = 256  # ... and references to multiples of this
+    # Read rows per round of parallel.seqparallel_scores[_batch] (the striped
+    # ring) only; the shard_seq backend scores through K3 and does not read it.
+    seq_stripe: int = 8
     # Reference base pairs accumulated across files per scoring flush.
     ref_batch_bp: int = 32_000_000

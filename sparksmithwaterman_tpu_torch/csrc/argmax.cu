@@ -92,8 +92,8 @@ extern "C" int swt_argmax_lane(const void* reads, int r, int m,
   const long long read_blocks = (r + swt::kWarps - 1) / swt::kWarps;
   const long long blocks = read_blocks * c;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  swt::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   cudaStream_t s = (cudaStream_t)stream;
   switch (L) {
 #define SWT_LAUNCH(l)                                                       \

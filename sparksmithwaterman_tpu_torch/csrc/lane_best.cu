@@ -68,9 +68,12 @@ lane_best_kernel(const int32_t* __restrict__ packed, int rows, int m,
            mismatch, gap, ring,
            [&](int k, int, int h) { best[k] = max(best[k], h); });
 
-  // Segmented suffix max.  First within the thread, right to left,
-  // restarting at segment starts; `open` marks lanes whose segment runs
-  // past this thread's last lane.
+  // Segmented suffix max, written out here and not through band.cu's
+  // copy, store_suffix_max: through that function ptxas spills registers
+  // in this kernel at L = 8 and it runs slower (an A/B on one H100).
+  // First within the thread, right to left, restarting at segment
+  // starts; `open` marks lanes whose segment runs past this thread's last
+  // lane.
   int run = 0;
   bool is_open = true;
   uint32_t open = 0;
@@ -124,8 +127,8 @@ extern "C" int swt_lane_best_varlen(const void* packed, int rows, int m,
   const long long row_blocks = (rows + swt::kWarps - 1) / swt::kWarps;
   const long long blocks = row_blocks * c;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  swt::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   cudaStream_t s = (cudaStream_t)stream;
   switch (L) {
 #define SWT_LAUNCH(l)                                                       \

@@ -46,6 +46,21 @@ inline int pick_lanes(int m) {
   return 0;
 }
 
+// Makes `device` current for one launch and gives the caller's device
+// back at scope exit, so a launch on another card of a mesh leaves
+// PyTorch's current device as it was.
+struct DeviceGuard {
+  int prev = -1;
+  cudaError_t err;
+  explicit DeviceGuard(int device) {
+    err = cudaGetDevice(&prev);
+    if (err == cudaSuccess) err = cudaSetDevice(device);
+  }
+  ~DeviceGuard() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+};
+
 #define SWT_FOR_EACH_L(X) \
   X(1) X(2) X(3) X(4) X(5) X(6) X(8) X(10) X(12) X(16) X(24) X(32)
 
@@ -62,13 +77,17 @@ __device__ __forceinline__ int ref_at(const uint8_t* ring, int j, int len) {
 }
 
 // Run diagonals 0 .. nd-1 for this warp's lanes and call on_cell(k, d, h)
-// for every lane k of this thread on every diagonal.  Every thread of the
+// for every lane k of this thread on every diagonal.  Before diagonal d,
+// enter(d, H) may overwrite this thread's D_{d-1} values H[0..L-1]; the
+// lane to the right reads them as its N term on diagonal d (the band
+// kernel injects its left boundary column there).  Every thread of the
 // block must call it with the same nd (it synchronises at tile edges).
-template <int L, class OnCell>
+template <int L, class OnCell, class Enter>
 __device__ __forceinline__ void sweep(const int (&rd)[L], uint32_t zmask,
                                       int nd, const uint8_t* ref, int len,
                                       int match, int mismatch, int gap,
-                                      uint8_t* ring, OnCell&& on_cell) {
+                                      uint8_t* ring, OnCell&& on_cell,
+                                      Enter&& enter) {
   const int first = (threadIdx.x & 31) * L;
   int H[L], U[L], rw[L];  // D_{d-1}[i], D_{d-2}[i-1] (zeroed), ref[d-i]
 #pragma unroll
@@ -83,6 +102,7 @@ __device__ __forceinline__ void sweep(const int (&rd)[L], uint32_t zmask,
     __syncthreads();
     const int dend = min(nd, base + kTile);
     for (int d = base; d < dend; ++d) {
+      enter(d, H);
 #pragma unroll
       for (int k = L - 1; k > 0; --k) rw[k] = rw[k - 1];
       rw[0] = ref_at(ring, d - first, len);
@@ -99,6 +119,15 @@ __device__ __forceinline__ void sweep(const int (&rd)[L], uint32_t zmask,
       }
     }
   }
+}
+
+template <int L, class OnCell>
+__device__ __forceinline__ void sweep(const int (&rd)[L], uint32_t zmask,
+                                      int nd, const uint8_t* ref, int len,
+                                      int match, int mismatch, int gap,
+                                      uint8_t* ring, OnCell&& on_cell) {
+  sweep<L>(rd, zmask, nd, ref, len, match, mismatch, gap, ring, on_cell,
+           [](int, int(&)[L]) {});
 }
 
 }  // namespace swt

@@ -63,6 +63,28 @@ def reads_file(
     return sum(map(len, reads))
 
 
+def long_ref_corpus(root: str, total_bp: int = 16_000_000, n_reads: int = 256, seed: int = 9) -> dict:
+    """The shard_seq workload (the shape of the JAX package's
+    ``experiments/shard_seq_pipeline.py``): references log-uniform from
+    8 kb to 1 Mb until ``total_bp`` in ``root/refs/refs1.rna.fna``, and
+    ``n_reads`` reads of 80-150 bp in ``root/inputs/input1.fa``.  Returns
+    {"ref_bp", "n_refs", "lens", "read_bp"}."""
+    rng = np.random.default_rng(seed)
+    lens: List[int] = []
+    while sum(lens) < total_bp:
+        lens.append(int(np.exp(rng.uniform(np.log(8e3), np.log(1e6)))))
+    refs_path = os.path.join(root, "refs", f"refs1{REF_EXT}")
+    os.makedirs(os.path.dirname(refs_path), exist_ok=True)
+    with open(refs_path, "w") as f:
+        f.write("\n".join(f">gi|{i}|seqp{i}\n{_fast_seq(rng, n)}" for i, n in enumerate(lens)))
+    reads = [_fast_seq(rng, int(n)) for n in rng.integers(80, 151, size=n_reads)]
+    reads_path = os.path.join(root, "inputs", "input1.fa")
+    os.makedirs(os.path.dirname(reads_path), exist_ok=True)
+    with open(reads_path, "w") as f:
+        f.write("\n".join(reads))
+    return {"ref_bp": sum(lens), "n_refs": len(lens), "lens": lens, "read_bp": sum(map(len, reads))}
+
+
 def scale_corpus(
     root: str,
     *,

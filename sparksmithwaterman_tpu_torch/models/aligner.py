@@ -2,8 +2,9 @@
 
 Port of ``sparksmithwaterman_tpu.models.aligner``: ``serial`` is the
 NumPy oracle backend, ``batch`` (and its alias ``wavefront``) the torch
-backend.  Strategies not yet ported raise ``NotImplementedError`` naming
-their ``ROADMAP.md`` item.
+backend on one device, ``shard_refs`` / ``shard_reads`` and
+``shard_seq`` the mesh backends of :mod:`..parallel` over every card of
+the host (or the one device named).
 """
 
 from __future__ import annotations
@@ -15,13 +16,6 @@ import numpy as np
 from sparksmithwaterman_tpu_torch.config import AlignConfig, ScoringScheme
 from sparksmithwaterman_tpu_torch.core import oracle
 from sparksmithwaterman_tpu_torch.io.report import Site
-
-_NOT_PORTED = {
-    "shard_refs": "ROADMAP.md queue 1 item 4 (ShardedBackend on torch.distributed)",
-    "shard_reads": "ROADMAP.md queue 1 item 4 (ShardedBackend on torch.distributed)",
-    "shard_seq": "ROADMAP.md queue 1 item 5 (shard_seq)",
-}
-
 
 class SerialBackend:
     """Pure-NumPy serial engine, the parity oracle of the pipeline."""
@@ -58,7 +52,9 @@ def get_backend(config: AlignConfig, device="cuda"):
     """Resolve ``config.strategy`` to a backend on ``device``.
 
     ``wavefront`` is an alias of ``batch``: the port's one scoring kernel
-    is the anti-diagonal wavefront.
+    is the anti-diagonal wavefront.  The mesh strategies take every card
+    for ``device="cuda"`` and the one device otherwise
+    (``parallel.mesh.mesh_devices``).
     """
     if config.strategy == "serial":
         return SerialBackend(config.scoring)
@@ -66,8 +62,12 @@ def get_backend(config: AlignConfig, device="cuda"):
         from sparksmithwaterman_tpu_torch.models.batch_backend import TorchBatchBackend
 
         return TorchBatchBackend(config, device)
-    if config.strategy in _NOT_PORTED:
-        raise NotImplementedError(
-            f"strategy {config.strategy!r} is not ported to PyTorch yet: {_NOT_PORTED[config.strategy]}"
-        )
+    if config.strategy in ("shard_refs", "shard_reads"):
+        from sparksmithwaterman_tpu_torch.parallel.engine import ShardedBackend
+
+        return ShardedBackend(config, device=device)
+    if config.strategy == "shard_seq":
+        from sparksmithwaterman_tpu_torch.parallel.seqparallel import SeqParallelBackend
+
+        return SeqParallelBackend(config, device=device)
     raise ValueError(f"Unknown strategy: {config.strategy!r}")

@@ -98,7 +98,7 @@ class TorchBatchBackend:
         if self.device.type != "cuda":
             return
         event = torch.cuda.Event()
-        event.record()
+        event.record(torch.cuda.current_stream(self.device))
         events.append(event)
         if len(events) >= _MAX_IN_FLIGHT:
             events[-_MAX_IN_FLIGHT].synchronize()
@@ -141,7 +141,7 @@ class TorchBatchBackend:
             event = None
             if cuda:
                 event = torch.cuda.Event()
-                event.record()
+                event.record(torch.cuda.current_stream(self.device))
             done(cells)
 
         def resolve() -> Tuple[int, List[int]]:
@@ -156,7 +156,7 @@ class TorchBatchBackend:
         pending, cells = self._dispatch_cols(reads, ref_seqs)
         totals = torch.zeros(len(ref_seqs), dtype=torch.int64, device=self.device)
         for chunk, col in pending:
-            totals.index_add_(0, chunk, col)
+            totals.index_add_(0, chunk, col.to(self.device, non_blocking=True))
         return totals, cells
 
     def _dispatch_cols(self, reads, ref_seqs):

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
 
-The sources are compiled by ``nvcc`` for Hopper (``sm_90a``) into one
+The sources are compiled by ``nvcc`` for Hopper (``sm_90a``), one
+process per ``.cu`` file, all started together, then linked into one
 shared library with a plain C interface, cached under ``build/kernels/``
 keyed by a hash of the sources and flags, and loaded with ctypes.  Every
 C entry point takes device pointers and the CUDA stream as ``void *``,
@@ -23,6 +24,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _BUILD = os.path.join(
@@ -32,8 +34,9 @@ _BUILD = os.path.join(
 )
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+_LINK_FLAGS = ["-shared"]
 
 _lock = threading.Lock()
 _lib = None
@@ -60,8 +63,23 @@ def _sources():
     return sorted(glob.glob(os.path.join(_CSRC, "*.cu")) + glob.glob(os.path.join(_CSRC, "*.cuh")))
 
 
+def _compile_all(nvcc: str, units, work: str) -> list:
+    """Compile every unit to an object in ``work``, one nvcc process per
+    unit, all running at once; return the objects."""
+    objs = [os.path.join(work, os.path.basename(unit) + ".o") for unit in units]
+    with ThreadPoolExecutor(max(1, len(units))) as pool:
+        procs = list(pool.map(
+            lambda job: subprocess.run([nvcc, *_FLAGS, "-c", "-o", *job], capture_output=True, text=True),
+            zip(objs, units),
+        ))
+    build_info["log"] = "".join(p.stdout + p.stderr for p in procs)
+    if any(p.returncode for p in procs):
+        raise RuntimeError(f"nvcc failed ({[p.returncode for p in procs]}):\n{build_info['log']}")
+    return objs
+
+
 def _build() -> str:
-    digest = hashlib.sha256(" ".join(_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(_FLAGS + _LINK_FLAGS).encode())
     for path in _sources():
         with open(path, "rb") as f:
             digest.update(os.path.basename(path).encode() + f.read())
@@ -71,22 +89,15 @@ def _build() -> str:
         return out
     os.makedirs(_BUILD, exist_ok=True)
     units = [p for p in _sources() if p.endswith(".cu")]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-    os.close(fd)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *_FLAGS, "-o", tmp, *units],
-            capture_output=True,
-            text=True,
-        )
-        build_info["log"] = proc.stdout + proc.stderr
+    with tempfile.TemporaryDirectory(dir=_BUILD) as work:
+        objs = _compile_all(nvcc, units, work)
+        tmp = os.path.join(work, "lib.so")
+        proc = subprocess.run([nvcc, *_LINK_FLAGS, "-o", tmp, *objs], capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_info['log']}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
     build_info["seconds"] = time.perf_counter() - t0
     return out
 
@@ -112,6 +123,13 @@ def lib() -> ctypes.CDLL:
                 _VP, _LL, _I, _I,  # refs, ref_stride, c, n
                 _I, _I, _I,  # match, mismatch, gap
                 _VP, _VP, _VP, _I, _VP,  # best, bestd, count, device, stream
+            ]
+            handle.swt_band_lane_best.restype = _I
+            handle.swt_band_lane_best.argtypes = [
+                _VP, _I, _I,  # packed, rows, m
+                _VP, _VP, _VP, _VP, _I,  # segs, offsets, seg_lens, ns, c
+                _VP, _I, _I, _I,  # bnd, match, mismatch, gap
+                _VP, _VP, _I, _VP,  # out, bnd_out, device, stream
             ]
             _lib = handle
         return _lib

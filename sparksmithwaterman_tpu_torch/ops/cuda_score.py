@@ -1,12 +1,14 @@
 """The scoring kernels: CUDA for tensors on the card, plain PyTorch on CPU.
 
-Two kernels, each with its plain PyTorch version of the same function:
+Three kernels, each with its plain PyTorch version of the same function:
 
 - K1 :func:`lane_best_packed_varlen` (``csrc/lane_best.cu``) replaces
   ``pallas_score.py:_diag_kernel_packed_varlen`` and
   ``pallas_score.py:_chunked_kernel_packed_multi``;
 - K2 :func:`argmax_lane` (``csrc/argmax.cu``) replaces
-  ``pallas_score.py:_chunked_argmax_kernel``.
+  ``pallas_score.py:_chunked_argmax_kernel``;
+- K3 :func:`band_lane_best` (``csrc/band.cu``) replaces
+  ``pallas_score.py:_diag_kernel_packed_band``.
 
 A wrapper takes the plain version only for tensors on the CPU.  For CUDA
 tensors it launches the kernel or raises; it never falls back.  Each
@@ -33,7 +35,7 @@ from sparksmithwaterman_tpu_torch.ops import _cuda
 from sparksmithwaterman_tpu_torch.ops.packing import START_BIT
 
 # Launches per kernel since the last reset_launches().
-LAUNCHES = {"lane_best_packed_varlen": 0, "argmax_lane": 0}
+LAUNCHES = {"lane_best_packed_varlen": 0, "argmax_lane": 0, "band_lane_best": 0}
 
 # Widest lane row the kernels take (32 threads x 32 lanes).
 MAX_LANES = 1024
@@ -271,3 +273,105 @@ def argmax_lane(reads_u8, refs_u8, match, mismatch, gap):
     _cuda.check(rc, "argmax_lane")
     LAUNCHES["argmax_lane"] += 1
     return outs
+
+
+# -- K3: packed lane best over one reference segment ------------------------------
+
+
+def band_lane_best_plain(packed, seg_u8, offsets, seg_lens, ns, bnd, match, mismatch, gap):
+    """Plain PyTorch version of K3 (any device): K1's diagonal loop over
+    each segment's m + ns - 1 diagonals, with the left column set as the
+    state of lane d before diagonal d (and as lane d+1's N term on it)
+    and the right column read off diagonal i + ns - 1."""
+    rows, m = packed.shape
+    c = ns.shape[0]
+    device = packed.device
+    lens = seg_lens.to(torch.int64).clamp_min(0)
+    segs = _padded_refs(seg_u8, lens, offsets).to(torch.int32)
+    width = ns.to(torch.int64).clamp_min(1)
+    nd = m + width - 1
+    read = (packed & (START_BIT - 1)).to(torch.int32)
+    start = packed >= START_BIT
+    zero = start.clone()
+    zero[:, 0] = True
+    lane = torch.arange(m, device=device)
+    bnd = bnd.to(torch.int32)
+    bnd_up = _shift_lanes_right(bnd).masked_fill_(zero, 0)
+    shape = (c, rows, m)
+    d1 = torch.zeros(shape, dtype=torch.int32, device=device)
+    r1 = torch.zeros_like(d1)
+    r2 = torch.zeros_like(d1)
+    best = torch.zeros_like(d1)
+    bnd_out = torch.zeros_like(d1)
+    for d in range(int(nd.max()) if c else 0):
+        if d < m:
+            d1 = torch.where(lane == d, bnd, d1)
+            r1 = torch.where(lane == d + 1, bnd_up, r1)
+        refwin = _ref_window(segs, lens, d, m)[:, None, :]
+        sub = torch.where(read[None] == refwin, match, mismatch).to(torch.int32)
+        c1 = torch.clamp_min(torch.maximum(r2 + sub, torch.maximum(r1, d1) + gap), 0)
+        best = torch.where((d < nd)[:, None, None], torch.maximum(best, c1), best)
+        last = lane[None, :] == d - (width[:, None] - 1)
+        bnd_out = torch.where(last[:, None, :], c1, bnd_out)
+        rc = _shift_lanes_right(c1).masked_fill_(zero, 0)
+        d1, r2, r1 = c1, r1, rc
+    return segmented_suffix_max(best, start), bnd_out
+
+
+def band_lane_best(packed, seg_u8, offsets, seg_lens, ns, bnd, match, mismatch, gap):
+    """(lane_best, bnd_out), two (C, ROWS, M) int32: packed read rows
+    against one segment of each of C references, the DP's left boundary
+    column in and its right boundary column out.
+
+    packed: (ROWS, M) int32 as for K1.  Segment c is the ``seg_lens[c]``
+    bytes of the flat uint8 buffer ``seg_u8`` at ``offsets[c]`` ((C,)
+    int64; (C,) int32 lengths); it has ``ns[c]`` columns ((C,) int32,
+    taken as at least 1), those past ``seg_lens[c]`` reading as REF_PAD,
+    and runs exactly m + ns[c] - 1 diagonals.  bnd: (C, ROWS, M) int32,
+    the column H[i, -1] left of the segment (zero for a reference's first
+    segment).
+
+    Defined lanes: ``lane_best`` at each read's START lane (the read's
+    best over this segment's cells, as K1's contract); ``bnd_out`` =
+    H[i, ns[c] - 1] at every lane i < M.  Chaining segments left to
+    right through bnd/bnd_out and taking the max of the start lanes
+    equals K1 on the whole reference.  The TPU kernel also sweeps padding
+    diagonals, so it agrees with this function at start lanes and at the
+    bnd_out lanes of reads, not at the other lanes.
+    """
+    device = _device_of(packed, seg_u8, offsets, seg_lens, ns, bnd)
+    if packed.dim() != 2 or packed.dtype != torch.int32:
+        raise ValueError("packed must be a (ROWS, M) int32 tensor")
+    if seg_u8.dim() != 1 or seg_u8.dtype != torch.uint8:
+        raise ValueError("seg_u8 must be a 1-D uint8 buffer")
+    c = ns.shape[0]
+    rows, m = packed.shape
+    if ns.shape != (c,) or ns.dtype != torch.int32:
+        raise ValueError("ns must be a (C,) int32 tensor")
+    if offsets.shape != (c,) or offsets.dtype != torch.int64:
+        raise ValueError("offsets must be a (C,) int64 tensor")
+    if seg_lens.shape != (c,) or seg_lens.dtype != torch.int32:
+        raise ValueError("seg_lens must be a (C,) int32 tensor")
+    if bnd.shape != (c, rows, m) or bnd.dtype != torch.int32:
+        raise ValueError(f"bnd must be a ({c}, {rows}, {m}) int32 tensor")
+    match, mismatch, gap = int(match), int(mismatch), int(gap)
+    if device.type == "cpu":
+        return band_lane_best_plain(packed, seg_u8, offsets, seg_lens, ns, bnd, match, mismatch, gap)
+    if m > MAX_LANES:
+        raise ValueError(f"band_lane_best takes rows of at most {MAX_LANES} lanes, got {m}")
+    out = torch.empty((c, rows, m), dtype=torch.int32, device=device)
+    bnd_out = torch.empty_like(out)
+    if c == 0 or rows == 0 or m == 0:
+        return out, bnd_out
+    packed, seg_u8, offsets, seg_lens, ns, bnd = (
+        t.contiguous() for t in (packed, seg_u8, offsets, seg_lens, ns, bnd)
+    )
+    rc = _cuda.lib().swt_band_lane_best(
+        packed.data_ptr(), rows, m,
+        seg_u8.data_ptr(), offsets.data_ptr(), seg_lens.data_ptr(), ns.data_ptr(), c,
+        bnd.data_ptr(), match, mismatch, gap,
+        out.data_ptr(), bnd_out.data_ptr(), *_launch_target(device),
+    )
+    _cuda.check(rc, "band_lane_best")
+    LAUNCHES["band_lane_best"] += 1
+    return out, bnd_out

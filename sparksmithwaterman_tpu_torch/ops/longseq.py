@@ -129,7 +129,7 @@ def _exact_max_cells(
     return out
 
 
-def find_max_cells(read_seq: str, ref_seq: str, params, device="cpu") -> Cells:
+def find_max_cells(read_seq: str, ref_seq: str, params, device="cuda") -> Cells:
     """All (i, j) max cells (0-based, row-major) of one pair."""
     m, n = len(read_seq), len(ref_seq)
     return _exact_max_cells(
@@ -137,7 +137,7 @@ def find_max_cells(read_seq: str, ref_seq: str, params, device="cpu") -> Cells:
     )[0]
 
 
-def find_max_cells_batched(reads: List[str], ref_seq: str, params, device="cpu") -> List[Cells]:
+def find_max_cells_batched(reads: List[str], ref_seq: str, params, device="cuda") -> List[Cells]:
     """Per-read (best, max cells) of a read batch against ONE reference.
 
     One argmax pass (K2 on a CUDA device, its plain version on the CPU)
@@ -202,7 +202,7 @@ def sites_for_ref_long_batched(
     ref_bucket: int = 256,
     cell_lists: List[Cells],
     tie_semantics: str = "serial",
-    device="cpu",
+    device="cuda",
 ) -> List[List[Site]]:
     """Per-read site lists against ONE reference: every max cell's window
     filled and walked in batched device dispatches, only (begin, codes)

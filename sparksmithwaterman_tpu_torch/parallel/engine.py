@@ -1,0 +1,118 @@
+"""Sharded alignment engine: the ``shard_refs`` and ``shard_reads``
+strategies on a ``("refs", "reads")`` device mesh.
+
+Port of :class:`sparksmithwaterman_tpu.parallel.engine.ShardedBackend`,
+packed path:
+
+- **shard_refs** — the reference's DistributeReference
+  (``src/sw/Distribution.java:227-373``): each refs-axis entry scores a
+  share of the flush's references, balanced by base pairs, longest first;
+- **shard_reads** — its declared DistributeReads
+  (``src/sw/Distribution.java:440-468``): each reads-axis entry scores
+  its share of every pack's rows.
+
+Every (reads, refs) block is one K1 launch (``ops.cuda_score.
+lane_best_packed_varlen``) per reference chunk on its entry's device; the
+block's int64 per-reference sums move to the mesh's first device and are
+added there, in place of the JAX ``psum``.  The winner reduce and the
+traceback are :class:`TorchBatchBackend`'s, on that device.
+
+The JAX package's grouped long-reference fallback (``_packed_col_sums``)
+has no counterpart: K1 takes every reference length.  Its unpacked
+``sharded_score_grid`` / ``sharded_totals`` wait for the unpacked path
+(``ROADMAP.md``, queue 1 item 3).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from sparksmithwaterman_tpu_torch.config import AlignConfig
+from sparksmithwaterman_tpu_torch.io.fasta import encode_concat
+from sparksmithwaterman_tpu_torch.models.batch_backend import _INT32_SAFE, _OUT_BUDGET, TorchBatchBackend
+from sparksmithwaterman_tpu_torch.ops.cuda_score import lane_best_packed_varlen
+from sparksmithwaterman_tpu_torch.ops.packing import packed_col_sums
+from sparksmithwaterman_tpu_torch.parallel.mesh import DeviceMesh, build_mesh, mesh_devices, split_by_bp
+
+
+class ShardedBackend(TorchBatchBackend):
+    """Multi-device backend: TorchBatchBackend's packing and reduce with
+    the scoring spread over a ``("refs", "reads")`` mesh.
+
+    The default mesh holds :func:`..parallel.mesh.mesh_devices` of
+    ``device``: on the refs axis for ``strategy='shard_refs'``, on the
+    reads axis for ``'shard_reads'``; a rectangular mesh combines both.
+    A mesh of one entry is exactly :class:`TorchBatchBackend`.
+    """
+
+    def __init__(self, config: AlignConfig, mesh: Optional[DeviceMesh] = None, device="cuda"):
+        if mesh is None:
+            devs = mesh_devices(device)
+            n = len(devs)
+            mesh = build_mesh((1, n) if config.strategy == "shard_reads" else (n, 1), devices=devs)
+        self.mesh = mesh
+        self._dr = mesh.shape["reads"]
+        self._dc = mesh.shape["refs"]
+        super().__init__(config, mesh.devices.reshape(-1)[0])
+
+    def _row_share(self, pack: dict, i: int, dev) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        """Rows of ``pack`` for reads-axis entry i on ``dev`` and the start
+        lanes of the reads that begin there (relative to those rows); None
+        when the share holds no read.  Cached in the pack."""
+        shares = pack.setdefault("shares", {})
+        if (i, dev) not in shares:
+            rows, m = pack["rows"], pack["m_pack"]
+            per = -(-rows // self._dr)
+            lo, hi = min(rows, i * per), min(rows, (i + 1) * per)
+            start = pack["start_idx"]
+            local = start[(start >= lo * m) & (start < hi * m)] - lo * m
+            shares[(i, dev)] = None if local.numel() == 0 else (pack["packed"][lo:hi].to(dev), local.to(dev))
+        return shares[(i, dev)]
+
+    def _dispatch_cols(self, reads, ref_seqs):
+        """One K1 dispatch per (mesh entry x pack share x reference chunk),
+        not waited on.  Returns ([(ref indices on the first device, (C,)
+        int64 sums on the entry's device)], real cells).
+
+        Every input is uploaded before the first launch, and the sums
+        cross to the first device only in :meth:`_totals_dev`: an upload
+        from pageable host memory, like a copy between cards, waits for
+        the work already queued on its device."""
+        if self.mesh.size == 1:
+            return super()._dispatch_cols(reads, ref_seqs)
+        packs = self._pack_chunks(reads, max(1, _INT32_SAFE // max(1, self.scoring.match)))
+        lens_all = np.fromiter((len(s) for s in ref_seqs), np.int64, len(ref_seqs))
+        parts = split_by_bp(lens_all, self._dc)
+        order_t = self._upload(np.concatenate(parts))
+        jobs = []  # (ref indices, flat refs, lens, offsets, [(packed rows, start lanes)])
+        lo = 0
+        for j, part in enumerate(parts):
+            idx_t, lo = order_t[lo : lo + len(part)], lo + len(part)
+            if not len(part):
+                continue
+            flat, lens = encode_concat([ref_seqs[k] for k in part])
+            offsets = np.zeros_like(lens)
+            np.cumsum(lens[:-1], out=offsets[1:])
+            for i in range(self._dr):
+                dev = self.mesh.devices[j, i]
+                shares = [share for pack in packs if (share := self._row_share(pack, i, dev)) is not None]
+                jobs.append((
+                    idx_t, torch.from_numpy(flat).to(dev), torch.from_numpy(lens.astype(np.int32)).to(dev),
+                    torch.from_numpy(offsets).to(dev), shares,
+                ))
+        pending: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        events: list = []
+        m_pack = packs[0]["m_pack"]
+        for idx_t, flat_t, lens_t, offsets_t, shares in jobs:
+            for packed, start in shares:
+                c_block = max(1, _OUT_BUDGET // (packed.shape[0] * m_pack))
+                for c0 in range(0, len(idx_t), c_block):
+                    sl = slice(c0, c0 + c_block)
+                    lane = lane_best_packed_varlen(packed, flat_t, lens_t[sl], *self._params, offsets=offsets_t[sl])
+                    pending.append((idx_t[sl], packed_col_sums(lane, start)))
+                    self._mark(events)
+        cells = sum(pack["read_bp"] for pack in packs) * int(lens_all.sum())
+        return pending, cells

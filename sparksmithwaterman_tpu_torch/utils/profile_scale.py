@@ -1,16 +1,20 @@
-"""Where the time goes in the scale workload, on one CUDA card.
+"""Where the time goes in the scale or long-reference workload, on one
+CUDA card.
 
     python -m sparksmithwaterman_tpu_torch.utils.profile_scale [--out FILE] [--corpus-bp N]
+    python -m sparksmithwaterman_tpu_torch.utils.profile_scale --workload long_ref --strategy shard_seq
 
-Builds the scale workload (``metrics.engineer_data.scale_corpus``: a
-RefSeq-shaped corpus plus 8 references of 131,072 bp, 512 reads), runs
-``run_pipeline`` once to build and warm up, twice timed, then once under
-``torch.profiler`` with the pipeline's layers wrapped in named spans:
+Builds the workload (``scale``: ``metrics.engineer_data.scale_corpus``, a
+RefSeq-shaped corpus plus 8 references of 131,072 bp, 512 reads;
+``long_ref``: ``long_ref_corpus``, references of 8 kb-1 Mb, 256 reads),
+runs ``run_pipeline`` with the strategy's backend once to build and warm
+up, twice timed, then once under ``torch.profiler`` with the pipeline's
+layers wrapped in named spans:
 
 - ``L1.parse``: reference-file parsing;
-- ``L2.score_flush``: one scoring flush on the host (encode, upload, K1
-  dispatches, gather-sums); ``L2.encode_refs`` its reference encoding,
-  ``L2a.K1`` its K1 calls;
+- ``L2.score_flush``: one scoring flush on the host (encode, upload,
+  kernel dispatches, gather-sums); ``L2.encode_refs`` its reference
+  encoding, ``L2a.K1`` its K1 calls, ``L2b.K3`` its K3 calls;
 - ``L3.traceback``: one winner's traceback; ``L3a.max_cells`` (K2 and the
   in-lane-tie fallback), ``L3b.window_fill_walk`` and ``L3c.full_fill``
   its parts.
@@ -52,6 +56,7 @@ SPANS = {
     "L2.score_flush": ("backend", "_totals_dev"),
     "L2.encode_refs": ("batch_backend", "encode_concat"),
     "L2a.K1": ("batch_backend", "lane_best_packed_varlen"),
+    "L2b.K3": ("seqparallel", "band_lane_best"),
     "L3.traceback": ("backend", "sites_for_ref"),
     "L3a.max_cells": ("batch_backend", "find_max_cells_batched"),
     "L3b.window_fill_walk": ("batch_backend", "sites_for_ref_long_batched"),
@@ -59,10 +64,11 @@ SPANS = {
 }
 
 
-def _instrument() -> None:
+def _instrument(backend_cls) -> None:
     from sparksmithwaterman_tpu_torch.models import batch_backend, pipeline
+    from sparksmithwaterman_tpu_torch.parallel import seqparallel
 
-    owners = {"pipeline": pipeline, "batch_backend": batch_backend, "backend": batch_backend.TorchBatchBackend}
+    owners = {"pipeline": pipeline, "batch_backend": batch_backend, "seqparallel": seqparallel, "backend": backend_cls}
     for span, (owner, name) in SPANS.items():
         _wrap(owners[owner], name, span)
 
@@ -70,7 +76,9 @@ def _instrument() -> None:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None, help="also write the summary and operator table here")
-    parser.add_argument("--corpus-bp", type=int, default=64_000_000)
+    parser.add_argument("--workload", choices=["scale", "long_ref"], default="scale")
+    parser.add_argument("--strategy", choices=["batch", "shard_seq"], default="batch")
+    parser.add_argument("--corpus-bp", type=int, default=None, help="default 64 Mbp (scale), 16 Mbp (long_ref)")
     parser.add_argument("--seed", type=int, default=20261016)
     args = parser.parse_args(argv)
 
@@ -79,8 +87,8 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from sparksmithwaterman_tpu_torch.config import AlignConfig
-    from sparksmithwaterman_tpu_torch.metrics.engineer_data import scale_corpus
-    from sparksmithwaterman_tpu_torch.models.batch_backend import TorchBatchBackend
+    from sparksmithwaterman_tpu_torch.metrics.engineer_data import long_ref_corpus, scale_corpus
+    from sparksmithwaterman_tpu_torch.models.aligner import get_backend
     from sparksmithwaterman_tpu_torch.models.pipeline import run_pipeline
 
     if not torch.cuda.is_available():
@@ -88,14 +96,18 @@ def main(argv=None) -> int:
         return 1
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory(prefix="swtorch_profile_") as work:
-        corpus = scale_corpus(work, corpus_bp=args.corpus_bp, seed=args.seed)
+        if args.workload == "scale":
+            corpus = scale_corpus(work, corpus_bp=args.corpus_bp or 64_000_000, seed=args.seed)
+        else:
+            corpus = long_ref_corpus(work, args.corpus_bp or 16_000_000, seed=args.seed)
         cells = corpus["ref_bp"] * corpus["read_bp"]
         config = AlignConfig(
             ref_dir=os.path.join(work, "refs"),
             in_dir=os.path.join(work, "inputs"),
             out_dir=os.path.join(work, "out"),
+            strategy=args.strategy,
         )
-        backend = TorchBatchBackend(config, dev)
+        backend = get_backend(config, dev)
 
         def run() -> float:
             torch.cuda.synchronize()
@@ -105,7 +117,7 @@ def main(argv=None) -> int:
             return time.perf_counter() - t
 
         walls = [run() for _ in range(3)]  # first: build and warm-up
-        _instrument()
+        _instrument(type(backend))
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             wall = run()
 
@@ -119,7 +131,8 @@ def main(argv=None) -> int:
             kernels[e.name] += e.time_range.elapsed_us()
     busy = sum(kernels.values()) / 1e6
     lines = [
-        f"profile_scale: {corpus['read_bp']} read bp x {corpus['ref_bp']} ref bp ({corpus['files']} files)",
+        f"profile_scale: {args.workload} workload, {args.strategy}, {torch.cuda.get_device_name(0)}: "
+        f"{corpus['read_bp']} read bp x {corpus['ref_bp']} ref bp",
         "walls s (the first builds and warms up): " + ", ".join(f"{w:.3f}" for w in walls)
         + "; real GCUPS of the warm ones: " + ", ".join(f"{cells / w / 1e9:.1f}" for w in walls[1:]),
         f"profiled pass: wall {wall:.3f} s, device busy {busy:.3f} s, idle share {1 - busy / wall:.3f}",

@@ -77,3 +77,22 @@ def test_synthetic_corpora_match_jax(tmp_path):
         str(tmp_path / "t" / "in.fa"), 40, seed=3
     )
     assert (tmp_path / "o" / "in.fa").read_bytes() == (tmp_path / "t" / "in.fa").read_bytes()
+
+
+def test_long_ref_corpus_matches_jax_experiment(tmp_path, monkeypatch):
+    """The shard_seq corpus is the JAX package's
+    experiments/shard_seq_pipeline.py generator, byte for byte."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "experiments" / "shard_seq_pipeline.py"
+    spec = importlib.util.spec_from_file_location("shard_seq_pipeline", path)
+    experiment = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(experiment)
+    monkeypatch.setattr(experiment, "TOTAL_BP", 200_000)
+    monkeypatch.setattr(experiment, "N_READS", 12)
+    want = experiment.generate(str(tmp_path / "theirs"))
+    got = engineer_data.long_ref_corpus(str(tmp_path / "ours"), total_bp=200_000, n_reads=12)
+    assert got == {k: want[k] for k in ("ref_bp", "n_refs", "lens", "read_bp")}
+    for rel in ("refs/refs1.rna.fna", "inputs/input1.fa"):
+        assert (tmp_path / "ours" / rel).read_bytes() == (tmp_path / "theirs" / rel).read_bytes()

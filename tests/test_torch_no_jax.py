@@ -1,6 +1,7 @@
 """The port stands alone: copied into a tree that holds only the port and
 the C sources it builds (no JAX package), every module imports and a tiny
-CPU pipeline runs, with neither ``jax`` nor ``sparksmithwaterman_tpu``
+CPU pipeline runs (batch, and shard_seq and shard_refs on a mesh of two
+CPU entries), with neither ``jax`` nor ``sparksmithwaterman_tpu``
 loaded."""
 
 import os
@@ -23,13 +24,22 @@ _SCRIPT = textwrap.dedent(
         __import__(mod.name)
     from sparksmithwaterman_tpu_torch.config import AlignConfig
     from sparksmithwaterman_tpu_torch.models.pipeline import run_pipeline
+    from sparksmithwaterman_tpu_torch.parallel import SeqParallelBackend, ShardedBackend, build_mesh
     root = sys.argv[1]
-    paths = run_pipeline(
-        AlignConfig(ref_dir=root + "/refs", in_dir=root + "/inputs", out_dir=root + "/out",
-                    read_bucket=8, ref_bucket=8),
-        device="cpu",
-    )
-    assert "Maximum alignment score = 60" in open(paths[0]).read()
+
+    def report(strategy, backend=None):
+        config = AlignConfig(ref_dir=root + "/refs", in_dir=root + "/inputs", out_dir=root + "/out_" + strategy,
+                             read_bucket=8, ref_bucket=8, strategy=strategy)
+        if strategy == "shard_seq":
+            backend = SeqParallelBackend(config, build_mesh(axis_names=("seq",), devices=["cpu", "cpu"]))
+        elif strategy == "shard_refs":
+            backend = ShardedBackend(config, build_mesh((2, 1), devices=["cpu", "cpu"]))
+        path = run_pipeline(config, backend=backend, device="cpu")[0]
+        return [l for l in open(path).read().splitlines() if "Execution Time" not in l]
+
+    batch = report("batch")
+    assert "Maximum alignment score = 60" in batch
+    assert report("shard_seq") == batch and report("shard_refs") == batch
     forbidden = %r
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in forbidden)
     assert not loaded, loaded

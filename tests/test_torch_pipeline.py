@@ -129,4 +129,7 @@ def test_cli_align_on_cpu_and_no_cuda_fallback(tmp_path, capsys):
     if not torch.cuda.is_available():
         assert torch_cli(args + ["--out-dir", str(tmp_path / "o_gpu")]) != 0
         assert not (tmp_path / "o_gpu").exists()
-    assert torch_cli(args + ["--out-dir", str(tmp_path / "o_s"), "--strategy", "shard_seq", "--device", "cpu"]) != 0
+    for strategy in ("shard_seq", "shard_refs", "shard_reads"):
+        out = tmp_path / f"o_{strategy}"
+        assert torch_cli(args + ["--out-dir", str(out), "--strategy", strategy, "--device", "cpu"]) == 0
+        assert _strip(out / "result1.txt") == _strip(tmp_path / "o_cpu" / "result1.txt")

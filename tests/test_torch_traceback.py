@@ -81,7 +81,7 @@ def _windowed_case():
 
 def test_find_max_cells_batched_matches_jax_and_oracle():
     reads, ref = _windowed_case()
-    got = torch_longseq.find_max_cells_batched(reads, ref, PARAMS)
+    got = torch_longseq.find_max_cells_batched(reads, ref, PARAMS, device="cpu")
     want = jax_longseq.find_max_cells_batched(reads, ref, tuple(np.int32(p) for p in PARAMS), backend="scan")
     for read, (gb, gc), (wb, wc) in zip(reads, got, want):
         assert gb == wb
@@ -92,22 +92,22 @@ def test_find_max_cells_batched_matches_jax_and_oracle():
             assert [(i + 1, j + 1) for i, j in gc.tolist()] == cells
     # The single-pair form agrees too.
     for read in reads[-3:]:
-        best, cells = torch_longseq.find_max_cells(read, ref, PARAMS)
+        best, cells = torch_longseq.find_max_cells(read, ref, PARAMS, device="cpu")
         want_best, want_cells = jax_longseq.find_max_cells(read, ref, tuple(np.int32(p) for p in PARAMS))
         assert best == want_best
         np.testing.assert_array_equal(cells, np.asarray(want_cells))
     # An empty read scores 0 with no cells (the JAX scan path takes no
     # empty reads).
-    best, cells = torch_longseq.find_max_cells_batched(["", reads[0]], ref, PARAMS)[0]
+    best, cells = torch_longseq.find_max_cells_batched(["", reads[0]], ref, PARAMS, device="cpu")[0]
     assert best == 0 and cells.shape == (0, 2)
 
 
 @pytest.mark.parametrize("tie_semantics", ["serial", "distributed"])
 def test_sites_for_ref_long_batched_matches_jax_and_oracle(tie_semantics):
     reads, ref = _windowed_case()
-    cells = torch_longseq.find_max_cells_batched(reads, ref, PARAMS)
+    cells = torch_longseq.find_max_cells_batched(reads, ref, PARAMS, device="cpu")
     got = torch_longseq.sites_for_ref_long_batched(
-        ref, reads, PARAMS, ref_bucket=64, cell_lists=cells, tie_semantics=tie_semantics
+        ref, reads, PARAMS, ref_bucket=64, cell_lists=cells, tie_semantics=tie_semantics, device="cpu"
     )
     want = jax_longseq.sites_for_ref_long_batched(
         ref, reads, tuple(np.int32(p) for p in PARAMS), ref_bucket=64,
@@ -133,8 +133,8 @@ def test_gap_minus_one_matches_oracle_in_both_branches(monkeypatch):
     want = SerialBackend(jax_scoring).sites_for_ref(ref, reads)
     assert max(len(s[1][0]) for s in want) == 36
 
-    cells = torch_longseq.find_max_cells_batched(reads, ref, params)
-    per_read = torch_longseq.sites_for_ref_long_batched(ref, reads, params, ref_bucket=8, cell_lists=cells)
+    cells = torch_longseq.find_max_cells_batched(reads, ref, params, device="cpu")
+    per_read = torch_longseq.sites_for_ref_long_batched(ref, reads, params, ref_bucket=8, cell_lists=cells, device="cpu")
     for r, sites in zip(reads, per_read):
         assert sites == oracle.opt_alignments(ref, r, jax_scoring)[1]
 
