@@ -33,19 +33,38 @@ port's main path (``swtorch align --strategy batch``) end to end:
    4-entry mesh of this card gives batch's totals;
 7. ``--strategy shard_refs`` and ``shard_reads`` on the phase-3 corpus:
    reports equal to batch's apart from the time line; a (2, 2) mesh of
-   this card gives batch's totals.
+   this card gives batch's totals;
+8. K4 (wavefront score grid) and K5 (row form) against their plain
+   versions: 512 reads x 64 refs of 500-4,000 bp (reads in 256 lanes),
+   every pair, each also equal to the other; 64 reads x 2 refs of
+   131,072 bp (K4) and 16 reads x one (K5, many column tiles) against
+   the row-form recurrence; edge cases (empty reads, 0/1 bp refs, reads
+   of 1,024 bp); K4's ``window_mode='carry'`` and ``state_dtype='int16'``
+   give the same grid; ``lane_best_packed`` in every TPU window mode
+   equals K1 at the start lanes;
+9. the unpacked and row paths end to end: ``run_pipeline`` with
+   ``pack_reads=False`` on the phase-4 scale corpus (report equal to
+   phase 4's apart from the time line; wall, real GCUPS) and with
+   ``kernel='row'`` on the phase-3 corpus (reports equal to phase 3's);
+   ``ShardedBackend`` with each on a (2, 2) mesh of this card gives
+   batch's totals;
+10. ``swtorch scaling --axis refs`` (512 reads of 128 bp x 512 refs of
+    4,096 bp, through K4; on 1, 2 and 4 cards where the host has four)
+    and ``--axis seq``; the refs totals of a subset of refs equal the
+    row-form recurrence.
 
 Launch counts are reset just before each main-path leg and read just
-after it: phases 3-4 (batch; K1 and K2 must launch), 6 (shard_seq; K3)
-and 7 (shard_refs and shard_reads; K1).  A kernel's ``launches`` in the
-summary is its sum over those legs.  Each kernel's ``bound_ms`` is the
+after it: phases 3-4 (batch; K1 and K2 must launch), 6 (shard_seq; K3),
+7 (shard_refs and shard_reads; K1), 9 (unpacked and row paths; K4 and
+K5) and 10 (scaling; K4).  A kernel's ``launches`` in the summary is its
+sum over those legs.  Each kernel's ``bound_ms`` is the
 larger of its integer operations (the recurrence's 5 add/max per real
 cell, ``csrc/wavefront.cuh``) over the card's INT32 rate (SMs x 64
 results per clock, from the arithmetic-instruction throughput table of
 NVIDIA's CUDA C++ documentation for compute capability 9.0, at the max
 SM clock ``nvidia-smi`` reports) and its bytes (inputs read once,
 outputs written once) over 3.35 TB/s.  No single PyTorch call computes
-any of the three functions, so ``library_ms`` is null.  Any failure raises and exits non-zero.  The
+any of the five functions, so ``library_ms`` is null.  Any failure raises and exits non-zero.  The
 second-to-last line is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -53,6 +72,9 @@ second-to-last line is the kernels' JSON summary; the last line is
 from __future__ import annotations
 
 import collections
+import contextlib
+import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -110,19 +132,20 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def register_summary(ptxas_log: str):
-    """{kernel: ["L=<lanes>:<registers>r[+<spill bytes>s]", ...]} from nvcc's -Xptxas -v log."""
+    """{kernel: ["[L=<lanes>:]<registers>r[+<spill bytes>s]", ...]} from nvcc's -Xptxas -v log."""
     import re
 
     out, current = collections.defaultdict(list), None
     for line in ptxas_log.splitlines():
-        m = re.search(r"Compiling entry function '.*?([a-z_]+_kernel)ILi(\d+)E", line)
+        m = re.search(r"Compiling entry function '.*?([a-z_]+_kernel)(?:ILi(\d+)E)?", line)
         if m:
             current = [m.group(1), m.group(2), 0]
         elif current and "bytes spill stores" in line:
             current[2] = int(re.search(r"(\d+) bytes spill stores", line).group(1))
         elif current and "Used" in line and "registers" in line:
             regs = re.search(r"Used (\d+) registers", line).group(1)
-            out[current[0]].append(f"L={current[1]}:{regs}r" + (f"+{current[2]}s" if current[2] else ""))
+            lanes = f"L={current[1]}:" if current[1] else ""
+            out[current[0]].append(f"{lanes}{regs}r" + (f"+{current[2]}s" if current[2] else ""))
             current = None
     return dict(out)
 
@@ -158,13 +181,14 @@ def main() -> int:
     from sparksmithwaterman_tpu_torch.io import get_reads, get_ref_seqs, iter_files
     from sparksmithwaterman_tpu_torch.io.fasta import READ_PAD, REF_PAD, encode_batch, encode_concat
     from sparksmithwaterman_tpu_torch.metrics.engineer_data import long_ref_corpus, reads_file, refseq_like, scale_corpus
+    from sparksmithwaterman_tpu_torch.metrics.scaling import workload
     from sparksmithwaterman_tpu_torch.models.batch_backend import TorchBatchBackend
     from sparksmithwaterman_tpu_torch.models.pipeline import run_pipeline
     from sparksmithwaterman_tpu_torch.ops import _cuda, cuda_score
     from sparksmithwaterman_tpu_torch.ops.longseq import find_max_cells_batched, sites_for_ref_long_batched
     from sparksmithwaterman_tpu_torch.ops.packing import pack_reads, read_best
     from sparksmithwaterman_tpu_torch.ops.recurrence import score_grid
-    from sparksmithwaterman_tpu_torch.parallel import SeqParallelBackend, ShardedBackend, build_mesh
+    from sparksmithwaterman_tpu_torch.parallel import SeqParallelBackend, ShardedBackend, build_mesh, sharded_totals
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
@@ -186,7 +210,8 @@ def main() -> int:
     print(f"[0] kernel library {os.path.basename(_cuda.build_info['path'])}: nvcc {_cuda.build_info['seconds']:.2f} s"
           f" (load total {time.perf_counter() - t0:.2f} s)", flush=True)
     for name, widths in register_summary(_cuda.build_info["log"]).items():
-        print(f"[0] ptxas {name}: {' '.join(sorted(widths, key=lambda w: int(w[2:].split(':')[0])))}")
+        order = sorted(widths, key=lambda w: int(w[2:].split(":")[0]) if w.startswith("L=") else 0)
+        print(f"[0] ptxas {name}: {' '.join(order)}")
 
     def up(arr):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
@@ -568,9 +593,155 @@ def main() -> int:
         print(f"[7] ShardedBackend on a (2, 2) mesh of {dev}: totals equal batch's for both inputs; "
               f"sharded launches {shard_launches}", flush=True)
 
-    main_launches = {
-        name: launches[name] + seq_launches[name] + shard_launches[name] for name in cuda_score.LAUNCHES
-    }
+        # -- 8. K4 and K5 against their plain versions; K1's TPU modes -----
+        def grid_args(reads, refs, m_pad):
+            n_pad = max(1, max(map(len, refs)))
+            return up(encode_batch(reads, m_pad, READ_PAD)), up(encode_batch(refs, n_pad, REF_PAD))
+
+        def max_err(a, b):
+            return int((a.to(torch.int64) - b).abs().max()) if a.numel() else 0
+
+        def host_ms(fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t) * 1e3
+
+        reads_8 = rand_seqs(rng, rng.integers(80, 151, size=512))
+        refs_8 = rand_seqs(rng, rng.integers(500, 4000, size=64))
+        args_8 = grid_args(reads_8, refs_8, 256)
+        k4_8 = cuda_score.score_grid_diag(*args_8, *PARAMS)
+        p4_8, k4_plain_ms = host_ms(lambda: cuda_score.score_grid_diag_plain(*args_8, *PARAMS))
+        k5_8 = cuda_score.score_grid_row(*args_8, *PARAMS)
+        p5_8, k5_plain_ms = host_ms(lambda: score_grid(*args_8, *PARAMS))
+        k4_max_err, k5_max_err = max_err(k4_8, p4_8), max_err(k5_8, p5_8)
+        fail_unless(k4_max_err == 0, f"K4 differs from plain at 512 x 64 ({k4_max_err})")
+        fail_unless(k5_max_err == 0, f"K5 differs from the row-form recurrence at 512 x 64 ({k5_max_err})")
+        fail_unless(torch.equal(k4_8, k5_8), "K4 and K5 differ at 512 x 64")
+        for kw in (dict(window_mode="carry"), dict(state_dtype="int16")):
+            fail_unless(torch.equal(cuda_score.score_grid_diag(*args_8, *PARAMS, **kw), k4_8), f"K4 with {kw} differs")
+        k4_ms = cuda_ms(lambda: cuda_score.score_grid_diag(*args_8, *PARAMS), 10)
+        k5_ms = cuda_ms(lambda: cuda_score.score_grid_row(*args_8, *PARAMS), 10)
+        cells_8 = sum(map(len, reads_8)) * sum(map(len, refs_8))
+        bytes_8 = sum(t.numel() for t in args_8) + 4 * len(reads_8) * len(refs_8)
+        grid_bound_ms, grid_bound_by = bound(cells_8, bytes_8, sms, clock_mhz)
+        print(f"[8] K4 and K5, 512 reads (80-150 bp in 256 lanes) x 64 refs (500-4000 bp), every pair: max abs err 0 "
+              f"against plain (K4) and the row-form recurrence (K5), equal to each other, K4 window_mode='carry' and "
+              f"state_dtype='int16' equal; K4 {k4_ms:.3f} ms ({cells_8 / k4_ms / 1e6:.1f} GCUPS real cells), plain "
+              f"{k4_plain_ms:.1f} ms; K5 {k5_ms:.3f} ms ({cells_8 / k5_ms / 1e6:.1f} GCUPS), plain {k5_plain_ms:.1f} ms; "
+              f"bound {grid_bound_ms:.3f} ms by {grid_bound_by} ({cells_8:.3e} cells, {bytes_8} bytes) = "
+              f"K4 {100 * grid_bound_ms / k4_ms:.1f}%, K5 {100 * grid_bound_ms / k5_ms:.1f}%", flush=True)
+
+        args_8l = grid_args(reads_l, refs_l[:2], 152)
+        want_8l = score_grid(*args_8l, *PARAMS)
+        err = max_err(cuda_score.score_grid_diag(*args_8l, *PARAMS), want_8l)
+        fail_unless(err == 0, f"K4 at 131 kb refs differs from the row-form recurrence ({err})")
+        args_8r = (args_8l[0][:16], args_8l[1][:1])
+        got_8r = cuda_score.score_grid_row(*args_8r, *PARAMS)
+        err5 = max_err(got_8r, want_8l[:16, :1])
+        fail_unless(err5 == 0, f"K5 at a 131 kb ref differs from the row-form recurrence ({err5})")
+        fail_unless(torch.equal(got_8r, cuda_score.score_grid_diag(*args_8r, *PARAMS)), "K5 and K4 differ at 131 kb")
+        k4l_ms = cuda_ms(lambda: cuda_score.score_grid_diag(*args_8l, *PARAMS), 3)
+        k5l_ms = cuda_ms(lambda: cuda_score.score_grid_row(*args_8r, *PARAMS), 3)
+        k4l_bound_ms, _ = bound(sum(map(len, reads_l)) * 2 * LONG_N, sum(t.numel() for t in args_8l) + 4 * 64 * 2,
+                                sms, clock_mhz)
+        k5l_bound_ms, _ = bound(sum(map(len, reads_l[:16])) * LONG_N, sum(t.numel() for t in args_8r) + 4 * 16,
+                                sms, clock_mhz)
+        print(f"[8] K4 64 reads x 2 refs of {LONG_N} bp, K5 16 reads x one: equal to the row-form recurrence and to "
+              f"each other; K4 {k4l_ms:.3f} ms (bound {k4l_bound_ms:.3f} ms, {100 * k4l_bound_ms / k4l_ms:.1f}%), "
+              f"K5 {k5l_ms:.3f} ms (bound {k5l_bound_ms:.3f} ms, {100 * k5l_bound_ms / k5l_ms:.1f}%)", flush=True)
+
+        for m_pad in (128, 1024):
+            reads_e = edge_reads + (rand_seqs(rng, [1024, 1000]) if m_pad == 1024 else [])
+            args_e = grid_args(reads_e, edge_refs, m_pad)
+            want_e = cuda_score.score_grid_diag_plain(*args_e, *PARAMS)
+            for name, fn in (("K4", cuda_score.score_grid_diag), ("K5", cuda_score.score_grid_row)):
+                err = max_err(fn(*args_e, *PARAMS), want_e)
+                fail_unless(err == 0, f"{name} edge cases differ from plain at m_pad={m_pad} ({err})")
+            want = np.array([[oracle.opt_alignments(f, r)[0] for f in edge_refs[:3]] for r in reads_e[:8]])
+            fail_unless((want_e[:8, :3].cpu().numpy() == want).all(), f"edge cases differ from the oracle at {m_pad}")
+        print("[8] K4 and K5 edge cases (empty reads, 0/1 bp refs, m_pad 128 and 1024 with 1,024 bp reads): "
+              "equal to plain and oracle", flush=True)
+
+        packed_8, start_8 = pack_reads(reads_8, 256)
+        packed_8 = up(packed_8)
+        lens_8 = torch.full((len(refs_8),), args_8[1].shape[1], dtype=torch.int32, device=dev)
+        want_8 = read_best(cuda_score.lane_best_packed_varlen(packed_8, args_8[1], lens_8, *PARAMS), start_8)
+        for mode in cuda_score.LANE_BEST_MODES:
+            got = read_best(cuda_score.lane_best_packed(packed_8, args_8[1], *PARAMS, mode=mode), start_8)
+            fail_unless(torch.equal(got, want_8), f"lane_best_packed mode={mode} differs from K1")
+        print(f"[8] lane_best_packed, modes {', '.join(cuda_score.LANE_BEST_MODES)}, 512 reads x 64 refs padded to "
+              f"{args_8[1].shape[1]}: equal to K1 at every start lane", flush=True)
+
+        # -- 9. the unpacked and row paths end to end ----------------------------
+        slice_reads = {k: get_reads(os.path.join(slice_root, "inputs", f"input{k}.fa"), ">gi") for k in (1, 2)}
+        slice_want = {k: TorchBatchBackend(config, dev).totals(slice_reads[k], slice_seqs) for k in (1, 2)}
+        cuda_score.reset_launches()
+        config_u = dataclasses.replace(config, out_dir=os.path.join(scale_root, "out_unpacked"), pack_reads=False)
+        backend_u = TorchBatchBackend(config_u, dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        (unpacked_report,) = run_pipeline(config_u, backend=backend_u, device=dev)
+        torch.cuda.synchronize()
+        unpacked_s = time.perf_counter() - t
+        fail_unless(stripped(unpacked_report) == stripped(scale_report), "pack_reads=False scale report differs from phase 4's")
+        print(f"[9] run_pipeline pack_reads=False on the phase-4 corpus: wall {unpacked_s:.3f} s, real "
+              f"{scale_read_bp * ref_bp / unpacked_s / 1e9:.1f} GCUPS (phase 4 packed: {scale_s:.3f} s); scoring "
+              f"dispatch window {backend_u.gcups.report()}; report equal to phase 4's apart from the time line", flush=True)
+        config_r = AlignConfig(
+            ref_dir=os.path.join(slice_root, "refs"), in_dir=os.path.join(slice_root, "inputs"),
+            out_dir=os.path.join(slice_root, "out_row"), kernel="row",
+        )
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run_pipeline(config_r, device=dev)
+        torch.cuda.synchronize()
+        row_s = time.perf_counter() - t
+        for k in (1, 2):
+            fail_unless(stripped(os.path.join(slice_root, "out_row", f"result{k}.txt"))
+                        == stripped(os.path.join(slice_root, "out", f"result{k}.txt")),
+                        f"kernel='row' result{k}.txt differs from phase 3's")
+        print(f"[9] run_pipeline kernel='row' on the phase-3 corpus: 2 inputs in {row_s:.2f} s, reports equal to "
+              f"phase 3's apart from the time line", flush=True)
+        for kw in (dict(pack_reads=False), dict(kernel="row")):
+            mesh_u = ShardedBackend(
+                AlignConfig(ref_dir=".", in_dir=".", out_dir=".", strategy="shard_refs", **kw),
+                build_mesh((2, 2), devices=[dev] * 4),
+            )
+            for k in (1, 2):
+                fail_unless(np.array_equal(mesh_u.totals(slice_reads[k], slice_seqs), slice_want[k]),
+                            f"(2, 2) mesh totals with {kw} differ from batch's for input{k}")
+        unpacked_launches = dict(cuda_score.LAUNCHES)
+        fail_unless(unpacked_launches["score_grid_diag"] > 0 and unpacked_launches["score_grid_row"] > 0,
+                    f"K4 or K5 never launched on the unpacked and row paths: {unpacked_launches}")
+        print(f"[9] ShardedBackend with pack_reads=False and with kernel='row' on a (2, 2) mesh of {dev}: totals equal "
+              f"batch's for both inputs; launches over phase 9 {unpacked_launches}", flush=True)
+
+        # -- 10. swtorch scaling ---------------------------------------------------
+        counts = "1,2,4" if torch.cuda.device_count() >= 4 else "1"
+        cuda_score.reset_launches()
+        for axis, shape in (("refs", ["--num-reads", "512", "--num-refs", "512", "--ref-len", "4096"]),
+                            ("seq", ["--num-reads", "256", "--ref-len", "65536"])):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(["scaling", "--axis", axis, "--devices", counts, "--read-len", "128", *shape])
+            fail_unless(rc == 0, f"swtorch scaling --axis {axis} exited {rc}")
+            print(f"[10] swtorch scaling --axis {axis} {' '.join(shape)} --read-len 128: "
+                  f"{json.dumps(json.loads(out.getvalue()))}", flush=True)
+        scaling_launches = dict(cuda_score.LAUNCHES)
+        fail_unless(scaling_launches["score_grid_diag"] > 0, f"K4 never launched by swtorch scaling: {scaling_launches}")
+        reads_10, refs_10 = workload(512, 128, 512, 4096)
+        totals_10 = sharded_totals(reads_10, refs_10, *PARAMS, mesh=build_mesh((1, 1), devices=[dev]))
+        sub = np.arange(0, 512, 32)
+        want_10 = score_grid(up(reads_10), up(refs_10[sub]), *PARAMS).sum(dim=0, dtype=torch.int64)
+        fail_unless(torch.equal(totals_10[torch.as_tensor(sub, device=dev)], want_10),
+                    "scaling totals differ from the row-form recurrence")
+        print(f"[10] refs totals of 16 of the 512 refs equal the row-form recurrence; launches over phase 10 "
+              f"{scaling_launches}", flush=True)
+
+    legs = (launches, seq_launches, shard_launches, unpacked_launches, scaling_launches)
+    main_launches = {name: sum(leg[name] for leg in legs) for name in cuda_score.LAUNCHES}
 
     kernels = [
         {
@@ -578,7 +749,9 @@ def main() -> int:
             "route": "cuda",
             "source": "sparksmithwaterman_tpu_torch/csrc/lane_best.cu",
             "replaces": "sparksmithwaterman_tpu/ops/pallas_score.py:865",
-            "also_replaces": "sparksmithwaterman_tpu/ops/pallas_score.py:1801",
+            "also_replaces": [
+                f"sparksmithwaterman_tpu/ops/pallas_score.py:{line}" for line in (1801, 1310, 1365, 1420, 460)
+            ],
             "launches": main_launches["lane_best_packed_varlen"],
             "max_abs_err": k1_max_err,
             "ms": k1_ms,
@@ -614,6 +787,37 @@ def main() -> int:
             "library_ms": None,
             "long_ms": k3l_ms,
             "long_bound_ms": k3l_bound_ms,
+        },
+        {
+            "name": "score_grid_diag",
+            "route": "cuda",
+            "source": "sparksmithwaterman_tpu_torch/csrc/score_grid.cu",
+            "replaces": "sparksmithwaterman_tpu/ops/pallas_score.py:182",
+            "also_replaces": [f"sparksmithwaterman_tpu/ops/pallas_score.py:{line}" for line in (2051, 482)],
+            "launches": main_launches["score_grid_diag"],
+            "max_abs_err": k4_max_err,
+            "ms": k4_ms,
+            "plain_ms": k4_plain_ms,
+            "bound_ms": grid_bound_ms,
+            "bound_by": grid_bound_by,
+            "library_ms": None,
+            "long_ms": k4l_ms,
+            "long_bound_ms": k4l_bound_ms,
+        },
+        {
+            "name": "score_grid_row",
+            "route": "cuda",
+            "source": "sparksmithwaterman_tpu_torch/csrc/score_row.cu",
+            "replaces": "sparksmithwaterman_tpu/ops/pallas_score.py:71",
+            "launches": main_launches["score_grid_row"],
+            "max_abs_err": k5_max_err,
+            "ms": k5_ms,
+            "plain_ms": k5_plain_ms,
+            "bound_ms": grid_bound_ms,
+            "bound_by": grid_bound_by,
+            "library_ms": None,
+            "long_ms": k5l_ms,
+            "long_bound_ms": k5l_bound_ms,
         },
     ]
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sparksmithwaterman_tpu"))

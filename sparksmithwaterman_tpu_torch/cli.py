@@ -1,15 +1,17 @@
-"""Command-line interface of the port: ``swtorch align``.
+"""Command-line interface of the port: ``swtorch align`` and ``swtorch
+scaling``.
 
-The ``align`` subcommand of ``sparksmithwaterman_tpu.cli`` with the same
-flags, plus ``--device`` (default ``cuda``).  A CUDA device that is not
-available is an error: the command exits non-zero and does not run on
-the CPU instead.
+The ``align`` and ``scaling`` subcommands of ``sparksmithwaterman_tpu.cli``
+with the same flags, plus ``--device`` (default ``cuda``).  A CUDA device
+that is not available is an error: the command exits non-zero and does
+not run on the CPU instead.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import json
 import os
 import sys
 
@@ -50,6 +52,42 @@ def _add_align(sub) -> None:
     p.add_argument("--device", default="cuda", help="torch device to run on (default: cuda)")
 
 
+def _add_scaling(sub) -> None:
+    p = sub.add_parser("scaling", help="multi-device strong-scaling sweep (refs or seq mesh axis)")
+    p.add_argument(
+        "--axis",
+        default="refs",
+        choices=["refs", "seq"],
+        help="refs = shard the reference set; seq = length-shard ONE reference",
+    )
+    p.add_argument(
+        "--devices",
+        default=None,
+        help="comma-separated device counts, e.g. 1,2,4 (default: powers of 2 up to available)",
+    )
+    p.add_argument("--num-reads", type=int, default=32)
+    p.add_argument("--read-len", type=int, default=64)
+    p.add_argument("--num-refs", type=int, default=64)
+    p.add_argument("--ref-len", type=int, default=512)
+    p.add_argument("--device", default="cuda", help="torch device: cuda = every card of the host (default)")
+
+
+def _scaling(args) -> int:
+    from sparksmithwaterman_tpu_torch.metrics.scaling import measure_scaling
+
+    rows = measure_scaling(
+        [int(x) for x in args.devices.split(",")] if args.devices else None,
+        num_reads=args.num_reads,
+        read_len=args.read_len,
+        num_refs=args.num_refs,
+        ref_len=args.ref_len,
+        axis=args.axis,
+        device=args.device,
+    )
+    print(json.dumps(rows, indent=1))
+    return 0
+
+
 @contextlib.contextmanager
 def _profiled(log_dir, device: torch.device):
     if not log_dir:
@@ -73,16 +111,19 @@ def main(argv=None) -> int:
     )
     sub = parser.add_subparsers(dest="command", required=True)
     _add_align(sub)
+    _add_scaling(sub)
     args = parser.parse_args(argv)
-
-    from sparksmithwaterman_tpu_torch.config import AlignConfig, ScoringScheme
-    from sparksmithwaterman_tpu_torch.models.aligner import get_backend
-    from sparksmithwaterman_tpu_torch.models.pipeline import run_pipeline
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         print(f"swtorch: device {args.device!r} requested but CUDA is not available", file=sys.stderr)
         return 2
+    if args.command == "scaling":
+        return _scaling(args)
+
+    from sparksmithwaterman_tpu_torch.config import AlignConfig, ScoringScheme
+    from sparksmithwaterman_tpu_torch.models.aligner import get_backend
+    from sparksmithwaterman_tpu_torch.models.pipeline import run_pipeline
     config = AlignConfig(
         ref_dir=args.ref_dir,
         in_dir=args.in_dir,

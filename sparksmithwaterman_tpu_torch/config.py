@@ -2,9 +2,10 @@
 
 The scoring scheme and the pipeline settings of
 :mod:`sparksmithwaterman_tpu.config`, kept here so the port runs from a
-checkout that holds no JAX package.  The engine knobs of the TPU build
-(Pallas, kernel form, VMEM modes) have no counterpart: the port has one
-scoring kernel per path.
+checkout that holds no JAX package.  Of the TPU build's engine knobs the
+port keeps the two that choose a scoring path (``kernel``,
+``pack_reads``); ``use_pallas`` (Pallas or lax) and ``read_block`` (a
+TPU grid block) have no counterpart: every path runs its own kernel.
 """
 
 from __future__ import annotations
@@ -53,10 +54,21 @@ class AlignConfig:
     scoring: ScoringScheme = dataclasses.field(default_factory=ScoringScheme)
     # serial | batch | wavefront (alias of batch) | shard_refs | shard_reads | shard_seq
     strategy: str = "batch"
-    read_bucket: int = 128  # traceback fills pad reads to multiples of this
-    ref_bucket: int = 256  # ... and references to multiples of this
+    read_bucket: int = 128  # reads pad to multiples of this (traceback, unpacked scoring)
+    ref_bucket: int = 256  # references pad to multiples of this (or its 1.5 x 2^k ladder)
+    # Scoring kernel of batch and shard_refs/shard_reads: 'diag' (the
+    # anti-diagonal wavefront: K1 packed, K4 unpacked) or 'row' (the row
+    # form, K5, on unpacked reads whatever pack_reads says).
+    kernel: str = "diag"
+    # Bin-pack several reads per kernel row (ops/packing, K1); False
+    # scores unpacked reads bucketed by length (K4).
+    pack_reads: bool = True
     # Read rows per round of parallel.seqparallel_scores[_batch] (the striped
     # ring) only; the shard_seq backend scores through K3 and does not read it.
     seq_stripe: int = 8
     # Reference base pairs accumulated across files per scoring flush.
     ref_batch_bp: int = 32_000_000
+
+    def __post_init__(self):
+        if self.kernel not in ("diag", "row"):
+            raise ValueError(f"kernel must be 'diag' or 'row', got {self.kernel!r}")

@@ -1,0 +1,131 @@
+// K4: best local score of every (read, reference) pair, unpacked reads.
+//
+// Replaces the TPU kernels
+//   sparksmithwaterman_tpu/ops/pallas_score.py:_diag_kernel
+//   sparksmithwaterman_tpu/ops/pallas_score.py:_chunked_kernel
+//   sparksmithwaterman_tpu/ops/pallas_score.py:_diag_kernel_carry
+// with their shared contract: reads (R, M) uint8, READ_PAD-padded, against
+// references (C, N) uint8, REF_PAD-padded, give out (R, C) int32, each entry
+// the best local-alignment score of that pair.  The TPU split the work into
+// a whole-window form, a streamed form for references past 8 kb and a form
+// that carried the substitution column in registers, all for VMEM; here the
+// reference always streams through the 4 KB shared ring of wavefront.cuh, so
+// one kernel takes every length and every window mode.
+//
+// What bounds it on the H100: like K1, register-resident integer work
+// (about ten instructions per DP cell) with no memory traffic in the inner
+// loop, and an output of one int32 per pair, so it is bound by integer
+// operations.  One warp per read, L lanes per thread (lane i = read
+// position i), neighbour lanes through one warp shuffle per diagonal; the
+// block's four reads share one reference.
+//
+// Trailing pad is not swept when mismatch <= 0 and gap <= 0 (`trim`): the
+// block then runs m' + n' - 1 diagonals, n' the reference's length before
+// its REF_PAD tail and m' the longest of its four reads before their
+// READ_PAD tails.  A pad code matches nothing, so a cell in a trailing pad
+// row or column is at most the largest of its neighbours; it never exceeds
+// the pair's best over real cells, and no real cell depends on it.  With a
+// positive mismatch or gap that no longer holds, and the block runs all
+// m + n - 1 diagonals, as the TPU kernels do.  Pad lanes of a short read in
+// a wide group still cost a lane each.  The output is written as (R, C):
+// the per-reference sum over reads reduces over its rows.
+#include "wavefront.cuh"
+
+namespace {
+
+using namespace swt;
+
+// Max of v over the block; every thread must call it.
+__device__ __forceinline__ int block_max(int v, int* scratch) {
+  v = __reduce_max_sync(0xffffffffu, v);
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
+  __syncthreads();
+  int out = scratch[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) out = max(out, scratch[w]);
+  __syncthreads();  // scratch is free again for the next call
+  return out;
+}
+
+template <int L>
+__global__ void __launch_bounds__(kThreads)
+score_grid_kernel(const uint8_t* __restrict__ reads, int r, int m,
+                  int read_blocks, const uint8_t* __restrict__ refs,
+                  int c_total, int n, int match, int mismatch, int gap,
+                  int trim, int32_t* __restrict__ out) {
+  __shared__ uint8_t ring[kRing];
+  __shared__ int scratch[kWarps];
+  const int c = blockIdx.x / read_blocks;
+  const int read = (blockIdx.x % read_blocks) * kWarps + (threadIdx.x >> 5);
+  const int first = (threadIdx.x & 31) * L;
+  const bool live = read < r;
+  const uint8_t* ref = refs + (long long)c * n;
+
+  int rd[L];
+  int used = 0;  // 1 + the last read position of this thread that is not pad
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    const int i = first + k;
+    rd[k] = (live && i < m) ? reads[(long long)read * m + i] : kReadPad;
+    if (rd[k] != kReadPad) used = i + 1;
+  }
+  // The reference's length before its REF_PAD tail: each thread walks its
+  // residue class down from the end and stops at its first real byte.
+  int len = 0;
+  for (int j = n - 1 - (int)threadIdx.x; j >= 0; j -= kThreads) {
+    if (ref[j] != kRefPad) {
+      len = j + 1;
+      break;
+    }
+  }
+  len = block_max(len, scratch);
+  used = block_max(used, scratch);
+  if (!trim) {
+    len = n;
+    used = m;
+  }
+  const int nd = (len > 0 && used > 0) ? used + len - 1 : 0;
+
+  int best[L];
+#pragma unroll
+  for (int k = 0; k < L; ++k) best[k] = 0;
+  sweep<L>(rd, first == 0 ? 1u : 0u, nd, ref, len, match, mismatch, gap, ring,
+           [&](int k, int, int h) { best[k] = max(best[k], h); });
+  int b = 0;
+#pragma unroll
+  for (int k = 0; k < L; ++k) b = max(b, best[k]);
+  b = __reduce_max_sync(0xffffffffu, b);
+  if (live && first == 0) out[(long long)read * c_total + c] = b;
+}
+
+}  // namespace
+
+extern "C" int swt_score_grid_diag(const void* reads, int r, int m,
+                                   const void* refs, int c, int n, int match,
+                                   int mismatch, int gap, void* out,
+                                   int device, void* stream) {
+  const int L = swt::pick_lanes(m);
+  if (L == 0 || r <= 0 || c <= 0 || m <= 0 || n <= 0)
+    return (int)cudaErrorInvalidValue;
+  const long long read_blocks = (r + swt::kWarps - 1) / swt::kWarps;
+  const long long blocks = read_blocks * c;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int trim = mismatch <= 0 && gap <= 0;
+  swt::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (L) {
+#define SWT_LAUNCH(l)                                                       \
+  case l:                                                                   \
+    score_grid_kernel<l><<<(unsigned)blocks, swt::kThreads, 0, s>>>(        \
+        (const uint8_t*)reads, r, m, (int)read_blocks,                      \
+        (const uint8_t*)refs, c, n, match, mismatch, gap, trim,             \
+        (int32_t*)out);                                                     \
+    break;
+    SWT_FOR_EACH_L(SWT_LAUNCH)
+#undef SWT_LAUNCH
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

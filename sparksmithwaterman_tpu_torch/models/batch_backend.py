@@ -1,21 +1,28 @@
 """Single-device batched backend on PyTorch: the ``batch`` strategy.
 
 Port of :class:`sparksmithwaterman_tpu.models.batch_backend.BatchBackend`
-(its packed varlen path and both traceback branches):
+(its scoring paths and both traceback branches):
 
-- scoring bin-packs the reads into lane rows (``ops.packing``) and makes
-  one K1 dispatch (``ops.cuda_score.lane_best_packed_varlen``) per
-  reference chunk; start lanes are gathered and summed per reference in
-  int64 on the device, and the best total and its tie mask are reduced
-  there too, so one small copy reaches the host per flush;
+- the packed path (``kernel='diag'``, ``pack_reads=True``, the default)
+  bin-packs the reads into lane rows (``ops.packing``) and makes one K1
+  dispatch (``ops.cuda_score.lane_best_packed_varlen``) per reference
+  chunk; start lanes are gathered and summed per reference in int64 on
+  the device, and the best total and its tie mask are reduced there too,
+  so one small copy reaches the host per flush;
+- the unpacked path (``pack_reads=False``, or ``kernel='row'``) buckets
+  reads by padded length and references on the 1.5 x 2^k ladder, as the
+  JAX package does, and scores each bucket pair's (R, C) grid with K4
+  (``score_grid_diag``) or K5 (``score_grid_row``), summed per reference
+  in int64 on the device;
 - :meth:`TorchBatchBackend.sites_for_ref` traces a winner either with a
   full fill with directions and an on-device walk, or — for large read
   sets and long references — with one argmax pass (K2) and window fills.
 
 The TPU package's VMEM planners, interleaved lanes, window tables,
-reference folding, compile-shape padding and 32-bit carry-pair reduce
-have no counterpart here: a CUDA block reads ``ref[d - i]`` from shared
-memory and torch has int64 on the device.
+reference folding, compile-shape padding, read blocks, int32 read-count
+caps and 32-bit carry-pair reduce have no counterpart here: a CUDA block
+reads ``ref[d - i]`` from shared memory and torch has int64 on the
+device.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ from sparksmithwaterman_tpu_torch.config import AlignConfig
 from sparksmithwaterman_tpu_torch.io.fasta import READ_PAD, REF_PAD, encode_batch, encode_concat
 from sparksmithwaterman_tpu_torch.io.report import Site
 from sparksmithwaterman_tpu_torch.utils.profiling import GcupsCounter
-from sparksmithwaterman_tpu_torch.ops.cuda_score import lane_best_packed_varlen
+from sparksmithwaterman_tpu_torch.ops.cuda_score import lane_best_packed_varlen, score_grid_diag, score_grid_row
 from sparksmithwaterman_tpu_torch.ops.device_traceback import (
     fill_and_trace,
     path_cap,
@@ -63,11 +70,44 @@ def _pad_len(n: int, bucket: int) -> int:
     return max(bucket, -(-n // bucket) * bucket)
 
 
-def _group_by_padded_len(seqs: Sequence[str], bucket: int) -> Dict[int, List[int]]:
+def _quantize_15(n: int, base: int) -> int:
+    """Round up to base * {2^k or 1.5 * 2^k} (1.5 only when a multiple
+    of base, i.e. from 3*base upward): at most 1.33x padding with
+    O(log n) distinct values (JAX ``batch_backend._quantize_15``)."""
+    q = base
+    while q < n:
+        q15 = q + q // 2
+        if n <= q15 and q15 % base == 0:
+            return q15
+        q *= 2
+    return q
+
+
+def _group_by_padded_len(seqs: Sequence[str], bucket: int, geometric: bool = False) -> Dict[int, List[int]]:
+    """Sequence indices by padded length: multiples of ``bucket``, or with
+    ``geometric=True`` the :func:`_quantize_15` ladder (fewer groups)."""
     groups: Dict[int, List[int]] = {}
     for idx, s in enumerate(seqs):
-        groups.setdefault(_pad_len(len(s), bucket), []).append(idx)
+        key = _quantize_15(len(s), bucket) if geometric else _pad_len(len(s), bucket)
+        groups.setdefault(key, []).append(idx)
     return groups
+
+
+def _score_grid(reads_t: torch.Tensor, refs_t: torch.Tensor, params, kernel: str) -> torch.Tensor:
+    """(R, C) int32 best per pair on the tensors' device: K4 for
+    ``kernel='diag'``, K5 for ``'row'``."""
+    fn = score_grid_diag if kernel == "diag" else score_grid_row
+    return fn(reads_t, refs_t, *params)
+
+
+def _col_sums(blocks: list, params, kernel: str) -> list:
+    """[(ref columns, (c,) int64 sums over the block's reads)] of staged
+    grid blocks [(read rows, ref columns, reads, refs)]: one K4 or K5
+    launch per block, on its device (JAX ``_col_sums_dev``)."""
+    return [
+        (cols, _score_grid(reads_t, refs_t, params, kernel).sum(dim=0, dtype=torch.int64))
+        for _, cols, reads_t, refs_t in blocks
+    ]
 
 
 class TorchBatchBackend:
@@ -81,6 +121,9 @@ class TorchBatchBackend:
         self.scoring = config.scoring
         self.read_bucket = config.read_bucket
         self.ref_bucket = config.ref_bucket
+        self.kernel = config.kernel
+        # kernel='row' ignores pack_reads, as in the JAX package.
+        self.pack = config.pack_reads and config.kernel == "diag"
         self._params = (self.scoring.match, self.scoring.mismatch, self.scoring.gap)
         # DP cells over the dispatch window (real cells = sum |read|*|ref|).
         self.gcups = GcupsCounter()
@@ -160,6 +203,15 @@ class TorchBatchBackend:
         return totals, cells
 
     def _dispatch_cols(self, reads, ref_seqs):
+        """Dispatch the scoring of one flush, not waited on: the packed
+        path (:meth:`_dispatch_packed`) or the unpacked one
+        (:meth:`_dispatch_unpacked`).  Returns ([(device ref indices, (C,)
+        int64 device sums)], real cells)."""
+        if self.pack:
+            return self._dispatch_packed(reads, ref_seqs)
+        return self._dispatch_unpacked(reads, ref_seqs)
+
+    def _dispatch_packed(self, reads, ref_seqs):
         """One K1 dispatch per (pack x reference chunk), not waited on.
 
         The flush's references are encoded back to back into one buffer
@@ -192,6 +244,45 @@ class TorchBatchBackend:
                 self._mark(events)
             cells += pack["read_bp"] * int(lens.sum())
         return pending, cells
+
+    def _dispatch_unpacked(self, reads, ref_seqs):
+        """One K4 (or K5) dispatch per (reference group x read group x
+        reference chunk) and mesh block, not waited on (JAX
+        ``_dispatch_cols``, unpacked branch).
+
+        Reads group by ``read_bucket`` multiples, references by the
+        geometric ladder of ``ref_bucket``; a chunk is capped by the (R, C)
+        int32 output budget.  Every chunk is staged (:meth:`_stage`,
+        encoded and uploaded) before the first launch, since an upload from
+        pageable host memory waits for the work queued on its device.
+        """
+        read_groups = sorted(_group_by_padded_len(reads, self.read_bucket).items())
+        reads_enc = {m_pad: encode_batch([reads[i] for i in idx], m_pad, READ_PAD) for m_pad, idx in read_groups}
+        staged = []
+        cells = 0
+        for n_pad, ref_idx in sorted(_group_by_padded_len(ref_seqs, self.ref_bucket, geometric=True).items()):
+            refs_enc = encode_batch([ref_seqs[i] for i in ref_idx], n_pad, REF_PAD)
+            ref_bp = sum(len(ref_seqs[i]) for i in ref_idx)
+            for m_pad, read_idx in read_groups:
+                c_block = max(1, _OUT_BUDGET // len(read_idx))
+                for start in range(0, len(ref_idx), c_block):
+                    part = slice(start, start + c_block)
+                    idx_t = self._upload(np.asarray(ref_idx[part], np.int64))
+                    staged.append((idx_t, self._stage(reads_enc[m_pad], refs_enc[part])))
+                cells += sum(len(reads[i]) for i in read_idx) * ref_bp
+        pending: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        events: list = []
+        for idx_t, blocks in staged:
+            for cols, sums in _col_sums(blocks, self._params, self.kernel):
+                pending.append((idx_t[cols], sums))
+                self._mark(events)
+        return pending, cells
+
+    def _stage(self, reads_enc: np.ndarray, refs_enc: np.ndarray) -> list:
+        """One (R, C) grid's inputs on the device, as blocks [(read rows,
+        ref columns, reads, refs)]; here one block.  The mesh backend
+        splits the grid over its entries."""
+        return [(slice(None), slice(None), self._upload(reads_enc), self._upload(refs_enc))]
 
     def _pack_chunks(self, reads: Sequence[str], r_limit: int) -> List[dict]:
         """Bin the reads into packed rows at one lane width (the longest

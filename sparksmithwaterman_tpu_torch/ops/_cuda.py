@@ -131,6 +131,14 @@ def lib() -> ctypes.CDLL:
                 _VP, _I, _I, _I,  # bnd, match, mismatch, gap
                 _VP, _VP, _I, _VP,  # out, bnd_out, device, stream
             ]
+            for grid in (handle.swt_score_grid_diag, handle.swt_score_grid_row):
+                grid.restype = _I
+                grid.argtypes = [
+                    _VP, _I, _I,  # reads, r, m
+                    _VP, _I, _I,  # refs, c, n
+                    _I, _I, _I,  # match, mismatch, gap
+                    _VP, _I, _VP,  # out, device, stream
+                ]
             _lib = handle
         return _lib
 

@@ -1,14 +1,23 @@
 """The scoring kernels: CUDA for tensors on the card, plain PyTorch on CPU.
 
-Three kernels, each with its plain PyTorch version of the same function:
+Five kernels, each with its plain PyTorch version of the same function:
 
 - K1 :func:`lane_best_packed_varlen` (``csrc/lane_best.cu``) replaces
   ``pallas_score.py:_diag_kernel_packed_varlen`` and
-  ``pallas_score.py:_chunked_kernel_packed_multi``;
+  ``pallas_score.py:_chunked_kernel_packed_multi``; through
+  :func:`lane_best_packed` (one length, the ``mode=`` options) also
+  ``_diag_kernel_packed``, ``_chunked_kernel_packed``,
+  ``_stream_kernel_packed`` and ``_diag_kernel_packed_carry``;
 - K2 :func:`argmax_lane` (``csrc/argmax.cu``) replaces
   ``pallas_score.py:_chunked_argmax_kernel``;
 - K3 :func:`band_lane_best` (``csrc/band.cu``) replaces
-  ``pallas_score.py:_diag_kernel_packed_band``.
+  ``pallas_score.py:_diag_kernel_packed_band``;
+- K4 :func:`score_grid_diag` (``csrc/score_grid.cu``) replaces
+  ``pallas_score.py:_diag_kernel``, ``_chunked_kernel`` and
+  ``_diag_kernel_carry``;
+- K5 :func:`score_grid_row` (``csrc/score_row.cu``) replaces
+  ``pallas_score.py:_score_kernel``; its plain version is the row-form
+  recurrence :func:`..ops.recurrence.score_grid`.
 
 A wrapper takes the plain version only for tensors on the CPU.  For CUDA
 tensors it launches the kernel or raises; it never falls back.  Each
@@ -33,9 +42,16 @@ import torch
 from sparksmithwaterman_tpu_torch.io.fasta import REF_PAD
 from sparksmithwaterman_tpu_torch.ops import _cuda
 from sparksmithwaterman_tpu_torch.ops.packing import START_BIT
+from sparksmithwaterman_tpu_torch.ops.recurrence import score_grid
 
 # Launches per kernel since the last reset_launches().
-LAUNCHES = {"lane_best_packed_varlen": 0, "argmax_lane": 0, "band_lane_best": 0}
+LAUNCHES = {
+    "lane_best_packed_varlen": 0,
+    "argmax_lane": 0,
+    "band_lane_best": 0,
+    "score_grid_diag": 0,
+    "score_grid_row": 0,
+}
 
 # Widest lane row the kernels take (32 threads x 32 lanes).
 MAX_LANES = 1024
@@ -200,32 +216,39 @@ def lane_best_packed_varlen(packed, refs_u8, lens, match, mismatch, gap, offsets
 # -- K2: per-lane argmax ---------------------------------------------------------
 
 
-def argmax_lane_plain(reads_u8, refs_u8, match, mismatch, gap):
-    """Plain PyTorch version of K2 (any device): the diagonal loop on an
-    (R, C, M) state, exactly m + n - 1 diagonals."""
+def _unpacked_diagonals(reads_u8, refs_u8, match, mismatch, gap):
+    """Yield (d, cells): the (R, C, M) cells of anti-diagonal d of every
+    (read, ref) pair, d = 0 .. m + n - 2 (none when n == 0)."""
     r, m = reads_u8.shape
     c, n = refs_u8.shape
     device = reads_u8.device
     reads_i = reads_u8.to(torch.int32)[:, None, :]
     refs_i = refs_u8.to(torch.int32)
     lens = torch.full((c,), n, dtype=torch.int64, device=device)
-    shape = (r, c, m)
-    d1 = torch.zeros(shape, dtype=torch.int32, device=device)
+    d1 = torch.zeros((r, c, m), dtype=torch.int32, device=device)
     r1 = torch.zeros_like(d1)
     r2 = torch.zeros_like(d1)
-    best = torch.zeros_like(d1)
-    bestd = torch.zeros_like(d1)
-    count = torch.zeros_like(d1)
     for d in range(m + n - 1 if n > 0 else 0):
         refwin = _ref_window(refs_i, lens, d, m)[None]
         sub = torch.where(reads_i == refwin, match, mismatch).to(torch.int32)
         c1 = torch.clamp_min(torch.maximum(r2 + sub, torch.maximum(r1, d1) + gap), 0)
+        yield d, c1
+        d1, r2, r1 = c1, r1, _shift_lanes_right(c1)
+
+
+def argmax_lane_plain(reads_u8, refs_u8, match, mismatch, gap):
+    """Plain PyTorch version of K2 (any device): the diagonal loop on an
+    (R, C, M) state, exactly m + n - 1 diagonals."""
+    shape = (reads_u8.shape[0], refs_u8.shape[0], reads_u8.shape[1])
+    best = torch.zeros(shape, dtype=torch.int32, device=reads_u8.device)
+    bestd = torch.zeros_like(best)
+    count = torch.zeros_like(best)
+    for d, c1 in _unpacked_diagonals(reads_u8, refs_u8, match, mismatch, gap):
         gt = c1 > best
         eq = (c1 == best) & (best > 0)
         best = torch.where(gt, c1, best)
         bestd = torch.where(gt, d, bestd)
         count = torch.where(gt, 1, count + eq.to(torch.int32))
-        d1, r2, r1 = c1, r1, _shift_lanes_right(c1)
     return best, bestd, count
 
 
@@ -375,3 +398,118 @@ def band_lane_best(packed, seg_u8, offsets, seg_lens, ns, bnd, match, mismatch, 
     _cuda.check(rc, "band_lane_best")
     LAUNCHES["band_lane_best"] += 1
     return out, bnd_out
+
+
+# -- K1 with one length: the TPU kernels' window modes ---------------------------
+
+# The ``mode=`` values of ``pallas_score.pallas_lane_best_packed``.
+LANE_BEST_MODES = ("auto", "whole", "chunked", "stream", "carry")
+
+
+def lane_best_packed(packed, refs_u8, match, mismatch, gap, *, mode="auto"):
+    """(C, ROWS, M) int32 per-lane best of packed read rows against C
+    references of one padded length: K1 with every length N.
+
+    packed: (ROWS, M) int32 as for :func:`lane_best_packed_varlen`;
+    refs_u8: (C, N) uint8, REF_PAD-padded (the padding is swept, as on
+    the TPU).  ``mode`` takes the TPU package's values, which chose how
+    the reference window was staged in VMEM (whole table, streamed
+    chunks, manual double buffering, a carried column); K1 streams every
+    reference through its shared ring, so each mode runs the same kernel.
+    The contract is K1's: read only start lanes.
+    """
+    if mode not in LANE_BEST_MODES:
+        raise ValueError(f"mode must be one of {LANE_BEST_MODES}, got {mode!r}")
+    if refs_u8.dim() != 2:
+        raise ValueError("refs_u8 must be a (C, N) uint8 tensor")
+    c, n = refs_u8.shape
+    lens = torch.full((c,), n, dtype=torch.int32, device=refs_u8.device)
+    return lane_best_packed_varlen(packed, refs_u8, lens, match, mismatch, gap)
+
+
+# -- K4 and K5: best per (read, ref) pair, unpacked reads -------------------------
+
+
+def _check_grid_inputs(what, reads_u8, refs_u8):
+    """The device of an unpacked (reads, refs) pair, after checking both."""
+    device = _device_of(reads_u8, refs_u8)
+    if reads_u8.dim() != 2 or reads_u8.dtype != torch.uint8:
+        raise ValueError(f"{what}: reads_u8 must be an (R, M) uint8 tensor")
+    if refs_u8.dim() != 2 or refs_u8.dtype != torch.uint8:
+        raise ValueError(f"{what}: refs_u8 must be a (C, N) uint8 tensor")
+    if device.type == "cuda" and reads_u8.shape[1] > MAX_LANES:
+        raise ValueError(f"{what} takes reads of at most {MAX_LANES} positions, got {reads_u8.shape[1]}")
+    return device
+
+
+def _launch_grid(entry, name, reads_u8, refs_u8, match, mismatch, gap):
+    """(R, C) int32 from a C entry with K4's and K5's arguments."""
+    r, m = reads_u8.shape
+    c, n = refs_u8.shape
+    out = torch.empty((r, c), dtype=torch.int32, device=reads_u8.device)
+    if r == 0 or c == 0:
+        return out
+    if m == 0 or n == 0:
+        return out.zero_()
+    reads_u8 = reads_u8.contiguous()
+    refs_u8 = refs_u8.contiguous()
+    rc = entry(
+        reads_u8.data_ptr(), r, m, refs_u8.data_ptr(), c, n,
+        match, mismatch, gap, out.data_ptr(), *_launch_target(reads_u8.device),
+    )
+    _cuda.check(rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def score_grid_diag_plain(reads_u8, refs_u8, match, mismatch, gap):
+    """Plain PyTorch version of K4 (any device): the diagonal loop on an
+    (R, C, M) state over all m + n - 1 diagonals, then the max over
+    lanes."""
+    r, m = reads_u8.shape
+    c = refs_u8.shape[0]
+    if m == 0:
+        return torch.zeros((r, c), dtype=torch.int32, device=reads_u8.device)
+    best = torch.zeros((r, c, m), dtype=torch.int32, device=reads_u8.device)
+    for _, c1 in _unpacked_diagonals(reads_u8, refs_u8, match, mismatch, gap):
+        best = torch.maximum(best, c1)
+    return best.amax(dim=2)
+
+
+def score_grid_diag(reads_u8, refs_u8, match, mismatch, gap, *, state_dtype="auto", window_mode="auto"):
+    """(R, C) int32 best local score of every (read, ref) pair: K4, the
+    anti-diagonal wavefront.
+
+    reads_u8: (R, M) uint8, READ_PAD-padded; refs_u8: (C, N) uint8,
+    REF_PAD-padded.  The contract of ``pallas_score_grid_diag`` and
+    ``pallas_score_grid_diag_chunked``, with any R (no read block).
+
+    ``state_dtype`` ('auto', 'int32' or 'int16') is accepted as in the
+    JAX package and the DP state is 32-bit either way: there 'auto' meant
+    int32 on the TPU and int16 ran only in interpret mode; both give the
+    same scores.  ``window_mode`` ('auto' or 'carry') chose how the TPU
+    staged the reference; K4 always streams it through shared memory, so
+    'carry' runs the same kernel.
+    """
+    if state_dtype not in ("auto", "int32", "int16"):
+        raise ValueError(f"state_dtype must be 'auto', 'int32' or 'int16', got {state_dtype!r}")
+    if window_mode not in ("auto", "carry"):
+        raise ValueError(f"window_mode must be 'auto' or 'carry', got {window_mode!r}")
+    device = _check_grid_inputs("score_grid_diag", reads_u8, refs_u8)
+    match, mismatch, gap = int(match), int(mismatch), int(gap)
+    if device.type == "cpu":
+        return score_grid_diag_plain(reads_u8, refs_u8, match, mismatch, gap)
+    return _launch_grid(_cuda.lib().swt_score_grid_diag, "score_grid_diag", reads_u8, refs_u8, match, mismatch, gap)
+
+
+def score_grid_row(reads_u8, refs_u8, match, mismatch, gap):
+    """(R, C) int32 best local score of every (read, ref) pair: K5, the
+    row form (a prefix max per DP row), K4's contract.  Its plain version
+    is :func:`..ops.recurrence.score_grid`."""
+    device = _check_grid_inputs("score_grid_row", reads_u8, refs_u8)
+    match, mismatch, gap = int(match), int(mismatch), int(gap)
+    if device.type == "cpu":
+        if reads_u8.shape[1] == 0 or refs_u8.shape[1] == 0:
+            return torch.zeros((reads_u8.shape[0], refs_u8.shape[0]), dtype=torch.int32)
+        return score_grid(reads_u8, refs_u8, match, mismatch, gap)
+    return _launch_grid(_cuda.lib().swt_score_grid_row, "score_grid_row", reads_u8, refs_u8, match, mismatch, gap)

@@ -3,12 +3,10 @@ strategies.
 
 Port of :mod:`sparksmithwaterman_tpu.parallel`: a :class:`DeviceMesh` of
 torch devices in place of a ``jax.sharding.Mesh``, and device-to-device
-copies in place of ``shard_map`` collectives.  The JAX package's unpacked
-``sharded_score_grid`` / ``sharded_totals`` are not ported yet
-(``ROADMAP.md``, queue 1 item 3).
+copies in place of ``shard_map`` collectives.
 """
 
-from sparksmithwaterman_tpu_torch.parallel.engine import ShardedBackend
+from sparksmithwaterman_tpu_torch.parallel.engine import ShardedBackend, sharded_score_grid, sharded_totals
 from sparksmithwaterman_tpu_torch.parallel.mesh import DeviceMesh, build_mesh, mesh_devices
 from sparksmithwaterman_tpu_torch.parallel.seqparallel import SeqParallelBackend, seqparallel_scores
 
@@ -17,6 +15,8 @@ __all__ = [
     "build_mesh",
     "mesh_devices",
     "ShardedBackend",
+    "sharded_score_grid",
+    "sharded_totals",
     "SeqParallelBackend",
     "seqparallel_scores",
 ]

@@ -1,8 +1,9 @@
 """Sharded alignment engine: the ``shard_refs`` and ``shard_reads``
 strategies on a ``("refs", "reads")`` device mesh.
 
-Port of :class:`sparksmithwaterman_tpu.parallel.engine.ShardedBackend`,
-packed path:
+Port of :mod:`sparksmithwaterman_tpu.parallel.engine`:
+:class:`ShardedBackend` (packed and unpacked paths) and the unpacked mesh
+functions :func:`sharded_score_grid` and :func:`sharded_totals`.
 
 - **shard_refs** — the reference's DistributeReference
   (``src/sw/Distribution.java:227-373``): each refs-axis entry scores a
@@ -11,16 +12,18 @@ packed path:
   (``src/sw/Distribution.java:440-468``): each reads-axis entry scores
   its share of every pack's rows.
 
-Every (reads, refs) block is one K1 launch (``ops.cuda_score.
-lane_best_packed_varlen``) per reference chunk on its entry's device; the
-block's int64 per-reference sums move to the mesh's first device and are
-added there, in place of the JAX ``psum``.  The winner reduce and the
+On the packed path every (reads, refs) block is one K1 launch
+(``ops.cuda_score.lane_best_packed_varlen``) per reference chunk on its
+entry's device; on the unpacked path (``pack_reads=False`` or
+``kernel='row'``) each block of an (R, C) grid is one K4 or K5 launch.
+The blocks' int64 per-reference sums move to the mesh's first device and
+are added there, in place of the JAX ``psum``.  The winner reduce and the
 traceback are :class:`TorchBatchBackend`'s, on that device.
 
 The JAX package's grouped long-reference fallback (``_packed_col_sums``)
-has no counterpart: K1 takes every reference length.  Its unpacked
-``sharded_score_grid`` / ``sharded_totals`` wait for the unpacked path
-(``ROADMAP.md``, queue 1 item 3).
+has no counterpart: K1 takes every reference length.  Nor does its shard
+padding (reads to ``_quantize_15(r, 8 * dr)``, references to ``8 * dc``
+multiples): the blocks here may differ in size by one row or column.
 """
 
 from __future__ import annotations
@@ -32,10 +35,98 @@ import torch
 
 from sparksmithwaterman_tpu_torch.config import AlignConfig
 from sparksmithwaterman_tpu_torch.io.fasta import encode_concat
-from sparksmithwaterman_tpu_torch.models.batch_backend import _INT32_SAFE, _OUT_BUDGET, TorchBatchBackend
+from sparksmithwaterman_tpu_torch.models.batch_backend import (
+    _INT32_SAFE,
+    _OUT_BUDGET,
+    TorchBatchBackend,
+    _col_sums,
+    _score_grid,
+)
 from sparksmithwaterman_tpu_torch.ops.cuda_score import lane_best_packed_varlen
 from sparksmithwaterman_tpu_torch.ops.packing import packed_col_sums
 from sparksmithwaterman_tpu_torch.parallel.mesh import DeviceMesh, build_mesh, mesh_devices, split_by_bp
+
+
+def _shares(total: int, parts: int) -> List[slice]:
+    """``parts`` contiguous slices of range(total), sizes differing by at
+    most one, the larger first."""
+    per, extra = divmod(total, parts)
+    bounds = np.cumsum([0] + [per + (k < extra) for k in range(parts)])
+    return [slice(int(lo), int(hi)) for lo, hi in zip(bounds[:-1], bounds[1:])]
+
+
+def _stage_grid(reads_enc: np.ndarray, refs_enc: np.ndarray, mesh: DeviceMesh, reads_axis: str, refs_axis: str) -> list:
+    """The blocks of an (R, C) grid on a mesh, every input uploaded before
+    any launch: [(read rows, ref columns, reads on the entry's device, refs
+    there)].  Reads split over ``reads_axis`` and references over
+    ``refs_axis`` in near-equal contiguous shares; empty blocks are left
+    out.  Each share is uploaded once per distinct device."""
+    names = mesh.axis_names
+    if mesh.size != mesh.shape.get(refs_axis, 0) * mesh.shape.get(reads_axis, 0):
+        raise ValueError(f"axes {refs_axis!r} and {reads_axis!r} must hold the whole mesh {mesh.shape}")
+    grid = np.moveaxis(mesh.devices, (names.index(refs_axis), names.index(reads_axis)), (0, 1))
+    grid = grid.reshape(mesh.shape[refs_axis], mesh.shape[reads_axis])
+    on: dict = {}
+
+    def upload(arr, sl, dev, key):
+        if (key, sl.start, dev) not in on:
+            on[(key, sl.start, dev)] = torch.from_numpy(np.ascontiguousarray(arr[sl])).to(dev)
+        return on[(key, sl.start, dev)]
+
+    blocks = []
+    for j, cols in enumerate(_shares(refs_enc.shape[0], grid.shape[0])):
+        for i, rows in enumerate(_shares(reads_enc.shape[0], grid.shape[1])):
+            if rows.stop > rows.start and cols.stop > cols.start:
+                dev = grid[j, i]
+                blocks.append((rows, cols, upload(reads_enc, rows, dev, "reads"), upload(refs_enc, cols, dev, "refs")))
+    return blocks
+
+
+def _check_kernel(kernel: str) -> None:
+    if kernel not in ("diag", "row"):
+        raise ValueError(f"kernel must be 'diag' or 'row', got {kernel!r}")
+
+
+def sharded_score_grid(reads, refs, match, mismatch, gap, *, mesh: DeviceMesh, reads_axis="reads",
+                       refs_axis="refs", kernel="diag") -> torch.Tensor:
+    """(R, C) int32 best score of every (read, ref) pair, with reads split
+    over ``reads_axis`` and references over ``refs_axis`` of the mesh.
+
+    reads: (R, M) uint8, READ_PAD-padded; refs: (C, N) uint8, REF_PAD-
+    padded (NumPy arrays).  Each block is one K4 (``kernel='diag'``) or
+    K5 (``'row'``) launch on its entry's device; the grid is gathered on
+    the mesh's first device after the last launch.  Any R and C: the JAX
+    function's divisibility rule has no counterpart.
+    """
+    _check_kernel(kernel)
+    reads, refs = np.asarray(reads, np.uint8), np.asarray(refs, np.uint8)
+    params = (int(match), int(mismatch), int(gap))
+    blocks = _stage_grid(reads, refs, mesh, reads_axis, refs_axis)
+    grids = [(rows, cols, _score_grid(r, f, params, kernel)) for rows, cols, r, f in blocks]
+    first = mesh.devices.reshape(-1)[0]
+    out = torch.zeros((reads.shape[0], refs.shape[0]), dtype=torch.int32, device=first)
+    for rows, cols, g in grids:
+        out[rows, cols] = g.to(first, non_blocking=True)
+    return out
+
+
+def sharded_totals(reads, refs, match, mismatch, gap, *, mesh: DeviceMesh, reads_axis="reads",
+                   refs_axis="refs", kernel="diag") -> torch.Tensor:
+    """(C,) int64 per-reference totals over all reads, on the mesh's first
+    device: each block's sums over its reads (int64, on its entry's
+    device) are added there after the last launch, in place of the JAX
+    ``psum`` over the reads axis.  Arguments as :func:`sharded_score_grid`.
+    """
+    _check_kernel(kernel)
+    reads, refs = np.asarray(reads, np.uint8), np.asarray(refs, np.uint8)
+    params = (int(match), int(mismatch), int(gap))
+    blocks = _stage_grid(reads, refs, mesh, reads_axis, refs_axis)
+    sums = _col_sums(blocks, params, kernel)
+    first = mesh.devices.reshape(-1)[0]
+    totals = torch.zeros(refs.shape[0], dtype=torch.int64, device=first)
+    for cols, col in sums:
+        totals[cols] += col.to(first, non_blocking=True)
+    return totals
 
 
 class ShardedBackend(TorchBatchBackend):
@@ -72,7 +163,13 @@ class ShardedBackend(TorchBatchBackend):
             shares[(i, dev)] = None if local.numel() == 0 else (pack["packed"][lo:hi].to(dev), local.to(dev))
         return shares[(i, dev)]
 
-    def _dispatch_cols(self, reads, ref_seqs):
+    def _stage(self, reads_enc, refs_enc):
+        """The unpacked path's blocks over the mesh (see
+        :func:`_stage_grid`); the inherited dispatch launches K4 or K5 per
+        block and its sums meet on the first device."""
+        return _stage_grid(reads_enc, refs_enc, self.mesh, "reads", "refs")
+
+    def _dispatch_packed(self, reads, ref_seqs):
         """One K1 dispatch per (mesh entry x pack share x reference chunk),
         not waited on.  Returns ([(ref indices on the first device, (C,)
         int64 sums on the entry's device)], real cells).
@@ -82,7 +179,7 @@ class ShardedBackend(TorchBatchBackend):
         from pageable host memory, like a copy between cards, waits for
         the work already queued on its device."""
         if self.mesh.size == 1:
-            return super()._dispatch_cols(reads, ref_seqs)
+            return super()._dispatch_packed(reads, ref_seqs)
         packs = self._pack_chunks(reads, max(1, _INT32_SAFE // max(1, self.scoring.match)))
         lens_all = np.fromiter((len(s) for s in ref_seqs), np.int64, len(ref_seqs))
         parts = split_by_bp(lens_all, self._dc)

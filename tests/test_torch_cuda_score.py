@@ -141,7 +141,9 @@ def test_wrappers_take_plain_path_on_cpu_only():
     cuda_score.argmax_lane(
         torch.from_numpy(encode_batch(["ACGT"], 8, READ_PAD)), torch.from_numpy(refs), *PARAMS
     )
-    assert cuda_score.LAUNCHES == {"lane_best_packed_varlen": 0, "argmax_lane": 0, "band_lane_best": 0}
+    assert cuda_score.LAUNCHES == {
+        "lane_best_packed_varlen": 0, "argmax_lane": 0, "band_lane_best": 0, "score_grid_diag": 0, "score_grid_row": 0,
+    }
     with pytest.raises(ValueError):
         cuda_score.lane_best_packed_varlen(
             torch.from_numpy(packed).to(torch.int64), torch.from_numpy(refs),

@@ -1,8 +1,8 @@
 """The port stands alone: copied into a tree that holds only the port and
 the C sources it builds (no JAX package), every module imports and a tiny
-CPU pipeline runs (batch, and shard_seq and shard_refs on a mesh of two
-CPU entries), with neither ``jax`` nor ``sparksmithwaterman_tpu``
-loaded."""
+CPU pipeline runs (batch packed and unpacked, and shard_seq and
+shard_refs on a mesh of two CPU entries), and so does ``swtorch
+scaling``, with neither ``jax`` nor ``sparksmithwaterman_tpu`` loaded."""
 
 import os
 import pathlib
@@ -22,14 +22,16 @@ _SCRIPT = textwrap.dedent(
     import sparksmithwaterman_tpu_torch as pkg
     for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
         __import__(mod.name)
+    from sparksmithwaterman_tpu_torch import cli
     from sparksmithwaterman_tpu_torch.config import AlignConfig
     from sparksmithwaterman_tpu_torch.models.pipeline import run_pipeline
     from sparksmithwaterman_tpu_torch.parallel import SeqParallelBackend, ShardedBackend, build_mesh
     root = sys.argv[1]
 
-    def report(strategy, backend=None):
-        config = AlignConfig(ref_dir=root + "/refs", in_dir=root + "/inputs", out_dir=root + "/out_" + strategy,
-                             read_bucket=8, ref_bucket=8, strategy=strategy)
+    def report(strategy, backend=None, **kw):
+        config = AlignConfig(ref_dir=root + "/refs", in_dir=root + "/inputs",
+                             out_dir=root + "/out_" + strategy + str(sorted(kw.items())),
+                             read_bucket=8, ref_bucket=8, strategy=strategy, **kw)
         if strategy == "shard_seq":
             backend = SeqParallelBackend(config, build_mesh(axis_names=("seq",), devices=["cpu", "cpu"]))
         elif strategy == "shard_refs":
@@ -40,6 +42,9 @@ _SCRIPT = textwrap.dedent(
     batch = report("batch")
     assert "Maximum alignment score = 60" in batch
     assert report("shard_seq") == batch and report("shard_refs") == batch
+    assert report("batch", pack_reads=False) == batch
+    assert cli.main(["scaling", "--device", "cpu", "--num-reads", "4", "--read-len", "16", "--num-refs", "4",
+                     "--ref-len", "64"]) == 0
     forbidden = %r
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in forbidden)
     assert not loaded, loaded
