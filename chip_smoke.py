@@ -7,7 +7,8 @@ Builds the port's CUDA kernels from the sources in this checkout, holds
 each one against its plain PyTorch version on the card, then drives the
 port's main path (``swtorch align --strategy batch``) end to end:
 
-0. card name and power limit, kernel build time;
+0. card name and power limit, kernel build time, registers, and the
+   instructions per cell of the DPX intrinsics (``cuobjdump``);
 1. K1 (packed lane best) against its plain version: 512 reads x 256
    RefSeq-shaped refs, every start lane; 64 reads x 8 refs of 131,072 bp
    against the row-form recurrence; edge cases (empty reads, length-0 and
@@ -51,22 +52,37 @@ port's main path (``swtorch align --strategy batch``) end to end:
 10. ``swtorch scaling --axis refs`` (512 reads of 128 bp x 512 refs of
     4,096 bp, through K4; on 1, 2 and 4 cards where the host has four)
     and ``--axis seq``; the refs totals of a subset of refs equal the
-    row-form recurrence.
+    row-form recurrence;
+11. K6 (step chain) against its plain version: 512 x 128 and 248 x 256
+    lanes, 131,072 steps, unroll 64, with and without the moving
+    boundary; small cases (32-1,024 lanes, odd unroll, start lanes);
+12. K7 (packed step variants A-E) against its plain version at 248 rows
+    of 256 lanes x 64 refs of 1,024 bp and in small cases; the suffix
+    max of E equals A;
+13. the port's bench (``bench.run_bench``, one pass per leg, the e2e leg
+    at 64 reads and readscale at 5,000: parity against the oracle, the
+    smoke of every kernel, the line's keys) and the two experiments at
+    reduced sizes.
 
 Launch counts are reset just before each main-path leg and read just
 after it: phases 3-4 (batch; K1 and K2 must launch), 6 (shard_seq; K3),
 7 (shard_refs and shard_reads; K1), 9 (unpacked and row paths; K4 and
-K5) and 10 (scaling; K4).  A kernel's ``launches`` in the summary is its
-sum over those legs.  Each kernel's ``bound_ms`` is the
-larger of its integer operations (the recurrence's 5 add/max per real
-cell, ``csrc/wavefront.cuh``) over the card's INT32 rate (SMs x 64
-results per clock, from the arithmetic-instruction throughput table of
-NVIDIA's CUDA C++ documentation for compute capability 9.0, at the max
-SM clock ``nvidia-smi`` reports) and its bytes (inputs read once,
-outputs written once) over 3.35 TB/s.  No single PyTorch call computes
-any of the five functions, so ``library_ms`` is null.  Any failure raises and exits non-zero.  The
-second-to-last line is the kernels' JSON summary; the last line is
-``{"ok": true, "device": {...}}``.
+K5), 10 (scaling; K4), each bench leg of 13 (K4 on the kernel leg, K1 on
+the path legs, K2 on the long-ref leg, K6 on the roofline leg) and each
+experiment (K6, K7).  A kernel's ``launches`` in the summary is its sum
+over those legs.
+
+Each kernel's ``bound_ms`` is the larger of two times.  One is its DP
+cells x INSTR_PER_CELL over the SMs' instruction rate (4 schedulers x 32
+threads per clock x SMs x the max SM clock ``nvidia-smi`` reports): the
+fewest instructions the recurrence needs, the same for every kernel,
+which phase 0 checks against the SASS of the DPX intrinsics.  The other
+is its bytes (inputs read once, outputs written once) over 3.35 TB/s.
+The script fails if a kernel runs faster than its bound.  No single
+PyTorch call computes any of the seven functions, so ``library_ms`` is
+null.  Any failure raises and exits non-zero.  The second-to-last line
+is the kernels' JSON summary; the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -90,13 +106,68 @@ LONG_N = 131_072
 
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-INT32_PER_SM_CLOCK = 64  # NVIDIA CUDA C++ docs, arithmetic throughput table, cc 9.0
-OPS_PER_CELL = 5  # wavefront.cuh: two adds and three max per DP cell
+# Instructions an SM starts per clock: 4 schedulers x one warp instruction
+# of 32 threads.
+INSTR_PER_SM_CLOCK = 4 * 32
+# Fewest instructions per DP cell of max(0, H[i-1][j-1] + sub,
+# max(H[i-1][j], H[i][j-1]) + gap) on sm_90: two 16-bit cells per register
+# and three DPX instructions per register (see PROBE_SRC); the choice of
+# the substitution pair can be hoisted out of the per-cell work, so it is
+# not counted.  The same for every kernel, whatever it executes.
+INSTR_PER_CELL = 1.5
+
+# One register (two 16-bit cells) of the recurrence, h = max(0, D + S,
+# U + G, L + G), in three forms built from CUDA's DPX and SIMD intrinsics,
+# each eight times on distinct operands so nothing folds.
+_PROBE_KERNEL = r"""
+extern "C" __global__ void NAME(const unsigned* __restrict__ in, unsigned* __restrict__ out) {
+  const unsigned G = in[0];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const unsigned D = in[1 + 4 * k], S = in[2 + 4 * k], U = in[3 + 4 * k], L = in[4 + 4 * k];
+    out[k] = EXPR;
+  }
+}
+"""
+PROBE_SRC = "#include <cuda_runtime.h>\n" + "".join(
+    _PROBE_KERNEL.replace("NAME", name).replace("EXPR", expr)
+    for name, expr in (
+        ("dpx_chain", "__viaddmax_s16x2(D, S, __viaddmax_s16x2(U, G, __viaddmax_s16x2_relu(L, G, 0u)))"),
+        ("dpx_add_first", "__viaddmax_s16x2_relu(L, G, __viaddmax_s16x2(U, G, __vadd2(D, S)))"),
+        ("dpx_max_first", "__viaddmax_s16x2_relu(__vmaxs2(U, L), G, __vadd2(D, S))"),
+    )
+)
+_NOT_ALU = ("LDG", "STG", "LDC", "ULDC", "LDS", "STS", "EXIT", "BRA", "NOP", "S2R", "S2UR", "MOV", "IMAD.MOV")
+
+
+def probe_instructions(nvcc: str, work: str):
+    """{probe: (ALU instructions per register of two cells, mnemonics)}
+    for the forms of PROBE_SRC compiled for sm_90a and read back with
+    cuobjdump (memory, control and move instructions not counted)."""
+    import re
+
+    src = os.path.join(work, "probe.cu")
+    cubin = os.path.join(work, "probe.cubin")
+    with open(src, "w") as f:
+        f.write(PROBE_SRC)
+    proc = subprocess.run([nvcc, "-cubin", "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-o", cubin, src],
+                          capture_output=True, text=True)
+    fail_unless(proc.returncode == 0, f"the DPX probe does not compile:\n{proc.stdout}{proc.stderr}")
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", cubin], check=True, capture_output=True, text=True).stdout
+    out = {}
+    for name, body in re.findall(r"Function : (\w+)\n(.*?)(?=\n\s*Function : |\Z)", sass, re.S):
+        ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[0-9T]\s+)?([A-Za-z0-9_.]+)", body)
+        alu = [op for op in ops if not op.startswith(_NOT_ALU)]
+        out[name] = (len(alu) / 8, sorted(set(alu)))
+    return out
 
 
 def bound(cells: int, nbytes: int, sms: int, clock_mhz: float):
-    """(least ms, "operations" or "bytes") for this work on the card."""
-    ops_ms = cells * OPS_PER_CELL / (sms * INT32_PER_SM_CLOCK * clock_mhz * 1e6) * 1e3
+    """(least ms, "operations" or "bytes") for this work on the card: the
+    larger of the cells' instructions at the SMs' instruction rate and the bytes
+    (inputs read once, outputs written once) at the memory rate."""
+    ops_ms = cells * INSTR_PER_CELL / (sms * INSTR_PER_SM_CLOCK * clock_mhz * 1e6) * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
@@ -171,11 +242,12 @@ def parse_report(path):
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from sparksmithwaterman_tpu_torch import cli
+    from sparksmithwaterman_tpu_torch import bench, cli
     from sparksmithwaterman_tpu_torch.config import AlignConfig
     from sparksmithwaterman_tpu_torch.core import oracle
     from sparksmithwaterman_tpu_torch.io import get_reads, get_ref_seqs, iter_files
@@ -192,18 +264,15 @@ def main() -> int:
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(f"[0] card: {smi}")
+    print(f"[0] card: {bench.card_name(dev)}")
     clock_mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    print(f"[0] {sms} SMs, max SM clock {clock_mhz:.0f} MHz: INT32 rate "
-          f"{sms * INT32_PER_SM_CLOCK * clock_mhz * 1e6 / 1e12:.2f} T ops/s, {OPS_PER_CELL} ops per DP cell")
+    instr_rate = sms * INSTR_PER_SM_CLOCK * clock_mhz * 1e6
+    print(f"[0] {sms} SMs, max SM clock {clock_mhz:.0f} MHz: instruction rate {instr_rate / 1e12:.2f} T instructions/s; "
+          f"bound {INSTR_PER_CELL} instructions per DP cell = {instr_rate / INSTR_PER_CELL / 1e9:.1f} GCUPS")
     print(f"[0] torch {torch.__version__} cuda {torch.version.cuda}; {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     _cuda.lib()
@@ -212,6 +281,13 @@ def main() -> int:
     for name, widths in register_summary(_cuda.build_info["log"]).items():
         order = sorted(widths, key=lambda w: int(w[2:].split(":")[0]) if w.startswith("L=") else 0)
         print(f"[0] ptxas {name}: {' '.join(order)}")
+    with tempfile.TemporaryDirectory(prefix="swtorch_probe_") as work:
+        probes = probe_instructions(_cuda._nvcc(), work)
+    for name, (per_register, mnemonics) in probes.items():
+        print(f"[0] SASS {name}: {per_register:g} instructions per register of two cells ({', '.join(mnemonics)})")
+    fewest = min(per_register for per_register, _ in probes.values()) / 2
+    fail_unless(fewest >= INSTR_PER_CELL,
+                f"a DPX form takes {fewest} instructions per cell, under the bound's {INSTR_PER_CELL}")
 
     def up(arr):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
@@ -740,7 +816,122 @@ def main() -> int:
         print(f"[10] refs totals of 16 of the 512 refs equal the row-form recurrence; launches over phase 10 "
               f"{scaling_launches}", flush=True)
 
-    legs = (launches, seq_launches, shard_launches, unpacked_launches, scaling_launches)
+        # -- 11. K6 against its plain version ----------------------------------------
+        def chain_reads(rb, m, starts, seed):
+            r = np.random.default_rng(seed)
+            reads = r.integers(2, 6, size=(rb, m)).astype(np.int32)
+            if starts:
+                reads[r.random((rb, m)) < 1 / 12] |= 256
+            return up(reads)
+
+        k6 = {}
+        for rb, m in ((512, 128), (248, 256)):
+            reads = chain_reads(rb, m, False, 0)  # the JAX microbench's inputs
+            for masked in (False, True):
+                got = cuda_score.step_chain_best(reads, steps=LONG_N, unroll=64, masked=masked)
+                want, plain_ms = host_ms(lambda: cuda_score.step_chain_best_plain(reads, LONG_N, 64, *PARAMS, masked))
+                err = max_err(got, want)
+                fail_unless(err == 0, f"K6 {rb} x {m} masked={masked} differs from plain ({err})")
+                ms = cuda_ms(lambda: cuda_score.step_chain_best(reads, steps=LONG_N, unroll=64, masked=masked), 5)
+                cells = rb * m * LONG_N
+                k6[rb, m, masked] = (ms, plain_ms, *bound(cells, 8 * rb * m, sms, clock_mhz))
+                print(f"[11] K6 {rb} x {m}, {LONG_N} steps, unroll 64, masked={masked}: max abs err 0; kernel "
+                      f"{ms:.3f} ms ({cells / ms / 1e6:.1f} padded GCUPS), plain {plain_ms:.1f} ms; bound "
+                      f"{k6[rb, m, masked][2]:.3f} ms by {k6[rb, m, masked][3]} = "
+                      f"{100 * k6[rb, m, masked][2] / ms:.1f}% of the kernel's time", flush=True)
+        n_small = 0
+        for m in (32, 96, 128, 1024):
+            for starts in (False, True):
+                reads = chain_reads(8, m, starts, m)
+                for unroll, masked in ((8, False), (7, False), (7, True), (1, True), (64, True)):
+                    err = max_err(cuda_score.step_chain_best(reads, steps=1500, unroll=unroll, masked=masked),
+                                  cuda_score.step_chain_best_plain(reads, 1500, unroll, *PARAMS, masked))
+                    fail_unless(err == 0, f"K6 differs from plain at m={m}, starts={starts}, unroll={unroll}, "
+                                          f"masked={masked} ({err})")
+                    n_small += 1
+        print(f"[11] K6 against plain in {n_small} small cases (8 rows of 32, 96, 128 and 1024 lanes, 1,500 steps, "
+              f"unroll 8, 7, 1 and 64, start lanes or not, masked or not): max abs err 0", flush=True)
+
+        # -- 12. K7 against its plain version ----------------------------------------
+        packed_12 = np.random.default_rng(0).integers(65, 85, size=(248, 256)).astype(np.int32)
+        packed_12[:, 0] |= 256  # the JAX script's inputs
+        packed_12 = up(packed_12)
+        refs_12 = up(encode_batch(rand_seqs(rng, [1024] * 64), 1024, REF_PAD))
+        k7, k7_max_err = {}, 0
+        cells_12 = 248 * 256 * 64 * 1024
+        bytes_12 = packed_12.numel() * 4 + refs_12.numel() + 64 * packed_12.numel() * 4
+        k7_bound_ms, k7_bound_by = bound(cells_12, bytes_12, sms, clock_mhz)
+        for variant in cuda_score.STEP_VARIANTS:
+            got = cuda_score.step_variant_best(packed_12, refs_12, variant=variant)
+            want, plain_ms = host_ms(lambda: cuda_score.step_variant_best_plain(packed_12, refs_12, variant, 16, *PARAMS))
+            k7_max_err = max(k7_max_err, max_err(got, want))
+            fail_unless(k7_max_err == 0, f"K7 variant {variant} differs from plain ({k7_max_err})")
+            k7[variant] = (cuda_ms(lambda: cuda_score.step_variant_best(packed_12, refs_12, variant=variant), 10),
+                           plain_ms, got)
+        fail_unless(torch.equal(cuda_score.segmented_suffix_max(k7["E"][2], packed_12 >= 256), k7["A"][2]),
+                    "the suffix max of K7's E differs from A")
+        fail_unless(torch.equal(k7["C"][2], k7["A"][2]), "K7's C differs from A")
+        print(f"[12] K7 248 x 256 x 64 refs of 1024 bp, unroll 16: every variant equal to plain, suffix max of E "
+              f"and C equal to A; " + ", ".join(
+                  f"{v} {ms:.3f} ms ({cells_12 / ms / 1e6:.1f} padded GCUPS, plain {p:.1f} ms)"
+                  for v, (ms, p, _) in k7.items())
+              + f"; bound {k7_bound_ms:.3f} ms by {k7_bound_by} = {100 * k7_bound_ms / k7['A'][0]:.1f}% of A's time",
+              flush=True)
+        n_small = 0
+        for m, n, unroll in ((32, 40, 16), (64, 1, 7), (128, 300, 16), (512, 64, 5), (1024, 100, 16)):
+            reads_e = rand_seqs(rng, rng.integers(1, min(m, 150) + 1, size=40)) + [""]
+            packed_e = up(pack_reads(reads_e, m, row_multiple=8)[0])
+            refs_e = up(encode_batch(rand_seqs(rng, [n] * 3), n, REF_PAD))
+            for variant in cuda_score.STEP_VARIANTS:
+                err = max_err(cuda_score.step_variant_best(packed_e, refs_e, variant=variant, unroll=unroll),
+                              cuda_score.step_variant_best_plain(packed_e, refs_e, variant, unroll, *PARAMS))
+                fail_unless(err == 0, f"K7 {variant} differs from plain at m={m}, n={n}, unroll={unroll} ({err})")
+                k7_max_err = max(k7_max_err, err)
+                n_small += 1
+        print(f"[12] K7 against plain in {n_small} small cases (packed rows of 32-1024 lanes, refs of 1-300 bp, "
+              f"unroll 5, 7 and 16): max abs err 0", flush=True)
+
+        # -- 13. the port's bench, and the two probes of experiments/ -------------------
+        # Full sizes but two cuts: the e2e leg's oracle parity check is pure
+        # Python (512 reads take about 3 minutes), and readscale takes 5,000
+        # of its 20,000 reads.
+        t = time.perf_counter()
+        bench_root = os.path.join(work, "bench_corpus")
+        result, bench_launches = bench.run_bench(dev, repeats=1, sizes={
+            "e2e": dict(n_reads=64),
+            "pipeline": dict(corpus_root=bench_root),
+            "corpus": dict(corpus_root=bench_root),
+            "readscale": dict(n_reads=5_000, corpus_root=bench_root),
+        })
+        bench_s = time.perf_counter() - t
+        fail_unless(tuple(result) == bench.KEYS, f"the bench line's keys differ: {list(result)}")
+        fail_unless(result["smoke"] == "pass", f"bench smoke: {result['smoke']}")
+        for leg, kernel in (("kernel", "score_grid_diag"), ("e2e", "lane_best_packed_varlen"),
+                            ("pipeline", "lane_best_packed_varlen"), ("corpus", "lane_best_packed_varlen"),
+                            ("readscale", "lane_best_packed_varlen"), ("longref", "lane_best_packed_varlen"),
+                            ("longref", "argmax_lane"), ("roofline", "step_chain_best")):
+            fail_unless(bench_launches[leg][kernel] > 0, f"{kernel} never launched on the bench's {leg} leg")
+        print(f"[13] bench legs (one pass each, parity against the oracle passed, smoke {result['smoke']}) in "
+              f"{bench_s:.1f} s: {json.dumps(result)}", flush=True)
+        print(f"[13] launches per bench leg: {json.dumps(bench_launches)}", flush=True)
+        from sparksmithwaterman_tpu_torch.experiments import packed_step_variants, triangle_timepack
+
+        probe_launches = {}
+        for name, module, argv in (("triangle_timepack", triangle_timepack, ["--steps", "16384"]),
+                                   ("packed_step_variants", packed_step_variants, ["--n", "256"])):
+            out = io.StringIO()
+            cuda_score.reset_launches()
+            with contextlib.redirect_stdout(out):
+                fail_unless(module.main(argv) == 0, f"experiments.{name} failed")
+            probe_launches[name] = dict(cuda_score.LAUNCHES)
+            for line in out.getvalue().splitlines():
+                print(f"[13] {name} {' '.join(argv)}: {line}", flush=True)
+        fail_unless(probe_launches["triangle_timepack"]["step_chain_best"] > 0, "K6 never launched by triangle_timepack")
+        fail_unless(probe_launches["packed_step_variants"]["step_variant_best"] > 0,
+                    "K7 never launched by packed_step_variants")
+
+    legs = (launches, seq_launches, shard_launches, unpacked_launches, scaling_launches,
+            *bench_launches.values(), *probe_launches.values())
     main_launches = {name: sum(leg[name] for leg in legs) for name in cuda_score.LAUNCHES}
 
     kernels = [
@@ -759,6 +950,8 @@ def main() -> int:
             "bound_ms": k1_bound_ms,
             "bound_by": k1_bound_by,
             "library_ms": None,
+            "long_ms": kl_ms,
+            "long_bound_ms": kl_bound_ms,
         },
         {
             "name": "argmax_lane",
@@ -772,6 +965,8 @@ def main() -> int:
             "bound_ms": k2_bound_ms,
             "bound_by": k2_bound_by,
             "library_ms": None,
+            "long_ms": k2l_ms,
+            "long_bound_ms": k2l_bound_ms,
         },
         {
             "name": "band_lane_best",
@@ -819,9 +1014,45 @@ def main() -> int:
             "long_ms": k5l_ms,
             "long_bound_ms": k5l_bound_ms,
         },
+        {
+            "name": "step_chain_best",
+            "route": "cuda",
+            "source": "sparksmithwaterman_tpu_torch/csrc/step_chain.cu",
+            "replaces": "sparksmithwaterman_tpu/ops/microbench.py:27",
+            "also_replaces": ["experiments/triangle_timepack.py:42"],
+            "launches": main_launches["step_chain_best"],
+            "max_abs_err": 0,
+            "ms": k6[512, 128, False][0],
+            "plain_ms": k6[512, 128, False][1],
+            "bound_ms": k6[512, 128, False][2],
+            "bound_by": k6[512, 128, False][3],
+            "library_ms": None,
+            "masked_ms": k6[248, 256, True][0],
+            "masked_plain_ms": k6[248, 256, True][1],
+            "masked_bound_ms": k6[248, 256, True][2],
+        },
+        {
+            "name": "step_variant_best",
+            "route": "cuda",
+            "source": "sparksmithwaterman_tpu_torch/csrc/step_variants.cu",
+            "replaces": "experiments/packed_step_variants.py:18",
+            "launches": main_launches["step_variant_best"],
+            "max_abs_err": k7_max_err,
+            "ms": k7["A"][0],
+            "plain_ms": k7["A"][1],
+            "bound_ms": k7_bound_ms,
+            "bound_by": k7_bound_by,
+            "library_ms": None,
+            "variant_ms": {v: ms for v, (ms, _, _) in k7.items()},
+        },
     ]
+    for entry in kernels:  # every share of a bound is at most 100%
+        for key in [k for k in entry if k.endswith("bound_ms")]:
+            ms = entry[key[: -len("bound_ms")] + "ms"]
+            fail_unless(entry[key] <= ms, f"{entry['name']} ran in {ms} ms, under its {key} of {entry[key]} ms")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sparksmithwaterman_tpu"))
     fail_unless(not leaked, f"the run loaded JAX or the JAX package: {leaked[:5]}")
+    print(f"[end] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

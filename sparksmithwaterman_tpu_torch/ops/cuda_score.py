@@ -1,6 +1,6 @@
 """The scoring kernels: CUDA for tensors on the card, plain PyTorch on CPU.
 
-Five kernels, each with its plain PyTorch version of the same function:
+Seven kernels, each with its plain PyTorch version of the same function:
 
 - K1 :func:`lane_best_packed_varlen` (``csrc/lane_best.cu``) replaces
   ``pallas_score.py:_diag_kernel_packed_varlen`` and
@@ -17,7 +17,12 @@ Five kernels, each with its plain PyTorch version of the same function:
   ``_diag_kernel_carry``;
 - K5 :func:`score_grid_row` (``csrc/score_row.cu``) replaces
   ``pallas_score.py:_score_kernel``; its plain version is the row-form
-  recurrence :func:`..ops.recurrence.score_grid`.
+  recurrence :func:`..ops.recurrence.score_grid`;
+- K6 :func:`step_chain_best` (``csrc/step_chain.cu``) replaces
+  ``ops/microbench.py:_roofline_kernel`` and, with ``masked=True``,
+  ``experiments/triangle_timepack.py:_chain_kernel``;
+- K7 :func:`step_variant_best` (``csrc/step_variants.cu``) replaces
+  ``experiments/packed_step_variants.py:make_kernel``.
 
 A wrapper takes the plain version only for tensors on the CPU.  For CUDA
 tensors it launches the kernel or raises; it never falls back.  Each
@@ -51,10 +56,14 @@ LAUNCHES = {
     "band_lane_best": 0,
     "score_grid_diag": 0,
     "score_grid_row": 0,
+    "step_chain_best": 0,
+    "step_variant_best": 0,
 }
 
 # Widest lane row the kernels take (32 threads x 32 lanes).
 MAX_LANES = 1024
+# Lanes per thread of the csrc/wavefront.cuh kernels (pick_lanes).
+_LANES_PER_THREAD = (1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 24, 32)
 
 
 def reset_launches() -> None:
@@ -513,3 +522,175 @@ def score_grid_row(reads_u8, refs_u8, match, mismatch, gap):
             return torch.zeros((reads_u8.shape[0], refs_u8.shape[0]), dtype=torch.int32)
         return score_grid(reads_u8, refs_u8, match, mismatch, gap)
     return _launch_grid(_cuda.lib().swt_score_grid_row, "score_grid_row", reads_u8, refs_u8, match, mismatch, gap)
+
+
+# -- K6 and K7: the TPU's step-chain probes ---------------------------------------
+
+
+def _check_lane_row(what: str, m: int, lanes_per_thread) -> None:
+    """K6 and K7 hold a row in one warp, 32 threads x L lanes exactly."""
+    if m % 32 or m // 32 not in lanes_per_thread:
+        widths = ", ".join(str(32 * l) for l in lanes_per_thread)
+        raise ValueError(f"{what} takes rows of {widths} lanes on CUDA, got {m}")
+
+
+def step_chain_best_plain(reads, steps, unroll, match, mismatch, gap, masked):
+    """Plain PyTorch version of K6 (any device): the step loop on the
+    (RB, M) state."""
+    rb, m = reads.shape
+    read = reads & (START_BIT - 1)
+    start = reads >= START_BIT
+    sub = torch.where(read == read[:1], match, mismatch).to(torch.int32)
+    col = torch.arange(m, device=reads.device)
+    d1 = torch.zeros((rb, m), dtype=torch.int32, device=reads.device)
+    r1 = torch.zeros_like(d1)
+    r2 = torch.zeros_like(d1)
+    best = torch.zeros_like(d1)
+    skip = unroll - 1 if unroll % 2 and not masked else -1
+    for s in range(steps // unroll * unroll):
+        c1 = torch.clamp_min(torch.maximum(r2 + sub, torch.maximum(r1, d1) + gap), 0)
+        rc = torch.roll(c1, 1, dims=1).masked_fill_(start, 0)
+        if masked:
+            dead = col >= (s & 1023)
+            c1 = c1.masked_fill_(dead, 0)
+            rc = rc.masked_fill_(dead, 0)
+        if s % unroll != skip:
+            best = torch.maximum(best, c1)
+        d1, r2, r1 = c1, r1, rc
+    return best
+
+
+def step_chain_best(reads, *, steps, unroll=64, match=5, mismatch=-3, gap=-4, masked=False):
+    """(RB, M) int32 best of each lane over a chain of ``steps`` wavefront
+    steps with a constant substitution row and no memory traffic: K6.
+
+    reads: (RB, M) int32, a code in the low byte and ``START_BIT`` on
+    lanes that restart the DP.  Lane i of every row compares its code
+    with row 0's code at lane i, on every step.  The i-1 shift is the
+    TPU's circular roll: lane 0 takes lane M-1's value unless it is a
+    start lane.  ``steps // unroll`` bodies of ``unroll`` steps run; the
+    best counts every step of a body, except that with an odd ``unroll``
+    and ``masked=False`` each body's last step is left out
+    (``microbench.py:_roofline_kernel`` takes its max over pairs of steps).
+
+    ``masked=True`` is ``triangle_timepack.py:_chain_kernel``: on step s,
+    lanes i >= (s & 1023) are zeroed in both the new values and the
+    shifted ones, and every step counts.
+    """
+    device = _device_of(reads)
+    if reads.dim() != 2 or reads.dtype != torch.int32:
+        raise ValueError("reads must be an (RB, M) int32 tensor")
+    steps, unroll, masked = int(steps), int(unroll), bool(masked)
+    if steps < 0:
+        raise ValueError(f"steps must be >= 0, got {steps}")
+    # The roofline body keeps a max over pairs of steps, so with one step
+    # per body it has none (the JAX kernel fails to trace).
+    if unroll < 1 or (unroll == 1 and not masked):
+        raise ValueError(f"unroll must be >= {1 if masked else 2}, got {unroll}")
+    match, mismatch, gap = int(match), int(mismatch), int(gap)
+    if device.type == "cpu":
+        return step_chain_best_plain(reads, steps, unroll, match, mismatch, gap, masked)
+    rb, m = reads.shape
+    _check_lane_row("step_chain_best", m, _LANES_PER_THREAD)
+    out = torch.empty((rb, m), dtype=torch.int32, device=device)
+    if rb == 0:
+        return out
+    reads = reads.contiguous()
+    rc = _cuda.lib().swt_step_chain_best(
+        reads.data_ptr(), rb, m, steps, unroll, match, mismatch, gap, int(masked),
+        out.data_ptr(), *_launch_target(device),
+    )
+    _cuda.check(rc, "step_chain_best")
+    LAUNCHES["step_chain_best"] += 1
+    return out
+
+
+# The variants of ``packed_step_variants.py``: how the i-1 shift treats
+# lane 0 and the start lanes, and whether the suffix max runs.
+STEP_VARIANTS = ("A", "B", "C", "D", "E")
+_VARIANT_LANES = (1, 2, 4, 8, 16, 32)
+
+
+def variant_steps(m: int, n: int, unroll: int) -> int:
+    """Steps K7 runs: the m + n - 1 diagonals rounded up to whole bodies."""
+    return -(-(m + n - 1) // unroll) * unroll
+
+
+def step_variant_best_plain(packed, refs_u8, variant, unroll, match, mismatch, gap):
+    """Plain PyTorch version of K7 (any device): the diagonal loop on a
+    (C, ROWS, M) state."""
+    rows, m = packed.shape
+    c, n = refs_u8.shape
+    device = packed.device
+    read = (packed & (START_BIT - 1))[None]
+    start = packed >= START_BIT
+    lane0 = torch.zeros_like(start)
+    lane0[:, 0] = True
+    nonstart = (~start).to(torch.int32)
+    refs_i = refs_u8.to(torch.int32)
+    lens = torch.full((c,), n, dtype=torch.int64, device=device)
+    d1 = torch.zeros((c, rows, m), dtype=torch.int32, device=device)
+    r1 = torch.zeros_like(d1)
+    r2 = torch.zeros_like(d1)
+    best = torch.zeros_like(d1)
+    for d in range(variant_steps(m, n, unroll)):
+        win = _ref_window(refs_i, lens, d, m)[:, None, :]
+        sub = torch.where(read == win, match, mismatch).to(torch.int32)
+        c1 = torch.clamp_min(torch.maximum(r2 + sub, torch.maximum(r1, d1) + gap), 0)
+        rolled = torch.roll(c1, 1, dims=2)
+        if variant in ("A", "E"):
+            rc = rolled.masked_fill(start, 0)
+        elif variant == "B":
+            rc = rolled.masked_fill(lane0, 0)
+        elif variant == "C":
+            rc = rolled * nonstart
+        else:
+            rc = rolled
+        best = torch.maximum(best, c1)
+        d1, r2, r1 = c1, r1, rc
+    return best if variant == "E" else segmented_suffix_max(best, start)
+
+
+def step_variant_best(packed, refs_u8, *, variant, unroll=16, match=5, mismatch=-3, gap=-4):
+    """(C, ROWS, M) int32 lane bests of packed rows against C references
+    under one of the step variants A-E of ``packed_step_variants.py``: K7.
+
+    packed: (ROWS, M) int32 with ``START_BIT`` on segment starts;
+    refs_u8: (C, N) uint8.  Lane i on step d sees ``ref[d - i]``, REF_PAD
+    outside [0, N); :func:`variant_steps` steps run, all of which count.
+    The i-1 shift is the TPU's circular roll, then: A zeroes start lanes
+    (the packed kernels' step), B zeroes lane 0 only, C multiplies by
+    "not a start" (equal to A), D keeps the wrap, E is A.  A-D end in the
+    segmented suffix max over the start lanes; E returns the raw lane
+    bests.  B and D are wrong Smith-Waterman on purpose: the JAX script
+    timed them, and K7 reproduces them exactly.
+    """
+    if variant not in STEP_VARIANTS:
+        raise ValueError(f"variant must be one of {STEP_VARIANTS}, got {variant!r}")
+    device = _device_of(packed, refs_u8)
+    if packed.dim() != 2 or packed.dtype != torch.int32:
+        raise ValueError("packed must be a (ROWS, M) int32 tensor")
+    if refs_u8.dim() != 2 or refs_u8.dtype != torch.uint8:
+        raise ValueError("refs_u8 must be a (C, N) uint8 tensor")
+    unroll = int(unroll)
+    if unroll < 1:
+        raise ValueError(f"unroll must be >= 1, got {unroll}")
+    match, mismatch, gap = int(match), int(mismatch), int(gap)
+    if device.type == "cpu":
+        return step_variant_best_plain(packed, refs_u8, variant, unroll, match, mismatch, gap)
+    rows, m = packed.shape
+    c, n = refs_u8.shape
+    _check_lane_row("step_variant_best", m, _VARIANT_LANES)
+    out = torch.empty((c, rows, m), dtype=torch.int32, device=device)
+    if c == 0 or rows == 0:
+        return out
+    packed = packed.contiguous()
+    refs_u8 = refs_u8.contiguous()
+    rc = _cuda.lib().swt_step_variant_best(
+        packed.data_ptr(), rows, m, refs_u8.data_ptr(), c, n,
+        STEP_VARIANTS.index(variant), variant_steps(m, n, unroll), match, mismatch, gap,
+        out.data_ptr(), *_launch_target(device),
+    )
+    _cuda.check(rc, "step_variant_best")
+    LAUNCHES["step_variant_best"] += 1
+    return out

@@ -143,6 +143,7 @@ def test_wrappers_take_plain_path_on_cpu_only():
     )
     assert cuda_score.LAUNCHES == {
         "lane_best_packed_varlen": 0, "argmax_lane": 0, "band_lane_best": 0, "score_grid_diag": 0, "score_grid_row": 0,
+        "step_chain_best": 0, "step_variant_best": 0,
     }
     with pytest.raises(ValueError):
         cuda_score.lane_best_packed_varlen(

@@ -1,8 +1,11 @@
 """The port stands alone: copied into a tree that holds only the port and
 the C sources it builds (no JAX package), every module imports and a tiny
 CPU pipeline runs (batch packed and unpacked, and shard_seq and
-shard_refs on a mesh of two CPU entries), and so does ``swtorch
-scaling``, with neither ``jax`` nor ``sparksmithwaterman_tpu`` loaded."""
+shard_refs on a mesh of two CPU entries), and so do ``swtorch
+scaling``, the step-chain roofline, both experiments and ``python -m
+sparksmithwaterman_tpu_torch.bench --help``, with neither ``jax`` nor
+``sparksmithwaterman_tpu`` loaded.  No source of the port imports them,
+nor the JAX package's root ``bench.py`` or ``experiments/``."""
 
 import os
 import pathlib
@@ -13,6 +16,8 @@ import textwrap
 
 _REPO = pathlib.Path(__file__).resolve().parents[1]
 _FORBIDDEN = ("jax", "jaxlib", "sparksmithwaterman_tpu")
+# The JAX package's root bench.py and experiments/ (the port has its own).
+_NOT_IMPORTED = _FORBIDDEN + ("bench", "experiments")
 
 _SCRIPT = textwrap.dedent(
     """
@@ -45,6 +50,12 @@ _SCRIPT = textwrap.dedent(
     assert report("batch", pack_reads=False) == batch
     assert cli.main(["scaling", "--device", "cpu", "--num-reads", "4", "--read-len", "16", "--num-refs", "4",
                      "--ref-len", "64"]) == 0
+    from sparksmithwaterman_tpu_torch import bench
+    from sparksmithwaterman_tpu_torch.experiments import packed_step_variants, triangle_timepack
+    from sparksmithwaterman_tpu_torch.ops.microbench import step_roofline
+    assert step_roofline(rb=8, m=32, steps=16, iters=1, unroll=8, device="cpu") > 0
+    assert triangle_timepack.main(["--steps", "16", "--iters", "1", "--device", "cpu"]) == 0
+    packed_step_variants.run("E", rows=8, m=32, c=1, n=8, iters=1, device="cpu")
     forbidden = %r
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in forbidden)
     assert not loaded, loaded
@@ -74,6 +85,12 @@ def test_port_runs_without_loading_jax(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr
     assert "standalone-ok" in proc.stdout
+    bench_help = subprocess.run(
+        [sys.executable, "-m", "sparksmithwaterman_tpu_torch.bench", "--help"],
+        capture_output=True, text=True, env=env, cwd=tree, timeout=120,
+    )
+    assert bench_help.returncode == 0, bench_help.stderr
+    assert "--device" in bench_help.stdout
 
 
 def test_sources_do_not_import_jax():
@@ -81,4 +98,4 @@ def test_sources_do_not_import_jax():
         for line in path.read_text().splitlines():
             words = line.split()
             if len(words) >= 2 and words[0] in ("import", "from"):
-                assert words[1].split(".")[0] not in _FORBIDDEN, f"{path}: {line}"
+                assert words[1].split(".")[0] not in _NOT_IMPORTED, f"{path}: {line}"
