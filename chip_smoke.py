@@ -62,15 +62,29 @@ port's main path (``swtorch align --strategy batch``) end to end:
 13. the port's bench (``bench.run_bench``, one pass per leg, the e2e leg
     at 64 reads and readscale at 5,000: parity against the oracle, the
     smoke of every kernel, the line's keys) and the two experiments at
-    reduced sizes.
+    reduced sizes;
+14. long reads: K1-K5 on rows (reads) of 1,025, 2,048, 4,096 and 16,384
+    lanes, swept in stripes of 512, against their plain versions (reads
+    over every stripe, starting on stripe boundaries and crossing them;
+    K3 with random left columns, and chained over 2 and 4 segments equal
+    to K1); at 2,048 lanes each again with a carry budget of 1, every
+    launch then run in parts of one block of four rows, equal to the one
+    launch on every lane; K1 at 2,048 lanes against one 131,072 bp ref and
+    the row-form recurrence; each kernel's time at 4,096 lanes; then
+    ``swtorch align`` with batch,
+    wavefront, shard_refs, shard_reads and shard_seq, and ``run_pipeline``
+    with ``pack_reads=False`` and ``kernel='row'``, on 128 reads (8 of
+    1,025-8,000 bp) x 64 refs: reports equal, the winners' totals equal
+    the row-form recurrence, every site equal to the per-read
+    recomputation.
 
 Launch counts are reset just before each main-path leg and read just
 after it: phases 3-4 (batch; K1 and K2 must launch), 6 (shard_seq; K3),
 7 (shard_refs and shard_reads; K1), 9 (unpacked and row paths; K4 and
 K5), 10 (scaling; K4), each bench leg of 13 (K4 on the kernel leg, K1 on
-the path legs, K2 on the long-ref leg, K6 on the roofline leg) and each
-experiment (K6, K7).  A kernel's ``launches`` in the summary is its sum
-over those legs.
+the path legs, K2 on the long-ref leg, K6 on the roofline leg), each
+experiment (K6, K7) and the long-read paths of 14 (K1-K5).  A kernel's
+``launches`` in the summary is its sum over those legs.
 
 Each kernel's ``bound_ms`` is the larger of two times.  One is its DP
 cells x INSTR_PER_CELL over the SMs' instruction rate (4 schedulers x 32
@@ -78,7 +92,8 @@ threads per clock x SMs x the max SM clock ``nvidia-smi`` reports): the
 fewest instructions the recurrence needs, the same for every kernel,
 which phase 0 checks against the SASS of the DPX intrinsics.  The other
 is its bytes (inputs read once, outputs written once) over 3.35 TB/s.
-The script fails if a kernel runs faster than its bound.  No single
+The script fails if a kernel runs faster than its bound (``wide_*``
+keys: the same at 4,096 lanes).  No single
 PyTorch call computes any of the seven functions, so ``library_ms`` is
 null.  Any failure raises and exits non-zero.  The second-to-last line
 is the kernels' JSON summary; the last line is ``{"ok": true,
@@ -930,8 +945,245 @@ def main() -> int:
         fail_unless(probe_launches["packed_step_variants"]["step_variant_best"] > 0,
                     "K7 never launched by packed_step_variants")
 
+        # -- 14. long reads: K1-K5 on rows wider than 1,024 lanes (stripes) ---------
+        t14 = time.perf_counter()
+        genome = rand_seqs(rng, [40_000])[0]
+
+        def piece(n):
+            """A slice of n bp of the genome with about one base in 30
+            changed, so reads score high against refs cut from it."""
+            o = int(rng.integers(0, len(genome) - int(n) + 1))
+            arr = np.frombuffer(genome[o : o + int(n)].encode(), np.uint8).copy()
+            hit = rng.random(arr.size) < 1 / 30
+            arr[hit] = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, int(hit.sum()))]
+            return arr.tobytes().decode()
+
+        def lay(rows, m):
+            """Packed rows of m lanes with the reads of each row laid left to
+            right (START_BIT on each read's first lane and on the first
+            trailing pad lane), padded to 8 rows; the reads in lane order
+            and their start lanes."""
+            packed = np.full((-(-len(rows) // 8) * 8, m), READ_PAD, np.int32)
+            packed[:, 0] |= 256
+            order, start = [], []
+            for r, reads in enumerate(rows):
+                o = 0
+                for read in reads:
+                    packed[r, o : o + len(read)] = encode_batch([read], len(read), READ_PAD)[0]
+                    packed[r, o] |= 256
+                    order.append(read)
+                    start.append(r * m + o)
+                    o += len(read)
+                if o < m:
+                    packed[r, o] |= 256
+            return packed, order, np.array(start, np.int64)
+
+        def wide_rows(m):
+            """Rows of m lanes: one read over every stripe; reads starting on
+            the stripe boundaries 512 and 1,024; a 2 bp read across 512;
+            reads of 1-1,500 bp across boundaries at random; a pad row."""
+            def filled(reads):
+                o = sum(map(len, reads))
+                while o < m - 40:
+                    reads.append(piece(min(int(rng.integers(1, 1501)), m - o)))
+                    o += len(reads[-1])
+                return reads
+            return [[piece(m)], filled([piece(512), piece(512), piece(1)]), filled([piece(511), piece(2)]),
+                    filled([]), filled([]), filled([piece(1)]), []]
+
+        def chain_k3(packed_t, start_t, refs, segs, bnd_rng=None):
+            """K3 over ``segs`` segments of every ref, each bnd_out into the
+            next from a zero left column (or, with bnd_rng, each segment
+            from a random left column and held against the plain version):
+            (the max of the start lanes over segments, max abs err against
+            plain)."""
+            flat, lens = encode_concat(refs)
+            offsets = np.concatenate(([0], np.cumsum(lens)[:-1])).astype(np.int64)
+            ns = np.maximum(1, -(-lens // segs)).astype(np.int32)
+            bnd = torch.zeros((len(refs),) + tuple(packed_t.shape), dtype=torch.int32, device=dev)
+            best, err = None, 0
+            for k in range(segs):
+                seg_lens = np.clip(lens - k * ns, 0, ns).astype(np.int32)
+                seg_offs = np.where(seg_lens > 0, offsets + k * ns, 0).astype(np.int64)
+                if bnd_rng is not None:
+                    bnd = up(bnd_rng.integers(0, 120, size=tuple(bnd.shape)).astype(np.int32))
+                args = (packed_t, up(flat), up(seg_offs), up(seg_lens), up(ns), bnd, *PARAMS)
+                lane, bnd_next = cuda_score.band_lane_best(*args)
+                if bnd_rng is not None:
+                    pl, pb = cuda_score.band_lane_best_plain(*args)
+                    err = max(err, max_err(lane.reshape(len(refs), -1)[:, start_t], pl.reshape(len(refs), -1)[:, start_t]),
+                              max_err(bnd_next, pb))
+                got = lane.reshape(len(refs), -1)[:, start_t]
+                best = got if best is None else torch.maximum(best, got)
+                bnd = bnd_next
+            return best, err
+
+        widths = (1025, 2048, 4096, 16384)
+        wide_err = dict.fromkeys(("K1", "K2", "K3", "K4", "K5"), 0)
+        refs_w = [piece(1500), piece(600), piece(1)]
+        flat_w, lens_w = encode_concat(refs_w)
+        offs_w = up(np.concatenate(([0], np.cumsum(lens_w)[:-1])).astype(np.int64))
+        flat_w, lens_w_t = up(flat_w), up(lens_w.astype(np.int32))
+        for m in widths:
+            packed, order, start = lay(wide_rows(m), m)
+            packed_t, start_t = up(packed), up(start)
+            k1_w = read_best(cuda_score.lane_best_packed_varlen(packed_t, flat_w, lens_w_t, *PARAMS, offsets=offs_w), start)
+            p1_w = read_best(cuda_score.lane_best_packed_varlen_plain(packed_t, flat_w, lens_w_t, *PARAMS, offs_w), start)
+            wide_err["K1"] = max(wide_err["K1"], max_err(k1_w, p1_w))
+            _, err = chain_k3(packed_t, start_t, refs_w, 1, bnd_rng=rng)
+            wide_err["K3"] = max(wide_err["K3"], err)
+            for segs in (2, 4):
+                fail_unless(torch.equal(chain_k3(packed_t, start_t, refs_w, segs)[0], k1_w.T),
+                            f"{segs} chained K3 segments differ from K1 at {m} lanes")
+            reads_g = [piece(m), piece(m - 1), piece(600), piece(1), piece(513), piece(min(m, 1100)), piece(m - 512), ""]
+            err, args_2w = k2_err(reads_g, refs_w[0])
+            wide_err["K2"] = max(wide_err["K2"], err)
+            args_g = grid_args(reads_g, refs_w, m)
+            want_g = cuda_score.score_grid_diag_plain(*args_g, *PARAMS)
+            wide_err["K4"] = max(wide_err["K4"], max_err(cuda_score.score_grid_diag(*args_g, *PARAMS), want_g))
+            wide_err["K5"] = max(wide_err["K5"], max_err(cuda_score.score_grid_row(*args_g, *PARAMS), score_grid(*args_g, *PARAMS)))
+            fail_unless(not any(wide_err.values()), f"a striped kernel differs from its plain version at {m} lanes: {wide_err}")
+            if m == 2048:
+                # Again with a carry budget of 1: each launch then runs in
+                # parts of one block of four rows (reads), sharing one scratch.
+                # Its own generator leaves the later phases' inputs as they were.
+                split_rng = np.random.default_rng(SEED + 14)
+                bnd_w = up(split_rng.integers(0, 120, size=(len(refs_w),) + packed.shape).astype(np.int32))
+                calls = {
+                    "K1": lambda: cuda_score.lane_best_packed_varlen(packed_t, flat_w, lens_w_t, *PARAMS, offsets=offs_w),
+                    "K3": lambda: cuda_score.band_lane_best(packed_t, flat_w, offs_w, lens_w_t, lens_w_t.clamp_min(1),
+                                                            bnd_w, *PARAMS),
+                    "K2": lambda: cuda_score.argmax_lane(*args_2w, *PARAMS),
+                    "K4": lambda: cuda_score.score_grid_diag(*args_g, *PARAMS),
+                    "K5": lambda: cuda_score.score_grid_row(*args_g, *PARAMS),
+                }
+                whole = {k: fn() for k, fn in calls.items()}
+                budget, cuda_score.CARRY_BUDGET = cuda_score.CARRY_BUDGET, 1
+                try:
+                    split = {k: fn() for k, fn in calls.items()}
+                finally:
+                    cuda_score.CARRY_BUDGET = budget
+                for k in calls:
+                    a, b = whole[k], split[k]
+                    fail_unless(all(torch.equal(x, y) for x, y in zip(*((a, b) if isinstance(a, tuple) else ((a,), (b,))))),
+                                f"{k} with its rows split over launches differs from one launch at {m} lanes")
+                split_parts = (packed.shape[0] // 4, len(reads_g) // 4)
+        print(f"[14] K1-K5 at rows (reads) of {', '.join(map(str, widths))} lanes, stripes of {cuda_score.STRIPE_LANES}: "
+              f"max abs err {wide_err} against the plain versions (K1, K3 at every start lane, K3 at every bnd_out lane "
+              f"with a random left column; K2 on the traceback's lanes; K4, K5 every pair, K5 against the row-form "
+              f"recurrence); reads over every stripe, starting on stripe boundaries and crossing them; K3 chained "
+              f"over 2 and 4 segments equal to K1 at every width; at 2,048 lanes with a carry budget of 1 (K1, K3 "
+              f"in {split_parts[0]} launches of 4 rows, K2, K4, K5 in {split_parts[1]} of 4 reads) equal to one "
+              f"launch on every lane ({time.perf_counter() - t14:.1f} s)", flush=True)
+
+        long_ref = genome + rand_seqs(rng, [LONG_N - len(genome)])[0]
+        packed, order, start = lay([[piece(2048)], [piece(1000), piece(1048)], [piece(700), piece(900), piece(300)]], 2048)
+        got = read_best(cuda_score.lane_best_packed(up(packed), up(encode_batch([long_ref], LONG_N, REF_PAD)), *PARAMS), start)
+        want = score_grid(up(encode_batch(order, 2048, READ_PAD)), up(encode_batch([long_ref], LONG_N, REF_PAD)), *PARAMS)
+        err = max_err(got, want)
+        fail_unless(err == 0, f"K1 at 2,048 lanes against a {LONG_N} bp ref differs from the row-form recurrence ({err})")
+        wide_err["K1"] = max(wide_err["K1"], err)
+        print(f"[14] K1, 2,048-lane rows (6 reads) against one {LONG_N} bp ref: equal to the row-form recurrence, "
+              f"best {int(want.max())}", flush=True)
+
+        # Times at 4,096 lanes.
+        refs_t = [piece(n) for n in rng.integers(500, 4001, 64)]
+        flat_t, lens_t = encode_concat(refs_t)
+        order_t = np.argsort(-lens_t, kind="stable")
+        offs_t = np.concatenate(([0], np.cumsum(lens_t)[:-1])).astype(np.int64)
+        k1_t = (up(flat_t), up(lens_t[order_t].astype(np.int32)), up(offs_t[order_t]))
+        reads_t = [piece(n) for n in rng.integers(500, 4097, 64)]
+        packed_t4, start_t4 = pack_reads(reads_t, 4096)
+        packed_t4 = up(packed_t4)
+        ref_bp = int(lens_t.sum())
+        wide_t = {}
+
+        def time_wide(name, fn, cells, nbytes):
+            ms = cuda_ms(fn, 3)
+            wide_t[name] = (ms, *bound(cells, nbytes, sms, clock_mhz))
+            print(f"[14] {name} at 4,096 lanes: {ms:.3f} ms ({cells / ms / 1e6:.1f} GCUPS real cells); bound "
+                  f"{wide_t[name][1]:.3f} ms by {wide_t[name][2]} = {100 * wide_t[name][1] / ms:.1f}%", flush=True)
+
+        out_bytes = 64 * packed_t4.numel() * 4
+        time_wide("K1", lambda: cuda_score.lane_best_packed_varlen(packed_t4, k1_t[0], k1_t[1], *PARAMS, offsets=k1_t[2]),
+                  sum(map(len, reads_t)) * ref_bp, packed_t4.numel() * 4 + ref_bp + 64 * 12 + out_bytes)
+        zero_bnd = torch.zeros((64,) + tuple(packed_t4.shape), dtype=torch.int32, device=dev)
+        ns_t = k1_t[1]
+        time_wide("K3", lambda: cuda_score.band_lane_best(packed_t4, k1_t[0], k1_t[2], k1_t[1], ns_t, zero_bnd, *PARAMS),
+                  sum(map(len, reads_t)) * ref_bp, packed_t4.numel() * 4 + ref_bp + 64 * 16 + 3 * out_bytes)
+        args_t = grid_args(reads_t, refs_t, 4096)
+        grid_bytes = sum(t.numel() for t in args_t) + 4 * 64 * 64
+        time_wide("K4", lambda: cuda_score.score_grid_diag(*args_t, *PARAMS), sum(map(len, reads_t)) * ref_bp, grid_bytes)
+        time_wide("K5", lambda: cuda_score.score_grid_row(*args_t, *PARAMS), sum(map(len, reads_t)) * ref_bp, grid_bytes)
+        reads_2t = reads_t + [piece(n) for n in rng.integers(500, 4097, 64)]
+        args_2t = (up(encode_batch(reads_2t, 4096, READ_PAD)), up(encode_batch([refs_t[0]], len(refs_t[0]), REF_PAD)))
+        time_wide("K2", lambda: cuda_score.argmax_lane(*args_2t, *PARAMS), sum(map(len, reads_2t)) * len(refs_t[0]),
+                  args_2t[0].numel() + args_2t[1].numel() + 3 * 4 * args_2t[0].numel())
+
+        # The main path: every strategy on a corpus with reads of 1,025-8,000 bp.
+        t14e = time.perf_counter()
+        lr_root = os.path.join(work, "long_reads")
+        os.makedirs(os.path.join(lr_root, "refs"))
+        os.makedirs(os.path.join(lr_root, "inputs"))
+        lr_refs = [piece(n) for n in rng.integers(500, 4001, 64)]
+        lr_parts = (lr_refs[: len(lr_refs) // 2], lr_refs[len(lr_refs) // 2 :])
+        for fi, part in enumerate(lr_parts):
+            with open(os.path.join(lr_root, "refs", f"lr{fi}.rna.fna"), "w") as f:
+                f.write("\n".join(f">gi|{fi}{k}|lr{fi}{k}\n{seq}" for k, seq in enumerate(part)))
+        lr_reads = [piece(n) for n in rng.integers(80, 151, 120)]
+        for k, n in enumerate((1025, 1100, 1500, 2048, 3000, 4096, 6000, 8000)):
+            lr_reads.insert(15 * k + 7, piece(n))
+        with open(os.path.join(lr_root, "inputs", "input1.fa"), "w") as f:
+            f.write("\n".join(lr_reads))
+        lr_config = AlignConfig(ref_dir=os.path.join(lr_root, "refs"), in_dir=os.path.join(lr_root, "inputs"),
+                                out_dir=os.path.join(lr_root, "out_batch"))
+        cuda_score.reset_launches()
+        lr_s = {}
+        for strategy in ("batch", "wavefront", "shard_refs", "shard_reads", "shard_seq"):
+            lr_s[strategy] = align(lr_root, strategy, f"out_{strategy}")
+        for name, kw in (("unpacked", dict(pack_reads=False)), ("row", dict(kernel="row"))):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run_pipeline(dataclasses.replace(lr_config, out_dir=os.path.join(lr_root, f"out_{name}"), **kw), device=dev)
+            torch.cuda.synchronize()
+            lr_s[name] = time.perf_counter() - t
+        lr_launches = dict(cuda_score.LAUNCHES)
+        fail_unless(all(lr_launches[k] > 0 for k in ("lane_best_packed_varlen", "argmax_lane", "band_lane_best",
+                                                      "score_grid_diag", "score_grid_row")),
+                    f"a kernel of K1-K5 never launched on the long-read paths: {lr_launches}")
+        want_report = stripped(os.path.join(lr_root, "out_batch", "result1.txt"))
+        for name in lr_s:
+            fail_unless(stripped(os.path.join(lr_root, f"out_{name}", "result1.txt")) == want_report,
+                        f"the long-read report of {name} differs from batch's")
+        max_score, winners = parse_report(os.path.join(lr_root, "out_batch", "result1.txt"))
+        lr_seqs = {f">gi|{fi}{k}|lr{fi}{k}": seq for fi, part in enumerate(lr_parts) for k, seq in enumerate(part)}
+        lr_reads_t = up(encode_batch(lr_reads, 8000, READ_PAD))
+        lr_backend = TorchBatchBackend(lr_config, dev)
+        n_sites, branches = 0, set()
+        for meta, sites in winners.items():
+            seq = lr_seqs[meta]
+            total = int(score_grid(lr_reads_t, up(encode_batch([seq], len(seq), REF_PAD)), *PARAMS).sum())
+            fail_unless(total == max_score, f"long-read winner {meta}: total {total} != reported {max_score}")
+            windowed = lr_backend._windowed(seq, lr_reads)
+            branches.add("windowed" if windowed else "full-fill")
+            if windowed:
+                cells = find_max_cells_batched(lr_reads, seq, PARAMS, device=dev)
+                per_read = sites_for_ref_long_batched(seq, lr_reads, PARAMS, cell_lists=cells, device=dev)
+            else:
+                per_read = [lr_backend.sites_for_ref(seq, [r]) for r in lr_reads]
+            merged = sorted((s for p in per_read for s in p), key=lambda site: site[0])
+            fail_unless(merged == sites, f"long-read report sites against {meta} differ from the per-read recomputation")
+            n_sites += len(sites)
+        print(f"[14] {len(lr_reads)} reads (8 of 1,025-8,000 bp) x {len(lr_refs)} refs of 500-4,000 bp: reports of "
+              f"{', '.join(f'{k} {v:.2f} s' for k, v in lr_s.items())} equal apart from the time line; max score "
+              f"{max_score}, {len(winners)} winner(s) equal to the row-form recurrence; all {n_sites} sites equal the "
+              f"per-read recomputation ({'/'.join(sorted(branches))} branch); {time.perf_counter() - t14e:.1f} s "
+              f"with the checks", flush=True)
+        print(f"[14] LAUNCHES over the long-read paths: {lr_launches}; phase 14 took {time.perf_counter() - t14:.1f} s",
+              flush=True)
+
     legs = (launches, seq_launches, shard_launches, unpacked_launches, scaling_launches,
-            *bench_launches.values(), *probe_launches.values())
+            *bench_launches.values(), *probe_launches.values(), lr_launches)
     main_launches = {name: sum(leg[name] for leg in legs) for name in cuda_score.LAUNCHES}
 
     kernels = [
@@ -1046,6 +1298,8 @@ def main() -> int:
             "variant_ms": {v: ms for v, (ms, _, _) in k7.items()},
         },
     ]
+    for entry, k in zip(kernels, ("K1", "K2", "K3", "K4", "K5")):  # rows of 4,096 lanes, in stripes
+        entry.update(wide_max_abs_err=wide_err[k], wide_ms=wide_t[k][0], wide_bound_ms=wide_t[k][1])
     for entry in kernels:  # every share of a bound is at most 100%
         for key in [k for k in entry if k.endswith("bound_ms")]:
             ms = entry[key[: -len("bound_ms")] + "ms"]

@@ -52,7 +52,7 @@ class AlignConfig:
     out_ext: str = ".txt"
     delimiter: str = ">gi"
     scoring: ScoringScheme = dataclasses.field(default_factory=ScoringScheme)
-    # serial | batch | wavefront (alias of batch) | shard_refs | shard_reads | shard_seq
+    # serial | batch | wavefront (batch with kernel='diag') | shard_refs | shard_reads | shard_seq
     strategy: str = "batch"
     read_bucket: int = 128  # reads pad to multiples of this (traceback, unpacked scoring)
     ref_bucket: int = 256  # references pad to multiples of this (or its 1.5 x 2^k ladder)

@@ -40,66 +40,16 @@
 // is bound by integer operations, not bytes.  The design keeps K1's
 // shape: one warp per packed row, L lanes per thread, one shuffle per
 // diagonal, the segment streamed through the 4 KB shared ring; the
-// boundary injection runs only on the first M diagonals.
+// boundary injection runs only on the first M diagonals.  A row of more
+// than 1,024 lanes runs in stripes of 512 (band_wide_kernel): in stripe
+// s, lane sW + k takes its left column before local diagonal k and gives
+// its right column on local diagonal k + ns - 1, and lane sW's NW term on
+// its first diagonal is bnd[sW - 1].
 #include "wavefront.cuh"
 
 namespace {
 
 using namespace swt;
-
-// A copy of K1's segmented suffix max (lane_best.cu) as a function; K1
-// keeps its own, since it spills when it calls this one.  best[] over the
-// warp's 32 * L lanes, segments beginning at the set bits of `start`
-// (lane-local), then the row's lanes < m stored to o when `live`.  Every
-// lane of the warp must call it.
-template <int L>
-__device__ __forceinline__ void store_suffix_max(int (&best)[L],
-                                                 uint32_t start, int m,
-                                                 bool live, int32_t* o) {
-  const int lane = threadIdx.x & 31;
-  const int first = lane * L;
-  // First within the thread, right to left, restarting at segment
-  // starts; `open` marks lanes whose segment runs past this thread's
-  // last lane.
-  int run = 0;
-  bool is_open = true;
-  uint32_t open = 0;
-#pragma unroll
-  for (int k = L - 1; k >= 0; --k) {
-    if (k < L - 1 && ((start >> (k + 1)) & 1u)) {
-      run = 0;
-      is_open = false;
-    }
-    run = max(run, best[k]);
-    best[k] = run;
-    if (is_open) open |= 1u << k;
-  }
-  // Then the carry from the threads to the right: walk right while the
-  // segment continues.  head = max over this thread's first local segment;
-  // flag bit 0 = lane `first` starts a segment, bit 1 = a segment starts
-  // inside this thread after lane `first`.
-  const int head = best[0];
-  const int flags = (start & 1u) | ((open & 1u) ? 0 : 2);
-  int carry = 0;
-  bool stop = false;
-  for (int u = 1; u < 32; ++u) {
-    const int hv = __shfl_sync(0xffffffffu, head, u);
-    const int fl = __shfl_sync(0xffffffffu, flags, u);
-    if (u > lane && !stop) {
-      if (fl & 1) {
-        stop = true;
-      } else {
-        carry = max(carry, hv);
-        if (fl & 2) stop = true;
-      }
-    }
-  }
-  if (!live) return;
-#pragma unroll
-  for (int k = 0; k < L; ++k) {
-    if (first + k < m) o[first + k] = ((open >> k) & 1u) ? max(best[k], carry) : best[k];
-  }
-}
 
 template <int L>
 __global__ void __launch_bounds__(kThreads)
@@ -154,6 +104,78 @@ band_kernel(const int32_t* __restrict__ packed, int rows, int m,
   }
 }
 
+// K3 on a row wider than kMaxLanes, in stripes of 32 * L lanes (see the
+// top of this file and wavefront.cuh), over rows row0 .. row0 +
+// row_blocks * kWarps - 1; carry + carry_offs[c] holds two carry rows of
+// max(ns[c], 1) int32 for each of them.
+template <int L>
+__global__ void __launch_bounds__(kThreads)
+band_wide_kernel(const int32_t* __restrict__ packed, int rows, int m,
+                 int row0, int row_blocks, const uint8_t* __restrict__ segs,
+                 const long long* __restrict__ offs,
+                 const int32_t* __restrict__ seg_lens,
+                 const int32_t* __restrict__ ns,
+                 const int32_t* __restrict__ bnd, int match, int mismatch,
+                 int gap, int32_t* __restrict__ out,
+                 int32_t* __restrict__ bnd_out, int32_t* __restrict__ carry,
+                 const long long* __restrict__ carry_offs) {
+  constexpr int W = 32 * L;
+  __shared__ uint8_t ring[kRing];
+  const int c = blockIdx.x / row_blocks;
+  const int part_row = (blockIdx.x % row_blocks) * kWarps + (threadIdx.x >> 5);
+  const int row = row0 + part_row;
+  const int first = (threadIdx.x & 31) * L;
+  const bool live = row < rows;
+  const int width = max(ns[c], 1);
+  const long long base = ((long long)c * rows + row) * m;
+  const int32_t* prow = packed + (long long)row * m;
+  int32_t* buf = carry + carry_offs[c] + 2LL * part_row * width;
+  const int last = first + width - 1;  // local diagonal of lane `first` in column ns-1
+
+  for (int s = 0; s * W < m; ++s) {
+    const int i0 = s * W;
+    const int lanes = min(W, m - i0);
+    int rd[L], bv[L], bo[L], best[L];
+    uint32_t start = 0;
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      const int i = i0 + first + k;
+      const bool real = live && i < m;
+      const int raw = real ? prow[i] : kStartBit;
+      rd[k] = raw & 255;
+      if (raw >= kStartBit || i == 0) start |= 1u << k;
+      bv[k] = real ? bnd[base + i] : 0;
+      bo[k] = 0;
+      best[k] = 0;
+    }
+    __syncwarp();  // the stripe above's carry row is visible
+    StripeEdge<L> edge(buf + ((s + 1) & 1) * width, s > 0 ? width : 0, buf + (s & 1) * width,
+                       (s > 0 && live) ? bnd[base + i0 - 1] : 0);
+    sweep<L>(
+        rd, start, lanes + width - 1, segs + offs[c], seg_lens[c], match, mismatch, gap, ring,
+        [&](int k, int d, int h) {
+          best[k] = max(best[k], h);
+          if (d == last + k) bo[k] = h;
+        },
+        [&](int d, int(&H)[L]) {
+          if (d < lanes) {
+#pragma unroll
+            for (int k = 0; k < L; ++k)
+              if (first + k == d) H[k] = bv[k];
+          }
+        },
+        edge);
+    store_suffix_max<L>(best, start, lanes, live, out + base + i0);
+    if (live) {
+#pragma unroll
+      for (int k = 0; k < L; ++k) {
+        if (first + k < lanes) bnd_out[base + i0 + first + k] = bo[k];
+      }
+    }
+  }
+  if (live) stripe_suffix_max<L>(prow, m, out + base);
+}
+
 }  // namespace
 
 extern "C" int swt_band_lane_best(const void* packed, int rows, int m,
@@ -161,15 +183,25 @@ extern "C" int swt_band_lane_best(const void* packed, int rows, int m,
                                   const void* seg_lens, const void* ns, int c,
                                   const void* bnd, int match, int mismatch,
                                   int gap, void* out, void* bnd_out,
-                                  int device, void* stream) {
+                                  void* carry, const void* carry_offs,
+                                  int part_rows, int device, void* stream) {
   const int L = swt::pick_lanes(m);
-  if (L == 0 || rows <= 0 || c <= 0) return (int)cudaErrorInvalidValue;
+  if (rows <= 0 || c <= 0 || (L == 0 && carry == nullptr)) return (int)cudaErrorInvalidValue;
   const long long row_blocks = (rows + swt::kWarps - 1) / swt::kWarps;
   const long long blocks = row_blocks * c;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   swt::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   cudaStream_t s = (cudaStream_t)stream;
+  if (L == 0) {
+    return swt::launch_parts(rows, part_rows, [&](int row0, int part_blocks) {
+      band_wide_kernel<swt::kStripeL><<<(unsigned)(part_blocks * c), swt::kThreads, 0, s>>>(
+          (const int32_t*)packed, rows, m, row0, part_blocks, (const uint8_t*)segs,
+          (const long long*)offs, (const int32_t*)seg_lens, (const int32_t*)ns,
+          (const int32_t*)bnd, match, mismatch, gap, (int32_t*)out,
+          (int32_t*)bnd_out, (int32_t*)carry, (const long long*)carry_offs);
+    });
+  }
   switch (L) {
 #define SWT_LAUNCH(l)                                                       \
   case l:                                                                   \

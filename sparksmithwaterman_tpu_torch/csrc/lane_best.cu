@@ -21,7 +21,9 @@
 // exactly m + len - 1 diagonals (0 for len == 0), so a mixed-length batch
 // pays no length padding, and a 131 kb or 1 Mb reference needs no other
 // form: different references are different blocks, which is what made
-// the TPU's multi-ref fold unnecessary here.
+// the TPU's multi-ref fold unnecessary here.  A row of more than 1,024
+// lanes runs in stripes of 512 (lane_best_wide_kernel, wavefront.cuh),
+// its carry rows in a scratch buffer the wrapper allocates.
 //
 // Lanes a caller may read: the start lane of every segment.  Other lanes
 // hold the suffix max of their segment from that lane on, which the TPU
@@ -68,8 +70,8 @@ lane_best_kernel(const int32_t* __restrict__ packed, int rows, int m,
            mismatch, gap, ring,
            [&](int k, int, int h) { best[k] = max(best[k], h); });
 
-  // Segmented suffix max, written out here and not through band.cu's
-  // copy, store_suffix_max: through that function ptxas spills registers
+  // Segmented suffix max, written out here and not through
+  // wavefront.cuh's store_suffix_max: through that function ptxas spills registers
   // in this kernel at L = 8 and it runs slower (an A/B on one H100).
   // First within the thread, right to left, restarting at segment
   // starts; `open` marks lanes whose segment runs past this thread's last
@@ -115,21 +117,83 @@ lane_best_kernel(const int32_t* __restrict__ packed, int rows, int m,
   }
 }
 
+// A row wider than kMaxLanes, in stripes of 32 * L lanes (wavefront.cuh):
+// each stripe sweeps and stores its own segmented suffix max, then
+// stripe_suffix_max carries each read's max back over the stripe
+// boundaries it crosses.  The launch covers rows row0 .. row0 +
+// row_blocks * kWarps - 1; carry + carry_offs[c] holds two carry rows of
+// len int32 for each of them.
+template <int L>
+__global__ void __launch_bounds__(kThreads)
+lane_best_wide_kernel(const int32_t* __restrict__ packed, int rows, int m,
+                      int row0, int row_blocks,
+                      const uint8_t* __restrict__ refs,
+                      const long long* __restrict__ offs,
+                      const int32_t* __restrict__ lens, int match,
+                      int mismatch, int gap, int32_t* __restrict__ out,
+                      int32_t* __restrict__ carry,
+                      const long long* __restrict__ carry_offs) {
+  constexpr int W = 32 * L;
+  __shared__ uint8_t ring[kRing];
+  const int c = blockIdx.x / row_blocks;
+  const int part_row = (blockIdx.x % row_blocks) * kWarps + (threadIdx.x >> 5);
+  const int row = row0 + part_row;
+  const int first = (threadIdx.x & 31) * L;
+  const bool live = row < rows;
+  const int len = lens[c];
+  const int32_t* prow = packed + (long long)row * m;
+  int32_t* o = out + ((long long)c * rows + row) * m;
+  int32_t* buf = carry + carry_offs[c] + 2LL * part_row * len;
+
+  for (int s = 0; s * W < m; ++s) {
+    const int base = s * W;
+    const int lanes = min(W, m - base);
+    int rd[L], best[L];
+    uint32_t start = 0;
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      const int i = base + first + k;
+      const int raw = (live && i < m) ? prow[i] : kStartBit;
+      rd[k] = raw & 255;
+      if (raw >= kStartBit || i == 0) start |= 1u << k;
+      best[k] = 0;
+    }
+    __syncwarp();  // the stripe above's carry row is visible
+    StripeEdge<L> edge(buf + ((s + 1) & 1) * len, s > 0 ? len : 0, buf + (s & 1) * len, 0);
+    sweep<L>(rd, start, len > 0 ? lanes + len - 1 : 0, refs + offs[c], len,
+             match, mismatch, gap, ring,
+             [&](int k, int, int h) { best[k] = max(best[k], h); },
+             [](int, int(&)[L]) {}, edge);
+    store_suffix_max<L>(best, start, lanes, live, o + base);
+  }
+  if (live) stripe_suffix_max<L>(prow, m, o);
+}
+
 }  // namespace
 
 extern "C" int swt_lane_best_varlen(const void* packed, int rows, int m,
                                     const void* refs, const void* offs,
                                     const void* lens, int c, int match,
                                     int mismatch, int gap, void* out,
-                                    int device, void* stream) {
+                                    void* carry, const void* carry_offs,
+                                    int part_rows, int device, void* stream) {
   const int L = swt::pick_lanes(m);
-  if (L == 0 || rows <= 0 || c <= 0) return (int)cudaErrorInvalidValue;
+  if (rows <= 0 || c <= 0 || (L == 0 && carry == nullptr)) return (int)cudaErrorInvalidValue;
   const long long row_blocks = (rows + swt::kWarps - 1) / swt::kWarps;
   const long long blocks = row_blocks * c;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   swt::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   cudaStream_t s = (cudaStream_t)stream;
+  if (L == 0) {
+    return swt::launch_parts(rows, part_rows, [&](int row0, int part_blocks) {
+      lane_best_wide_kernel<swt::kStripeL><<<(unsigned)(part_blocks * c), swt::kThreads, 0, s>>>(
+          (const int32_t*)packed, rows, m, row0, part_blocks,
+          (const uint8_t*)refs, (const long long*)offs, (const int32_t*)lens,
+          match, mismatch, gap, (int32_t*)out, (int32_t*)carry,
+          (const long long*)carry_offs);
+    });
+  }
   switch (L) {
 #define SWT_LAUNCH(l)                                                       \
   case l:                                                                   \

@@ -28,7 +28,11 @@
 // positive mismatch or gap that no longer holds, and the block runs all
 // m + n - 1 diagonals, as the TPU kernels do.  Pad lanes of a short read in
 // a wide group still cost a lane each.  The output is written as (R, C):
-// the per-reference sum over reads reduces over its rows.
+// the per-reference sum over reads reduces over its rows.  A read group
+// wider than 1,024 positions runs in stripes of 512 (score_grid_wide_kernel,
+// wavefront.cuh), only as far as the block's longest read: a stripe of
+// trailing READ_PAD lanes is not swept.  It needs `trim` (the wrapper
+// takes such reads only when mismatch < 0 and gap < 0).
 #include "wavefront.cuh"
 
 namespace {
@@ -45,6 +49,26 @@ __device__ __forceinline__ int block_max(int v, int* scratch) {
   for (int w = 1; w < kWarps; ++w) out = max(out, scratch[w]);
   __syncthreads();  // scratch is free again for the next call
   return out;
+}
+
+// (len, used) of K4's block: the reference's length before its REF_PAD
+// tail and 1 + the last non-pad position of the block's reads, or (n, m)
+// when !trim.  `used` comes in as this thread's own.  Every thread must
+// call it.
+__device__ __forceinline__ int2 trimmed(const uint8_t* ref, int n, int m,
+                                        int used, int trim, int* scratch) {
+  // Each thread walks its residue class down from the end and stops at
+  // its first real byte.
+  int len = 0;
+  for (int j = n - 1 - (int)threadIdx.x; j >= 0; j -= kThreads) {
+    if (ref[j] != kRefPad) {
+      len = j + 1;
+      break;
+    }
+  }
+  len = block_max(len, scratch);
+  used = block_max(used, scratch);
+  return trim ? make_int2(len, used) : make_int2(n, m);
 }
 
 template <int L>
@@ -69,21 +93,9 @@ score_grid_kernel(const uint8_t* __restrict__ reads, int r, int m,
     rd[k] = (live && i < m) ? reads[(long long)read * m + i] : kReadPad;
     if (rd[k] != kReadPad) used = i + 1;
   }
-  // The reference's length before its REF_PAD tail: each thread walks its
-  // residue class down from the end and stops at its first real byte.
-  int len = 0;
-  for (int j = n - 1 - (int)threadIdx.x; j >= 0; j -= kThreads) {
-    if (ref[j] != kRefPad) {
-      len = j + 1;
-      break;
-    }
-  }
-  len = block_max(len, scratch);
-  used = block_max(used, scratch);
-  if (!trim) {
-    len = n;
-    used = m;
-  }
+  const int2 lu = trimmed(ref, n, m, used, trim, scratch);
+  const int len = lu.x;
+  used = lu.y;
   const int nd = (len > 0 && used > 0) ? used + len - 1 : 0;
 
   int best[L];
@@ -98,22 +110,84 @@ score_grid_kernel(const uint8_t* __restrict__ reads, int r, int m,
   if (live && first == 0) out[(long long)read * c_total + c] = b;
 }
 
+// K4 on reads wider than kMaxLanes, in stripes of 32 * L lanes, over
+// reads read0 .. read0 + read_blocks * kWarps - 1; carry + 2 * n *
+// ((read - read0) * c_total + c) holds the pair's two carry rows.  The
+// max over stripes is the pair's best.
+template <int L>
+__global__ void __launch_bounds__(kThreads)
+score_grid_wide_kernel(const uint8_t* __restrict__ reads, int r, int m,
+                       int read0, int read_blocks,
+                       const uint8_t* __restrict__ refs,
+                       int c_total, int n, int match, int mismatch, int gap,
+                       int trim, int32_t* __restrict__ out,
+                       int32_t* __restrict__ carry) {
+  constexpr int W = 32 * L;
+  __shared__ uint8_t ring[kRing];
+  __shared__ int scratch[kWarps];
+  const int c = blockIdx.x / read_blocks;
+  const int part_read = (blockIdx.x % read_blocks) * kWarps + (threadIdx.x >> 5);
+  const int read = read0 + part_read;
+  const int first = (threadIdx.x & 31) * L;
+  const bool live = read < r;
+  const uint8_t* ref = refs + (long long)c * n;
+  const uint8_t* rp = reads + (long long)read * m;
+  int32_t* buf = carry + 2LL * n * ((long long)part_read * c_total + c);
+
+  int used = 0;  // 1 + this warp's last read position that is not pad
+  for (int i = threadIdx.x & 31; live && i < m; i += 32)
+    if (rp[i] != kReadPad) used = i + 1;
+  const int2 lu = trimmed(ref, n, m, used, trim, scratch);
+  const int len = lu.x;
+  used = lu.y;
+
+  int b = 0;
+  for (int s = 0; len > 0 && s * W < used; ++s) {
+    const int i0 = s * W;
+    int rd[L], best[L];
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      const int i = i0 + first + k;
+      rd[k] = (live && i < m) ? rp[i] : kReadPad;
+      best[k] = 0;
+    }
+    __syncwarp();  // the stripe above's carry row is visible
+    StripeEdge<L> edge(buf + ((s + 1) & 1) * n, s > 0 ? len : 0, buf + (s & 1) * n, 0);
+    sweep<L>(rd, (s == 0 && first == 0) ? 1u : 0u, min(W, used - i0) + len - 1, ref, len,
+             match, mismatch, gap, ring,
+             [&](int k, int, int h) { best[k] = max(best[k], h); },
+             [](int, int(&)[L]) {}, edge);
+#pragma unroll
+    for (int k = 0; k < L; ++k) b = max(b, best[k]);
+  }
+  b = __reduce_max_sync(0xffffffffu, b);
+  if (live && first == 0) out[(long long)read * c_total + c] = b;
+}
+
 }  // namespace
 
 extern "C" int swt_score_grid_diag(const void* reads, int r, int m,
                                    const void* refs, int c, int n, int match,
                                    int mismatch, int gap, void* out,
-                                   int device, void* stream) {
+                                   void* carry, int part_reads, int device,
+                                   void* stream) {
   const int L = swt::pick_lanes(m);
-  if (L == 0 || r <= 0 || c <= 0 || m <= 0 || n <= 0)
+  const int trim = mismatch <= 0 && gap <= 0;
+  if (r <= 0 || c <= 0 || m <= 0 || n <= 0 || (L == 0 && (carry == nullptr || !trim)))
     return (int)cudaErrorInvalidValue;
   const long long read_blocks = (r + swt::kWarps - 1) / swt::kWarps;
   const long long blocks = read_blocks * c;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int trim = mismatch <= 0 && gap <= 0;
   swt::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   cudaStream_t s = (cudaStream_t)stream;
+  if (L == 0) {
+    return swt::launch_parts(r, part_reads, [&](int read0, int part_blocks) {
+      score_grid_wide_kernel<swt::kStripeL><<<(unsigned)(part_blocks * c), swt::kThreads, 0, s>>>(
+          (const uint8_t*)reads, r, m, read0, part_blocks, (const uint8_t*)refs, c,
+          n, match, mismatch, gap, trim, (int32_t*)out, (int32_t*)carry);
+    });
+  }
   switch (L) {
 #define SWT_LAUNCH(l)                                                       \
   case l:                                                                   \

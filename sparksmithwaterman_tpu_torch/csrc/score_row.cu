@@ -28,7 +28,11 @@
 // needs no barrier: each warp's carried column and read live in its own
 // shared memory.  Trailing pad rows and columns are skipped under the same
 // rule as K4's (`trim`: mismatch <= 0 and gap <= 0), and columns of the
-// last tile past the reference's end do not count.
+// last tile past the reference's end do not count.  A read of more than
+// 1,024 positions (score_row_wide_kernel) reads its codes from global
+// memory and carries its column in a scratch row of m int32 per (read,
+// reference) pair, which the wrapper allocates: the loop is the same, so
+// reads of any length run.
 #include "wavefront.cuh"
 
 namespace {
@@ -38,30 +42,14 @@ using namespace swt;
 constexpr int kRowCols = 16;             // columns per lane
 constexpr int kRowTile = 32 * kRowCols;  // columns per warp per tile
 
-__global__ void __launch_bounds__(kThreads)
-score_row_kernel(const uint8_t* __restrict__ reads, int r, int m,
-                 int read_blocks, const uint8_t* __restrict__ refs,
-                 int c_total, int n, int match, int mismatch, int gap,
-                 int trim, int32_t* __restrict__ out) {
-  __shared__ uint8_t read_s[kWarps][kMaxLanes];
-  __shared__ int carry_s[kWarps][kMaxLanes];
-  const int warp = threadIdx.x >> 5;
+// One warp's pair: the read's codes in `code`, its carried column in
+// `carry` (zeroed), `used` = 1 + this lane's last non-pad position.
+__device__ __forceinline__ void score_row_pair(const uint8_t* code, int* carry,
+                                               int used, int m,
+                                               const uint8_t* ref, int n,
+                                               int match, int mismatch,
+                                               int gap, int trim, int32_t* o) {
   const int lane = threadIdx.x & 31;
-  const int c = blockIdx.x / read_blocks;
-  const int read = (blockIdx.x % read_blocks) * kWarps + warp;
-  if (read >= r) return;  // the whole warp: warps never wait for each other
-  const uint8_t* rd = reads + (long long)read * m;
-  const uint8_t* ref = refs + (long long)c * n;
-  uint8_t* code = read_s[warp];
-  int* carry = carry_s[warp];
-
-  int used = 0;  // 1 + the last read position that is not pad
-  for (int i = lane; i < m; i += 32) {
-    const int v = rd[i];
-    code[i] = (uint8_t)v;
-    carry[i] = 0;  // H[i][-1]
-    if (v != kReadPad) used = i + 1;
-  }
   int len = 0;  // the reference's length before its REF_PAD tail
   for (int j = n - 1 - lane; j >= 0; j -= 32) {
     if (ref[j] != kRefPad) {
@@ -129,16 +117,70 @@ score_row_kernel(const uint8_t* __restrict__ reads, int r, int m,
     __syncwarp();
   }
   best = __reduce_max_sync(0xffffffffu, best);
-  if (lane == 0) out[(long long)read * c_total + c] = best;
+  if (lane == 0) *o = best;
+}
+
+__global__ void __launch_bounds__(kThreads)
+score_row_kernel(const uint8_t* __restrict__ reads, int r, int m,
+                 int read_blocks, const uint8_t* __restrict__ refs,
+                 int c_total, int n, int match, int mismatch, int gap,
+                 int trim, int32_t* __restrict__ out) {
+  __shared__ uint8_t read_s[kWarps][kMaxLanes];
+  __shared__ int carry_s[kWarps][kMaxLanes];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int c = blockIdx.x / read_blocks;
+  const int read = (blockIdx.x % read_blocks) * kWarps + warp;
+  if (read >= r) return;  // the whole warp: warps never wait for each other
+  const uint8_t* rd = reads + (long long)read * m;
+  uint8_t* code = read_s[warp];
+  int* carry = carry_s[warp];
+
+  int used = 0;  // 1 + the last read position that is not pad
+  for (int i = lane; i < m; i += 32) {
+    const int v = rd[i];
+    code[i] = (uint8_t)v;
+    carry[i] = 0;  // H[i][-1]
+    if (v != kReadPad) used = i + 1;
+  }
+  score_row_pair(code, carry, used, m, refs + (long long)c * n, n, match,
+                 mismatch, gap, trim, out + (long long)read * c_total + c);
+}
+
+// K5 on reads wider than kMaxLanes, over reads read0 .. read0 +
+// read_blocks * kWarps - 1: the codes stay in global memory and the
+// carried column is carry + m * ((read - read0) * c_total + c).
+__global__ void __launch_bounds__(kThreads)
+score_row_wide_kernel(const uint8_t* __restrict__ reads, int r, int m,
+                      int read0, int read_blocks,
+                      const uint8_t* __restrict__ refs,
+                      int c_total, int n, int match, int mismatch, int gap,
+                      int trim, int32_t* __restrict__ out,
+                      int32_t* __restrict__ carry) {
+  const int lane = threadIdx.x & 31;
+  const int c = blockIdx.x / read_blocks;
+  const int part_read = (blockIdx.x % read_blocks) * kWarps + (threadIdx.x >> 5);
+  const int read = read0 + part_read;
+  if (read >= r) return;
+  const uint8_t* rd = reads + (long long)read * m;
+  int* col = carry + (long long)m * ((long long)part_read * c_total + c);
+  int used = 0;
+  for (int i = lane; i < m; i += 32) {
+    col[i] = 0;
+    if (rd[i] != kReadPad) used = i + 1;
+  }
+  score_row_pair(rd, col, used, m, refs + (long long)c * n, n, match,
+                 mismatch, gap, trim, out + (long long)read * c_total + c);
 }
 
 }  // namespace
 
 extern "C" int swt_score_grid_row(const void* reads, int r, int m,
                                   const void* refs, int c, int n, int match,
-                                  int mismatch, int gap, void* out, int device,
-                                  void* stream) {
-  if (r <= 0 || c <= 0 || m <= 0 || m > swt::kMaxLanes || n <= 0)
+                                  int mismatch, int gap, void* out, void* carry,
+                                  int part_reads, int device, void* stream) {
+  const bool wide = m > swt::kMaxLanes;
+  if (r <= 0 || c <= 0 || m <= 0 || n <= 0 || (wide && carry == nullptr))
     return (int)cudaErrorInvalidValue;
   const long long read_blocks = (r + swt::kWarps - 1) / swt::kWarps;
   const long long blocks = read_blocks * c;
@@ -146,7 +188,14 @@ extern "C" int swt_score_grid_row(const void* reads, int r, int m,
   const int trim = mismatch <= 0 && gap <= 0;
   swt::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
-  score_row_kernel<<<(unsigned)blocks, swt::kThreads, 0, (cudaStream_t)stream>>>(
+  cudaStream_t s = (cudaStream_t)stream;
+  if (wide)
+    return swt::launch_parts(r, part_reads, [&](int read0, int part_blocks) {
+      score_row_wide_kernel<<<(unsigned)(part_blocks * c), swt::kThreads, 0, s>>>(
+          (const uint8_t*)reads, r, m, read0, part_blocks, (const uint8_t*)refs, c,
+          n, match, mismatch, gap, trim, (int32_t*)out, (int32_t*)carry);
+    });
+  score_row_kernel<<<(unsigned)blocks, swt::kThreads, 0, s>>>(
       (const uint8_t*)reads, r, m, (int)read_blocks, (const uint8_t*)refs, c,
       n, match, mismatch, gap, trim, (int32_t*)out);
   return (int)cudaGetLastError();

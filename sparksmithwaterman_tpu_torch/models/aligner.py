@@ -1,14 +1,15 @@
 """Strategy -> backend resolution for the port.
 
 Port of ``sparksmithwaterman_tpu.models.aligner``: ``serial`` is the
-NumPy oracle backend, ``batch`` (and its alias ``wavefront``) the torch
-backend on one device, ``shard_refs`` / ``shard_reads`` and
+NumPy oracle backend, ``batch`` and ``wavefront`` the torch backend on
+one device, ``shard_refs`` / ``shard_reads`` and
 ``shard_seq`` the mesh backends of :mod:`..parallel` over every card of
 the host (or the one device named).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -51,16 +52,19 @@ class SerialBackend:
 def get_backend(config: AlignConfig, device="cuda"):
     """Resolve ``config.strategy`` to a backend on ``device``.
 
-    ``wavefront`` is an alias of ``batch``: the port's one scoring kernel
-    is the anti-diagonal wavefront.  The mesh strategies take every card
-    for ``device="cuda"`` and the one device otherwise
-    (``parallel.mesh.mesh_devices``).
+    ``wavefront`` (the reference's DistributeAlgorithm) is ``batch`` with
+    the anti-diagonal kernel pinned: ``kernel='diag'`` whatever the config
+    says, as in the JAX package; ``batch`` keeps the config's kernel.  The
+    mesh strategies take every card for ``device="cuda"`` and the one
+    device otherwise (``parallel.mesh.mesh_devices``).
     """
     if config.strategy == "serial":
         return SerialBackend(config.scoring)
     if config.strategy in ("batch", "wavefront"):
         from sparksmithwaterman_tpu_torch.models.batch_backend import TorchBatchBackend
 
+        if config.strategy == "wavefront":
+            config = dataclasses.replace(config, kernel="diag")
         return TorchBatchBackend(config, device)
     if config.strategy in ("shard_refs", "shard_reads"):
         from sparksmithwaterman_tpu_torch.parallel.engine import ShardedBackend

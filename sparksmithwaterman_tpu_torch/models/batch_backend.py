@@ -27,7 +27,7 @@ device.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,7 +36,8 @@ from sparksmithwaterman_tpu_torch.config import AlignConfig
 from sparksmithwaterman_tpu_torch.io.fasta import READ_PAD, REF_PAD, encode_batch, encode_concat
 from sparksmithwaterman_tpu_torch.io.report import Site
 from sparksmithwaterman_tpu_torch.utils.profiling import GcupsCounter
-from sparksmithwaterman_tpu_torch.ops.cuda_score import lane_best_packed_varlen, score_grid_diag, score_grid_row
+from sparksmithwaterman_tpu_torch.ops import cuda_score
+from sparksmithwaterman_tpu_torch.ops.cuda_score import carry_elems, lane_best_packed_varlen, score_grid_diag, score_grid_row
 from sparksmithwaterman_tpu_torch.ops.device_traceback import (
     fill_and_trace,
     path_cap,
@@ -91,6 +92,30 @@ def _group_by_padded_len(seqs: Sequence[str], bucket: int, geometric: bool = Fal
         key = _quantize_15(len(s), bucket) if geometric else _pad_len(len(s), bucket)
         groups.setdefault(key, []).append(idx)
     return groups
+
+
+def ref_chunks(out_per_ref: int, carry_per_ref: Sequence[int], out_budget: int,
+               carry_budget: Optional[int] = None) -> List[slice]:
+    """Consecutive slices of the references in dispatch order, one
+    dispatch each: at most ``out_budget // out_per_ref`` references, and
+    carry scratch (``carry_per_ref``, int32 elements per reference) of at
+    most ``carry_budget`` (default ``cuda_score.CARRY_BUDGET``) in all; at
+    least one reference.  References go longest first, so a chunk's first
+    (longest) reference sets how many fit.  With no scratch (rows of at
+    most ONE_PASS_LANES lanes) every chunk but the last holds exactly
+    ``out_budget // out_per_ref``.  A chunk of one reference over the
+    carry budget is split further by rows in the kernel's wrapper
+    (``cuda_score.carry_rows``)."""
+    cap = max(1, out_budget // max(1, out_per_ref))
+    carry_budget = cuda_score.CARRY_BUDGET if carry_budget is None else carry_budget
+    carry = np.concatenate(([0], np.cumsum(np.asarray(carry_per_ref, np.int64))))
+    chunks, lo, n = [], 0, len(carry) - 1
+    while lo < n:
+        fit = int(np.searchsorted(carry, carry[lo] + carry_budget, side="right")) - 1
+        hi = max(lo + 1, min(n, lo + cap, fit))
+        chunks.append(slice(lo, hi))
+        lo = hi
+    return chunks
 
 
 def _score_grid(reads_t: torch.Tensor, refs_t: torch.Tensor, params, kernel: str) -> torch.Tensor:
@@ -217,7 +242,8 @@ class TorchBatchBackend:
         The flush's references are encoded back to back into one buffer
         and uploaded once; each dispatch reads its references there by
         offset.  References go longest first, so the longest blocks start
-        first; a chunk is capped by the K1 output budget.  Returns
+        first; a chunk is capped by the K1 output and carry budgets
+        (:func:`ref_chunks`).  Returns
         ([(device ref indices, (C,) int64 device sums)], real cells).
         """
         r_limit = max(1, _INT32_SAFE // max(1, self.scoring.match))
@@ -226,19 +252,20 @@ class TorchBatchBackend:
         offsets = np.zeros_like(lens)
         np.cumsum(lens[:-1], out=offsets[1:])
         order = np.argsort(-lens, kind="stable")
+        lens_o = lens[order]
         flat_t = self._upload(flat)
         order_t = self._upload(order)
-        lens_t = self._upload(lens[order].astype(np.int32))
+        lens_t = self._upload(lens_o.astype(np.int32))
         offsets_t = self._upload(offsets[order])
         pending: List[Tuple[torch.Tensor, torch.Tensor]] = []
         events: list = []
         cells = 0
         for pack in packs:
-            c_block = max(1, _OUT_BUDGET // max(1, pack["rows"] * pack["m_pack"]))
-            for start in range(0, len(order), c_block):
-                part = slice(start, start + c_block)
+            carry = carry_elems(pack["m_pack"], pack["rows"], 1) * lens_o
+            for part in ref_chunks(pack["rows"] * pack["m_pack"], carry, _OUT_BUDGET):
                 lane = lane_best_packed_varlen(
-                    pack["packed"], flat_t, lens_t[part], *self._params, offsets=offsets_t[part]
+                    pack["packed"], flat_t, lens_t[part], *self._params, offsets=offsets_t[part],
+                    carry_cols=int(lens_o[part].sum()),
                 )
                 pending.append((order_t[part], packed_col_sums(lane, pack["start_idx"])))
                 self._mark(events)
@@ -252,9 +279,11 @@ class TorchBatchBackend:
 
         Reads group by ``read_bucket`` multiples, references by the
         geometric ladder of ``ref_bucket``; a chunk is capped by the (R, C)
-        int32 output budget.  Every chunk is staged (:meth:`_stage`,
-        encoded and uploaded) before the first launch, since an upload from
-        pageable host memory waits for the work queued on its device.
+        int32 output budget and the carry budget of reads wider than
+        ONE_PASS_LANES (:func:`ref_chunks`).  Every chunk is staged
+        (:meth:`_stage`, encoded and uploaded) before the first launch, since
+        an upload from pageable host memory waits for the work queued on its
+        device.
         """
         read_groups = sorted(_group_by_padded_len(reads, self.read_bucket).items())
         reads_enc = {m_pad: encode_batch([reads[i] for i in idx], m_pad, READ_PAD) for m_pad, idx in read_groups}
@@ -264,9 +293,8 @@ class TorchBatchBackend:
             refs_enc = encode_batch([ref_seqs[i] for i in ref_idx], n_pad, REF_PAD)
             ref_bp = sum(len(ref_seqs[i]) for i in ref_idx)
             for m_pad, read_idx in read_groups:
-                c_block = max(1, _OUT_BUDGET // len(read_idx))
-                for start in range(0, len(ref_idx), c_block):
-                    part = slice(start, start + c_block)
+                carry = carry_elems(m_pad, len(read_idx), n_pad, row_form=self.kernel == "row")
+                for part in ref_chunks(len(read_idx), [carry] * len(ref_idx), _OUT_BUDGET):
                     idx_t = self._upload(np.asarray(ref_idx[part], np.int64))
                     staged.append((idx_t, self._stage(reads_enc[m_pad], refs_enc[part])))
                 cells += sum(len(reads[i]) for i in read_idx) * ref_bp

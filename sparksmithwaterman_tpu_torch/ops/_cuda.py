@@ -115,21 +115,24 @@ def lib() -> ctypes.CDLL:
                 _VP, _I, _I,  # packed, rows, m
                 _VP, _VP, _VP, _I,  # refs, offsets, lens, c
                 _I, _I, _I,  # match, mismatch, gap
-                _VP, _I, _VP,  # out, device, stream
+                _VP, _VP, _VP, _I,  # out, carry, carry offsets, rows per launch
+                _I, _VP,  # device, stream
             ]
             handle.swt_argmax_lane.restype = _I
             handle.swt_argmax_lane.argtypes = [
                 _VP, _I, _I,  # reads, r, m
                 _VP, _LL, _I, _I,  # refs, ref_stride, c, n
                 _I, _I, _I,  # match, mismatch, gap
-                _VP, _VP, _VP, _I, _VP,  # best, bestd, count, device, stream
+                _VP, _VP, _VP, _VP, _I,  # best, bestd, count, carry, reads per launch
+                _I, _VP,  # device, stream
             ]
             handle.swt_band_lane_best.restype = _I
             handle.swt_band_lane_best.argtypes = [
                 _VP, _I, _I,  # packed, rows, m
                 _VP, _VP, _VP, _VP, _I,  # segs, offsets, seg_lens, ns, c
                 _VP, _I, _I, _I,  # bnd, match, mismatch, gap
-                _VP, _VP, _I, _VP,  # out, bnd_out, device, stream
+                _VP, _VP, _VP, _VP, _I,  # out, bnd_out, carry, carry offsets, rows per launch
+                _I, _VP,  # device, stream
             ]
             for grid in (handle.swt_score_grid_diag, handle.swt_score_grid_row):
                 grid.restype = _I
@@ -137,7 +140,8 @@ def lib() -> ctypes.CDLL:
                     _VP, _I, _I,  # reads, r, m
                     _VP, _I, _I,  # refs, c, n
                     _I, _I, _I,  # match, mismatch, gap
-                    _VP, _I, _VP,  # out, device, stream
+                    _VP, _VP, _I,  # out, carry, reads per launch
+                    _I, _VP,  # device, stream
                 ]
             handle.swt_step_chain_best.restype = _I
             handle.swt_step_chain_best.argtypes = [

@@ -29,6 +29,21 @@ tensors it launches the kernel or raises; it never falls back.  Each
 launch adds one to :data:`LAUNCHES`, so a run can show that its main path
 went through the kernels.
 
+K1-K5 take rows (reads) of any width.  Up to :data:`ONE_PASS_LANES`
+lanes a warp sweeps a row in one pass; a wider row runs in stripes of
+:data:`STRIPE_LANES` lanes, top to bottom, each stripe's last lane handed
+to the next through carry rows in a scratch buffer that the wrapper
+allocates (:func:`carry_elems`; K5 carries one column per read).  The
+scratch of one launch is held to :data:`CARRY_BUDGET`: a launch whose rows
+need more runs as several launches of whole blocks of rows, one after
+another on the stream, that share one scratch (:func:`carry_rows`).  The
+striped sweep reads columns right of a reference as 0 between stripes,
+which leaves every lane a caller reads unchanged when mismatch < 0 and
+gap < 0 (``ScoringScheme`` admits no other scheme), so K1-K4 take wide
+rows only then.  K1 and K3 size their scratch from the references'
+lengths, which sit on the card: a caller that has their sum on the host
+passes it as ``carry_cols``, else the wrapper reads it (one host sync).
+
 The recurrence (``pallas_score.py:_make_step``), on anti-diagonals d with
 lane i holding read position i and column j = d - i:
 
@@ -60,10 +75,18 @@ LAUNCHES = {
     "step_variant_best": 0,
 }
 
-# Widest lane row the kernels take (32 threads x 32 lanes).
-MAX_LANES = 1024
+# Widest row a warp sweeps in one pass (32 threads x 32 lanes); wider
+# rows run in stripes of STRIPE_LANES (csrc/wavefront.cuh kMaxLanes,
+# kStripe).
+ONE_PASS_LANES = 1024
+STRIPE_LANES = 512
+# int32 elements of carry scratch one launch of K1-K5 allocates at most
+# (while a block of rows against one launch's references fits).
+CARRY_BUDGET = 1 << 28
 # Lanes per thread of the csrc/wavefront.cuh kernels (pick_lanes).
 _LANES_PER_THREAD = (1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 24, 32)
+# Rows (warps) per thread block of K1-K5 (csrc/wavefront.cuh kWarps).
+_BLOCK_ROWS = 4
 
 
 def reset_launches() -> None:
@@ -85,6 +108,58 @@ def _launch_target(device: torch.device):
     """(device index, current stream handle) for a C entry point."""
     index = device.index if device.index is not None else torch.cuda.current_device()
     return index, torch.cuda.current_stream(device).cuda_stream
+
+
+def carry_elems(m: int, rows: int, cols: int, *, row_form: bool = False) -> int:
+    """int32 scratch that one reference of ``cols`` columns (or several of
+    ``cols`` in all, in K1-K4) costs a launch of ``rows`` rows (reads) of
+    ``m`` lanes, rows rounded up to the kernels' blocks of four: none up
+    to ONE_PASS_LANES; two carry rows of ``cols`` per row in K1-K4; one
+    carried column of ``m`` per read in K5 (``row_form``)."""
+    if m <= ONE_PASS_LANES:
+        return 0
+    rows = -(-rows // _BLOCK_ROWS) * _BLOCK_ROWS
+    return rows * m if row_form else 2 * rows * cols
+
+
+def carry_rows(rows: int, elems: int) -> int:
+    """Rows (reads) per launch of a striped kernel whose carry scratch for
+    all ``rows`` rows is ``elems`` int32 (:func:`carry_elems`): all of
+    them, rounded up to a block of four, when that fits CARRY_BUDGET;
+    else as many whole blocks as fit, and at least one block, so that a
+    launch takes more only when one block does (in K1-K4, references of
+    more than CARRY_BUDGET / 8 = 33.5 M columns in all)."""
+    blocks = -(-rows // _BLOCK_ROWS)
+    fit = CARRY_BUDGET // max(1, elems // max(1, blocks))
+    return _BLOCK_ROWS * max(1, min(blocks, fit))
+
+
+def _check_stripes(what: str, m: int, mismatch: int, gap: int) -> None:
+    if m > ONE_PASS_LANES and (mismatch >= 0 or gap >= 0):
+        raise ValueError(
+            f"{what}: rows of more than {ONE_PASS_LANES} lanes run in stripes, which need mismatch < 0 "
+            f"and gap < 0 (got {mismatch}, {gap})"
+        )
+
+
+def _carry_rows(m: int, rows: int, cols: torch.Tensor, total):
+    """(scratch, (C,) int64 offsets, rows per launch) of K1's or K3's
+    carry rows for references of ``cols`` ((C,) tensor) columns, at most
+    ``total`` of them in all (read from the card when None); (None, None,
+    0) for rows of at most ONE_PASS_LANES lanes."""
+    if m <= ONE_PASS_LANES:
+        return None, None, 0
+    cols = cols.to(torch.int64)
+    if total is None:
+        total = int(cols.sum())
+    part = carry_rows(rows, carry_elems(m, rows, total))
+    per = carry_elems(m, part, 1)
+    offs = (torch.cumsum(cols, 0) - cols) * per
+    return torch.empty(max(1, per * total), dtype=torch.int32, device=cols.device), offs, part
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
 
 
 def _shift_lanes_right(x: torch.Tensor) -> torch.Tensor:
@@ -168,7 +243,7 @@ def lane_best_packed_varlen_plain(packed, refs_u8, lens, match, mismatch, gap, o
     return segmented_suffix_max(best, start)
 
 
-def lane_best_packed_varlen(packed, refs_u8, lens, match, mismatch, gap, offsets=None):
+def lane_best_packed_varlen(packed, refs_u8, lens, match, mismatch, gap, offsets=None, *, carry_cols=None):
     """(C, ROWS, M) int32 per-lane best of packed read rows against
     mixed-length references.
 
@@ -183,6 +258,11 @@ def lane_best_packed_varlen(packed, refs_u8, lens, match, mismatch, gap, offsets
     against the reference.  Read only start lanes (``packing.read_best``,
     ``packing.packed_col_sums``); other lanes are not part of the
     contract and differ from the TPU kernel, which sweeps padding too.
+
+    ``carry_cols``: at least the sum of the lengths (each clamped to
+    [0, N]), given when the caller has it on the host, so that a launch
+    of rows wider than ONE_PASS_LANES sizes its carry scratch without a
+    host sync.
     """
     device = _device_of(packed, refs_u8, lens, *(() if offsets is None else (offsets,)))
     if packed.dim() != 2 or packed.dtype != torch.int32:
@@ -198,8 +278,7 @@ def lane_best_packed_varlen(packed, refs_u8, lens, match, mismatch, gap, offsets
     if device.type == "cpu":
         return lane_best_packed_varlen_plain(packed, refs_u8, lens, match, mismatch, gap, offsets)
     rows, m = packed.shape
-    if m > MAX_LANES:
-        raise ValueError(f"lane_best_packed_varlen takes rows of at most {MAX_LANES} lanes, got {m}")
+    _check_stripes("lane_best_packed_varlen", m, mismatch, gap)
     out = torch.empty((c, rows, m), dtype=torch.int32, device=device)
     if c == 0 or rows == 0:
         return out
@@ -207,15 +286,17 @@ def lane_best_packed_varlen(packed, refs_u8, lens, match, mismatch, gap, offsets
         n = refs_u8.shape[1]
         lens = _clamped_lens(lens, n).to(torch.int32)
         offsets = torch.arange(c, dtype=torch.int64, device=device) * n
+        carry_cols = c * n if carry_cols is None else carry_cols
     packed = packed.contiguous()
     refs_u8 = refs_u8.contiguous()
     lens = lens.contiguous()
     offsets = offsets.contiguous()
+    carry, carry_offs, part = _carry_rows(m, rows, lens.clamp_min(0), carry_cols)
     rc = _cuda.lib().swt_lane_best_varlen(
         packed.data_ptr(), rows, m,
         refs_u8.data_ptr(), offsets.data_ptr(), lens.data_ptr(), c,
         match, mismatch, gap,
-        out.data_ptr(), *_launch_target(device),
+        out.data_ptr(), _ptr(carry), _ptr(carry_offs), part, *_launch_target(device),
     )
     _cuda.check(rc, "lane_best_packed_varlen")
     LAUNCHES["lane_best_packed_varlen"] += 1
@@ -283,8 +364,7 @@ def argmax_lane(reads_u8, refs_u8, match, mismatch, gap):
         return argmax_lane_plain(reads_u8, refs_u8, match, mismatch, gap)
     r, m = reads_u8.shape
     c, n = refs_u8.shape
-    if m > MAX_LANES:
-        raise ValueError(f"argmax_lane takes reads of at most {MAX_LANES} positions, got {m}")
+    _check_stripes("argmax_lane", m, mismatch, gap)
     outs = tuple(
         torch.empty((r, c, m), dtype=torch.int32, device=device) for _ in range(3)
     )
@@ -296,11 +376,12 @@ def argmax_lane(reads_u8, refs_u8, match, mismatch, gap):
         return outs
     reads_u8 = reads_u8.contiguous()
     refs_u8 = refs_u8.contiguous()
+    carry, part = _carry_grid(m, r, c, n, False, device)
     rc = _cuda.lib().swt_argmax_lane(
         reads_u8.data_ptr(), r, m,
         refs_u8.data_ptr(), n, c, n,
         match, mismatch, gap,
-        *(o.data_ptr() for o in outs), *_launch_target(device),
+        *(o.data_ptr() for o in outs), _ptr(carry), part, *_launch_target(device),
     )
     _cuda.check(rc, "argmax_lane")
     LAUNCHES["argmax_lane"] += 1
@@ -350,7 +431,7 @@ def band_lane_best_plain(packed, seg_u8, offsets, seg_lens, ns, bnd, match, mism
     return segmented_suffix_max(best, start), bnd_out
 
 
-def band_lane_best(packed, seg_u8, offsets, seg_lens, ns, bnd, match, mismatch, gap):
+def band_lane_best(packed, seg_u8, offsets, seg_lens, ns, bnd, match, mismatch, gap, *, carry_cols=None):
     """(lane_best, bnd_out), two (C, ROWS, M) int32: packed read rows
     against one segment of each of C references, the DP's left boundary
     column in and its right boundary column out.
@@ -370,6 +451,8 @@ def band_lane_best(packed, seg_u8, offsets, seg_lens, ns, bnd, match, mismatch, 
     equals K1 on the whole reference.  The TPU kernel also sweeps padding
     diagonals, so it agrees with this function at start lanes and at the
     bnd_out lanes of reads, not at the other lanes.
+
+    ``carry_cols``: at least the sum of max(ns, 1), as for K1.
     """
     device = _device_of(packed, seg_u8, offsets, seg_lens, ns, bnd)
     if packed.dim() != 2 or packed.dtype != torch.int32:
@@ -389,8 +472,7 @@ def band_lane_best(packed, seg_u8, offsets, seg_lens, ns, bnd, match, mismatch, 
     match, mismatch, gap = int(match), int(mismatch), int(gap)
     if device.type == "cpu":
         return band_lane_best_plain(packed, seg_u8, offsets, seg_lens, ns, bnd, match, mismatch, gap)
-    if m > MAX_LANES:
-        raise ValueError(f"band_lane_best takes rows of at most {MAX_LANES} lanes, got {m}")
+    _check_stripes("band_lane_best", m, mismatch, gap)
     out = torch.empty((c, rows, m), dtype=torch.int32, device=device)
     bnd_out = torch.empty_like(out)
     if c == 0 or rows == 0 or m == 0:
@@ -398,11 +480,12 @@ def band_lane_best(packed, seg_u8, offsets, seg_lens, ns, bnd, match, mismatch, 
     packed, seg_u8, offsets, seg_lens, ns, bnd = (
         t.contiguous() for t in (packed, seg_u8, offsets, seg_lens, ns, bnd)
     )
+    carry, carry_offs, part = _carry_rows(m, rows, ns.clamp_min(1), carry_cols)
     rc = _cuda.lib().swt_band_lane_best(
         packed.data_ptr(), rows, m,
         seg_u8.data_ptr(), offsets.data_ptr(), seg_lens.data_ptr(), ns.data_ptr(), c,
         bnd.data_ptr(), match, mismatch, gap,
-        out.data_ptr(), bnd_out.data_ptr(), *_launch_target(device),
+        out.data_ptr(), bnd_out.data_ptr(), _ptr(carry), _ptr(carry_offs), part, *_launch_target(device),
     )
     _cuda.check(rc, "band_lane_best")
     LAUNCHES["band_lane_best"] += 1
@@ -446,9 +529,17 @@ def _check_grid_inputs(what, reads_u8, refs_u8):
         raise ValueError(f"{what}: reads_u8 must be an (R, M) uint8 tensor")
     if refs_u8.dim() != 2 or refs_u8.dtype != torch.uint8:
         raise ValueError(f"{what}: refs_u8 must be a (C, N) uint8 tensor")
-    if device.type == "cuda" and reads_u8.shape[1] > MAX_LANES:
-        raise ValueError(f"{what} takes reads of at most {MAX_LANES} positions, got {reads_u8.shape[1]}")
     return device
+
+
+def _carry_grid(m, r, c, n, row_form, device):
+    """(scratch or None, reads per launch) of an unpacked launch (K2, K4,
+    K5) of r reads of m positions against c references of n columns."""
+    elems = c * carry_elems(m, r, n, row_form=row_form)
+    if not elems:
+        return None, 0
+    part = carry_rows(r, elems)
+    return torch.empty(c * carry_elems(m, part, n, row_form=row_form), dtype=torch.int32, device=device), part
 
 
 def _launch_grid(entry, name, reads_u8, refs_u8, match, mismatch, gap):
@@ -462,9 +553,10 @@ def _launch_grid(entry, name, reads_u8, refs_u8, match, mismatch, gap):
         return out.zero_()
     reads_u8 = reads_u8.contiguous()
     refs_u8 = refs_u8.contiguous()
+    carry, part = _carry_grid(m, r, c, n, name == "score_grid_row", reads_u8.device)
     rc = entry(
         reads_u8.data_ptr(), r, m, refs_u8.data_ptr(), c, n,
-        match, mismatch, gap, out.data_ptr(), *_launch_target(reads_u8.device),
+        match, mismatch, gap, out.data_ptr(), _ptr(carry), part, *_launch_target(reads_u8.device),
     )
     _cuda.check(rc, name)
     LAUNCHES[name] += 1
@@ -508,6 +600,7 @@ def score_grid_diag(reads_u8, refs_u8, match, mismatch, gap, *, state_dtype="aut
     match, mismatch, gap = int(match), int(mismatch), int(gap)
     if device.type == "cpu":
         return score_grid_diag_plain(reads_u8, refs_u8, match, mismatch, gap)
+    _check_stripes("score_grid_diag", reads_u8.shape[1], mismatch, gap)
     return _launch_grid(_cuda.lib().swt_score_grid_diag, "score_grid_diag", reads_u8, refs_u8, match, mismatch, gap)
 
 

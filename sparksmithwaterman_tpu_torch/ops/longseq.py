@@ -41,8 +41,9 @@ Cells = Tuple[int, np.ndarray]
 _CAPACITY_CAP = 1 << 15
 # Element budget of the (m, R, n) row stack of one fallback group.
 _GROUP_BUDGET = 1 << 26
-# Window fill jobs per device batch.
+# Window fill jobs per device batch, and (B, M, W) cells of its fill.
 _JOB_BLOCK = 512
+_FILL_CELLS = 1 << 30
 
 
 def _to(arr: np.ndarray, device) -> torch.Tensor:
@@ -168,14 +169,25 @@ def find_max_cells_batched(reads: List[str], ref_seq: str, params, device="cuda"
             ties.append(ridx)
             continue
         out.append((b, np.stack([lanes, bestd[ridx, lanes] - lanes], axis=1).astype(np.int32)))
-    if ties:
-        # In-lane ties: exact positions, a group of reads per row scan.
-        group = max(1, _GROUP_BUDGET // max(1, m_pad * len(ref_seq)))
-        for start in range(0, len(ties), group):
-            g = ties[start : start + group]
-            for ridx, cells in zip(g, _exact_max_cells(reads_enc[g], ref_enc[0], params, device)):
-                out[ridx] = cells
+    # In-lane ties: exact positions, a group of reads per row scan, shortest
+    # first, each group's rows as many as its longest read needs.
+    ties.sort(key=lambda ridx: len(reads[ridx]))
+    start = 0
+    while start < len(ties):
+        stop = start + 1
+        while stop < len(ties) and (stop + 1 - start) * _tier(len(reads[ties[stop]]), 8) * len(ref_seq) <= _GROUP_BUDGET:
+            stop += 1
+        g = ties[start:stop]
+        m_g = _tier(len(reads[g[-1]]), 8)
+        for ridx, cells in zip(g, _exact_max_cells(reads_enc[g, :m_g], ref_enc[0], params, device)):
+            out[ridx] = cells
+        start = stop
     return out
+
+
+def _tier(m: int, step: int) -> int:
+    """m rounded up to a multiple of step (at least step)."""
+    return max(step, -(-m // step) * step)
 
 
 def window_width(m: int, n: int, match: int, mismatch: int, gap: int) -> int:
@@ -206,14 +218,17 @@ def sites_for_ref_long_batched(
 ) -> List[List[Site]]:
     """Per-read site lists against ONE reference: every max cell's window
     filled and walked in batched device dispatches, only (begin, codes)
-    fetched.  Site order per read = row-major max-cell order."""
+    fetched.  Site order per read = row-major max-cell order.
+
+    Jobs go longest read first, each dispatch sized by its first (longest)
+    read's window to at most ``_JOB_BLOCK`` jobs and ``_FILL_CELLS``
+    cells: a window holding a read's every positive path gives the same
+    walk whatever its width, so a long read in the set widens only the
+    fills it shares."""
     n = len(ref_seq)
     out: List[List[Site]] = [[] for _ in reads]
-    m_max = max((len(r) for r in reads), default=0)
-    if m_max == 0 or n == 0:
+    if n == 0 or not any(reads):
         return out
-    w = window_width(m_max, n, *(int(p) for p in params))
-    w_pad = max(ref_bucket, -(-w // ref_bucket) * ref_bucket)
     ref_codes = encode_seq(ref_seq)
 
     jobs: List[Tuple[int, int, int]] = []  # (read idx, 1-based row, 1-based end col)
@@ -224,14 +239,16 @@ def sites_for_ref_long_batched(
             continue
         for ci, cj in cells:
             jobs.append((ridx, int(ci) + 1, int(cj) + 1))
-    if not jobs:
-        return out
+    jobs.sort(key=lambda job: -len(reads[job[0]]))  # stable: each read's jobs keep their order
 
-    # Every walk step consumes a read row or a window column.
-    cap = m_max + w_pad
     dispatched = []
-    for start in range(0, len(jobs), _JOB_BLOCK):
-        chunk = jobs[start : start + _JOB_BLOCK]
+    start = 0
+    while start < len(jobs):
+        m_max = len(reads[jobs[start][0]])
+        w = window_width(m_max, n, *(int(p) for p in params))
+        w_pad = max(ref_bucket, -(-w // ref_bucket) * ref_bucket)
+        chunk = jobs[start : start + max(1, min(_JOB_BLOCK, _FILL_CELLS // (m_max * w_pad)))]
+        start += len(chunk)
         windows = np.full((len(chunk), w_pad), REF_PAD, np.uint8)
         cells = np.zeros((len(chunk), 2), np.int32)
         for t, (ridx, i, j) in enumerate(chunk):
@@ -241,10 +258,10 @@ def sites_for_ref_long_batched(
         read_win = encode_batch([reads[ridx] for ridx, _, _ in chunk], m_max, READ_PAD)
         outs = _fill_walk_known(
             _to(read_win, device), _to(windows, device), _to(cells, device),
-            *params, cap=cap, tie_semantics=tie_semantics,
+            *params, cap=m_max + w_pad, tie_semantics=tie_semantics,  # a walk step takes a row or a column
         )
-        dispatched.append((chunk, outs))
-    for chunk, (begins, codes) in dispatched:
+        dispatched.append((chunk, w_pad, outs))
+    for chunk, w_pad, (begins, codes) in dispatched:
         begins, codes = begins.cpu().numpy(), codes.cpu().numpy()
         for t, (ridx, i, j) in enumerate(chunk):
             off = j - w_pad  # window col c <-> ref col c + off

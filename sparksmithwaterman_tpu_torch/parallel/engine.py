@@ -41,8 +41,9 @@ from sparksmithwaterman_tpu_torch.models.batch_backend import (
     TorchBatchBackend,
     _col_sums,
     _score_grid,
+    ref_chunks,
 )
-from sparksmithwaterman_tpu_torch.ops.cuda_score import lane_best_packed_varlen
+from sparksmithwaterman_tpu_torch.ops.cuda_score import carry_elems, lane_best_packed_varlen
 from sparksmithwaterman_tpu_torch.ops.packing import packed_col_sums
 from sparksmithwaterman_tpu_torch.parallel.mesh import DeviceMesh, build_mesh, mesh_devices, split_by_bp
 
@@ -184,7 +185,7 @@ class ShardedBackend(TorchBatchBackend):
         lens_all = np.fromiter((len(s) for s in ref_seqs), np.int64, len(ref_seqs))
         parts = split_by_bp(lens_all, self._dc)
         order_t = self._upload(np.concatenate(parts))
-        jobs = []  # (ref indices, flat refs, lens, offsets, [(packed rows, start lanes)])
+        jobs = []  # (ref indices, ref lengths, flat refs, lens, offsets, [(packed rows, start lanes)])
         lo = 0
         for j, part in enumerate(parts):
             idx_t, lo = order_t[lo : lo + len(part)], lo + len(part)
@@ -197,18 +198,19 @@ class ShardedBackend(TorchBatchBackend):
                 dev = self.mesh.devices[j, i]
                 shares = [share for pack in packs if (share := self._row_share(pack, i, dev)) is not None]
                 jobs.append((
-                    idx_t, torch.from_numpy(flat).to(dev), torch.from_numpy(lens.astype(np.int32)).to(dev),
+                    idx_t, lens, torch.from_numpy(flat).to(dev), torch.from_numpy(lens.astype(np.int32)).to(dev),
                     torch.from_numpy(offsets).to(dev), shares,
                 ))
         pending: List[Tuple[torch.Tensor, torch.Tensor]] = []
         events: list = []
         m_pack = packs[0]["m_pack"]
-        for idx_t, flat_t, lens_t, offsets_t, shares in jobs:
+        for idx_t, lens, flat_t, lens_t, offsets_t, shares in jobs:
             for packed, start in shares:
-                c_block = max(1, _OUT_BUDGET // (packed.shape[0] * m_pack))
-                for c0 in range(0, len(idx_t), c_block):
-                    sl = slice(c0, c0 + c_block)
-                    lane = lane_best_packed_varlen(packed, flat_t, lens_t[sl], *self._params, offsets=offsets_t[sl])
+                rows = packed.shape[0]
+                carry = carry_elems(m_pack, rows, 1) * lens
+                for sl in ref_chunks(rows * m_pack, carry, _OUT_BUDGET):
+                    lane = lane_best_packed_varlen(packed, flat_t, lens_t[sl], *self._params, offsets=offsets_t[sl],
+                                                   carry_cols=int(lens[sl].sum()))
                     pending.append((idx_t[sl], packed_col_sums(lane, start)))
                     self._mark(events)
         cells = sum(pack["read_bp"] for pack in packs) * int(lens_all.sum())

@@ -34,8 +34,8 @@ import numpy as np
 import torch
 
 from sparksmithwaterman_tpu_torch.io.fasta import READ_PAD, REF_PAD, encode_batch, encode_concat
-from sparksmithwaterman_tpu_torch.models.batch_backend import _OUT_BUDGET, TorchBatchBackend
-from sparksmithwaterman_tpu_torch.ops.cuda_score import band_lane_best
+from sparksmithwaterman_tpu_torch.models.batch_backend import _OUT_BUDGET, TorchBatchBackend, ref_chunks
+from sparksmithwaterman_tpu_torch.ops.cuda_score import band_lane_best, carry_elems
 from sparksmithwaterman_tpu_torch.ops.packing import pack_reads
 from sparksmithwaterman_tpu_torch.parallel.mesh import DeviceMesh, build_mesh, mesh_devices, split_by_bp
 
@@ -203,9 +203,10 @@ def _upload_refs(flat: np.ndarray, tables, devices):
     return refs_on, tables_on
 
 
-def _band_ring(pp: dict, refs_on: dict, tables_on: dict, bounds, params, devices, mark=None) -> list:
+def _band_ring(pp: dict, refs_on: dict, tables_on: dict, ns: np.ndarray, bounds, params, devices, mark=None) -> list:
     """Per chunk (lo, hi) of ``bounds``: the (hi - lo, R) int32 per-read
-    best of references lo..hi-1 of the tables, on the mesh's last entry.
+    best of references lo..hi-1 of the tables, on the mesh's last entry;
+    ``ns`` is the tables' segment widths on the host (K3's carry size).
 
     Enqueued in rounds, as the JAX ring: in round t entry s fills chunk
     t - s from the right column (and the running per-read max) that entry
@@ -226,13 +227,14 @@ def _band_ring(pp: dict, refs_on: dict, tables_on: dict, bounds, params, devices
             dev = devices[s]
             lo, hi = bounds[k]
             packed, start_idx = pp["on"][dev]
-            seg_offs, seg_lens, ns = tables_on[dev]
+            seg_offs, seg_lens, ns_t = tables_on[dev]
             if s == 0:
                 left = torch.zeros((hi - lo, pp["rows"], pp["m_pack"]), dtype=torch.int32, device=dev)
             else:
                 left, best = (x.to(dev, non_blocking=True) for x in carry[k])
             lane, right = band_lane_best(
-                packed, refs_on[dev], seg_offs[s, lo:hi], seg_lens[s, lo:hi], ns[lo:hi], left, *params
+                packed, refs_on[dev], seg_offs[s, lo:hi], seg_lens[s, lo:hi], ns_t[lo:hi], left, *params,
+                carry_cols=int(ns[lo:hi].sum()),
             )
             scores = lane.reshape(hi - lo, -1).index_select(1, start_idx)
             best = scores if s == 0 else torch.maximum(best, scores)
@@ -262,7 +264,7 @@ def seqparallel_scores_band(reads, refs_enc: np.ndarray, match: int, mismatch: i
     lens = np.full(c, n, np.int64)
     tables = _segment_tables(lens, np.arange(c, dtype=np.int64) * n, size)
     refs_on, tables_on = _upload_refs(np.ascontiguousarray(refs_enc, np.uint8).reshape(-1), tables, devices)
-    (best,) = _band_ring(pp, refs_on, tables_on, [(0, c)], (int(match), int(mismatch), int(gap)), devices)
+    (best,) = _band_ring(pp, refs_on, tables_on, tables[2], [(0, c)], (int(match), int(mismatch), int(gap)), devices)
     return best.to(devices[0])
 
 
@@ -299,22 +301,28 @@ class SeqParallelBackend(TorchBatchBackend):
             self._prepack_cache = (reads, len(reads), total_bp, pp)
         return pp
 
-    def _chunks(self, lens: np.ndarray, c_block: int) -> List[np.ndarray]:
-        """Reference chunks, each at most c_block references, longest
-        first.  On a mesh of more than one entry, at least 2 x size chunks
-        of near-equal base pairs, so that entry s works on chunk k while
-        entry s + 1 works on chunk k - 1 (the JAX ring pipelines its
-        references the same way)."""
+    def _chunks(self, lens: np.ndarray, pp: dict) -> List[np.ndarray]:
+        """Reference chunks, longest first, each within the K3 output
+        budget and the carry budget of its segments (:func:`ref_chunks`).
+        On a mesh of more than one entry, at least 2 x size chunks of
+        near-equal base pairs, so that entry s works on chunk k while entry
+        s + 1 works on chunk k - 1 (the JAX ring pipelines its references
+        the same way)."""
         size = len(self._devices)
         parts = split_by_bp(lens, 2 * size) if size > 1 else [np.argsort(-lens, kind="stable")]
-        return [p[i : i + c_block] for p in parts for i in range(0, len(p), c_block)]
+        rows, m = pp["rows"], pp["m_pack"]
+        return [
+            p[sl]
+            for p in parts
+            for sl in ref_chunks(rows * m, carry_elems(m, rows, 1) * np.maximum(1, -(-lens[p] // size)), _OUT_BUDGET)
+        ]
 
     def _totals_dev(self, reads, ref_seqs):
         pp = self._prepack(reads)
         flat, lens = encode_concat(list(ref_seqs))
         offsets = np.zeros_like(lens)
         np.cumsum(lens[:-1], out=offsets[1:])
-        chunks = self._chunks(lens, max(1, _OUT_BUDGET // max(1, pp["rows"] * pp["m_pack"])))
+        chunks = self._chunks(lens, pp)
         order = np.concatenate(chunks)
         tables = _segment_tables(lens[order], offsets[order], len(self._devices))
         refs_on, tables_on = _upload_refs(flat, tables, self._devices)
@@ -322,7 +330,8 @@ class SeqParallelBackend(TorchBatchBackend):
         sizes = [len(chunk) for chunk in chunks]
         bounds = [(int(end - size), int(end)) for end, size in zip(np.cumsum(sizes), sizes)]
         events: list = []
-        bests = _band_ring(pp, refs_on, tables_on, bounds, self._params, self._devices, lambda: self._mark(events))
+        bests = _band_ring(pp, refs_on, tables_on, tables[2], bounds, self._params, self._devices,
+                           lambda: self._mark(events))
         totals = torch.zeros(len(ref_seqs), dtype=torch.int64, device=self.device)
         for (lo, hi), best in zip(bounds, bests):
             sums = best.sum(dim=1, dtype=torch.int64).to(self.device, non_blocking=True)
