@@ -8,11 +8,19 @@ each one against its plain PyTorch version on the card, then drives the
 port's main path (``swtorch align --strategy batch``) end to end:
 
 0. card name and power limit, kernel build time, registers, and the
-   instructions per cell of the DPX intrinsics (``cuobjdump``);
-1. K1 (packed lane best) against its plain version: 512 reads x 256
-   RefSeq-shaped refs, every start lane; 64 reads x 8 refs of 131,072 bp
-   against the row-form recurrence; edge cases (empty reads, length-0 and
-   length-1 refs, all-pad rows, 512-lane rows);
+   instructions per cell of the DPX intrinsics (``cuobjdump``); K1's two
+   forms in the built library: every s16x2 kernel runs the instruction of
+   ``__viaddmax_s16x2_relu`` and spills nothing, and the ALU instructions
+   per cell of both forms' inner loops at every L;
+1. K1 (packed lane best) against its plain version, in both forms
+   (``cuda_score.k1_form``): 512 reads x 256 RefSeq-shaped refs, every
+   start lane, and the two forms timed on them in turns (int32, s16x2,
+   s16x2, int32); 64 reads x 8 refs of 131,072 bp against the row-form
+   recurrence; edge cases (empty reads, length-0 and length-1 refs,
+   all-pad rows, 128- and 512-lane rows); the s16x2 form on an odd
+   number of rows, on hand-packed pairs of rows with different segment
+   layouts and at gap (and mismatch) -32,768; a 1,024 bp read equal to
+   its ref at match 31 (31,744, s16x2) and 32 (int32);
 2. K2 (per-lane argmax) against its plain version: 2,000 reads x one 2 kb
    ref and 64 reads x one 131 kb ref, on the lanes the traceback reads;
 3. correctness leg: ``cli.main(["align", ...])`` on a ~1 Mbp RefSeq-shaped
@@ -79,7 +87,10 @@ port's main path (``swtorch align --strategy batch``) end to end:
     recomputation.
 
 Launch counts are reset just before each main-path leg and read just
-after it: phases 3-4 (batch; K1 and K2 must launch), 6 (shard_seq; K3),
+after it, K1's per form too (``cuda_score.K1_FORMS``): every K1 launch of
+phases 3-4, 7 and 13 must take the s16x2 form, every one at rows of more
+than 1,024 lanes in 14 the int32 form.  The legs: phases 3-4 (batch; K1
+and K2 must launch), 6 (shard_seq; K3),
 7 (shard_refs and shard_reads; K1), 9 (unpacked and row paths; K4 and
 K5), 10 (scaling; K4), each bench leg of 13 (K4 on the kernel leg, K1 on
 the path legs, K2 on the long-ref leg, K6 on the roofline leg), each
@@ -108,6 +119,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -118,6 +130,8 @@ import numpy as np
 SEED = 20261016
 PARAMS = (5, -3, -4)
 LONG_N = 131_072
+# Lanes per thread of the kernels (csrc/wavefront.cuh SWT_FOR_EACH_L).
+_LANES = (1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 24, 32)
 
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -150,17 +164,59 @@ PROBE_SRC = "#include <cuda_runtime.h>\n" + "".join(
         ("dpx_chain", "__viaddmax_s16x2(D, S, __viaddmax_s16x2(U, G, __viaddmax_s16x2_relu(L, G, 0u)))"),
         ("dpx_add_first", "__viaddmax_s16x2_relu(L, G, __viaddmax_s16x2(U, G, __vadd2(D, S)))"),
         ("dpx_max_first", "__viaddmax_s16x2_relu(__vmaxs2(U, L), G, __vadd2(D, S))"),
+        # __viaddmax_s16x2_relu alone: its mnemonic, which K1's s16x2
+        # form must contain (not a form of the recurrence).
+        ("dpx_relu", "__viaddmax_s16x2_relu(U, G, L)"),
     )
 )
 _NOT_ALU = ("LDG", "STG", "LDC", "ULDC", "LDS", "STS", "EXIT", "BRA", "NOP", "S2R", "S2UR", "MOV", "IMAD.MOV")
+
+
+def sass_functions(cuobjdump: str, path: str):
+    """{function: [(address, opcode, branch target or None), ...]} of a
+    cubin or shared library, read back with ``cuobjdump -sass``."""
+    text = subprocess.run([cuobjdump, "-sass", path], check=True, capture_output=True, text=True).stdout
+    out = {}
+    for name, body in re.findall(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", text, re.S):
+        instrs, labels = [], {}
+        for line in body.splitlines():
+            label = re.match(r"\s*(\.L_x_\d+):", line)
+            if label:
+                labels[label.group(1)] = len(instrs)
+                continue
+            ins = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[0-9T]\s+)?([A-Z][A-Za-z0-9_.]*)([^;]*);", line)
+            if ins:
+                target = re.search(r"\(?(\.L_x_\d+)\)?|0x([0-9a-f]+)", ins.group(3)) if ins.group(2).startswith("BRA") else None
+                instrs.append([int(ins.group(1), 16), ins.group(2), target and (target.group(1) or int(target.group(2), 16))])
+        for ins in instrs:  # label targets to addresses
+            if isinstance(ins[2], str):
+                ins[2] = instrs[labels[ins[2]]][0] if labels.get(ins[2], len(instrs)) < len(instrs) else None
+        out[name] = [tuple(ins) for ins in instrs]
+    return out
+
+
+def inner_loop_per_cell(instrs, cells_per_relu: int) -> float:
+    """ALU instructions per DP cell of a sweep's inner loop:
+    the innermost backward branch whose body clamps at 0 (a ``.RELU``
+    instruction, one per cell of the int32 form and one per register of
+    two cells of the s16x2 form), cells = those x ``cells_per_relu``
+    (memory, control and move instructions not counted)."""
+    def relu(op):
+        return op.endswith(".RELU")
+
+    loops = [(target, addr) for addr, op, target in instrs
+             if target is not None and target <= addr
+             and any(relu(op2) for a2, op2, _ in instrs if target <= a2 <= addr)]
+    fail_unless(loops, "no inner loop with a clamp at 0 in the SASS")
+    lo, hi = min(loops, key=lambda loop: loop[1] - loop[0])
+    alu = [op for a, op, _ in instrs if lo <= a <= hi and not op.startswith(_NOT_ALU)]
+    return len(alu) / (sum(map(relu, alu)) * cells_per_relu)
 
 
 def probe_instructions(nvcc: str, work: str):
     """{probe: (ALU instructions per register of two cells, mnemonics)}
     for the forms of PROBE_SRC compiled for sm_90a and read back with
     cuobjdump (memory, control and move instructions not counted)."""
-    import re
-
     src = os.path.join(work, "probe.cu")
     cubin = os.path.join(work, "probe.cubin")
     with open(src, "w") as f:
@@ -168,12 +224,9 @@ def probe_instructions(nvcc: str, work: str):
     proc = subprocess.run([nvcc, "-cubin", "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-o", cubin, src],
                           capture_output=True, text=True)
     fail_unless(proc.returncode == 0, f"the DPX probe does not compile:\n{proc.stdout}{proc.stderr}")
-    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", cubin], check=True, capture_output=True, text=True).stdout
     out = {}
-    for name, body in re.findall(r"Function : (\w+)\n(.*?)(?=\n\s*Function : |\Z)", sass, re.S):
-        ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[0-9T]\s+)?([A-Za-z0-9_.]+)", body)
-        alu = [op for op in ops if not op.startswith(_NOT_ALU)]
+    for name, instrs in sass_functions(os.path.join(os.path.dirname(nvcc), "cuobjdump"), cubin).items():
+        alu = [op for _, op, _ in instrs if not op.startswith(_NOT_ALU)]
         out[name] = (len(alu) / 8, sorted(set(alu)))
     return out
 
@@ -219,13 +272,15 @@ def cuda_ms(fn, iters: int) -> float:
 
 def register_summary(ptxas_log: str):
     """{kernel: ["[L=<lanes>:]<registers>r[+<spill bytes>s]", ...]} from nvcc's -Xptxas -v log."""
-    import re
-
     out, current = collections.defaultdict(list), None
     for line in ptxas_log.splitlines():
-        m = re.search(r"Compiling entry function '.*?([a-z_]+_kernel)(?:ILi(\d+)E)?", line)
+        m = re.search(r"Compiling entry function '([^']*?_kernel)(?:ILi(\d+)E)?", line)
         if m:
-            current = [m.group(1), m.group(2), 0]
+            # The kernel's identifier: the shortest tail of the mangled
+            # name that its length in digits precedes.
+            head = m.group(1)
+            n = next(n for n in range(len("_kernel"), len(head) + 1) if head[:-n].endswith(str(n)))
+            current = [head[-n:], m.group(2), 0]
         elif current and "bytes spill stores" in line:
             current[2] = int(re.search(r"(\d+) bytes spill stores", line).group(1))
         elif current and "Used" in line and "registers" in line:
@@ -273,7 +328,7 @@ def main() -> int:
     from sparksmithwaterman_tpu_torch.models.pipeline import run_pipeline
     from sparksmithwaterman_tpu_torch.ops import _cuda, cuda_score
     from sparksmithwaterman_tpu_torch.ops.longseq import find_max_cells_batched, sites_for_ref_long_batched
-    from sparksmithwaterman_tpu_torch.ops.packing import pack_reads, read_best
+    from sparksmithwaterman_tpu_torch.ops.packing import START_BIT, pack_reads, read_best
     from sparksmithwaterman_tpu_torch.ops.recurrence import score_grid
     from sparksmithwaterman_tpu_torch.parallel import SeqParallelBackend, ShardedBackend, build_mesh, sharded_totals
 
@@ -296,13 +351,33 @@ def main() -> int:
     for name, widths in register_summary(_cuda.build_info["log"]).items():
         order = sorted(widths, key=lambda w: int(w[2:].split(":")[0]) if w.startswith("L=") else 0)
         print(f"[0] ptxas {name}: {' '.join(order)}")
+    nvcc = _cuda._nvcc()
     with tempfile.TemporaryDirectory(prefix="swtorch_probe_") as work:
-        probes = probe_instructions(_cuda._nvcc(), work)
+        probes = probe_instructions(nvcc, work)
+    relu_ops = probes.pop("dpx_relu")[1]
+    fail_unless(len(relu_ops) == 1, f"__viaddmax_s16x2_relu compiles to {relu_ops}, not one instruction")
     for name, (per_register, mnemonics) in probes.items():
         print(f"[0] SASS {name}: {per_register:g} instructions per register of two cells ({', '.join(mnemonics)})")
     fewest = min(per_register for per_register, _ in probes.values()) / 2
     fail_unless(fewest >= INSTR_PER_CELL,
                 f"a DPX form takes {fewest} instructions per cell, under the bound's {INSTR_PER_CELL}")
+    # K1's two forms in the built library: the s16x2 form must run the
+    # DPX instruction of __viaddmax_s16x2_relu and spill nothing.
+    k1_sass = collections.defaultdict(dict)
+    for fname, instrs in sass_functions(os.path.join(os.path.dirname(nvcc), "cuobjdump"), _cuda.build_info["path"]).items():
+        hit = re.search(r"\d(lane_best_s16x2_kernel|lane_best_kernel)ILi(\d+)E", fname)
+        if hit:
+            form = "s16x2" if "s16x2" in hit.group(1) else "int32"
+            ops = {op for _, op, _ in instrs}
+            fail_unless(form == "int32" or relu_ops[0] in ops,
+                        f"K1's s16x2 kernel at L={hit.group(2)} lacks {relu_ops[0]}")
+            k1_sass[form][int(hit.group(2))] = inner_loop_per_cell(instrs, 2 if form == "s16x2" else 1)
+    fail_unless(sorted(k1_sass["s16x2"]) == sorted(k1_sass["int32"]) == list(_LANES),
+                f"K1's kernels in the SASS: {dict(k1_sass)}")
+    print(f"[0] K1 SASS: every s16x2 kernel runs {relu_ops[0]}; ALU instructions per cell of the inner loop, "
+          f"L: s16x2 | int32: " + ", ".join(f"{l}: {k1_sass['s16x2'][l]:.3f} | {k1_sass['int32'][l]:.3f}" for l in _LANES))
+    k1_regs = register_summary(_cuda.build_info["log"])["lane_best_s16x2_kernel"]
+    fail_unless(not any("s" in w.split(":")[-1] for w in k1_regs), f"K1's s16x2 kernel spills: {k1_regs}")
 
     def up(arr):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
@@ -322,22 +397,53 @@ def main() -> int:
         order = np.argsort(-lens, kind="stable")
         return (up(packed), up(flat), up(lens[order].astype(np.int32)), up(offsets[order])), start, order
 
-    def k1(fn, args):
+    def k1(fn, args, params=PARAMS, **kw):
         packed, refs, lens, offsets = args
-        return fn(packed, refs, lens, *PARAMS, offsets=offsets)
+        return fn(packed, refs, lens, *params, offsets=offsets, **kw)
 
-    def k1_err(args, start):
-        k = read_best(k1(cuda_score.lane_best_packed_varlen, args), start)
-        p = read_best(k1(cuda_score.lane_best_packed_varlen_plain, args), start)
-        return int((k.to(torch.int64) - p).abs().max()) if k.numel() else 0
+    def k1_forms(fn):
+        """(fn(), {form: K1 launches fn made in that form})."""
+        before = dict(cuda_score.K1_FORMS)
+        out = fn()
+        return out, {form: n - before[form] for form, n in cuda_score.K1_FORMS.items()}
+
+    def k1_err(args, start, params=PARAMS, form="s16x2"):
+        """Max abs error of K1 against its plain version at every start
+        lane, failing unless the wrapper took ``form`` by its rule."""
+        k, forms = k1_forms(lambda: k1(cuda_score.lane_best_packed_varlen, args, params))
+        fail_unless(forms[form] == 1, f"K1 took {forms} at m={args[0].shape[1]}, scheme {params}, not {form}")
+        p = read_best(k1(cuda_score.lane_best_packed_varlen_plain, args, params), start)
+        return int((read_best(k, start).to(torch.int64) - p).abs().max()) if p.numel() else 0
+
+    def k1_int32_err(args, start, params=PARAMS):
+        """The same for the int32 form on the same inputs."""
+        k = read_best(k1(cuda_score._lane_best_packed_varlen, args, params, form="int32"), start)
+        p = read_best(k1(cuda_score.lane_best_packed_varlen_plain, args, params), start)
+        return int((k.to(torch.int64) - p).abs().max()) if p.numel() else 0
+
+    def layout_rows(layouts, m):
+        """K1's inputs for packed rows built by hand: row r holds segments
+        of the lengths layouts[r] (random codes, the trailing pad lanes a
+        segment of their own), with the flat index of every segment start."""
+        packed = np.full((len(layouts), m), READ_PAD, np.int32)
+        starts = []
+        for r, segs in enumerate(layouts):
+            o = 0
+            for n in segs:
+                packed[r, o : o + n] = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n)]
+                packed[r, o] |= START_BIT
+                starts.append(r * m + o)
+                o += n
+            if o < m:
+                packed[r, o] |= START_BIT
+        return up(packed), np.array(starts, np.int32)
 
     # -- 1. K1 against its plain version -----------------------------------
     reads_1 = rand_seqs(rng, rng.integers(80, 151, size=512))
     refs_1 = rand_seqs(rng, rng.integers(500, 4000, size=256))
     args_1, start_1, _ = k1_args(reads_1, refs_1, 256)
-    k1_max_err = k1_err(args_1, start_1)
+    k1_max_err = max(k1_err(args_1, start_1), k1_int32_err(args_1, start_1))
     fail_unless(k1_max_err == 0, f"K1 differs from plain at start lanes (max abs err {k1_max_err})")
-    k1_ms = cuda_ms(lambda: k1(cuda_score.lane_best_packed_varlen, args_1), 10)
     torch.cuda.synchronize()
     t = time.perf_counter()
     k1(cuda_score.lane_best_packed_varlen_plain, args_1)
@@ -346,15 +452,24 @@ def main() -> int:
     cells_1 = sum(map(len, reads_1)) * sum(map(len, refs_1))
     k1_bytes = sum(t.numel() * t.element_size() for t in args_1) + len(refs_1) * args_1[0].numel() * 4
     k1_bound_ms, k1_bound_by = bound(cells_1, k1_bytes, sms, clock_mhz)
-    print(f"[1] K1 512 reads x 256 refs (500-4000 bp, flat buffer), rows {tuple(args_1[0].shape)}: max abs err 0; "
-          f"kernel {k1_ms:.3f} ms ({cells_1 / k1_ms / 1e6:.1f} GCUPS real cells), plain {k1_plain_ms:.1f} ms; "
-          f"bound {k1_bound_ms:.3f} ms by {k1_bound_by} ({cells_1:.3e} cells, {k1_bytes} bytes) = "
-          f"{100 * k1_bound_ms / k1_ms:.1f}% of the kernel's time", flush=True)
+    k1_ab = collections.defaultdict(list)  # the two forms on the same inputs, in turns
+    for form in ("int32", "s16x2", "s16x2", "int32"):
+        k1_ab[form].append(cuda_ms(lambda: k1(cuda_score._lane_best_packed_varlen, args_1, form=form), 10))
+    k1_ms, k1_int32_ms = (float(np.mean(k1_ab[form])) for form in ("s16x2", "int32"))
+    print(f"[1] K1 512 reads x 256 refs (500-4000 bp, flat buffer), rows {tuple(args_1[0].shape)}: max abs err 0 in "
+          f"both forms; in turns int32 {k1_ab['int32'][0]:.3f}, s16x2 {k1_ab['s16x2'][0]:.3f}, s16x2 "
+          f"{k1_ab['s16x2'][1]:.3f}, int32 {k1_ab['int32'][1]:.3f} ms: s16x2 {k1_ms:.3f} ms "
+          f"({cells_1 / k1_ms / 1e6:.1f} GCUPS real cells, {100 * k1_bound_ms / k1_ms:.1f}% of the bound), int32 "
+          f"{k1_int32_ms:.3f} ms ({100 * k1_bound_ms / k1_int32_ms:.1f}%), {k1_int32_ms / k1_ms:.2f}x; plain "
+          f"{k1_plain_ms:.1f} ms; bound {k1_bound_ms:.3f} ms by {k1_bound_by} ({cells_1:.3e} cells, {k1_bytes} bytes)",
+          flush=True)
+    fail_unless(k1_ms < k1_int32_ms, "K1's s16x2 form is not faster than its int32 form")
 
     reads_l = rand_seqs(rng, rng.integers(80, 151, size=64))
     refs_l = rand_seqs(rng, [LONG_N] * 8)
     args_l, start_l, _ = k1_args(reads_l, refs_l, 256)
-    got_l = read_best(k1(cuda_score.lane_best_packed_varlen, args_l), start_l)
+    got_l, forms = k1_forms(lambda: read_best(k1(cuda_score.lane_best_packed_varlen, args_l), start_l))
+    fail_unless(forms["s16x2"] == 1, f"K1 at 131 kb refs took {forms}")
     refs_l_pad = up(encode_batch(refs_l, LONG_N, REF_PAD))
     want_l = torch.cat(
         [score_grid(up(encode_batch(reads_l, 152, READ_PAD)), refs_l_pad[c : c + 2], *PARAMS) for c in range(0, 8, 2)],
@@ -367,7 +482,7 @@ def main() -> int:
     kl_bound_ms, kl_bound_by = bound(
         cells_l, sum(t.numel() * t.element_size() for t in args_l) + 8 * args_l[0].numel() * 4, sms, clock_mhz
     )
-    print(f"[1] K1 64 reads x 8 refs of {LONG_N} bp vs row-form recurrence: max abs err 0; "
+    print(f"[1] K1 (s16x2) 64 reads x 8 refs of {LONG_N} bp vs row-form recurrence: max abs err 0; "
           f"kernel {kl_ms:.3f} ms ({cells_l / kl_ms / 1e6:.1f} GCUPS real cells); bound {kl_bound_ms:.3f} ms "
           f"by {kl_bound_by} = {100 * kl_bound_ms / kl_ms:.1f}%", flush=True)
 
@@ -377,14 +492,46 @@ def main() -> int:
         for padded in (False, True):
             args, start, order = k1_args(edge_reads, edge_refs, m_pack, padded, row_multiple=32)
             fail_unless((args[0][-1] == 256).sum() == 1, "edge case lacks an all-pad row")
-            err = k1_err(args, start)
+            err = max(k1_err(args, start), k1_int32_err(args, start))
             fail_unless(err == 0, f"K1 edge cases differ at m_pack={m_pack}, padded={padded} ({err})")
             cols = [k for k, c in enumerate(order) if len(edge_refs[c]) <= 2]
             want = np.array([[oracle.opt_alignments(edge_refs[order[k]], r)[0] for k in cols] for r in edge_reads[:8]])
             got = read_best(k1(cuda_score.lane_best_packed_varlen, args), start)[:8, cols].cpu().numpy()
             fail_unless((got == want).all(), f"K1 edge cases differ from the oracle at m_pack={m_pack}, padded={padded}")
     print("[1] K1 edge cases (empty reads, 0/1 bp refs, all-pad rows, m_pack 128 and 512, flat and padded refs): "
-          "equal to plain and oracle", flush=True)
+          "both forms equal to plain and oracle", flush=True)
+
+    # The s16x2 form's own edges: an odd number of rows (the last pairs
+    # with an all-pad row), paired rows with different segment layouts,
+    # and the scheme at the edge of k1_form's rule.
+    args, start, _ = k1_args(reads_1[:201], refs_1[:16], 256, row_multiple=1)
+    if args[0].shape[0] % 2 == 0:  # drop the last row and its reads
+        keep = start < (args[0].shape[0] - 1) * 256
+        args, start = (args[0][:-1], *args[1:]), start[keep]
+    fail_unless(args[0].shape[0] % 2 == 1, "the odd-row case has an even number of rows")
+    err_odd = k1_err(args, start)
+    layouts = [[256], [16] * 16, [1] * 256, [100, 3, 150], [255], [7, 249], [128, 128], [64] * 3, [2, 250]]
+    packed_p, start_p = layout_rows(layouts, 256)
+    err_pairs = k1_err((packed_p, *args_1[1:]), start_p)
+    read_b = rand_seqs(rng, [1024])[0]
+    args_b, start_b, _ = k1_args([read_b], [read_b], 1024, row_multiple=1)
+    boundary = {}
+    for params, form in (((31, -3, -4), "s16x2"), ((32, -3, -4), "int32")):
+        got, forms = k1_forms(lambda: read_best(k1(cuda_score.lane_best_packed_varlen, args_b, params), start_b))
+        fail_unless(forms[form] == 1, f"K1 at m=1024, scheme {params} took {forms}, not {form}")
+        boundary[params[0]] = int(got[0, 0])
+        fail_unless(boundary[params[0]] == 1024 * params[0] and k1_err(args_b, start_b, params, form) == 0,
+                    f"K1 on a 1,024 bp read equal to its ref at match {params[0]}: {boundary[params[0]]}")
+    args_g = k1_args(reads_1[:64], refs_1[:32], 256)[:2]
+    err_gap = max(k1_err(*args_g, params) for params in ((5, -3, -32768), (5, -32768, -32768)))
+    err_s16 = max(err_odd, err_pairs, err_gap)
+    fail_unless(err_s16 == 0, f"K1's s16x2 form differs from plain (odd rows {err_odd}, paired layouts {err_pairs}, "
+                              f"gap -32768 {err_gap})")
+    k1_max_err = max(k1_max_err, err_s16)
+    print(f"[1] K1 s16x2: {args[0].shape[0]} rows (odd), {len(layouts)} hand-packed rows of different segment layouts "
+          f"(1-256 lanes) in pairs, gap -32768 (and mismatch -32768) equal to plain at every start lane; a 1,024 bp "
+          f"read equal to its ref scores {boundary[31]} at match 31 (s16x2) and {boundary[32]} at match 32 (int32), "
+          f"equal to plain", flush=True)
 
     # -- 2. K2 against its plain version -----------------------------------
     def k2_err(reads, ref):
@@ -458,6 +605,9 @@ def main() -> int:
         launches = dict(cuda_score.LAUNCHES)
         fail_unless(launches["lane_best_packed_varlen"] > 0 and launches["argmax_lane"] > 0,
                     f"a kernel of the batch path never launched: {launches}")
+        k1_main_forms = collections.Counter(cuda_score.K1_FORMS)  # K1's forms on the main-path legs
+        fail_unless(k1_main_forms["s16x2"] == launches["lane_best_packed_varlen"],
+                    f"K1 launches of phases 3-4 not all in the s16x2 form: {dict(k1_main_forms)}")
 
         ref_bp, scale_read_bp = corpus["ref_bp"], corpus["read_bp"]
         parse_t = time.perf_counter()
@@ -467,7 +617,7 @@ def main() -> int:
         print(f"[4] run_pipeline: 512 reads ({scale_read_bp} bp) x {len(scale_refs)} refs ({ref_bp} bp, "
               f"{corpus['files']} files): wall {scale_s:.3f} s, real {scale_read_bp * ref_bp / scale_s / 1e9:.1f} GCUPS; "
               f"scoring dispatch window {backend.gcups.report()}; host parse {parse_s:.3f} s", flush=True)
-        print(f"[4] launches over phases 3-4: {launches}", flush=True)
+        print(f"[4] launches over phases 3-4: {launches}; K1 forms {dict(k1_main_forms)}", flush=True)
 
         # -- checks of what the main path wrote ------------------------------
         slice_refs = [rec for path in iter_files(os.path.join(slice_root, "refs")) for rec in get_ref_seqs(path, ">gi")]
@@ -672,6 +822,9 @@ def main() -> int:
                   f"batch's apart from the time line", flush=True)
         shard_launches = dict(cuda_score.LAUNCHES)
         fail_unless(shard_launches["lane_best_packed_varlen"] > 0, f"K1 never launched on the sharded path: {shard_launches}")
+        fail_unless(cuda_score.K1_FORMS["s16x2"] == shard_launches["lane_best_packed_varlen"],
+                    f"K1 launches of phase 7 not all in the s16x2 form: {cuda_score.K1_FORMS}")
+        k1_main_forms.update(cuda_score.K1_FORMS)
         mesh22 = ShardedBackend(
             AlignConfig(ref_dir=".", in_dir=".", out_dir=".", strategy="shard_refs"),
             build_mesh((2, 2), devices=[dev] * 4),
@@ -926,6 +1079,10 @@ def main() -> int:
                             ("readscale", "lane_best_packed_varlen"), ("longref", "lane_best_packed_varlen"),
                             ("longref", "argmax_lane"), ("roofline", "step_chain_best")):
             fail_unless(bench_launches[leg][kernel] > 0, f"{kernel} never launched on the bench's {leg} leg")
+        for leg, counts in bench_launches.items():
+            fail_unless(counts["k1_s16x2"] == counts["lane_best_packed_varlen"],
+                        f"K1 launches of the bench's {leg} leg not all in the s16x2 form: {counts}")
+            k1_main_forms.update({form: counts[f"k1_{form}"] for form in cuda_score.K1_FORMS})
         print(f"[13] bench legs (one pass each, parity against the oracle passed, smoke {result['smoke']}) in "
               f"{bench_s:.1f} s: {json.dumps(result)}", flush=True)
         print(f"[13] launches per bench leg: {json.dumps(bench_launches)}", flush=True)
@@ -947,6 +1104,7 @@ def main() -> int:
 
         # -- 14. long reads: K1-K5 on rows wider than 1,024 lanes (stripes) ---------
         t14 = time.perf_counter()
+        forms_14 = dict(cuda_score.K1_FORMS)
         genome = rand_seqs(rng, [40_000])[0]
 
         def piece(n):
@@ -1120,6 +1278,11 @@ def main() -> int:
         time_wide("K2", lambda: cuda_score.argmax_lane(*args_2t, *PARAMS), sum(map(len, reads_2t)) * len(refs_t[0]),
                   args_2t[0].numel() + args_2t[1].numel() + 3 * 4 * args_2t[0].numel())
 
+        wide_forms = {form: n - forms_14[form] for form, n in cuda_score.K1_FORMS.items()}
+        fail_unless(wide_forms["s16x2"] == 0 and wide_forms["int32"] > 0,
+                    f"K1 at rows of more than 1,024 lanes took {wide_forms}, not the int32 form alone")
+        print(f"[14] K1 launches at rows of 1,025-16,384 lanes by form: {wide_forms}", flush=True)
+
         # The main path: every strategy on a corpus with reads of 1,025-8,000 bp.
         t14e = time.perf_counter()
         lr_root = os.path.join(work, "long_reads")
@@ -1148,6 +1311,10 @@ def main() -> int:
             torch.cuda.synchronize()
             lr_s[name] = time.perf_counter() - t
         lr_launches = dict(cuda_score.LAUNCHES)
+        lr_forms = dict(cuda_score.K1_FORMS)
+        fail_unless(lr_forms["int32"] > 0 and sum(lr_forms.values()) == lr_launches["lane_best_packed_varlen"],
+                    f"K1's forms on the long-read paths: {lr_forms} of {lr_launches['lane_best_packed_varlen']}")
+        k1_main_forms.update(lr_forms)
         fail_unless(all(lr_launches[k] > 0 for k in ("lane_best_packed_varlen", "argmax_lane", "band_lane_best",
                                                       "score_grid_diag", "score_grid_row")),
                     f"a kernel of K1-K5 never launched on the long-read paths: {lr_launches}")
@@ -1179,7 +1346,7 @@ def main() -> int:
               f"{max_score}, {len(winners)} winner(s) equal to the row-form recurrence; all {n_sites} sites equal the "
               f"per-read recomputation ({'/'.join(sorted(branches))} branch); {time.perf_counter() - t14e:.1f} s "
               f"with the checks", flush=True)
-        print(f"[14] LAUNCHES over the long-read paths: {lr_launches}; phase 14 took {time.perf_counter() - t14:.1f} s",
+        print(f"[14] LAUNCHES over the long-read paths: {lr_launches}, K1 forms {lr_forms}; phase 14 took {time.perf_counter() - t14:.1f} s",
               flush=True)
 
     legs = (launches, seq_launches, shard_launches, unpacked_launches, scaling_launches,
@@ -1202,6 +1369,8 @@ def main() -> int:
             "bound_ms": k1_bound_ms,
             "bound_by": k1_bound_by,
             "library_ms": None,
+            "forms": dict(k1_main_forms),
+            "int32_ms": k1_int32_ms,
             "long_ms": kl_ms,
             "long_bound_ms": kl_bound_ms,
         },

@@ -11,22 +11,53 @@
 // refs + offs[c] (int64 offsets), so a batch is one flat buffer with no
 // padding; a (C, N) padded batch is the case offs[c] = c * N.
 //
-// What bounds it on the H100: the sweep is integer ALU work, about ten
-// instructions per DP cell, with no memory traffic in the inner loop; the
-// output (C*ROWS*M int32) is written once.  So it is compute bound, and
-// the design keeps every cell in registers: one warp per packed row, L
-// lanes per thread, neighbour lanes through one warp shuffle per diagonal
-// (no block barrier per diagonal), the reference streamed through a 4 KB
-// shared-memory ring shared by the block's four rows.  Each reference runs
-// exactly m + len - 1 diagonals (0 for len == 0), so a mixed-length batch
-// pays no length padding, and a 131 kb or 1 Mb reference needs no other
-// form: different references are different blocks, which is what made
-// the TPU's multi-ref fold unnecessary here.  A row of more than 1,024
-// lanes runs in stripes of 512 (lane_best_wide_kernel, wavefront.cuh),
-// its carry rows in a scratch buffer the wrapper allocates.
+// What bounds it on the H100: the sweep is integer ALU work with no
+// memory traffic in the inner loop; the output (C*ROWS*M int32) is
+// written once.  So it is bound by operations: the repo's bound counts
+// 1.5 instructions per DP cell (three DPX/SIMD instructions per register
+// of two 16-bit cells) at 33.45 T instructions/s (132 SMs x 4 x 32
+// threads x 1,980 MHz).  Every cell stays in registers: L lanes per
+// thread, neighbour lanes through one warp shuffle per diagonal (no
+// block barrier per diagonal), the reference streamed through a
+// shared-memory ring shared by the block's rows.  Each reference runs m +
+// len - 1 diagonals (0 for len == 0), so a mixed-length batch pays no
+// length padding, and a 131 kb or 1 Mb reference needs no other form:
+// different references are different blocks, which is what made the
+// TPU's multi-ref fold unnecessary here.
+//
+// Two forms, chosen by the wrapper from the data alone (ops/cuda_score.py
+// k1_form):
+//
+// - s16x2 (lane_best_s16x2_kernel), rows of at most 1,024 lanes whose
+//   scores fit int16: warp w of a block takes packed rows 2w and 2w + 1,
+//   one in each 16-bit half of every register, two cells per
+//   instruction (wavefront.cuh sweep_s16x2).  What it does about the
+//   bound: the int32 form spends about ten instructions a cell, all on
+//   the integer pipe, which takes a warp instruction every other clock;
+//   this form spends four and a half integer instructions per register
+//   of two cells (the segment mask, the max of the N and W terms, the
+//   gap, the DPX add-max-relu, half a 3-input max for the running best),
+//   and puts the substitution on the FP16 pipe (a compare of codes held
+//   as f16) and the FMA pipe (one IMAD adds it to the NW term).  No
+//   value leaves int16: a cell is the best score of a path ending there,
+//   and with mismatch <= 0 and gap <= 0 a path gains at most `match` per
+//   lane of its segment, so 0 <= H[i][j] <= match x (lanes of the
+//   segment up to i) <= match x m <= 32767; every negative intermediate
+//   (U + mismatch, max(N, W) + gap with U, N, W >= 0) is at least
+//   min(mismatch, gap) >= -32768.  So the wrapping adds are exact and no
+//   saturating form is needed.  An odd last row pairs with an all-pad row: every lane starts
+//   a segment of READ_PAD, stays 0 and is not stored.  The segmented
+//   suffix max runs once per row after the sweep, on each half unpacked
+//   to int32.
+// - int32 (lane_best_kernel, one warp per row, one cell per
+//   instruction): every other row of at most 1,024 lanes; a row of more
+//   than 1,024 lanes runs in stripes of 512 (lane_best_wide_kernel,
+//   wavefront.cuh), its carry rows in a scratch buffer the wrapper
+//   allocates.
 //
 // Lanes a caller may read: the start lane of every segment.  Other lanes
-// hold the suffix max of their segment from that lane on, which the TPU
+// hold the suffix max of their segment from that lane on (in the s16x2
+// form also over the extra diagonals sweep_s16x2 may run), which the TPU
 // kernel (which also sweeps padding diagonals) need not match.
 #include "wavefront.cuh"
 
@@ -117,6 +148,68 @@ lane_best_kernel(const int32_t* __restrict__ packed, int rows, int m,
   }
 }
 
+// The s16x2 form (see the top of this file): block b of reference c
+// takes packed rows 8 (b % row_blocks) .. + 7, warp w the pair 2w, 2w + 1.
+// k_sub = match - mismatch, mismatch2 and gap2 pair16 of the scheme, all
+// from the host, so that they sit in the constant bank, not registers.
+template <int L>
+__global__ void __launch_bounds__(kThreads)
+lane_best_s16x2_kernel(const int32_t* __restrict__ packed, int rows, int m,
+                       int row_blocks, const uint8_t* __restrict__ refs,
+                       const long long* __restrict__ offs,
+                       const int32_t* __restrict__ lens, uint32_t k_sub,
+                       uint32_t mismatch2, uint32_t gap2,
+                       int32_t* __restrict__ out) {
+  __shared__ uint32_t ring[kRing + kS16x2RingPad];
+  const int c = blockIdx.x / row_blocks;
+  const int row = (blockIdx.x % row_blocks) * (2 * kWarps) + 2 * (threadIdx.x >> 5);
+  const int first = (threadIdx.x & 31) * L;
+  const int len = lens[c];
+  const int nd = len > 0 ? m + len - 1 : 0;
+
+  uint32_t rd2[L], keep2[L], best2[L];
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    const int i = first + k;
+    // Lanes past m (and rows past ROWS) form isolated all-pad segments.
+    const int lo = (row < rows && i < m) ? packed[(long long)row * m + i] : kStartBit;
+    const int hi = (row + 1 < rows && i < m) ? packed[(long long)(row + 1) * m + i] : kStartBit;
+    rd2[k] = code_half(lo) | code_half(hi) << 16;
+    keep2[k] = (lo >= kStartBit || i == 0 ? 0u : 0x0000FFFFu) | (hi >= kStartBit || i == 0 ? 0u : 0xFFFF0000u);
+    best2[k] = 0;
+  }
+  // The best of a register over pairs of diagonals (the unroll is even):
+  // on the second of each pair, one 3-input max of best, the first's
+  // value and the second's.
+  sweep_s16x2<L>(rd2, keep2, nd, refs + offs[c], len, k_sub, mismatch2, gap2, ring,
+                 [&](int k, bool odd, uint32_t h, uint32_t h_prev) {
+                   if (odd) best2[k] = __vimax3_s16x2(best2[k], h_prev, h);
+                 });
+
+  // The row and the segment starts again, from the block index and keep2,
+  // so that none of them holds a register across the sweep (ptxas
+  // spilled them otherwise).
+  int block;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(block));
+  const int c2 = block / row_blocks;
+  const int row2 = (block % row_blocks) * (2 * kWarps) + 2 * (threadIdx.x >> 5);
+  uint32_t start_lo = 0, start_hi = 0;
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    asm volatile("" : "+r"(keep2[k]));  // not derived again from the loads
+    start_lo |= (uint32_t)((keep2[k] & 0xFFFFu) == 0) << k;
+    start_hi |= (uint32_t)((keep2[k] >> 16) == 0) << k;
+  }
+  int32_t* o = out + ((long long)c2 * rows + row2) * m;
+  int best[L];
+#pragma unroll
+  for (int k = 0; k < L; ++k) best[k] = (int)(best2[k] & 0xFFFFu);
+  store_suffix_max<L>(best, start_lo, m, row2 < rows, o);
+#pragma unroll
+  for (int k = 0; k < L; ++k) best[k] = (int)(best2[k] >> 16);
+  store_suffix_max<L>(best, start_hi, m, row2 + 1 < rows, o + m);
+}
+
 // A row wider than kMaxLanes, in stripes of 32 * L lanes (wavefront.cuh):
 // each stripe sweeps and stores its own segmented suffix max, then
 // stripe_suffix_max carries each read's max back over the stripe
@@ -202,6 +295,40 @@ extern "C" int swt_lane_best_varlen(const void* packed, int rows, int m,
         (const uint8_t*)refs, (const long long*)offs,                       \
         (const int32_t*)lens, match,                                        \
         mismatch, gap, (int32_t*)out);                                      \
+    break;
+    SWT_FOR_EACH_L(SWT_LAUNCH)
+#undef SWT_LAUNCH
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// The s16x2 form; the wrapper takes it only where ops/cuda_score.py
+// k1_form says so, and this entry refuses a scheme under which a value
+// could leave int16 or a row wider than kMaxLanes.
+extern "C" int swt_lane_best_varlen_s16x2(const void* packed, int rows, int m,
+                                          const void* refs, const void* offs,
+                                          const void* lens, int c, int match,
+                                          int mismatch, int gap, void* out,
+                                          int device, void* stream) {
+  const int L = swt::pick_lanes(m);
+  const bool fits = match >= 0 && (long long)match * m <= 32767 && mismatch >= -32768 &&
+                    mismatch <= 0 && gap >= -32768 && gap <= 0;
+  if (rows <= 0 || c <= 0 || L == 0 || !fits) return (int)cudaErrorInvalidValue;
+  const long long row_blocks = (rows + 2 * swt::kWarps - 1) / (2 * swt::kWarps);
+  const long long blocks = row_blocks * c;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  swt::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (L) {
+#define SWT_LAUNCH(l)                                                           \
+  case l:                                                                       \
+    lane_best_s16x2_kernel<l><<<(unsigned)blocks, swt::kThreads, 0, s>>>(      \
+        (const int32_t*)packed, rows, m, (int)row_blocks, (const uint8_t*)refs, \
+        (const long long*)offs, (const int32_t*)lens, (uint32_t)(match - mismatch), \
+        pair16(mismatch), pair16(gap), (int32_t*)out);                          \
     break;
     SWT_FOR_EACH_L(SWT_LAUNCH)
 #undef SWT_LAUNCH

@@ -230,6 +230,152 @@ __device__ __forceinline__ void sweep(const int (&rd)[L], uint32_t zmask,
            [](int, int(&)[L]) {});
 }
 
+// The 16-bit sweep: two rows per warp, one in each 16-bit half of every
+// register, two cells per instruction.  Register k of a thread holds lane
+// first + k of one row in its low half and of the other row in its high
+// half, so the one __shfl_up_sync of the last register moves both rows,
+// and both rows see the same reference column, which enters the window
+// once.  The int32 sweep is bound by the SM's integer pipe (16 lanes per
+// clock per scheduler: a warp instruction every other clock), so this one
+// keeps integer instructions to four and a half per register and moves
+// the substitution to the FP16 and FMA pipes.  Per register and diagonal (sweep_s16x2):
+//
+//   e   = set.eq(rd2, rw) * 2^-24      FP16: 0x0001 in a half whose codes
+//                                      match, else 0 (an f16 subnormal)
+//   V   = e * (match - mismatch) + U   IMAD: U + sub - mismatch per half
+//   up  = N & keep2                    0 in a half that starts a segment
+//   h   = __viaddmax_s16x2_relu(V, mismatch2, __vmaxs2(up, H) + gap2)
+//   best = max(best, h)                every other diagonal as a 3-input
+//                                      max of best, H and h
+//
+// Codes compare as halves: code_half(c) puts the code byte in the
+// mantissa of a normal f16 (1.0 <= x < 1.25), so two halves are equal
+// exactly when their code bytes are.  The arithmetic wraps at 16 bits and
+// does not saturate; the caller takes this sweep only where no value
+// leaves int16 (ops/cuda_score.py k1_form: 0 <= match, match x lanes of
+// a row <= 32767, -32768 <= mismatch, gap <= 0).  Then the 32-bit IMAD
+// carries nothing from the low half into the high one: U <= match x
+// (m - 1) <= 32767 - match, so U + e (match - mismatch) <= 32767 -
+// mismatch <= 65535, and V + mismatch wraps back to U + sub.
+//
+// The reference streams through a ring of kRing 32-bit words, each a
+// code_half in both halves: one shared load per diagonal and no bounds
+// test (the ring holds REF_PAD left of column 0 and right of len).  Its
+// first kS16x2RingPad words are mirrored past its end, so an unrolled
+// step reads its diagonals at one index and constant offsets.  For
+// L <= 8 the diagonal loop is unrolled by a multiple of L, so the
+// window's registers rotate by name and never move; wider rows keep
+// their window as bytes, four columns a register, shifted by one
+// funnel shift a register per diagonal and spread into halves by one
+// byte permute per register (a window of L words spills at L = 32).
+// The sweep runs nd rounded up to the unroll: the extra diagonals see
+// only columns right of the reference, whose cells, with mismatch <= 0
+// and gap <= 0, are no larger than a cell to their left or above in the
+// same segment, so no segment's best changes.
+constexpr uint32_t kHalfCode = 0x3C00u;  // f16 1.0: sign 0, exponent 15
+
+__device__ __forceinline__ uint32_t code_half(int code) {
+  return kHalfCode | (uint32_t)(code & 255);
+}
+
+// v in both 16-bit halves.
+__host__ __device__ __forceinline__ uint32_t pair16(int v) {
+  return ((uint32_t)v & 0xFFFFu) * 0x00010001u;
+}
+
+// 0x0001 in each half where a and b are equal halves, else 0.
+__device__ __forceinline__ uint32_t eq_unit16x2(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("{\n\t.reg .b32 t;\n\tset.eq.f16x2.f16x2 t, %1, %2;\n\tmul.rn.f16x2 %0, t, %3;\n\t}"
+      : "=r"(r) : "r"(a), "r"(b), "r"(0x00010001u));
+  return r;
+}
+
+// Diagonals per unrolled step of sweep_s16x2 (even, so the best takes
+// pairs of diagonals; a multiple of L up to L = 8) and the ref tile (a
+// multiple of it, at most kTile, so the ring keeps the lookback).
+template <int L>
+constexpr int kS16x2Unroll = L > 8 ? 2 : (L % 2 ? 2 * L : L);
+template <int L>
+constexpr int kS16x2Tile = kTile - kTile % kS16x2Unroll<L>;
+constexpr int kS16x2RingPad = 16;  // >= every kS16x2Unroll<L>
+
+// Run the diagonals 0 .. nd-1 (nd rounded up to kS16x2Unroll<L>) for this
+// warp's two rows and call on_cell(k, odd, h2, h2_prev) for every
+// register k of this thread on every diagonal d, odd = (d & 1) known at
+// compile time, h2_prev the register's value on diagonal d - 1 (so a
+// caller can fold a pair of diagonals at once: see lane_best.cu).
+// rd2[k] holds both rows' codes (code_half), keep2[k] 0 in a half whose
+// lane starts a segment (lane 0 always does) and 0xFFFF elsewhere; k_sub
+// = match - mismatch, mismatch2 and gap2 pair16 of the scheme.  `ring` is
+// kRing + kS16x2RingPad words of shared memory.  Every thread of the
+// block must call it with the same nd (it synchronises at tile edges).
+template <int L, class OnCell>
+__device__ __forceinline__ void sweep_s16x2(const uint32_t (&rd2)[L],
+                                            const uint32_t (&keep2)[L], int nd,
+                                            const uint8_t* ref, int len,
+                                            uint32_t k_sub, uint32_t mismatch2,
+                                            uint32_t gap2, uint32_t* ring,
+                                            OnCell&& on_cell) {
+  constexpr int R = kS16x2Unroll<L>;
+  constexpr int T = kS16x2Tile<L>;
+  constexpr bool kBytes = L > 8;      // window as bytes, four a register
+  constexpr int NW = kBytes ? (L + 3) / 4 : L;
+  const uint32_t pad = code_half(kRefPad) * 0x00010001u;
+  const int first = (threadIdx.x & 31) * L;
+  uint32_t H[L], U[L], w[NW];  // D_{d-1}[i], D_{d-2}[i-1] (masked), window
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    H[k] = 0;
+    U[k] = 0;
+  }
+#pragma unroll
+  for (int q = 0; q < NW; ++q) w[q] = kBytes ? (uint32_t)kRefPad * 0x01010101u : pad;
+  // Columns left of 0 alias the ring's top, which no first tile writes.
+  for (int t = T + threadIdx.x; t < kRing; t += blockDim.x) ring[t] = pad;
+  nd = (nd + R - 1) / R * R;
+  for (int base = 0; base < nd; base += T) {
+    __syncthreads();  // everyone is done reading the slot being replaced
+    for (int t = threadIdx.x; t < T; t += blockDim.x) {
+      const int j = base + t, q = j & (kRing - 1);
+      const uint32_t col = code_half(j < len ? ref[j] : kRefPad) * 0x00010001u;
+      ring[q] = col;
+      if (q < kS16x2RingPad) ring[kRing + q] = col;
+    }
+    __syncthreads();
+    const int dend = min(nd, base + T);
+    for (int d = base; d < dend; d += R) {
+      const uint32_t* at = ring + ((d - first) & (kRing - 1));
+#pragma unroll
+      for (int u = 0; u < R; ++u) {
+        // Lane first + k reads column d + u - first - k: unrolled by a
+        // multiple of L, that is window slot (u - k) mod L, the new
+        // column going to slot u mod L.
+        const uint32_t col = at[u];
+        if (!kBytes) {
+          w[u % L] = col;
+        } else {
+#pragma unroll
+          for (int q = NW - 1; q > 0; --q) w[q] = __funnelshift_l(w[q - 1], w[q], 8);
+          w[0] = __byte_perm(w[0], col, 0x2104);
+        }
+        const uint32_t up0 = __shfl_up_sync(0xffffffffu, H[L - 1], 1);
+#pragma unroll
+        for (int k = L - 1; k >= 0; --k) {
+          const uint32_t rw = kBytes ? __byte_perm(w[k / 4], 0x3C3C3C3Cu, 0x4040 + 0x0101 * (k % 4))
+                                     : w[((u - k) % L + L) % L];
+          const uint32_t up = (k > 0 ? H[k - 1] : up0) & keep2[k];
+          const uint32_t v = eq_unit16x2(rd2[k], rw) * k_sub + U[k];
+          const uint32_t h = __viaddmax_s16x2_relu(v, mismatch2, __vadd2(__vmaxs2(up, H[k]), gap2));
+          on_cell(k, (u & 1) != 0, h, H[k]);
+          U[k] = up;
+          H[k] = h;
+        }
+      }
+    }
+  }
+}
+
 // Segmented suffix max of one row's lanes, then the store: best[] over
 // the warp's 32 * L lanes, segments beginning at the set bits of `start`
 // (lane-local), the lanes < m stored to o when `live`.  Every lane of the

@@ -118,6 +118,13 @@ def lib() -> ctypes.CDLL:
                 _VP, _VP, _VP, _I,  # out, carry, carry offsets, rows per launch
                 _I, _VP,  # device, stream
             ]
+            handle.swt_lane_best_varlen_s16x2.restype = _I
+            handle.swt_lane_best_varlen_s16x2.argtypes = [
+                _VP, _I, _I,  # packed, rows, m
+                _VP, _VP, _VP, _I,  # refs, offsets, lens, c
+                _I, _I, _I,  # match, mismatch, gap
+                _VP, _I, _VP,  # out, device, stream
+            ]
             handle.swt_argmax_lane.restype = _I
             handle.swt_argmax_lane.argtypes = [
                 _VP, _I, _I,  # reads, r, m

@@ -29,6 +29,12 @@ tensors it launches the kernel or raises; it never falls back.  Each
 launch adds one to :data:`LAUNCHES`, so a run can show that its main path
 went through the kernels.
 
+K1 has two forms, and the data alone picks one (:func:`k1_form`): rows of
+at most ONE_PASS_LANES lanes whose scores provably fit int16 run two rows
+per warp in the 16-bit halves of each register, the recurrence in DPX
+instructions ("s16x2"); every other row runs the int32 kernels, one pass
+or striped ("int32").  :data:`K1_FORMS` counts the launches of each.
+
 K1-K5 take rows (reads) of any width.  Up to :data:`ONE_PASS_LANES`
 lanes a warp sweeps a row in one pass; a wider row runs in stripes of
 :data:`STRIPE_LANES` lanes, top to bottom, each stripe's last lane handed
@@ -75,6 +81,9 @@ LAUNCHES = {
     "step_variant_best": 0,
 }
 
+# K1's launches per form (k1_form) since the last reset_launches().
+K1_FORMS = {"s16x2": 0, "int32": 0}
+
 # Widest row a warp sweeps in one pass (32 threads x 32 lanes); wider
 # rows run in stripes of STRIPE_LANES (csrc/wavefront.cuh kMaxLanes,
 # kStripe).
@@ -90,8 +99,9 @@ _BLOCK_ROWS = 4
 
 
 def reset_launches() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    for counts in (LAUNCHES, K1_FORMS):
+        for key in counts:
+            counts[key] = 0
 
 
 def _device_of(*tensors: torch.Tensor) -> torch.device:
@@ -179,6 +189,27 @@ def _ref_window(refs_i: torch.Tensor, lens: torch.Tensor, d: int, m: int):
 
 # -- K1: packed lane best ------------------------------------------------------
 
+_INT16_MIN, _INT16_MAX = -(1 << 15), (1 << 15) - 1
+
+
+def k1_form(m: int, match: int, mismatch: int, gap: int) -> str:
+    """The form K1 takes for packed rows of ``m`` lanes under a scheme:
+    ``"s16x2"`` (two rows per warp, one in each 16-bit half of every
+    register, the recurrence in DPX instructions) when every score and
+    every intermediate provably fits int16, else ``"int32"``.
+
+    A cell is the best score of a path ending there.  With mismatch <= 0
+    and gap <= 0 a path gains at most ``match`` per lane of its segment,
+    and a segment is at most m lanes, so 0 <= H <= match * m; every
+    negative intermediate (U + mismatch, max(N, W) + gap, with U, N, W >=
+    0) is at least min(mismatch, gap).  So the rule is match * m <= 32767,
+    -32768 <= mismatch, gap <= 0 <= match, and m <= ONE_PASS_LANES (wider
+    rows run in stripes, in int32).  ``ScoringScheme`` (match > 0,
+    mismatch and gap < 0) meets the signs.
+    """
+    fits = 0 <= match and match * m <= _INT16_MAX and _INT16_MIN <= min(mismatch, gap) and max(mismatch, gap) <= 0
+    return "s16x2" if fits and m <= ONE_PASS_LANES else "int32"
+
 
 def segmented_suffix_max(x: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
     """Lane i becomes max(x[..., i .. end of its segment)); segments begin
@@ -263,7 +294,17 @@ def lane_best_packed_varlen(packed, refs_u8, lens, match, mismatch, gap, offsets
     [0, N]), given when the caller has it on the host, so that a launch
     of rows wider than ONE_PASS_LANES sizes its carry scratch without a
     host sync.
+
+    K1's form follows from ``m`` and the scheme alone (:func:`k1_form`).
     """
+    return _lane_best_packed_varlen(packed, refs_u8, lens, match, mismatch, gap, offsets, carry_cols=carry_cols)
+
+
+def _lane_best_packed_varlen(packed, refs_u8, lens, match, mismatch, gap, offsets=None, *, carry_cols=None,
+                             form=None):
+    """:func:`lane_best_packed_varlen` with K1's form given (``form=None``:
+    :func:`k1_form`'s), so that the two forms can be timed on the same
+    inputs; ``"s16x2"`` where k1_form says ``"int32"`` raises."""
     device = _device_of(packed, refs_u8, lens, *(() if offsets is None else (offsets,)))
     if packed.dim() != 2 or packed.dtype != torch.int32:
         raise ValueError("packed must be a (ROWS, M) int32 tensor")
@@ -275,9 +316,13 @@ def lane_best_packed_varlen(packed, refs_u8, lens, match, mismatch, gap, offsets
     if lens.shape != (c,) or lens.dtype != torch.int32:
         raise ValueError("lens must be a (C,) int32 tensor")
     match, mismatch, gap = int(match), int(mismatch), int(gap)
+    rows, m = packed.shape
+    rule = k1_form(m, match, mismatch, gap)
+    form = rule if form is None else form
+    if form not in K1_FORMS or (form == "s16x2" and rule != "s16x2"):
+        raise ValueError(f"K1 cannot take form {form!r} at m={m}, scheme {(match, mismatch, gap)}")
     if device.type == "cpu":
         return lane_best_packed_varlen_plain(packed, refs_u8, lens, match, mismatch, gap, offsets)
-    rows, m = packed.shape
     _check_stripes("lane_best_packed_varlen", m, mismatch, gap)
     out = torch.empty((c, rows, m), dtype=torch.int32, device=device)
     if c == 0 or rows == 0:
@@ -291,15 +336,23 @@ def lane_best_packed_varlen(packed, refs_u8, lens, match, mismatch, gap, offsets
     refs_u8 = refs_u8.contiguous()
     lens = lens.contiguous()
     offsets = offsets.contiguous()
-    carry, carry_offs, part = _carry_rows(m, rows, lens.clamp_min(0), carry_cols)
-    rc = _cuda.lib().swt_lane_best_varlen(
-        packed.data_ptr(), rows, m,
-        refs_u8.data_ptr(), offsets.data_ptr(), lens.data_ptr(), c,
-        match, mismatch, gap,
-        out.data_ptr(), _ptr(carry), _ptr(carry_offs), part, *_launch_target(device),
-    )
+    if form == "s16x2":
+        rc = _cuda.lib().swt_lane_best_varlen_s16x2(
+            packed.data_ptr(), rows, m,
+            refs_u8.data_ptr(), offsets.data_ptr(), lens.data_ptr(), c,
+            match, mismatch, gap, out.data_ptr(), *_launch_target(device),
+        )
+    else:
+        carry, carry_offs, part = _carry_rows(m, rows, lens.clamp_min(0), carry_cols)
+        rc = _cuda.lib().swt_lane_best_varlen(
+            packed.data_ptr(), rows, m,
+            refs_u8.data_ptr(), offsets.data_ptr(), lens.data_ptr(), c,
+            match, mismatch, gap,
+            out.data_ptr(), _ptr(carry), _ptr(carry_offs), part, *_launch_target(device),
+        )
     _cuda.check(rc, "lane_best_packed_varlen")
     LAUNCHES["lane_best_packed_varlen"] += 1
+    K1_FORMS[form] += 1
     return out
 
 

@@ -1,0 +1,132 @@
+"""Time each CUDA kernel of a checkout of the port, on one card, at the
+shapes ``chip_smoke.py`` times them: one JSON line.
+
+    python3 sparksmithwaterman_tpu_torch/utils/kernel_times.py [ROOT ...]
+
+ROOT (default: this checkout) is a directory that holds
+``sparksmithwaterman_tpu_torch/``; each ROOT runs in a process of its
+own, in the order given, so an A/B of two trees on one card is one call
+(``ROOT_A ROOT_B ROOT_B ROOT_A``).  Inputs come from a fixed numpy seed,
+the same for every ROOT.  K1 is timed through its public wrapper (the
+form its rule picks) and, where the tree has the private entry that
+takes a form, in its int32 form too.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+SEED = 20261017
+PARAMS = (5, -3, -4)
+
+
+def _times(root: str) -> dict:
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.abspath(root))
+    from sparksmithwaterman_tpu_torch.io.fasta import READ_PAD, REF_PAD, encode_batch, encode_concat
+    from sparksmithwaterman_tpu_torch.ops import _cuda, cuda_score
+    from sparksmithwaterman_tpu_torch.ops.packing import pack_reads
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times: no CUDA device")
+    dev = torch.device("cuda")
+    _cuda.lib()
+    rng = np.random.default_rng(SEED)
+
+    def seqs(lens):
+        return [np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, int(n))].tobytes().decode() for n in lens]
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def ms(fn, iters=10):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    out = {}
+    reads = seqs(rng.integers(80, 151, 512))
+    refs = seqs(rng.integers(500, 4000, 256))
+    packed, _ = pack_reads(reads, 256)
+    flat, lens = encode_concat(refs)
+    offs = np.concatenate(([0], np.cumsum(lens)[:-1])).astype(np.int64)
+    k1 = (up(packed), up(flat), up(lens.astype(np.int32)))
+    offs_t = up(offs)
+    out["K1"] = ms(lambda: cuda_score.lane_best_packed_varlen(*k1, *PARAMS, offsets=offs_t))
+    if hasattr(cuda_score, "_lane_best_packed_varlen"):
+        out["K1_int32"] = ms(lambda: cuda_score._lane_best_packed_varlen(*k1, *PARAMS, offsets=offs_t, form="int32"))
+    # Rows of 4,096 lanes (64 reads of 500-4,096 bp) x 64 refs: striped.
+    wide = up(pack_reads(seqs(rng.integers(500, 4097, 64)), 4096)[0])
+    offs_w = offs_t[:64]
+    out["K1_wide"] = ms(lambda: cuda_score.lane_best_packed_varlen(wide, k1[1], k1[2][:64], *PARAMS, offsets=offs_w), 3)
+    reads_2 = up(encode_batch(seqs(rng.integers(80, 151, 2000)), 152, READ_PAD))
+    ref_2 = up(encode_batch(seqs([2000]), 2000, REF_PAD))
+    out["K2"] = ms(lambda: cuda_score.argmax_lane(reads_2, ref_2, *PARAMS))
+    refs_3 = refs[:32]
+    flat_3, lens_3 = encode_concat(refs_3)
+    offs_3 = np.concatenate(([0], np.cumsum(lens_3)[:-1])).astype(np.int64)
+    k3 = (up(packed), up(flat_3), up(offs_3), up(lens_3.astype(np.int32)), up(lens_3.astype(np.int32)),
+          up(rng.integers(0, 120, size=(32,) + packed.shape).astype(np.int32)))
+    out["K3"] = ms(lambda: cuda_score.band_lane_best(*k3, *PARAMS))
+    grid = (up(encode_batch(reads, 256, READ_PAD)), up(encode_batch(refs[:64], 4000, REF_PAD)))
+    out["K4"] = ms(lambda: cuda_score.score_grid_diag(*grid, *PARAMS))
+    out["K5"] = ms(lambda: cuda_score.score_grid_row(*grid, *PARAMS))
+    chain = up(np.random.default_rng(0).integers(2, 6, size=(512, 128)).astype(np.int32))
+    out["K6"] = ms(lambda: cuda_score.step_chain_best(chain, steps=131_072, unroll=64), 5)
+    packed_7 = np.random.default_rng(0).integers(65, 85, size=(248, 256)).astype(np.int32)
+    packed_7[:, 0] |= 256
+    packed_7, refs_7 = up(packed_7), up(encode_batch(seqs([1024] * 64), 1024, REF_PAD))
+    out["K7"] = ms(lambda: cuda_score.step_variant_best(packed_7, refs_7, variant="A"))
+    return out, _registers(_cuda.build_info["log"])
+
+
+def _registers(log: str) -> dict:
+    """{kernel and template arguments: "<registers>r[+<spill bytes>s]"}
+    from nvcc's -Xptxas -v log (empty when the library came from the
+    cache); the key drops the mangled name's per-file namespace, so two
+    trees' keys match."""
+    out, name, spill = {}, None, 0
+    for line in log.splitlines():
+        if "Compiling entry function '" in line:
+            mangled = line.split("'")[1]
+            head = mangled[: mangled.index("_kernel") + len("_kernel")]
+            n = next(n for n in range(len("_kernel"), len(head) + 1) if head[:-n].endswith(str(n)))
+            name, spill = mangled[len(head) - n :], 0
+        elif name and "bytes spill stores" in line:
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif name and "Used" in line and "registers" in line:
+            regs = line.split("Used")[1].split("registers")[0].strip()
+            out[name] = f"{regs}r" + (f"+{spill}s" if spill else "")
+            name = None
+    return out
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    roots = argv or [os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))]
+    if len(roots) == 1:
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                              capture_output=True, text=True).stdout.strip().splitlines()[:1]
+        times, registers = _times(roots[0])
+        print(json.dumps({"root": roots[0], "card": card, "ms": times, "ptxas": registers}), flush=True)
+        return 0
+    for root in roots:
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__), root]).returncode
+        if rc:
+            return rc
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
