@@ -8,10 +8,10 @@ each one against its plain PyTorch version on the card, then drives the
 port's main path (``swtorch align --strategy batch``) end to end:
 
 0. card name and power limit, kernel build time, registers, and the
-   instructions per cell of the DPX intrinsics (``cuobjdump``); K1's two
-   forms in the built library: every s16x2 kernel runs the instruction of
-   ``__viaddmax_s16x2_relu`` and spills nothing, and the ALU instructions
-   per cell of both forms' inner loops at every L;
+   instructions per cell of the DPX intrinsics (``cuobjdump``); K1's and
+   K4's two forms in the built library: every s16x2 kernel runs the
+   instruction of ``__viaddmax_s16x2_relu`` and spills nothing, and the
+   ALU instructions per cell of both forms' inner loops at every L;
 1. K1 (packed lane best) against its plain version, in both forms
    (``cuda_score.k1_form``): 512 reads x 256 RefSeq-shaped refs, every
    start lane, and the two forms timed on them in turns (int32, s16x2,
@@ -43,14 +43,20 @@ port's main path (``swtorch align --strategy batch``) end to end:
 7. ``--strategy shard_refs`` and ``shard_reads`` on the phase-3 corpus:
    reports equal to batch's apart from the time line; a (2, 2) mesh of
    this card gives batch's totals;
-8. K4 (wavefront score grid) and K5 (row form) against their plain
-   versions: 512 reads x 64 refs of 500-4,000 bp (reads in 256 lanes),
-   every pair, each also equal to the other; 64 reads x 2 refs of
-   131,072 bp (K4) and 16 reads x one (K5, many column tiles) against
-   the row-form recurrence; edge cases (empty reads, 0/1 bp refs, reads
-   of 1,024 bp); K4's ``window_mode='carry'`` and ``state_dtype='int16'``
-   give the same grid; ``lane_best_packed`` in every TPU window mode
-   equals K1 at the start lanes;
+8. K4 (wavefront score grid) in both forms (``cuda_score.k1_form``) and
+   K5 (row form) against their plain versions: 512 reads x 64 refs of
+   500-4,000 bp (reads in 256 lanes, and K4 again at the reads' longest,
+   150 lanes), every pair, each also equal to the other; 64 reads x 2
+   refs of 131,072 bp (K4) and 16 reads x one (K5, many column tiles)
+   against the row-form recurrence; K4's two forms timed in turns
+   (int32, s16x2, s16x2, int32) at 256 lanes, 150 lanes and 131 kb;
+   the s16x2 form on an odd number of reads, at gap (and mismatch)
+   -32,768, and a 1,024 bp read equal to its ref at match 31 (31,744,
+   s16x2) and 32 (int32); edge cases (a block of 8 reads with empty and
+   1 bp reads, 0/1 bp refs, reads of 1,024 bp); K4's
+   ``window_mode='carry'`` and ``state_dtype`` give the same grid;
+   ``lane_best_packed`` in every TPU window mode equals K1 at the start
+   lanes;
 9. the unpacked and row paths end to end: ``run_pipeline`` with
    ``pack_reads=False`` on the phase-4 scale corpus (report equal to
    phase 4's apart from the time line; wall, real GCUPS) and with
@@ -87,9 +93,11 @@ port's main path (``swtorch align --strategy batch``) end to end:
     recomputation.
 
 Launch counts are reset just before each main-path leg and read just
-after it, K1's per form too (``cuda_score.K1_FORMS``): every K1 launch of
-phases 3-4, 7 and 13 must take the s16x2 form, every one at rows of more
-than 1,024 lanes in 14 the int32 form.  The legs: phases 3-4 (batch; K1
+after it, K1's and K4's per form too (``cuda_score.K1_FORMS``,
+``K4_FORMS``): every K1 launch of phases 3-4, 7 and 13 and every K4
+launch of phases 9, 10 and 13 must take the s16x2 form, every one at
+rows (reads) of more than 1,024 lanes in 14 the int32 form.  The legs:
+phases 3-4 (batch; K1
 and K2 must launch), 6 (shard_seq; K3),
 7 (shard_refs and shard_reads; K1), 9 (unpacked and row paths; K4 and
 K5), 10 (scaling; K4), each bench leg of 13 (K4 on the kernel leg, K1 on
@@ -361,23 +369,27 @@ def main() -> int:
     fewest = min(per_register for per_register, _ in probes.values()) / 2
     fail_unless(fewest >= INSTR_PER_CELL,
                 f"a DPX form takes {fewest} instructions per cell, under the bound's {INSTR_PER_CELL}")
-    # K1's two forms in the built library: the s16x2 form must run the
-    # DPX instruction of __viaddmax_s16x2_relu and spill nothing.
-    k1_sass = collections.defaultdict(dict)
-    for fname, instrs in sass_functions(os.path.join(os.path.dirname(nvcc), "cuobjdump"), _cuda.build_info["path"]).items():
-        hit = re.search(r"\d(lane_best_s16x2_kernel|lane_best_kernel)ILi(\d+)E", fname)
-        if hit:
-            form = "s16x2" if "s16x2" in hit.group(1) else "int32"
-            ops = {op for _, op, _ in instrs}
-            fail_unless(form == "int32" or relu_ops[0] in ops,
-                        f"K1's s16x2 kernel at L={hit.group(2)} lacks {relu_ops[0]}")
-            k1_sass[form][int(hit.group(2))] = inner_loop_per_cell(instrs, 2 if form == "s16x2" else 1)
-    fail_unless(sorted(k1_sass["s16x2"]) == sorted(k1_sass["int32"]) == list(_LANES),
-                f"K1's kernels in the SASS: {dict(k1_sass)}")
-    print(f"[0] K1 SASS: every s16x2 kernel runs {relu_ops[0]}; ALU instructions per cell of the inner loop, "
-          f"L: s16x2 | int32: " + ", ".join(f"{l}: {k1_sass['s16x2'][l]:.3f} | {k1_sass['int32'][l]:.3f}" for l in _LANES))
-    k1_regs = register_summary(_cuda.build_info["log"])["lane_best_s16x2_kernel"]
-    fail_unless(not any("s" in w.split(":")[-1] for w in k1_regs), f"K1's s16x2 kernel spills: {k1_regs}")
+    # K1's and K4's two forms in the built library: every s16x2 kernel must
+    # run the DPX instruction of __viaddmax_s16x2_relu and spill nothing.
+    lib_sass = sass_functions(os.path.join(os.path.dirname(nvcc), "cuobjdump"), _cuda.build_info["path"])
+    for k, name in (("K1", "lane_best"), ("K4", "score_grid")):
+        per_cell = collections.defaultdict(dict)
+        for fname, instrs in lib_sass.items():
+            hit = re.search(rf"\d({name}_s16x2_kernel|{name}_kernel)ILi(\d+)E", fname)
+            if hit:
+                form = "s16x2" if "s16x2" in hit.group(1) else "int32"
+                ops = {op for _, op, _ in instrs}
+                fail_unless(form == "int32" or relu_ops[0] in ops,
+                            f"{k}'s s16x2 kernel at L={hit.group(2)} lacks {relu_ops[0]}")
+                per_cell[form][int(hit.group(2))] = inner_loop_per_cell(instrs, 2 if form == "s16x2" else 1)
+        fail_unless(sorted(per_cell["s16x2"]) == sorted(per_cell["int32"]) == list(_LANES),
+                    f"{k}'s kernels in the SASS: {dict(per_cell)}")
+        print(f"[0] {k} SASS: every s16x2 kernel runs {relu_ops[0]}; ALU instructions per cell of the inner loop, "
+              f"L: s16x2 | int32: " + ", ".join(f"{l}: {per_cell['s16x2'][l]:.3f} | {per_cell['int32'][l]:.3f}"
+                                                  for l in _LANES))
+        regs = register_summary(_cuda.build_info["log"])[f"{name}_s16x2_kernel"]
+        fail_unless(len(regs) == len(_LANES) and not any("s" in w.split(":")[-1] for w in regs),
+                    f"{k}'s s16x2 kernel spills: {regs}")
 
     def up(arr):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
@@ -401,16 +413,17 @@ def main() -> int:
         packed, refs, lens, offsets = args
         return fn(packed, refs, lens, *params, offsets=offsets, **kw)
 
-    def k1_forms(fn):
-        """(fn(), {form: K1 launches fn made in that form})."""
-        before = dict(cuda_score.K1_FORMS)
+    def by_form(counts, fn):
+        """(fn(), {form: launches fn made in that form}), counts a
+        kernel's launches per form (cuda_score.K1_FORMS or K4_FORMS)."""
+        before = dict(counts)
         out = fn()
-        return out, {form: n - before[form] for form, n in cuda_score.K1_FORMS.items()}
+        return out, {form: n - before[form] for form, n in counts.items()}
 
     def k1_err(args, start, params=PARAMS, form="s16x2"):
         """Max abs error of K1 against its plain version at every start
         lane, failing unless the wrapper took ``form`` by its rule."""
-        k, forms = k1_forms(lambda: k1(cuda_score.lane_best_packed_varlen, args, params))
+        k, forms = by_form(cuda_score.K1_FORMS, lambda: k1(cuda_score.lane_best_packed_varlen, args, params))
         fail_unless(forms[form] == 1, f"K1 took {forms} at m={args[0].shape[1]}, scheme {params}, not {form}")
         p = read_best(k1(cuda_score.lane_best_packed_varlen_plain, args, params), start)
         return int((read_best(k, start).to(torch.int64) - p).abs().max()) if p.numel() else 0
@@ -468,7 +481,8 @@ def main() -> int:
     reads_l = rand_seqs(rng, rng.integers(80, 151, size=64))
     refs_l = rand_seqs(rng, [LONG_N] * 8)
     args_l, start_l, _ = k1_args(reads_l, refs_l, 256)
-    got_l, forms = k1_forms(lambda: read_best(k1(cuda_score.lane_best_packed_varlen, args_l), start_l))
+    got_l, forms = by_form(cuda_score.K1_FORMS,
+                           lambda: read_best(k1(cuda_score.lane_best_packed_varlen, args_l), start_l))
     fail_unless(forms["s16x2"] == 1, f"K1 at 131 kb refs took {forms}")
     refs_l_pad = up(encode_batch(refs_l, LONG_N, REF_PAD))
     want_l = torch.cat(
@@ -517,7 +531,8 @@ def main() -> int:
     args_b, start_b, _ = k1_args([read_b], [read_b], 1024, row_multiple=1)
     boundary = {}
     for params, form in (((31, -3, -4), "s16x2"), ((32, -3, -4), "int32")):
-        got, forms = k1_forms(lambda: read_best(k1(cuda_score.lane_best_packed_varlen, args_b, params), start_b))
+        got, forms = by_form(cuda_score.K1_FORMS,
+                             lambda: read_best(k1(cuda_score.lane_best_packed_varlen, args_b, params), start_b))
         fail_unless(forms[form] == 1, f"K1 at m=1024, scheme {params} took {forms}, not {form}")
         boundary[params[0]] = int(got[0, 0])
         fail_unless(boundary[params[0]] == 1024 * params[0] and k1_err(args_b, start_b, params, form) == 0,
@@ -852,6 +867,13 @@ def main() -> int:
             torch.cuda.synchronize()
             return out, (time.perf_counter() - t) * 1e3
 
+        def k4_err(args, want, params=PARAMS, form="s16x2"):
+            """Max abs error of K4 against ``want``, failing unless the
+            wrapper took ``form`` by its rule, and of its int32 form."""
+            got, forms = by_form(cuda_score.K4_FORMS, lambda: cuda_score.score_grid_diag(*args, *params))
+            fail_unless(forms[form] == 1, f"K4 took {forms} at m={args[0].shape[1]}, scheme {params}, not {form}")
+            return max(max_err(got, want), max_err(cuda_score._score_grid_diag(*args, *params, form="int32"), want))
+
         reads_8 = rand_seqs(rng, rng.integers(80, 151, size=512))
         refs_8 = rand_seqs(rng, rng.integers(500, 4000, size=64))
         args_8 = grid_args(reads_8, refs_8, 256)
@@ -859,54 +881,102 @@ def main() -> int:
         p4_8, k4_plain_ms = host_ms(lambda: cuda_score.score_grid_diag_plain(*args_8, *PARAMS))
         k5_8 = cuda_score.score_grid_row(*args_8, *PARAMS)
         p5_8, k5_plain_ms = host_ms(lambda: score_grid(*args_8, *PARAMS))
-        k4_max_err, k5_max_err = max_err(k4_8, p4_8), max_err(k5_8, p5_8)
+        k4_max_err, k5_max_err = k4_err(args_8, p4_8), max_err(k5_8, p5_8)
         fail_unless(k4_max_err == 0, f"K4 differs from plain at 512 x 64 ({k4_max_err})")
         fail_unless(k5_max_err == 0, f"K5 differs from the row-form recurrence at 512 x 64 ({k5_max_err})")
         fail_unless(torch.equal(k4_8, k5_8), "K4 and K5 differ at 512 x 64")
-        for kw in (dict(window_mode="carry"), dict(state_dtype="int16")):
+        for kw in (dict(window_mode="carry"), dict(state_dtype="int16"), dict(state_dtype="int32")):
             fail_unless(torch.equal(cuda_score.score_grid_diag(*args_8, *PARAMS, **kw), k4_8), f"K4 with {kw} differs")
-        k4_ms = cuda_ms(lambda: cuda_score.score_grid_diag(*args_8, *PARAMS), 10)
+        # The reads at the width of their longest read (150 lanes, L = 5), as
+        # the batch backend now passes a read group.
+        args_150 = grid_args(reads_8, refs_8, max(map(len, reads_8)))
+        fail_unless(k4_err(args_150, p4_8) == 0, "K4 at the reads' longest read differs from plain")
         k5_ms = cuda_ms(lambda: cuda_score.score_grid_row(*args_8, *PARAMS), 10)
         cells_8 = sum(map(len, reads_8)) * sum(map(len, refs_8))
         bytes_8 = sum(t.numel() for t in args_8) + 4 * len(reads_8) * len(refs_8)
         grid_bound_ms, grid_bound_by = bound(cells_8, bytes_8, sms, clock_mhz)
+        k4_150_bound_ms, _ = bound(cells_8, sum(t.numel() for t in args_150) + 4 * len(reads_8) * len(refs_8),
+                                   sms, clock_mhz)
         print(f"[8] K4 and K5, 512 reads (80-150 bp in 256 lanes) x 64 refs (500-4000 bp), every pair: max abs err 0 "
-              f"against plain (K4) and the row-form recurrence (K5), equal to each other, K4 window_mode='carry' and "
-              f"state_dtype='int16' equal; K4 {k4_ms:.3f} ms ({cells_8 / k4_ms / 1e6:.1f} GCUPS real cells), plain "
+              f"against plain (K4 in both forms, also at {args_150[0].shape[1]} lanes) and the row-form recurrence "
+              f"(K5), equal to each other, K4 window_mode='carry' and state_dtype='int16' and 'int32' equal; K4 plain "
               f"{k4_plain_ms:.1f} ms; K5 {k5_ms:.3f} ms ({cells_8 / k5_ms / 1e6:.1f} GCUPS), plain {k5_plain_ms:.1f} ms; "
               f"bound {grid_bound_ms:.3f} ms by {grid_bound_by} ({cells_8:.3e} cells, {bytes_8} bytes) = "
-              f"K4 {100 * grid_bound_ms / k4_ms:.1f}%, K5 {100 * grid_bound_ms / k5_ms:.1f}%", flush=True)
+              f"K5 {100 * grid_bound_ms / k5_ms:.1f}%", flush=True)
 
         args_8l = grid_args(reads_l, refs_l[:2], 152)
         want_8l = score_grid(*args_8l, *PARAMS)
-        err = max_err(cuda_score.score_grid_diag(*args_8l, *PARAMS), want_8l)
+        err = k4_err(args_8l, want_8l)
         fail_unless(err == 0, f"K4 at 131 kb refs differs from the row-form recurrence ({err})")
         args_8r = (args_8l[0][:16], args_8l[1][:1])
         got_8r = cuda_score.score_grid_row(*args_8r, *PARAMS)
         err5 = max_err(got_8r, want_8l[:16, :1])
         fail_unless(err5 == 0, f"K5 at a 131 kb ref differs from the row-form recurrence ({err5})")
         fail_unless(torch.equal(got_8r, cuda_score.score_grid_diag(*args_8r, *PARAMS)), "K5 and K4 differ at 131 kb")
-        k4l_ms = cuda_ms(lambda: cuda_score.score_grid_diag(*args_8l, *PARAMS), 3)
         k5l_ms = cuda_ms(lambda: cuda_score.score_grid_row(*args_8r, *PARAMS), 3)
         k4l_bound_ms, _ = bound(sum(map(len, reads_l)) * 2 * LONG_N, sum(t.numel() for t in args_8l) + 4 * 64 * 2,
                                 sms, clock_mhz)
         k5l_bound_ms, _ = bound(sum(map(len, reads_l[:16])) * LONG_N, sum(t.numel() for t in args_8r) + 4 * 16,
                                 sms, clock_mhz)
-        print(f"[8] K4 64 reads x 2 refs of {LONG_N} bp, K5 16 reads x one: equal to the row-form recurrence and to "
-              f"each other; K4 {k4l_ms:.3f} ms (bound {k4l_bound_ms:.3f} ms, {100 * k4l_bound_ms / k4l_ms:.1f}%), "
-              f"K5 {k5l_ms:.3f} ms (bound {k5l_bound_ms:.3f} ms, {100 * k5l_bound_ms / k5l_ms:.1f}%)", flush=True)
+        print(f"[8] K4 (both forms) 64 reads x 2 refs of {LONG_N} bp, K5 16 reads x one: equal to the row-form "
+              f"recurrence and to each other; K5 {k5l_ms:.3f} ms (bound {k5l_bound_ms:.3f} ms, "
+              f"{100 * k5l_bound_ms / k5l_ms:.1f}%)", flush=True)
+
+        # K4's two forms in turns on the same inputs: 256 lanes (the kernel
+        # table's row), the same reads at 150 lanes, and the 131 kb refs.
+        k4_ab = {}
+        cells_8l = sum(map(len, reads_l)) * 2 * LONG_N
+        for key, args, iters, cells, bound_ms in (("256", args_8, 10, cells_8, grid_bound_ms),
+                                                  ("150", args_150, 10, cells_8, k4_150_bound_ms),
+                                                  ("131k", args_8l, 3, cells_8l, k4l_bound_ms)):
+            turns = collections.defaultdict(list)
+            for form in ("int32", "s16x2", "s16x2", "int32"):
+                turns[form].append(cuda_ms(lambda: cuda_score._score_grid_diag(*args, *PARAMS, form=form), iters))
+            k4_ab[key] = {form: float(np.mean(v)) for form, v in turns.items()}
+            s16, i32 = k4_ab[key]["s16x2"], k4_ab[key]["int32"]
+            print(f"[8] K4 {tuple(args[0].shape)} reads x {tuple(args[1].shape)} refs, in turns int32 "
+                  f"{turns['int32'][0]:.3f}, s16x2 {turns['s16x2'][0]:.3f}, s16x2 {turns['s16x2'][1]:.3f}, int32 "
+                  f"{turns['int32'][1]:.3f} ms: s16x2 {s16:.3f} ms ({cells / s16 / 1e6:.1f} "
+                  f"GCUPS real cells, {100 * bound_ms / s16:.1f}% of the bound), int32 {i32:.3f} ms "
+                  f"({100 * bound_ms / i32:.1f}%), int32/s16x2 {i32 / s16:.2f}x; bound {bound_ms:.3f} ms", flush=True)
+        k4_ms, k4_int32_ms = k4_ab["256"]["s16x2"], k4_ab["256"]["int32"]
+        k4l_ms = k4_ab["131k"][cuda_score.k1_form(args_8l[0].shape[1], *PARAMS)]
+        fail_unless(k4_ms < k4_int32_ms, "K4's s16x2 form is not faster than its int32 form at 256 lanes")
+
+        # The s16x2 form's own edges: an odd number of reads (the last pairs
+        # with an all-pad read), gap and mismatch -32,768, a 1,024 bp read
+        # against itself at match 31 (s16x2) and 32 (int32).
+        args_odd = (args_8[0][:201], args_8[1][:16])
+        err_odd = k4_err(args_odd, p4_8[:201, :16])
+        args_g = (args_8[0][:64], args_8[1][:32])
+        err_gap = max(k4_err(args_g, cuda_score.score_grid_diag_plain(*args_g, *params), params)
+                      for params in ((5, -3, -32768), (5, -32768, -32768)))
+        args_b = grid_args([read_b], [read_b], 1024)
+        boundary = {}
+        for params, form in (((31, -3, -4), "s16x2"), ((32, -3, -4), "int32")):
+            got, forms = by_form(cuda_score.K4_FORMS, lambda: cuda_score.score_grid_diag(*args_b, *params))
+            fail_unless(forms[form] == 1, f"K4 at m=1024, scheme {params} took {forms}, not {form}")
+            boundary[params[0]] = int(got[0, 0])
+            fail_unless(boundary[params[0]] == 1024 * params[0] == int(score_grid(*args_b, *params)[0, 0]),
+                        f"K4 on a 1,024 bp read equal to its ref at match {params[0]}: {boundary[params[0]]}")
+        fail_unless(max(err_odd, err_gap) == 0, f"K4's s16x2 form differs from plain (odd reads {err_odd}, "
+                                                f"gap -32768 {err_gap})")
+        print(f"[8] K4 s16x2: {args_odd[0].shape[0]} reads (odd), gap -32768 (and mismatch -32768) equal to plain in "
+              f"both forms; a 1,024 bp read equal to its ref scores {boundary[31]} at match 31 (s16x2) and "
+              f"{boundary[32]} at match 32 (int32), equal to the row-form recurrence", flush=True)
 
         for m_pad in (128, 1024):
             reads_e = edge_reads + (rand_seqs(rng, [1024, 1000]) if m_pad == 1024 else [])
             args_e = grid_args(reads_e, edge_refs, m_pad)
             want_e = cuda_score.score_grid_diag_plain(*args_e, *PARAMS)
-            for name, fn in (("K4", cuda_score.score_grid_diag), ("K5", cuda_score.score_grid_row)):
-                err = max_err(fn(*args_e, *PARAMS), want_e)
-                fail_unless(err == 0, f"{name} edge cases differ from plain at m_pad={m_pad} ({err})")
+            err = k4_err(args_e, want_e)
+            fail_unless(err == 0, f"K4 edge cases differ from plain at m_pad={m_pad} ({err})")
+            err = max_err(cuda_score.score_grid_row(*args_e, *PARAMS), want_e)
+            fail_unless(err == 0, f"K5 edge cases differ from plain at m_pad={m_pad} ({err})")
             want = np.array([[oracle.opt_alignments(f, r)[0] for f in edge_refs[:3]] for r in reads_e[:8]])
             fail_unless((want_e[:8, :3].cpu().numpy() == want).all(), f"edge cases differ from the oracle at {m_pad}")
-        print("[8] K4 and K5 edge cases (empty reads, 0/1 bp refs, m_pad 128 and 1024 with 1,024 bp reads): "
-              "equal to plain and oracle", flush=True)
+        print("[8] K4 (both forms) and K5 edge cases (a block of 8 reads with empty and 1 bp reads, 0/1 bp refs, "
+              "m_pad 128 and 1024 with 1,024 bp reads): equal to plain and oracle", flush=True)
 
         packed_8, start_8 = pack_reads(reads_8, 256)
         packed_8 = up(packed_8)
@@ -959,6 +1029,9 @@ def main() -> int:
         unpacked_launches = dict(cuda_score.LAUNCHES)
         fail_unless(unpacked_launches["score_grid_diag"] > 0 and unpacked_launches["score_grid_row"] > 0,
                     f"K4 or K5 never launched on the unpacked and row paths: {unpacked_launches}")
+        fail_unless(cuda_score.K4_FORMS["s16x2"] == unpacked_launches["score_grid_diag"],
+                    f"K4 launches of phase 9 not all in the s16x2 form: {cuda_score.K4_FORMS}")
+        k4_main_forms = collections.Counter(cuda_score.K4_FORMS)  # K4's forms on the main-path legs
         print(f"[9] ShardedBackend with pack_reads=False and with kernel='row' on a (2, 2) mesh of {dev}: totals equal "
               f"batch's for both inputs; launches over phase 9 {unpacked_launches}", flush=True)
 
@@ -975,6 +1048,9 @@ def main() -> int:
                   f"{json.dumps(json.loads(out.getvalue()))}", flush=True)
         scaling_launches = dict(cuda_score.LAUNCHES)
         fail_unless(scaling_launches["score_grid_diag"] > 0, f"K4 never launched by swtorch scaling: {scaling_launches}")
+        fail_unless(cuda_score.K4_FORMS["s16x2"] == scaling_launches["score_grid_diag"],
+                    f"K4 launches of phase 10 not all in the s16x2 form: {cuda_score.K4_FORMS}")
+        k4_main_forms.update(cuda_score.K4_FORMS)
         reads_10, refs_10 = workload(512, 128, 512, 4096)
         totals_10 = sharded_totals(reads_10, refs_10, *PARAMS, mesh=build_mesh((1, 1), devices=[dev]))
         sub = np.arange(0, 512, 32)
@@ -1080,9 +1156,11 @@ def main() -> int:
                             ("longref", "argmax_lane"), ("roofline", "step_chain_best")):
             fail_unless(bench_launches[leg][kernel] > 0, f"{kernel} never launched on the bench's {leg} leg")
         for leg, counts in bench_launches.items():
-            fail_unless(counts["k1_s16x2"] == counts["lane_best_packed_varlen"],
-                        f"K1 launches of the bench's {leg} leg not all in the s16x2 form: {counts}")
+            for k, name in (("k1", "lane_best_packed_varlen"), ("k4", "score_grid_diag")):
+                fail_unless(counts[f"{k}_s16x2"] == counts[name],
+                            f"{k.upper()} launches of the bench's {leg} leg not all in the s16x2 form: {counts}")
             k1_main_forms.update({form: counts[f"k1_{form}"] for form in cuda_score.K1_FORMS})
+            k4_main_forms.update({form: counts[f"k4_{form}"] for form in cuda_score.K4_FORMS})
         print(f"[13] bench legs (one pass each, parity against the oracle passed, smoke {result['smoke']}) in "
               f"{bench_s:.1f} s: {json.dumps(result)}", flush=True)
         print(f"[13] launches per bench leg: {json.dumps(bench_launches)}", flush=True)
@@ -1105,6 +1183,7 @@ def main() -> int:
         # -- 14. long reads: K1-K5 on rows wider than 1,024 lanes (stripes) ---------
         t14 = time.perf_counter()
         forms_14 = dict(cuda_score.K1_FORMS)
+        k4_forms_14 = dict(cuda_score.K4_FORMS)
         genome = rand_seqs(rng, [40_000])[0]
 
         def piece(n):
@@ -1281,7 +1360,11 @@ def main() -> int:
         wide_forms = {form: n - forms_14[form] for form, n in cuda_score.K1_FORMS.items()}
         fail_unless(wide_forms["s16x2"] == 0 and wide_forms["int32"] > 0,
                     f"K1 at rows of more than 1,024 lanes took {wide_forms}, not the int32 form alone")
-        print(f"[14] K1 launches at rows of 1,025-16,384 lanes by form: {wide_forms}", flush=True)
+        wide_k4_forms = {form: n - k4_forms_14[form] for form, n in cuda_score.K4_FORMS.items()}
+        fail_unless(wide_k4_forms["s16x2"] == 0 and wide_k4_forms["int32"] > 0,
+                    f"K4 at reads of more than 1,024 positions took {wide_k4_forms}, not the int32 form alone")
+        print(f"[14] launches at rows (reads) of 1,025-16,384 lanes by form: K1 {wide_forms}, K4 {wide_k4_forms}",
+              flush=True)
 
         # The main path: every strategy on a corpus with reads of 1,025-8,000 bp.
         t14e = time.perf_counter()
@@ -1315,6 +1398,10 @@ def main() -> int:
         fail_unless(lr_forms["int32"] > 0 and sum(lr_forms.values()) == lr_launches["lane_best_packed_varlen"],
                     f"K1's forms on the long-read paths: {lr_forms} of {lr_launches['lane_best_packed_varlen']}")
         k1_main_forms.update(lr_forms)
+        lr_k4_forms = dict(cuda_score.K4_FORMS)
+        fail_unless(min(lr_k4_forms.values()) > 0 and sum(lr_k4_forms.values()) == lr_launches["score_grid_diag"],
+                    f"K4's forms on the long-read paths: {lr_k4_forms} of {lr_launches['score_grid_diag']}")
+        k4_main_forms.update(lr_k4_forms)
         fail_unless(all(lr_launches[k] > 0 for k in ("lane_best_packed_varlen", "argmax_lane", "band_lane_best",
                                                       "score_grid_diag", "score_grid_row")),
                     f"a kernel of K1-K5 never launched on the long-read paths: {lr_launches}")
@@ -1346,8 +1433,8 @@ def main() -> int:
               f"{max_score}, {len(winners)} winner(s) equal to the row-form recurrence; all {n_sites} sites equal the "
               f"per-read recomputation ({'/'.join(sorted(branches))} branch); {time.perf_counter() - t14e:.1f} s "
               f"with the checks", flush=True)
-        print(f"[14] LAUNCHES over the long-read paths: {lr_launches}, K1 forms {lr_forms}; phase 14 took {time.perf_counter() - t14:.1f} s",
-              flush=True)
+        print(f"[14] LAUNCHES over the long-read paths: {lr_launches}, K1 forms {lr_forms}, K4 forms {lr_k4_forms}; "
+              f"phase 14 took {time.perf_counter() - t14:.1f} s", flush=True)
 
     legs = (launches, seq_launches, shard_launches, unpacked_launches, scaling_launches,
             *bench_launches.values(), *probe_launches.values(), lr_launches)
@@ -1417,7 +1504,13 @@ def main() -> int:
             "bound_ms": grid_bound_ms,
             "bound_by": grid_bound_by,
             "library_ms": None,
+            "forms": dict(k4_main_forms),
+            "int32_ms": k4_int32_ms,
+            "lanes150_ms": k4_ab["150"]["s16x2"],
+            "lanes150_int32_ms": k4_ab["150"]["int32"],
+            "lanes150_bound_ms": k4_150_bound_ms,
             "long_ms": k4l_ms,
+            "long_int32_ms": k4_ab["131k"]["int32"],
             "long_bound_ms": k4l_bound_ms,
         },
         {

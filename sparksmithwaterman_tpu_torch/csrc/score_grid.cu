@@ -13,26 +13,48 @@
 // one kernel takes every length and every window mode.
 //
 // What bounds it on the H100: like K1, register-resident integer work
-// (about ten instructions per DP cell) with no memory traffic in the inner
-// loop, and an output of one int32 per pair, so it is bound by integer
-// operations.  One warp per read, L lanes per thread (lane i = read
+// with no memory traffic in the inner loop, and an output of one int32 per
+// pair, so it is bound by operations.  L lanes per thread (lane i = read
 // position i), neighbour lanes through one warp shuffle per diagonal; the
-// block's four reads share one reference.
+// block's reads share one reference.
 //
-// Trailing pad is not swept when mismatch <= 0 and gap <= 0 (`trim`): the
-// block then runs m' + n' - 1 diagonals, n' the reference's length before
-// its REF_PAD tail and m' the longest of its four reads before their
-// READ_PAD tails.  A pad code matches nothing, so a cell in a trailing pad
-// row or column is at most the largest of its neighbours; it never exceeds
-// the pair's best over real cells, and no real cell depends on it.  With a
-// positive mismatch or gap that no longer holds, and the block runs all
-// m + n - 1 diagonals, as the TPU kernels do.  Pad lanes of a short read in
-// a wide group still cost a lane each.  The output is written as (R, C):
-// the per-reference sum over reads reduces over its rows.  A read group
-// wider than 1,024 positions runs in stripes of 512 (score_grid_wide_kernel,
-// wavefront.cuh), only as far as the block's longest read: a stripe of
-// trailing READ_PAD lanes is not swept.  It needs `trim` (the wrapper
-// takes such reads only when mismatch < 0 and gap < 0).
+// Two forms, chosen by the wrapper from the data alone (ops/cuda_score.py
+// k1_form, the rule K1 uses, with m the width of the reads tensor):
+//
+// - s16x2 (score_grid_s16x2_kernel), reads of at most 1,024 positions
+//   whose scores fit int16: warp w of a block takes reads 2w and 2w + 1,
+//   one in each 16-bit half of every register, two cells per instruction
+//   (wavefront.cuh sweep_s16x2), so a block of four warps takes eight
+//   reads against one reference.  What it does about the bound: the int32
+//   form spends about ten integer instructions a cell on a pipe that
+//   takes a warp instruction every other clock; this form spends four and
+//   a half integer instructions per register of two cells and puts the
+//   substitution on the FP16 and FMA pipes (see wavefront.cuh).  An
+//   unpacked read is one segment, so only lane 0 drops its shifted terms.
+//   An odd last read pairs with an all-pad read, which scores 0 and is
+//   not stored.
+// - int32 (score_grid_kernel, one warp per read, one cell per
+//   instruction): every other read of at most 1,024 positions, and any
+//   scheme with a positive mismatch or gap; wider reads run in stripes
+//   (score_grid_wide_kernel, below).
+//
+// Trailing pad is not swept when mismatch <= 0 and gap <= 0 (`trim`,
+// always so in the s16x2 form): the block then runs m' + n' - 1
+// diagonals, n' the reference's length before its REF_PAD tail and m'
+// the longest of its reads before their READ_PAD tails (sweep_s16x2
+// rounds that up to its unroll).  A pad code matches nothing, so a cell
+// in a trailing pad row or column is at most the largest of its
+// neighbours; it never exceeds the pair's best over real cells, and no
+// real cell depends on it.  With a positive mismatch or gap that no
+// longer holds, and the block runs all m + n - 1 diagonals, as the TPU
+// kernels do.  Pad lanes of a short read in a wide group still cost a
+// lane each (the batch backend encodes each read group at its longest
+// read).  The output is written as (R, C): the per-reference sum over
+// reads reduces over its rows.  A read group wider than 1,024 positions
+// runs in stripes of 512 (score_grid_wide_kernel, wavefront.cuh), only
+// as far as the block's longest read: a stripe of trailing READ_PAD lanes
+// is not swept.  It needs `trim` (the wrapper takes such reads only when
+// mismatch < 0 and gap < 0).
 #include "wavefront.cuh"
 
 namespace {
@@ -108,6 +130,62 @@ score_grid_kernel(const uint8_t* __restrict__ reads, int r, int m,
   for (int k = 0; k < L; ++k) b = max(b, best[k]);
   b = __reduce_max_sync(0xffffffffu, b);
   if (live && first == 0) out[(long long)read * c_total + c] = b;
+}
+
+// The s16x2 form (see the top of this file): block b of reference c takes
+// reads 8 (b % read_blocks) .. + 7, warp w the pair 2w, 2w + 1.  k_sub =
+// match - mismatch, mismatch2 and gap2 pair16 of the scheme, all from the
+// host, so that they sit in the constant bank, not registers.
+template <int L>
+__global__ void __launch_bounds__(kThreads)
+score_grid_s16x2_kernel(const uint8_t* __restrict__ reads, int r, int m,
+                        int read_blocks, const uint8_t* __restrict__ refs,
+                        int c_total, int n, uint32_t k_sub, uint32_t mismatch2,
+                        uint32_t gap2, int32_t* __restrict__ out) {
+  __shared__ uint32_t ring[kRing + kS16x2RingPad];
+  __shared__ int scratch[kWarps];
+  const int c = blockIdx.x / read_blocks;
+  const int read = (blockIdx.x % read_blocks) * (2 * kWarps) + 2 * (threadIdx.x >> 5);
+  const int first = (threadIdx.x & 31) * L;
+  const uint8_t* ref = refs + (long long)c * n;
+
+  uint32_t rd2[L], keep2[L], best2[L];
+  int used = 0;  // 1 + the last position of this thread's two reads that is not pad
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    const int i = first + k;
+    const int lo = (read < r && i < m) ? reads[(long long)read * m + i] : kReadPad;
+    const int hi = (read + 1 < r && i < m) ? reads[(long long)(read + 1) * m + i] : kReadPad;
+    if (lo != kReadPad || hi != kReadPad) used = i + 1;
+    rd2[k] = code_half(lo) | code_half(hi) << 16;
+    keep2[k] = i == 0 ? 0u : 0xFFFFFFFFu;
+    best2[k] = 0;
+  }
+  const int2 lu = trimmed(ref, n, m, used, 1, scratch);
+  const int nd = (lu.x > 0 && lu.y > 0) ? lu.y + lu.x - 1 : 0;
+  // The best of a register over pairs of diagonals (the unroll is even),
+  // as in K1: on the second of each pair, one 3-input max of best, the
+  // first's value and the second's.
+  sweep_s16x2<L>(rd2, keep2, nd, ref, lu.x, k_sub, mismatch2, gap2, ring,
+                 [&](int k, bool odd, uint32_t h, uint32_t h_prev) {
+                   if (odd) best2[k] = __vimax3_s16x2(best2[k], h_prev, h);
+                 });
+
+  uint32_t b2 = 0;
+#pragma unroll
+  for (int k = 0; k < L; ++k) b2 = __vmaxs2(b2, best2[k]);
+  const int b_lo = __reduce_max_sync(0xffffffffu, b2 & 0xFFFFu);
+  const int b_hi = __reduce_max_sync(0xffffffffu, b2 >> 16);
+  // The pair and the reference again, from the block index, so that none
+  // of them holds a register across the sweep.
+  int block;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(block));
+  const int c2 = block / read_blocks;
+  const int read2 = (block % read_blocks) * (2 * kWarps) + 2 * (threadIdx.x >> 5);
+  if ((threadIdx.x & 31) == 0) {
+    if (read2 < r) out[(long long)read2 * c_total + c2] = b_lo;
+    if (read2 + 1 < r) out[(long long)(read2 + 1) * c_total + c2] = b_hi;
+  }
 }
 
 // K4 on reads wider than kMaxLanes, in stripes of 32 * L lanes, over
@@ -195,6 +273,42 @@ extern "C" int swt_score_grid_diag(const void* reads, int r, int m,
         (const uint8_t*)reads, r, m, (int)read_blocks,                      \
         (const uint8_t*)refs, c, n, match, mismatch, gap, trim,             \
         (int32_t*)out);                                                     \
+    break;
+    SWT_FOR_EACH_L(SWT_LAUNCH)
+#undef SWT_LAUNCH
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// The s16x2 form; the wrapper takes it only where ops/cuda_score.py
+// k1_form says so, and this entry refuses a scheme under which a value
+// could leave int16 or reads wider than kMaxLanes.  Its arguments are
+// swt_score_grid_diag's; carry and part_reads are unused (the form has
+// no stripes).
+extern "C" int swt_score_grid_diag_s16x2(const void* reads, int r, int m,
+                                         const void* refs, int c, int n,
+                                         int match, int mismatch, int gap,
+                                         void* out, void*, int, int device,
+                                         void* stream) {
+  const int L = swt::pick_lanes(m);
+  const bool fits = match >= 0 && (long long)match * m <= 32767 && mismatch >= -32768 &&
+                    mismatch <= 0 && gap >= -32768 && gap <= 0;
+  if (r <= 0 || c <= 0 || m <= 0 || n <= 0 || L == 0 || !fits) return (int)cudaErrorInvalidValue;
+  const long long read_blocks = (r + 2 * swt::kWarps - 1) / (2 * swt::kWarps);
+  const long long blocks = read_blocks * c;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  swt::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (L) {
+#define SWT_LAUNCH(l)                                                            \
+  case l:                                                                        \
+    score_grid_s16x2_kernel<l><<<(unsigned)blocks, swt::kThreads, 0, s>>>(       \
+        (const uint8_t*)reads, r, m, (int)read_blocks, (const uint8_t*)refs, c, \
+        n, (uint32_t)(match - mismatch), swt::pair16(mismatch), swt::pair16(gap), \
+        (int32_t*)out);                                                          \
     break;
     SWT_FOR_EACH_L(SWT_LAUNCH)
 #undef SWT_LAUNCH

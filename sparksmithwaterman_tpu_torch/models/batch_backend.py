@@ -278,22 +278,29 @@ class TorchBatchBackend:
         ``_dispatch_cols``, unpacked branch).
 
         Reads group by ``read_bucket`` multiples, references by the
-        geometric ladder of ``ref_bucket``; a chunk is capped by the (R, C)
-        int32 output budget and the carry budget of reads wider than
-        ONE_PASS_LANES (:func:`ref_chunks`).  Every chunk is staged
+        geometric ladder of ``ref_bucket``; each read group is encoded at
+        the length of its longest read, not at its bucket's width, so the
+        kernels sweep no lane that every read of the group leaves as
+        trailing READ_PAD (exact: a pad code matches nothing and
+        ``ScoringScheme`` has mismatch < 0 and gap < 0).  A chunk is capped
+        by the (R, C) int32 output budget and the carry budget of reads
+        wider than ONE_PASS_LANES (:func:`ref_chunks`).  Every chunk is staged
         (:meth:`_stage`, encoded and uploaded) before the first launch, since
         an upload from pageable host memory waits for the work queued on its
         device.
         """
         read_groups = sorted(_group_by_padded_len(reads, self.read_bucket).items())
-        reads_enc = {m_pad: encode_batch([reads[i] for i in idx], m_pad, READ_PAD) for m_pad, idx in read_groups}
+        reads_enc = {
+            m_pad: encode_batch([reads[i] for i in idx], max(len(reads[i]) for i in idx), READ_PAD)
+            for m_pad, idx in read_groups
+        }
         staged = []
         cells = 0
         for n_pad, ref_idx in sorted(_group_by_padded_len(ref_seqs, self.ref_bucket, geometric=True).items()):
             refs_enc = encode_batch([ref_seqs[i] for i in ref_idx], n_pad, REF_PAD)
             ref_bp = sum(len(ref_seqs[i]) for i in ref_idx)
             for m_pad, read_idx in read_groups:
-                carry = carry_elems(m_pad, len(read_idx), n_pad, row_form=self.kernel == "row")
+                carry = carry_elems(reads_enc[m_pad].shape[1], len(read_idx), n_pad, row_form=self.kernel == "row")
                 for part in ref_chunks(len(read_idx), [carry] * len(ref_idx), _OUT_BUDGET):
                     idx_t = self._upload(np.asarray(ref_idx[part], np.int64))
                     staged.append((idx_t, self._stage(reads_enc[m_pad], refs_enc[part])))

@@ -141,7 +141,7 @@ def lib() -> ctypes.CDLL:
                 _VP, _VP, _VP, _VP, _I,  # out, bnd_out, carry, carry offsets, rows per launch
                 _I, _VP,  # device, stream
             ]
-            for grid in (handle.swt_score_grid_diag, handle.swt_score_grid_row):
+            for grid in (handle.swt_score_grid_diag, handle.swt_score_grid_diag_s16x2, handle.swt_score_grid_row):
                 grid.restype = _I
                 grid.argtypes = [
                     _VP, _I, _I,  # reads, r, m

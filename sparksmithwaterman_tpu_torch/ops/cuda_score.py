@@ -29,11 +29,12 @@ tensors it launches the kernel or raises; it never falls back.  Each
 launch adds one to :data:`LAUNCHES`, so a run can show that its main path
 went through the kernels.
 
-K1 has two forms, and the data alone picks one (:func:`k1_form`): rows of
-at most ONE_PASS_LANES lanes whose scores provably fit int16 run two rows
-per warp in the 16-bit halves of each register, the recurrence in DPX
-instructions ("s16x2"); every other row runs the int32 kernels, one pass
-or striped ("int32").  :data:`K1_FORMS` counts the launches of each.
+K1 and K4 have two forms each, and the data alone picks one, by one rule
+(:func:`k1_form`): rows (reads) of at most ONE_PASS_LANES lanes whose
+scores provably fit int16 run two rows per warp in the 16-bit halves of
+each register, the recurrence in DPX instructions ("s16x2"); every other
+row runs the int32 kernels, one pass or striped ("int32").
+:data:`K1_FORMS` and :data:`K4_FORMS` count the launches of each.
 
 K1-K5 take rows (reads) of any width.  Up to :data:`ONE_PASS_LANES`
 lanes a warp sweeps a row in one pass; a wider row runs in stripes of
@@ -81,8 +82,9 @@ LAUNCHES = {
     "step_variant_best": 0,
 }
 
-# K1's launches per form (k1_form) since the last reset_launches().
+# K1's and K4's launches per form (k1_form) since the last reset_launches().
 K1_FORMS = {"s16x2": 0, "int32": 0}
+K4_FORMS = {"s16x2": 0, "int32": 0}
 
 # Widest row a warp sweeps in one pass (32 threads x 32 lanes); wider
 # rows run in stripes of STRIPE_LANES (csrc/wavefront.cuh kMaxLanes,
@@ -99,7 +101,7 @@ _BLOCK_ROWS = 4
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, K1_FORMS):
+    for counts in (LAUNCHES, K1_FORMS, K4_FORMS):
         for key in counts:
             counts[key] = 0
 
@@ -142,6 +144,17 @@ def carry_rows(rows: int, elems: int) -> int:
     blocks = -(-rows // _BLOCK_ROWS)
     fit = CARRY_BUDGET // max(1, elems // max(1, blocks))
     return _BLOCK_ROWS * max(1, min(blocks, fit))
+
+
+def _check_form(what: str, forms: dict, form, m: int, match: int, mismatch: int, gap: int) -> str:
+    """The form a kernel with two forms runs: ``form``, or the rule's when
+    None; raises for a form the kernel lacks, or ``"s16x2"`` where the
+    rule (:func:`k1_form`) says ``"int32"``."""
+    rule = k1_form(m, match, mismatch, gap)
+    form = rule if form is None else form
+    if form not in forms or (form == "s16x2" and rule != "s16x2"):
+        raise ValueError(f"{what} cannot take form {form!r} at m={m}, scheme {(match, mismatch, gap)}")
+    return form
 
 
 def _check_stripes(what: str, m: int, mismatch: int, gap: int) -> None:
@@ -193,7 +206,8 @@ _INT16_MIN, _INT16_MAX = -(1 << 15), (1 << 15) - 1
 
 
 def k1_form(m: int, match: int, mismatch: int, gap: int) -> str:
-    """The form K1 takes for packed rows of ``m`` lanes under a scheme:
+    """The form K1 takes for packed rows of ``m`` lanes under a scheme, and
+    K4 for unpacked reads of width ``m`` (each read a row of one segment):
     ``"s16x2"`` (two rows per warp, one in each 16-bit half of every
     register, the recurrence in DPX instructions) when every score and
     every intermediate provably fits int16, else ``"int32"``.
@@ -317,10 +331,7 @@ def _lane_best_packed_varlen(packed, refs_u8, lens, match, mismatch, gap, offset
         raise ValueError("lens must be a (C,) int32 tensor")
     match, mismatch, gap = int(match), int(mismatch), int(gap)
     rows, m = packed.shape
-    rule = k1_form(m, match, mismatch, gap)
-    form = rule if form is None else form
-    if form not in K1_FORMS or (form == "s16x2" and rule != "s16x2"):
-        raise ValueError(f"K1 cannot take form {form!r} at m={m}, scheme {(match, mismatch, gap)}")
+    form = _check_form("K1", K1_FORMS, form, m, match, mismatch, gap)
     if device.type == "cpu":
         return lane_best_packed_varlen_plain(packed, refs_u8, lens, match, mismatch, gap, offsets)
     _check_stripes("lane_best_packed_varlen", m, mismatch, gap)
@@ -595,8 +606,9 @@ def _carry_grid(m, r, c, n, row_form, device):
     return torch.empty(c * carry_elems(m, part, n, row_form=row_form), dtype=torch.int32, device=device), part
 
 
-def _launch_grid(entry, name, reads_u8, refs_u8, match, mismatch, gap):
-    """(R, C) int32 from a C entry with K4's and K5's arguments."""
+def _launch_grid(entry, name, reads_u8, refs_u8, match, mismatch, gap, form=None):
+    """(R, C) int32 from a C entry with K4's and K5's arguments; a launch
+    also counts in K4_FORMS under ``form`` when given."""
     r, m = reads_u8.shape
     c, n = refs_u8.shape
     out = torch.empty((r, c), dtype=torch.int32, device=reads_u8.device)
@@ -613,6 +625,8 @@ def _launch_grid(entry, name, reads_u8, refs_u8, match, mismatch, gap):
     )
     _cuda.check(rc, name)
     LAUNCHES[name] += 1
+    if form is not None:
+        K4_FORMS[form] += 1
     return out
 
 
@@ -638,23 +652,36 @@ def score_grid_diag(reads_u8, refs_u8, match, mismatch, gap, *, state_dtype="aut
     REF_PAD-padded.  The contract of ``pallas_score_grid_diag`` and
     ``pallas_score_grid_diag_chunked``, with any R (no read block).
 
-    ``state_dtype`` ('auto', 'int32' or 'int16') is accepted as in the
-    JAX package and the DP state is 32-bit either way: there 'auto' meant
-    int32 on the TPU and int16 ran only in interpret mode; both give the
-    same scores.  ``window_mode`` ('auto' or 'carry') chose how the TPU
-    staged the reference; K4 always streams it through shared memory, so
-    'carry' runs the same kernel.
+    K4's form follows from M and the scheme alone (:func:`k1_form`, K1's
+    rule): whenever every score provably fits int16 it keeps its DP state
+    in 16-bit halves, two reads per warp ("s16x2"), which is what the JAX
+    package meant ``state_dtype='int16'`` to be and could not run on its
+    TPU; otherwise in int32.  ``state_dtype`` ('auto', 'int32' or
+    'int16') is accepted as in the JAX package and does not pick the form:
+    every form gives the same scores.  ``window_mode`` ('auto' or 'carry')
+    chose how the TPU staged the reference; K4 always streams it through
+    shared memory, so 'carry' runs the same kernel.
     """
     if state_dtype not in ("auto", "int32", "int16"):
         raise ValueError(f"state_dtype must be 'auto', 'int32' or 'int16', got {state_dtype!r}")
     if window_mode not in ("auto", "carry"):
         raise ValueError(f"window_mode must be 'auto' or 'carry', got {window_mode!r}")
+    return _score_grid_diag(reads_u8, refs_u8, match, mismatch, gap)
+
+
+def _score_grid_diag(reads_u8, refs_u8, match, mismatch, gap, *, form=None):
+    """:func:`score_grid_diag` with K4's form given (``form=None``:
+    :func:`k1_form`'s), so that the two forms can be timed on the same
+    inputs; ``"s16x2"`` where k1_form says ``"int32"`` raises."""
     device = _check_grid_inputs("score_grid_diag", reads_u8, refs_u8)
     match, mismatch, gap = int(match), int(mismatch), int(gap)
+    form = _check_form("K4", K4_FORMS, form, reads_u8.shape[1], match, mismatch, gap)
     if device.type == "cpu":
         return score_grid_diag_plain(reads_u8, refs_u8, match, mismatch, gap)
     _check_stripes("score_grid_diag", reads_u8.shape[1], mismatch, gap)
-    return _launch_grid(_cuda.lib().swt_score_grid_diag, "score_grid_diag", reads_u8, refs_u8, match, mismatch, gap)
+    lib = _cuda.lib()
+    entry = lib.swt_score_grid_diag_s16x2 if form == "s16x2" else lib.swt_score_grid_diag
+    return _launch_grid(entry, "score_grid_diag", reads_u8, refs_u8, match, mismatch, gap, form)
 
 
 def score_grid_row(reads_u8, refs_u8, match, mismatch, gap):

@@ -7,9 +7,11 @@ ROOT (default: this checkout) is a directory that holds
 ``sparksmithwaterman_tpu_torch/``; each ROOT runs in a process of its
 own, in the order given, so an A/B of two trees on one card is one call
 (``ROOT_A ROOT_B ROOT_B ROOT_A``).  Inputs come from a fixed numpy seed,
-the same for every ROOT.  K1 is timed through its public wrapper (the
-form its rule picks) and, where the tree has the private entry that
-takes a form, in its int32 form too.
+the same for every ROOT.  K1 and K4 are timed through their public
+wrappers (the form the rule picks) and, where the tree has the private
+entry that takes a form, in their int32 form too; K4 also with the same
+reads at the width of their longest read (``K4_150``), as the batch
+backend passes a read group.
 """
 
 from __future__ import annotations
@@ -81,6 +83,11 @@ def _times(root: str) -> dict:
     out["K3"] = ms(lambda: cuda_score.band_lane_best(*k3, *PARAMS))
     grid = (up(encode_batch(reads, 256, READ_PAD)), up(encode_batch(refs[:64], 4000, REF_PAD)))
     out["K4"] = ms(lambda: cuda_score.score_grid_diag(*grid, *PARAMS))
+    grid_150 = (up(encode_batch(reads, max(map(len, reads)), READ_PAD)), grid[1])
+    out["K4_150"] = ms(lambda: cuda_score.score_grid_diag(*grid_150, *PARAMS))
+    if hasattr(cuda_score, "_score_grid_diag"):
+        out["K4_int32"] = ms(lambda: cuda_score._score_grid_diag(*grid, *PARAMS, form="int32"))
+        out["K4_150_int32"] = ms(lambda: cuda_score._score_grid_diag(*grid_150, *PARAMS, form="int32"))
     out["K5"] = ms(lambda: cuda_score.score_grid_row(*grid, *PARAMS))
     chain = up(np.random.default_rng(0).integers(2, 6, size=(512, 128)).astype(np.int32))
     out["K6"] = ms(lambda: cuda_score.step_chain_best(chain, steps=131_072, unroll=64), 5)

@@ -3,18 +3,24 @@ CUDA card.
 
     python -m sparksmithwaterman_tpu_torch.utils.profile_scale [--out FILE] [--corpus-bp N]
     python -m sparksmithwaterman_tpu_torch.utils.profile_scale --workload long_ref --strategy shard_seq
+    python -m sparksmithwaterman_tpu_torch.utils.profile_scale --no-pack-reads
 
 Builds the workload (``scale``: ``metrics.engineer_data.scale_corpus``, a
 RefSeq-shaped corpus plus 8 references of 131,072 bp, 512 reads;
 ``long_ref``: ``long_ref_corpus``, references of 8 kb-1 Mb, 256 reads),
 runs ``run_pipeline`` with the strategy's backend once to build and warm
 up, twice timed, then once under ``torch.profiler`` with the pipeline's
-layers wrapped in named spans:
+layers wrapped in named spans.  ``--no-pack-reads`` sets the config's
+``pack_reads=False``: the batch backend then scores through the unpacked
+path (K4).
 
 - ``L1.parse``: reference-file parsing;
 - ``L2.score_flush``: one scoring flush on the host (encode, upload,
   kernel dispatches, gather-sums); ``L2.encode_refs`` its reference
-  encoding, ``L2a.K1`` its K1 calls, ``L2b.K3`` its K3 calls;
+  encoding, ``L2a.K1`` its K1 calls, ``L2b.K3`` its K3 calls; on the
+  unpacked path ``L2.encode_grid`` its read and reference encoding
+  (padded batches; the full-fill traceback's encoding counts here too),
+  ``L2.stage_grid`` its uploads and ``L2c.K4`` its K4 (or K5) calls;
 - ``L3.traceback``: one winner's traceback; ``L3a.max_cells`` (K2 and the
   in-lane-tie fallback), ``L3b.window_fill_walk`` and ``L3c.full_fill``
   its parts.
@@ -57,6 +63,9 @@ SPANS = {
     "L2.encode_refs": ("batch_backend", "encode_concat"),
     "L2a.K1": ("batch_backend", "lane_best_packed_varlen"),
     "L2b.K3": ("seqparallel", "band_lane_best"),
+    "L2.encode_grid": ("batch_backend", "encode_batch"),
+    "L2.stage_grid": ("backend", "_stage"),
+    "L2c.K4": ("batch_backend", "_score_grid"),
     "L3.traceback": ("backend", "sites_for_ref"),
     "L3a.max_cells": ("batch_backend", "find_max_cells_batched"),
     "L3b.window_fill_walk": ("batch_backend", "sites_for_ref_long_batched"),
@@ -80,6 +89,8 @@ def main(argv=None) -> int:
     parser.add_argument("--strategy", choices=["batch", "shard_seq"], default="batch")
     parser.add_argument("--corpus-bp", type=int, default=None, help="default 64 Mbp (scale), 16 Mbp (long_ref)")
     parser.add_argument("--seed", type=int, default=20261016)
+    parser.add_argument("--no-pack-reads", dest="pack_reads", action="store_false",
+                        help="AlignConfig(pack_reads=False): score through the unpacked path (K4)")
     args = parser.parse_args(argv)
 
     import torch
@@ -106,6 +117,7 @@ def main(argv=None) -> int:
             in_dir=os.path.join(work, "inputs"),
             out_dir=os.path.join(work, "out"),
             strategy=args.strategy,
+            pack_reads=args.pack_reads,
         )
         backend = get_backend(config, dev)
 
@@ -131,7 +143,8 @@ def main(argv=None) -> int:
             kernels[e.name] += e.time_range.elapsed_us()
     busy = sum(kernels.values()) / 1e6
     lines = [
-        f"profile_scale: {args.workload} workload, {args.strategy}, {torch.cuda.get_device_name(0)}: "
+        f"profile_scale: {args.workload} workload, {args.strategy}, pack_reads={args.pack_reads}, "
+        f"{torch.cuda.get_device_name(0)}: "
         f"{corpus['read_bp']} read bp x {corpus['ref_bp']} ref bp",
         "walls s (the first builds and warms up): " + ", ".join(f"{w:.3f}" for w in walls)
         + "; real GCUPS of the warm ones: " + ", ".join(f"{cells / w / 1e9:.1f}" for w in walls[1:]),
