@@ -8,10 +8,11 @@ each one against its plain PyTorch version on the card, then drives the
 port's main path (``swtorch align --strategy batch``) end to end:
 
 0. card name and power limit, kernel build time, registers, and the
-   instructions per cell of the DPX intrinsics (``cuobjdump``); K1's and
-   K4's two forms in the built library: every s16x2 kernel runs the
-   instruction of ``__viaddmax_s16x2_relu`` and spills nothing, and the
-   ALU instructions per cell of both forms' inner loops at every L;
+   instructions per cell of the DPX intrinsics (``cuobjdump``); K1's,
+   K4's and K5's two forms in the built library: every s16x2 kernel runs
+   the instruction of ``__viaddmax_s16x2_relu`` and spills nothing, and
+   the ALU instructions per cell of both forms' inner loops at every L
+   (K1, K4) and of K5's s16x2 row loop;
 1. K1 (packed lane best) against its plain version, in both forms
    (``cuda_score.k1_form``): 512 reads x 256 RefSeq-shaped refs, every
    start lane, and the two forms timed on them in turns (int32, s16x2,
@@ -43,18 +44,19 @@ port's main path (``swtorch align --strategy batch``) end to end:
 7. ``--strategy shard_refs`` and ``shard_reads`` on the phase-3 corpus:
    reports equal to batch's apart from the time line; a (2, 2) mesh of
    this card gives batch's totals;
-8. K4 (wavefront score grid) in both forms (``cuda_score.k1_form``) and
-   K5 (row form) against their plain versions: 512 reads x 64 refs of
-   500-4,000 bp (reads in 256 lanes, and K4 again at the reads' longest,
-   150 lanes), every pair, each also equal to the other; 64 reads x 2
-   refs of 131,072 bp (K4) and 16 reads x one (K5, many column tiles)
-   against the row-form recurrence; K4's two forms timed in turns
-   (int32, s16x2, s16x2, int32) at 256 lanes, 150 lanes and 131 kb;
-   the s16x2 form on an odd number of reads, at gap (and mismatch)
-   -32,768, and a 1,024 bp read equal to its ref at match 31 (31,744,
-   s16x2) and 32 (int32); edge cases (a block of 8 reads with empty and
-   1 bp reads, 0/1 bp refs, reads of 1,024 bp); K4's
-   ``window_mode='carry'`` and ``state_dtype`` give the same grid;
+8. K4 (wavefront score grid) and K5 (row form), each in both forms
+   (``cuda_score.k1_form``), against their plain versions: 512 reads x 64
+   refs of 500-4,000 bp (reads in 256 lanes, and again at the reads'
+   longest, 150 lanes), every pair, each also equal to the other; 64
+   reads x 2 refs of 131,072 bp (K4) and 16 reads x one (K5, its
+   reference split into column segments and as one segment) against the
+   row-form recurrence; each kernel's two forms timed in turns (int32,
+   s16x2, s16x2, int32) at 256 lanes, 150 lanes and 131 kb; the s16x2
+   forms on an odd number of reads, at gap (and mismatch) -32,768, and a
+   1,024 bp read equal to its ref at match 31 (31,744, s16x2) and 32
+   (int32); edge cases (a block of 8 reads with empty and 1 bp reads,
+   0/1 bp refs, reads of 1,024 bp); K4's ``window_mode='carry'`` and
+   ``state_dtype`` give the same grid;
    ``lane_best_packed`` in every TPU window mode equals K1 at the start
    lanes;
 9. the unpacked and row paths end to end: ``run_pipeline`` with
@@ -93,10 +95,11 @@ port's main path (``swtorch align --strategy batch``) end to end:
     recomputation.
 
 Launch counts are reset just before each main-path leg and read just
-after it, K1's and K4's per form too (``cuda_score.K1_FORMS``,
-``K4_FORMS``): every K1 launch of phases 3-4, 7 and 13 and every K4
-launch of phases 9, 10 and 13 must take the s16x2 form, every one at
-rows (reads) of more than 1,024 lanes in 14 the int32 form.  The legs:
+after it, K1's, K4's and K5's per form too (``cuda_score.K1_FORMS``,
+``K4_FORMS``, ``K5_FORMS``): every K1 launch of phases 3-4, 7 and 13,
+every K4 launch of phases 9, 10 and 13 and every K5 launch of phase 9
+must take the s16x2 form, every one at rows (reads) of more than 1,024
+lanes in 14 the int32 form.  The legs:
 phases 3-4 (batch; K1
 and K2 must launch), 6 (shard_seq; K3),
 7 (shard_refs and shard_reads; K1), 9 (unpacked and row paths; K4 and
@@ -203,22 +206,25 @@ def sass_functions(cuobjdump: str, path: str):
     return out
 
 
-def inner_loop_per_cell(instrs, cells_per_relu: int) -> float:
-    """ALU instructions per DP cell of a sweep's inner loop:
-    the innermost backward branch whose body clamps at 0 (a ``.RELU``
-    instruction, one per cell of the int32 form and one per register of
-    two cells of the s16x2 form), cells = those x ``cells_per_relu``
-    (memory, control and move instructions not counted)."""
-    def relu(op):
-        return op.endswith(".RELU")
-
+def inner_loop_alu(instrs):
+    """The ALU opcodes of a sweep's inner loop: the innermost backward
+    branch whose body clamps at 0 (a ``.RELU`` instruction); memory,
+    control and move instructions not counted."""
     loops = [(target, addr) for addr, op, target in instrs
              if target is not None and target <= addr
-             and any(relu(op2) for a2, op2, _ in instrs if target <= a2 <= addr)]
+             and any(op2.endswith(".RELU") for a2, op2, _ in instrs if target <= a2 <= addr)]
     fail_unless(loops, "no inner loop with a clamp at 0 in the SASS")
     lo, hi = min(loops, key=lambda loop: loop[1] - loop[0])
-    alu = [op for a, op, _ in instrs if lo <= a <= hi and not op.startswith(_NOT_ALU)]
-    return len(alu) / (sum(map(relu, alu)) * cells_per_relu)
+    return [op for a, op, _ in instrs if lo <= a <= hi and not op.startswith(_NOT_ALU)]
+
+
+def inner_loop_per_cell(instrs, cells_per_relu: int) -> float:
+    """ALU instructions per DP cell of a diagonal sweep's inner loop
+    (:func:`inner_loop_alu`), cells = its ``.RELU`` instructions (one per
+    cell of the int32 form and one per register of two cells of the
+    s16x2 form) x ``cells_per_relu``."""
+    alu = inner_loop_alu(instrs)
+    return len(alu) / (sum(op.endswith(".RELU") for op in alu) * cells_per_relu)
 
 
 def probe_instructions(nvcc: str, work: str):
@@ -390,6 +396,19 @@ def main() -> int:
         regs = register_summary(_cuda.build_info["log"])[f"{name}_s16x2_kernel"]
         fail_unless(len(regs) == len(_LANES) and not any("s" in w.split(":")[-1] for w in regs),
                     f"{k}'s s16x2 kernel spills: {regs}")
+    # K5's s16x2 form, one kernel: its row loop holds a row of 16 registers
+    # of two cells a thread, and each row takes seven shuffles (the NW
+    # term, five scan steps, the value handed to the next lane).
+    k5_sass = [instrs for fname, instrs in lib_sass.items() if re.search(r"\d+score_row_s16x2_kernel", fname)]
+    fail_unless(len(k5_sass) == 1 and relu_ops[0] in {op for _, op, _ in k5_sass[0]},
+                f"K5's s16x2 kernel ({len(k5_sass)} found) lacks {relu_ops[0]}")
+    k5_regs = register_summary(_cuda.build_info["log"])["score_row_s16x2_kernel"]
+    fail_unless(len(k5_regs) == 1 and "s" not in k5_regs[0], f"K5's s16x2 kernel spills: {k5_regs}")
+    k5_loop = inner_loop_alu(k5_sass[0])
+    k5_rows = sum(op.startswith("SHFL") for op in k5_loop) / 7
+    print(f"[0] K5 SASS: score_row_s16x2_kernel runs {relu_ops[0]}, {k5_regs[0]} (no spill); its row loop: "
+          f"{len(k5_loop)} ALU instructions over {k5_rows:g} row(s) of 32 cells a thread = "
+          f"{len(k5_loop) / (32 * k5_rows):.3f} per cell", flush=True)
 
     def up(arr):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
@@ -874,6 +893,15 @@ def main() -> int:
             fail_unless(forms[form] == 1, f"K4 took {forms} at m={args[0].shape[1]}, scheme {params}, not {form}")
             return max(max_err(got, want), max_err(cuda_score._score_grid_diag(*args, *params, form="int32"), want))
 
+        def k5_err(args, want, params=PARAMS, form="s16x2", split=True):
+            """The same for K5 (each form's references split into segments
+            as the wrapper plans, or, with split=False, as one segment)."""
+            got, forms = by_form(cuda_score.K5_FORMS,
+                                 lambda: cuda_score._score_grid_row(*args, *params, split=split))
+            fail_unless(forms[form] == 1, f"K5 took {forms} at m={args[0].shape[1]}, scheme {params}, not {form}")
+            int32 = cuda_score._score_grid_row(*args, *params, form="int32", split=split)
+            return max(max_err(got, want), max_err(int32, want))
+
         reads_8 = rand_seqs(rng, rng.integers(80, 151, size=512))
         refs_8 = rand_seqs(rng, rng.integers(500, 4000, size=64))
         args_8 = grid_args(reads_8, refs_8, 256)
@@ -881,7 +909,7 @@ def main() -> int:
         p4_8, k4_plain_ms = host_ms(lambda: cuda_score.score_grid_diag_plain(*args_8, *PARAMS))
         k5_8 = cuda_score.score_grid_row(*args_8, *PARAMS)
         p5_8, k5_plain_ms = host_ms(lambda: score_grid(*args_8, *PARAMS))
-        k4_max_err, k5_max_err = k4_err(args_8, p4_8), max_err(k5_8, p5_8)
+        k4_max_err, k5_max_err = k4_err(args_8, p4_8), k5_err(args_8, p5_8)
         fail_unless(k4_max_err == 0, f"K4 differs from plain at 512 x 64 ({k4_max_err})")
         fail_unless(k5_max_err == 0, f"K5 differs from the row-form recurrence at 512 x 64 ({k5_max_err})")
         fail_unless(torch.equal(k4_8, k5_8), "K4 and K5 differ at 512 x 64")
@@ -891,79 +919,100 @@ def main() -> int:
         # the batch backend now passes a read group.
         args_150 = grid_args(reads_8, refs_8, max(map(len, reads_8)))
         fail_unless(k4_err(args_150, p4_8) == 0, "K4 at the reads' longest read differs from plain")
-        k5_ms = cuda_ms(lambda: cuda_score.score_grid_row(*args_8, *PARAMS), 10)
+        fail_unless(k5_err(args_150, p5_8) == 0, "K5 at the reads' longest read differs from plain")
         cells_8 = sum(map(len, reads_8)) * sum(map(len, refs_8))
         bytes_8 = sum(t.numel() for t in args_8) + 4 * len(reads_8) * len(refs_8)
         grid_bound_ms, grid_bound_by = bound(cells_8, bytes_8, sms, clock_mhz)
         k4_150_bound_ms, _ = bound(cells_8, sum(t.numel() for t in args_150) + 4 * len(reads_8) * len(refs_8),
                                    sms, clock_mhz)
         print(f"[8] K4 and K5, 512 reads (80-150 bp in 256 lanes) x 64 refs (500-4000 bp), every pair: max abs err 0 "
-              f"against plain (K4 in both forms, also at {args_150[0].shape[1]} lanes) and the row-form recurrence "
-              f"(K5), equal to each other, K4 window_mode='carry' and state_dtype='int16' and 'int32' equal; K4 plain "
-              f"{k4_plain_ms:.1f} ms; K5 {k5_ms:.3f} ms ({cells_8 / k5_ms / 1e6:.1f} GCUPS), plain {k5_plain_ms:.1f} ms; "
-              f"bound {grid_bound_ms:.3f} ms by {grid_bound_by} ({cells_8:.3e} cells, {bytes_8} bytes) = "
-              f"K5 {100 * grid_bound_ms / k5_ms:.1f}%", flush=True)
+              f"against plain (K4) and the row-form recurrence (K5), each in both forms, also at "
+              f"{args_150[0].shape[1]} lanes, equal to each other, K4 window_mode='carry' and state_dtype='int16' and "
+              f"'int32' equal; K4 plain {k4_plain_ms:.1f} ms, K5 plain {k5_plain_ms:.1f} ms; bound "
+              f"{grid_bound_ms:.3f} ms by {grid_bound_by} ({cells_8:.3e} cells, {bytes_8} bytes)", flush=True)
 
         args_8l = grid_args(reads_l, refs_l[:2], 152)
         want_8l = score_grid(*args_8l, *PARAMS)
         err = k4_err(args_8l, want_8l)
         fail_unless(err == 0, f"K4 at 131 kb refs differs from the row-form recurrence ({err})")
+        # 16 reads against one 131 kb ref: K5's 2 blocks (4 in int32) split
+        # into column segments, and again as one segment.
         args_8r = (args_8l[0][:16], args_8l[1][:1])
-        got_8r = cuda_score.score_grid_row(*args_8r, *PARAMS)
-        err5 = max_err(got_8r, want_8l[:16, :1])
+        want_8r = want_8l[:16, :1]
+        err5 = max(k5_err(args_8r, want_8r), k5_err(args_8r, want_8r, split=False))
         fail_unless(err5 == 0, f"K5 at a 131 kb ref differs from the row-form recurrence ({err5})")
-        fail_unless(torch.equal(got_8r, cuda_score.score_grid_diag(*args_8r, *PARAMS)), "K5 and K4 differ at 131 kb")
-        k5l_ms = cuda_ms(lambda: cuda_score.score_grid_row(*args_8r, *PARAMS), 3)
+        fail_unless(torch.equal(cuda_score.score_grid_row(*args_8r, *PARAMS), cuda_score.score_grid_diag(*args_8r, *PARAMS)),
+                    "K5 and K4 differ at 131 kb")
+        k5_stride, k5_seg_len = cuda_score.row_segments(args_8r[0].shape[1], LONG_N, *PARAMS, 2, sms)
+        k5_segments = -(-LONG_N // k5_stride)
+        fail_unless(k5_segments > 1, f"K5 does not split 16 reads x one {LONG_N} bp ref ({k5_stride})")
         k4l_bound_ms, _ = bound(sum(map(len, reads_l)) * 2 * LONG_N, sum(t.numel() for t in args_8l) + 4 * 64 * 2,
                                 sms, clock_mhz)
-        k5l_bound_ms, _ = bound(sum(map(len, reads_l[:16])) * LONG_N, sum(t.numel() for t in args_8r) + 4 * 16,
-                                sms, clock_mhz)
-        print(f"[8] K4 (both forms) 64 reads x 2 refs of {LONG_N} bp, K5 16 reads x one: equal to the row-form "
-              f"recurrence and to each other; K5 {k5l_ms:.3f} ms (bound {k5l_bound_ms:.3f} ms, "
-              f"{100 * k5l_bound_ms / k5l_ms:.1f}%)", flush=True)
+        cells_8r = sum(map(len, reads_l[:16])) * LONG_N
+        k5l_bound_ms, _ = bound(cells_8r, sum(t.numel() for t in args_8r) + 4 * 16, sms, clock_mhz)
+        k5_unsplit_ms = cuda_ms(lambda: cuda_score._score_grid_row(*args_8r, *PARAMS, split=False), 3)
+        print(f"[8] K4 (both forms) 64 reads x 2 refs of {LONG_N} bp, K5 (both forms) 16 reads x one in {k5_segments} "
+              f"segments of {k5_seg_len} columns every {k5_stride} and as one segment: equal to the row-form recurrence "
+              f"and to each other; K5 s16x2 as one segment {k5_unsplit_ms:.3f} ms (bound {k5l_bound_ms:.3f} ms)",
+              flush=True)
 
-        # K4's two forms in turns on the same inputs: 256 lanes (the kernel
-        # table's row), the same reads at 150 lanes, and the 131 kb refs.
-        k4_ab = {}
-        cells_8l = sum(map(len, reads_l)) * 2 * LONG_N
-        for key, args, iters, cells, bound_ms in (("256", args_8, 10, cells_8, grid_bound_ms),
-                                                  ("150", args_150, 10, cells_8, k4_150_bound_ms),
-                                                  ("131k", args_8l, 3, cells_8l, k4l_bound_ms)):
+        def in_turns(k, fn, args, iters, cells, bound_ms):
+            """{form: mean ms} of a kernel's two forms on the same inputs,
+            timed in turns int32, s16x2, s16x2, int32."""
             turns = collections.defaultdict(list)
             for form in ("int32", "s16x2", "s16x2", "int32"):
-                turns[form].append(cuda_ms(lambda: cuda_score._score_grid_diag(*args, *PARAMS, form=form), iters))
-            k4_ab[key] = {form: float(np.mean(v)) for form, v in turns.items()}
-            s16, i32 = k4_ab[key]["s16x2"], k4_ab[key]["int32"]
-            print(f"[8] K4 {tuple(args[0].shape)} reads x {tuple(args[1].shape)} refs, in turns int32 "
+                turns[form].append(cuda_ms(lambda: fn(*args, *PARAMS, form=form), iters))
+            ab = {form: float(np.mean(v)) for form, v in turns.items()}
+            s16, i32 = ab["s16x2"], ab["int32"]
+            print(f"[8] {k} {tuple(args[0].shape)} reads x {tuple(args[1].shape)} refs, in turns int32 "
                   f"{turns['int32'][0]:.3f}, s16x2 {turns['s16x2'][0]:.3f}, s16x2 {turns['s16x2'][1]:.3f}, int32 "
                   f"{turns['int32'][1]:.3f} ms: s16x2 {s16:.3f} ms ({cells / s16 / 1e6:.1f} "
                   f"GCUPS real cells, {100 * bound_ms / s16:.1f}% of the bound), int32 {i32:.3f} ms "
                   f"({100 * bound_ms / i32:.1f}%), int32/s16x2 {i32 / s16:.2f}x; bound {bound_ms:.3f} ms", flush=True)
+            return ab
+
+        # Each kernel's two forms in turns on the same inputs: 256 lanes (the
+        # kernel table's row), the same reads at 150 lanes, and the 131 kb
+        # refs (K5: 16 reads x one, split).
+        cells_8l = sum(map(len, reads_l)) * 2 * LONG_N
+        k4_ab = {key: in_turns("K4", cuda_score._score_grid_diag, *case)
+                 for key, *case in (("256", args_8, 10, cells_8, grid_bound_ms),
+                                    ("150", args_150, 10, cells_8, k4_150_bound_ms),
+                                    ("131k", args_8l, 3, cells_8l, k4l_bound_ms))}
+        k5_ab = {key: in_turns("K5", cuda_score._score_grid_row, *case)
+                 for key, *case in (("256", args_8, 10, cells_8, grid_bound_ms),
+                                    ("150", args_150, 10, cells_8, k4_150_bound_ms),
+                                    ("131k", args_8r, 3, cells_8r, k5l_bound_ms))}
         k4_ms, k4_int32_ms = k4_ab["256"]["s16x2"], k4_ab["256"]["int32"]
         k4l_ms = k4_ab["131k"][cuda_score.k1_form(args_8l[0].shape[1], *PARAMS)]
         fail_unless(k4_ms < k4_int32_ms, "K4's s16x2 form is not faster than its int32 form at 256 lanes")
+        k5_ms, k5_int32_ms = k5_ab["256"]["s16x2"], k5_ab["256"]["int32"]
+        fail_unless(k5_ms < k5_int32_ms, "K5's s16x2 form is not faster than its int32 form at 256 lanes")
 
         # The s16x2 form's own edges: an odd number of reads (the last pairs
         # with an all-pad read), gap and mismatch -32,768, a 1,024 bp read
         # against itself at match 31 (s16x2) and 32 (int32).
         args_odd = (args_8[0][:201], args_8[1][:16])
-        err_odd = k4_err(args_odd, p4_8[:201, :16])
         args_g = (args_8[0][:64], args_8[1][:32])
-        err_gap = max(k4_err(args_g, cuda_score.score_grid_diag_plain(*args_g, *params), params)
-                      for params in ((5, -3, -32768), (5, -32768, -32768)))
         args_b = grid_args([read_b], [read_b], 1024)
-        boundary = {}
-        for params, form in (((31, -3, -4), "s16x2"), ((32, -3, -4), "int32")):
-            got, forms = by_form(cuda_score.K4_FORMS, lambda: cuda_score.score_grid_diag(*args_b, *params))
-            fail_unless(forms[form] == 1, f"K4 at m=1024, scheme {params} took {forms}, not {form}")
-            boundary[params[0]] = int(got[0, 0])
-            fail_unless(boundary[params[0]] == 1024 * params[0] == int(score_grid(*args_b, *params)[0, 0]),
-                        f"K4 on a 1,024 bp read equal to its ref at match {params[0]}: {boundary[params[0]]}")
-        fail_unless(max(err_odd, err_gap) == 0, f"K4's s16x2 form differs from plain (odd reads {err_odd}, "
-                                                f"gap -32768 {err_gap})")
-        print(f"[8] K4 s16x2: {args_odd[0].shape[0]} reads (odd), gap -32768 (and mismatch -32768) equal to plain in "
-              f"both forms; a 1,024 bp read equal to its ref scores {boundary[31]} at match 31 (s16x2) and "
-              f"{boundary[32]} at match 32 (int32), equal to the row-form recurrence", flush=True)
+        for k, err_of, counts, fn in (("K4", k4_err, cuda_score.K4_FORMS, cuda_score.score_grid_diag),
+                                      ("K5", k5_err, cuda_score.K5_FORMS, cuda_score.score_grid_row)):
+            err_odd = err_of(args_odd, p4_8[:201, :16])
+            err_gap = max(err_of(args_g, cuda_score.score_grid_diag_plain(*args_g, *params), params)
+                          for params in ((5, -3, -32768), (5, -32768, -32768)))
+            boundary = {}
+            for params, form in (((31, -3, -4), "s16x2"), ((32, -3, -4), "int32")):
+                got, forms = by_form(counts, lambda: fn(*args_b, *params))
+                fail_unless(forms[form] == 1, f"{k} at m=1024, scheme {params} took {forms}, not {form}")
+                boundary[params[0]] = int(got[0, 0])
+                fail_unless(boundary[params[0]] == 1024 * params[0] == int(score_grid(*args_b, *params)[0, 0])
+                            and err_of(args_b, score_grid(*args_b, *params), params, form) == 0,
+                            f"{k} on a 1,024 bp read equal to its ref at match {params[0]}: {boundary[params[0]]}")
+            fail_unless(max(err_odd, err_gap) == 0, f"{k}'s s16x2 form differs from plain (odd reads {err_odd}, "
+                                                    f"gap -32768 {err_gap})")
+            print(f"[8] {k} s16x2: {args_odd[0].shape[0]} reads (odd), gap -32768 (and mismatch -32768) equal to plain "
+                  f"in both forms; a 1,024 bp read equal to its ref scores {boundary[31]} at match 31 (s16x2) and "
+                  f"{boundary[32]} at match 32 (int32), equal to the row-form recurrence", flush=True)
 
         for m_pad in (128, 1024):
             reads_e = edge_reads + (rand_seqs(rng, [1024, 1000]) if m_pad == 1024 else [])
@@ -971,11 +1020,11 @@ def main() -> int:
             want_e = cuda_score.score_grid_diag_plain(*args_e, *PARAMS)
             err = k4_err(args_e, want_e)
             fail_unless(err == 0, f"K4 edge cases differ from plain at m_pad={m_pad} ({err})")
-            err = max_err(cuda_score.score_grid_row(*args_e, *PARAMS), want_e)
+            err = k5_err(args_e, want_e)
             fail_unless(err == 0, f"K5 edge cases differ from plain at m_pad={m_pad} ({err})")
             want = np.array([[oracle.opt_alignments(f, r)[0] for f in edge_refs[:3]] for r in reads_e[:8]])
             fail_unless((want_e[:8, :3].cpu().numpy() == want).all(), f"edge cases differ from the oracle at {m_pad}")
-        print("[8] K4 (both forms) and K5 edge cases (a block of 8 reads with empty and 1 bp reads, 0/1 bp refs, "
+        print("[8] K4 and K5 (both forms) edge cases (a block of 8 reads with empty and 1 bp reads, 0/1 bp refs, "
               "m_pad 128 and 1024 with 1,024 bp reads): equal to plain and oracle", flush=True)
 
         packed_8, start_8 = pack_reads(reads_8, 256)
@@ -1031,9 +1080,13 @@ def main() -> int:
                     f"K4 or K5 never launched on the unpacked and row paths: {unpacked_launches}")
         fail_unless(cuda_score.K4_FORMS["s16x2"] == unpacked_launches["score_grid_diag"],
                     f"K4 launches of phase 9 not all in the s16x2 form: {cuda_score.K4_FORMS}")
+        fail_unless(cuda_score.K5_FORMS["s16x2"] == unpacked_launches["score_grid_row"],
+                    f"K5 launches of phase 9 not all in the s16x2 form: {cuda_score.K5_FORMS}")
         k4_main_forms = collections.Counter(cuda_score.K4_FORMS)  # K4's forms on the main-path legs
+        k5_main_forms = collections.Counter(cuda_score.K5_FORMS)  # K5's
         print(f"[9] ShardedBackend with pack_reads=False and with kernel='row' on a (2, 2) mesh of {dev}: totals equal "
-              f"batch's for both inputs; launches over phase 9 {unpacked_launches}", flush=True)
+              f"batch's for both inputs; launches over phase 9 {unpacked_launches}, K5 forms {cuda_score.K5_FORMS}",
+              flush=True)
 
         # -- 10. swtorch scaling ---------------------------------------------------
         counts = "1,2,4" if torch.cuda.device_count() >= 4 else "1"
@@ -1184,6 +1237,7 @@ def main() -> int:
         t14 = time.perf_counter()
         forms_14 = dict(cuda_score.K1_FORMS)
         k4_forms_14 = dict(cuda_score.K4_FORMS)
+        k5_forms_14 = dict(cuda_score.K5_FORMS)
         genome = rand_seqs(rng, [40_000])[0]
 
         def piece(n):
@@ -1363,8 +1417,11 @@ def main() -> int:
         wide_k4_forms = {form: n - k4_forms_14[form] for form, n in cuda_score.K4_FORMS.items()}
         fail_unless(wide_k4_forms["s16x2"] == 0 and wide_k4_forms["int32"] > 0,
                     f"K4 at reads of more than 1,024 positions took {wide_k4_forms}, not the int32 form alone")
-        print(f"[14] launches at rows (reads) of 1,025-16,384 lanes by form: K1 {wide_forms}, K4 {wide_k4_forms}",
-              flush=True)
+        wide_k5_forms = {form: n - k5_forms_14[form] for form, n in cuda_score.K5_FORMS.items()}
+        fail_unless(wide_k5_forms["s16x2"] == 0 and wide_k5_forms["int32"] > 0,
+                    f"K5 at reads of more than 1,024 positions took {wide_k5_forms}, not the int32 form alone")
+        print(f"[14] launches at rows (reads) of 1,025-16,384 lanes by form: K1 {wide_forms}, K4 {wide_k4_forms}, "
+              f"K5 {wide_k5_forms}", flush=True)
 
         # The main path: every strategy on a corpus with reads of 1,025-8,000 bp.
         t14e = time.perf_counter()
@@ -1402,6 +1459,10 @@ def main() -> int:
         fail_unless(min(lr_k4_forms.values()) > 0 and sum(lr_k4_forms.values()) == lr_launches["score_grid_diag"],
                     f"K4's forms on the long-read paths: {lr_k4_forms} of {lr_launches['score_grid_diag']}")
         k4_main_forms.update(lr_k4_forms)
+        lr_k5_forms = dict(cuda_score.K5_FORMS)
+        fail_unless(min(lr_k5_forms.values()) > 0 and sum(lr_k5_forms.values()) == lr_launches["score_grid_row"],
+                    f"K5's forms on the long-read paths: {lr_k5_forms} of {lr_launches['score_grid_row']}")
+        k5_main_forms.update(lr_k5_forms)
         fail_unless(all(lr_launches[k] > 0 for k in ("lane_best_packed_varlen", "argmax_lane", "band_lane_best",
                                                       "score_grid_diag", "score_grid_row")),
                     f"a kernel of K1-K5 never launched on the long-read paths: {lr_launches}")
@@ -1433,7 +1494,8 @@ def main() -> int:
               f"{max_score}, {len(winners)} winner(s) equal to the row-form recurrence; all {n_sites} sites equal the "
               f"per-read recomputation ({'/'.join(sorted(branches))} branch); {time.perf_counter() - t14e:.1f} s "
               f"with the checks", flush=True)
-        print(f"[14] LAUNCHES over the long-read paths: {lr_launches}, K1 forms {lr_forms}, K4 forms {lr_k4_forms}; "
+        print(f"[14] LAUNCHES over the long-read paths: {lr_launches}, K1 forms {lr_forms}, K4 forms {lr_k4_forms}, "
+              f"K5 forms {lr_k5_forms}; "
               f"phase 14 took {time.perf_counter() - t14:.1f} s", flush=True)
 
     legs = (launches, seq_launches, shard_launches, unpacked_launches, scaling_launches,
@@ -1525,8 +1587,17 @@ def main() -> int:
             "bound_ms": grid_bound_ms,
             "bound_by": grid_bound_by,
             "library_ms": None,
-            "long_ms": k5l_ms,
+            "forms": dict(k5_main_forms),
+            "int32_ms": k5_int32_ms,
+            "lanes150_ms": k5_ab["150"]["s16x2"],
+            "lanes150_int32_ms": k5_ab["150"]["int32"],
+            "lanes150_bound_ms": k4_150_bound_ms,
+            "long_ms": k5_ab["131k"]["s16x2"],
+            "long_int32_ms": k5_ab["131k"]["int32"],
             "long_bound_ms": k5l_bound_ms,
+            "long_segments": k5_segments,
+            "long_unsplit_ms": k5_unsplit_ms,
+            "long_unsplit_bound_ms": k5l_bound_ms,
         },
         {
             "name": "step_chain_best",

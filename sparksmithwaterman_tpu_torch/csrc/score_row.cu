@@ -7,7 +7,7 @@
 // references (C, N) uint8, REF_PAD-padded, give out (R, C) int32.
 //
 // The row form: for each read position i a whole DP row, the gap chain
-// along the row resolved by a prefix max.  With a linear gap,
+// along the row resolved by a scan.  With a linear gap,
 //   A[j]    = max(0, H[i-1][j-1] + sub(i, j), H[i-1][j] + gap)
 //   H[i][j] = max(A[j], H[i][j-1] + gap) = max_{k <= j}(A[k] - gap*k) + gap*j.
 // The TPU kernel kept a whole row in VMEM and cut the prefix max to the
@@ -16,23 +16,64 @@
 // tiles of kRowTile, and all M rows of one tile run before the next tile.
 // Between tiles each row carries one value, H[i][last column of the tile]:
 // it is the W term of row i in the next tile and the NW term of its first
-// column on row i + 1.  The prefix max is exact, so no window is needed.
+// column on row i + 1.  The scan is exact, so no window is needed.
 //
 // What bounds it on the H100: integer operations, as K4 (the inputs are
 // read once per tile and the output is one int32 per pair); per cell it
-// does K4's work plus a step of the prefix max.  One warp per read, the
-// block's four reads sharing one reference: lane t holds kRowCols
-// consecutive columns of the tile in registers, the row's prefix max is a
-// scan within the lane and then a five-step shuffle scan across the warp,
-// and the NW term of a lane's first column is one shuffle.  A row step
-// needs no barrier: each warp's carried column and read live in its own
-// shared memory.  Trailing pad rows and columns are skipped under the same
-// rule as K4's (`trim`: mismatch <= 0 and gap <= 0), and columns of the
-// last tile past the reference's end do not count.  A read of more than
-// 1,024 positions (score_row_wide_kernel) reads its codes from global
-// memory and carries its column in a scratch row of m int32 per (read,
-// reference) pair, which the wrapper allocates: the loop is the same, so
-// reads of any length run.
+// does K4's work plus a step of the scan.  Lane t of a warp holds kRowCols
+// consecutive columns of the tile in registers; the row's scan runs within
+// the lane, then in five shuffle steps across the warp, and the NW term of
+// a lane's first column is one shuffle.  A row step needs no barrier: each
+// warp's carried column and read codes live in its own shared memory.
+// Two forms, chosen by the wrapper from the data alone (ops/cuda_score.py
+// k1_form, the rule of K1 and K4, with m the width of the reads tensor):
+//
+// - s16x2 (score_row_s16x2_kernel), reads of at most 1,024 positions whose
+//   scores fit int16: warp w of a block takes reads 2w and 2w + 1, one in
+//   each 16-bit half of every register, both against the block's
+//   reference, so a block of four warps takes eight reads.  A column's
+//   reference code sits in both halves (code_half, wavefront.cuh) and a
+//   row's two read codes are one word in shared memory; the substitution
+//   is eq_unit16x2 and one IMAD, the recurrence __viaddmax_s16x2_relu, as
+//   in sweep_s16x2.  The gap chain does not use the int32 form's ramp:
+//   A[k] - gap*k reaches 32,767 + |gap| x 511 within one tile and leaves
+//   int16 under schemes the rule admits.  It is the decaying scan
+//   H[j] = max(A[j], H[j-1] + gap): one __viaddmax_s16x2_relu a register
+//   within the lane (lane 0 starting from the carried column), five
+//   shuffle steps across the warp, step s adding gap x kRowCols x s
+//   clamped at -32,768 (a value that low loses to the lane's own, which
+//   is >= 0, whether clamped or not), then a second pass within the lane
+//   from the value the lane to the left hands over.  Every add is of a
+//   value >= 0 and a constant >= -32,768, so nothing wraps; the relu
+//   keeps H >= 0 and H never exceeds match x m.  Each warp stops at the
+//   longer read of its pair: a pad row (READ_PAD matches nothing) scores
+//   no more than the rows above it under the rule's signs.
+// - int32 (score_row_kernel, one warp per read, the prefix max of
+//   A[k] - gap*k): every other read of at most 1,024 positions, and any
+//   scheme with a positive mismatch or gap.  A read of more than 1,024
+//   positions (score_row_wide_kernel) reads its codes from global memory
+//   and carries its column in a scratch row of m int32 per (read,
+//   reference) pair, which the wrapper allocates: the loop is the same,
+//   so reads of any length run.
+//
+// Trailing pad rows and columns are skipped when mismatch <= 0 and gap <=
+// 0 (`trim`, as K4; always so in the s16x2 form), and in the int32 form
+// columns of the last tile past the reference's end do not count.
+//
+// A launch with few blocks (a long reference against few reads) leaves
+// most of the card's 132 SMs idle, so the one-pass forms can cut every
+// reference into column segments, each segment a block of its own: the
+// grid is (read block, reference, segment).  Segment k covers the columns
+// [k S, k S + len), len >= S + W - 1, W = m + floor(match m / |gap|):
+// with match > 0, mismatch <= 0 and gap < 0 an alignment of score > 0
+// uses at most m read positions and fewer than match m / |gap| reference
+// gap columns, so it spans at most W columns, and every run of W columns
+// lies in one segment.  A segment's best lies between the best alignment
+// inside it and the pair's best, so the max over segments is the pair's
+// best: each block takes it with atomicMax into an output the wrapper
+// zeroes (max is order-free, so the result is deterministic).  The
+// wrapper plans the split (ops/cuda_score.py row_segments); the entry
+// points refuse a plan that is not exact.
 #include "wavefront.cuh"
 
 namespace {
@@ -42,23 +83,58 @@ using namespace swt;
 constexpr int kRowCols = 16;             // columns per lane
 constexpr int kRowTile = 32 * kRowCols;  // columns per warp per tile
 
-// One warp's pair: the read's codes in `code`, its carried column in
-// `carry` (zeroed), `used` = 1 + this lane's last non-pad position.
-__device__ __forceinline__ void score_row_pair(const uint8_t* code, int* carry,
-                                               int used, int m,
-                                               const uint8_t* ref, int n,
-                                               int match, int mismatch,
-                                               int gap, int trim, int32_t* o) {
-  const int lane = threadIdx.x & 31;
-  int len = 0;  // the reference's length before its REF_PAD tail
-  for (int j = n - 1 - lane; j >= 0; j -= 32) {
+// A launch's column segments: reference c's columns [k * stride,
+// min(k * stride + length, n)) for k < count.
+struct Segments {
+  int stride, length, count;
+};
+
+// (read block, reference, first column, columns) of a block.  Read blocks
+// vary fastest, so the blocks of one segment run together and share its
+// bytes in L2.
+struct Place {
+  int rb, c, j0, span;
+};
+
+__device__ __forceinline__ Place place(int block, int read_blocks, int n, Segments sg) {
+  const int rest = block / read_blocks;
+  const int j0 = (rest % sg.count) * sg.stride;
+  return {block % read_blocks, rest / sg.count, j0, min(sg.length, n - j0)};
+}
+
+// Stores a pair's best, or, with more than one segment, the max of it and
+// what the pair's other segments stored.
+__device__ __forceinline__ void put(int32_t* o, int v, bool split) {
+  if (split)
+    atomicMax(o, v);
+  else
+    *o = v;
+}
+
+// ref[0, span)'s columns before its REF_PAD tail; the whole warp calls it.
+__device__ __forceinline__ int ref_len(const uint8_t* ref, int span) {
+  int len = 0;
+  for (int j = span - 1 - (int)(threadIdx.x & 31); j >= 0; j -= 32) {
     if (ref[j] != kRefPad) {
       len = j + 1;
       break;
     }
   }
+  return __reduce_max_sync(0xffffffffu, len);
+}
+
+// One warp's pair in the int32 form: the read's codes in `code`, its
+// carried column in `carry` (zeroed), `used` = 1 + this lane's last non-pad
+// position.
+__device__ __forceinline__ void score_row_pair(const uint8_t* code, int* carry,
+                                               int used, int m,
+                                               const uint8_t* ref, int n,
+                                               int match, int mismatch,
+                                               int gap, int trim, bool split,
+                                               int32_t* o) {
+  const int lane = threadIdx.x & 31;
   used = __reduce_max_sync(0xffffffffu, used);
-  len = __reduce_max_sync(0xffffffffu, len);
+  int len = ref_len(ref, n);
   if (!trim) {
     used = m;
     len = n;
@@ -117,20 +193,20 @@ __device__ __forceinline__ void score_row_pair(const uint8_t* code, int* carry,
     __syncwarp();
   }
   best = __reduce_max_sync(0xffffffffu, best);
-  if (lane == 0) *o = best;
+  if (lane == 0) put(o, best, split);
 }
 
 __global__ void __launch_bounds__(kThreads)
 score_row_kernel(const uint8_t* __restrict__ reads, int r, int m,
                  int read_blocks, const uint8_t* __restrict__ refs,
-                 int c_total, int n, int match, int mismatch, int gap,
-                 int trim, int32_t* __restrict__ out) {
+                 int c_total, int n, Segments sg, int match, int mismatch,
+                 int gap, int trim, int32_t* __restrict__ out) {
   __shared__ uint8_t read_s[kWarps][kMaxLanes];
   __shared__ int carry_s[kWarps][kMaxLanes];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int c = blockIdx.x / read_blocks;
-  const int read = (blockIdx.x % read_blocks) * kWarps + warp;
+  const Place p = place(blockIdx.x, read_blocks, n, sg);
+  const int read = p.rb * kWarps + warp;
   if (read >= r) return;  // the whole warp: warps never wait for each other
   const uint8_t* rd = reads + (long long)read * m;
   uint8_t* code = read_s[warp];
@@ -143,8 +219,109 @@ score_row_kernel(const uint8_t* __restrict__ reads, int r, int m,
     carry[i] = 0;  // H[i][-1]
     if (v != kReadPad) used = i + 1;
   }
-  score_row_pair(code, carry, used, m, refs + (long long)c * n, n, match,
-                 mismatch, gap, trim, out + (long long)read * c_total + c);
+  score_row_pair(code, carry, used, m, refs + (long long)p.c * n + p.j0, p.span, match,
+                 mismatch, gap, trim, sg.count > 1, out + (long long)read * c_total + p.c);
+}
+
+// The scan's constants across the warp: g[q] = pair16(max(gap * kRowCols *
+// 2^q, -32768)), the decay over 2^q lanes.
+struct ScanGaps {
+  uint32_t g[5];
+};
+
+// The s16x2 form (see the top of this file).  Block b takes reads 8 rb ..
+// 8 rb + 7 of its place, warp w the pair 2w, 2w + 1; shared memory holds
+// each warp's m code pairs and m carried pairs.  k_sub = match - mismatch,
+// mismatch2 and gap2 pair16 of the scheme, from the host, so that they sit
+// in the constant bank, not registers.
+__global__ void __launch_bounds__(kThreads)
+score_row_s16x2_kernel(const uint8_t* __restrict__ reads, int r, int m,
+                       int read_blocks, const uint8_t* __restrict__ refs,
+                       int c_total, int n, Segments sg, uint32_t k_sub,
+                       uint32_t mismatch2, uint32_t gap2, ScanGaps scan,
+                       int32_t* __restrict__ out) {
+  extern __shared__ uint32_t row_s[];
+  const int lane = threadIdx.x & 31;
+  const Place p = place(blockIdx.x, read_blocks, n, sg);
+  const int read = p.rb * (2 * kWarps) + 2 * (threadIdx.x >> 5);
+  if (read >= r) return;  // the whole warp
+  uint32_t* code2 = row_s + 2 * m * (threadIdx.x >> 5);
+  uint32_t* carry2 = code2 + m;
+  const uint8_t* rd = reads + (long long)read * m;
+  const bool has_hi = read + 1 < r;
+  int used = 0;  // 1 + the last position of the pair that is not pad
+  for (int i = lane; i < m; i += 32) {
+    const int lo = rd[i];
+    const int hi = has_hi ? rd[m + i] : kReadPad;
+    code2[i] = code_half(lo) | code_half(hi) << 16;
+    carry2[i] = 0;  // H[i][-1]
+    if (lo != kReadPad || hi != kReadPad) used = i + 1;
+  }
+  used = __reduce_max_sync(0xffffffffu, used);
+  const uint8_t* ref = refs + (long long)p.c * n + p.j0;
+  const int len = ref_len(ref, p.span);
+  __syncwarp();
+
+  // The best of both halves over the rows; columns past len are pad and
+  // score no more than a real cell to their left, so every cell counts.
+  uint32_t best2 = 0;
+  for (int base = 0; used > 0 && base < len; base += kRowTile) {
+    const int j0 = base + lane * kRowCols;
+    uint32_t rf2[kRowCols], h[kRowCols];
+#pragma unroll
+    for (int k = 0; k < kRowCols; ++k) {
+      rf2[k] = code_half(j0 + k < len ? ref[j0 + k] : kRefPad) * 0x00010001u;
+      h[k] = 0;  // H[-1][j]
+    }
+    uint32_t above = 0;  // H[i-1][base-1]
+    for (int i = 0; i < used; ++i) {
+      const uint32_t ch = code2[i];
+      const uint32_t west = carry2[i];  // H[i][base-1]
+      uint32_t left = __shfl_up_sync(0xffffffffu, h[kRowCols - 1], 1);
+      if (lane == 0) left = above;
+      // A[j] of this lane's columns, right to left so h[k-1] is still row i-1.
+#pragma unroll
+      for (int k = kRowCols - 1; k >= 0; --k) {
+        const uint32_t nw = k > 0 ? h[k - 1] : left;
+        const uint32_t v = eq_unit16x2(ch, rf2[k]) * k_sub + nw;
+        h[k] = __viaddmax_s16x2_relu(v, mismatch2, __vadd2(h[k], gap2));
+      }
+      // The decaying scan: H at this lane's last column from its own
+      // columns (lane 0's from column base-1 on), then across the warp.
+      uint32_t run = __viaddmax_s16x2_relu(lane == 0 ? west : 0u, gap2, h[0]);
+#pragma unroll
+      for (int k = 1; k < kRowCols; ++k) run = __viaddmax_s16x2_relu(run, gap2, h[k]);
+#pragma unroll
+      for (int q = 0; q < 5; ++q) {
+        const uint32_t v = __shfl_up_sync(0xffffffffu, run, 1 << q);
+        if (lane >= (1 << q)) run = __viaddmax_s16x2_relu(v, scan.g[q], run);
+      }
+      // H at the column left of this lane's first, then the lane's columns.
+      uint32_t in = __shfl_up_sync(0xffffffffu, run, 1);
+      if (lane == 0) in = west;
+      h[0] = __viaddmax_s16x2_relu(in, gap2, h[0]);
+#pragma unroll
+      for (int k = 1; k < kRowCols; ++k) h[k] = __viaddmax_s16x2_relu(h[k - 1], gap2, h[k]);
+#pragma unroll
+      for (int k = 0; k < kRowCols; k += 2) best2 = __vimax3_s16x2(best2, h[k], h[k + 1]);
+      above = west;
+      __syncwarp();  // every lane has read carry2[i]
+      if (lane == 31) carry2[i] = h[kRowCols - 1];
+    }
+    __syncwarp();
+  }
+  const int b_lo = __reduce_max_sync(0xffffffffu, best2 & 0xFFFFu);
+  const int b_hi = __reduce_max_sync(0xffffffffu, best2 >> 16);
+  // The pair and the reference again, from the block index, so that none
+  // of them holds a register across the rows.
+  int block;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(block));
+  const Place q = place(block, read_blocks, n, sg);
+  const int read2 = q.rb * (2 * kWarps) + 2 * (threadIdx.x >> 5);
+  if (lane == 0) {
+    put(out + (long long)read2 * c_total + q.c, b_lo, sg.count > 1);
+    if (read2 + 1 < r) put(out + (long long)(read2 + 1) * c_total + q.c, b_hi, sg.count > 1);
+  }
 }
 
 // K5 on reads wider than kMaxLanes, over reads read0 .. read0 +
@@ -170,7 +347,19 @@ score_row_wide_kernel(const uint8_t* __restrict__ reads, int r, int m,
     if (rd[i] != kReadPad) used = i + 1;
   }
   score_row_pair(rd, col, used, m, refs + (long long)c * n, n, match,
-                 mismatch, gap, trim, out + (long long)read * c_total + c);
+                 mismatch, gap, trim, false, out + (long long)read * c_total + c);
+}
+
+// The wrapper's split of a launch's references (stride, length), checked:
+// one segment when both cover n; else segments of reads of at most
+// kMaxLanes under match > 0, mismatch <= 0 and gap < 0 that overlap by at
+// least W - 1 columns (see the top of this file).  count 0: refused.
+Segments plan(int m, int n, int match, int mismatch, int gap, int stride, int length) {
+  if (stride >= n && length >= n) return {n, n, 1};
+  if (stride <= 0 || m > kMaxLanes || match <= 0 || mismatch > 0 || gap >= 0) return {stride, length, 0};
+  const long long w = m + (long long)match * m / -(long long)gap;
+  if (length < stride + w - 1) return {stride, length, 0};
+  return {stride, length, (int)(((long long)n + stride - 1) / stride)};
 }
 
 }  // namespace
@@ -178,12 +367,14 @@ score_row_wide_kernel(const uint8_t* __restrict__ reads, int r, int m,
 extern "C" int swt_score_grid_row(const void* reads, int r, int m,
                                   const void* refs, int c, int n, int match,
                                   int mismatch, int gap, void* out, void* carry,
-                                  int part_reads, int device, void* stream) {
+                                  int part_reads, int seg_stride, int seg_length,
+                                  int device, void* stream) {
   const bool wide = m > swt::kMaxLanes;
-  if (r <= 0 || c <= 0 || m <= 0 || n <= 0 || (wide && carry == nullptr))
+  const Segments sg = plan(m, n, match, mismatch, gap, seg_stride, seg_length);
+  if (r <= 0 || c <= 0 || m <= 0 || n <= 0 || (wide && carry == nullptr) || sg.count == 0)
     return (int)cudaErrorInvalidValue;
   const long long read_blocks = (r + swt::kWarps - 1) / swt::kWarps;
-  const long long blocks = read_blocks * c;
+  const long long blocks = read_blocks * c * sg.count;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const int trim = mismatch <= 0 && gap <= 0;
   swt::DeviceGuard guard(device);
@@ -197,6 +388,40 @@ extern "C" int swt_score_grid_row(const void* reads, int r, int m,
     });
   score_row_kernel<<<(unsigned)blocks, swt::kThreads, 0, s>>>(
       (const uint8_t*)reads, r, m, (int)read_blocks, (const uint8_t*)refs, c,
-      n, match, mismatch, gap, trim, (int32_t*)out);
+      n, sg, match, mismatch, gap, trim, (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// The s16x2 form; the wrapper takes it only where ops/cuda_score.py
+// k1_form says so, and this entry refuses a scheme under which a value
+// could leave int16 or reads wider than kMaxLanes.  Its arguments are
+// swt_score_grid_row's; carry and part_reads are unused (the form has no
+// wide kernel).
+extern "C" int swt_score_grid_row_s16x2(const void* reads, int r, int m,
+                                        const void* refs, int c, int n,
+                                        int match, int mismatch, int gap,
+                                        void* out, void*, int, int seg_stride,
+                                        int seg_length, int device, void* stream) {
+  const bool fits = match >= 0 && (long long)match * m <= 32767 && mismatch >= -32768 &&
+                    mismatch <= 0 && gap >= -32768 && gap <= 0;
+  const Segments sg = plan(m, n, match, mismatch, gap, seg_stride, seg_length);
+  if (r <= 0 || c <= 0 || m <= 0 || n <= 0 || m > swt::kMaxLanes || !fits || sg.count == 0)
+    return (int)cudaErrorInvalidValue;
+  const long long read_blocks = (r + 2 * swt::kWarps - 1) / (2 * swt::kWarps);
+  const long long blocks = read_blocks * c * sg.count;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  ScanGaps scan;
+  for (int q = 0; q < 5; ++q) {
+    const long long g = (long long)gap * kRowCols * (1 << q);
+    scan.g[q] = swt::pair16(g < -32768 ? -32768 : (int)g);
+  }
+  swt::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t smem = sizeof(uint32_t) * 2 * m * swt::kWarps;
+  score_row_s16x2_kernel<<<(unsigned)blocks, swt::kThreads, smem, s>>>(
+      (const uint8_t*)reads, r, m, (int)read_blocks, (const uint8_t*)refs, c, n, sg,
+      (uint32_t)(match - mismatch), swt::pair16(mismatch), swt::pair16(gap), scan,
+      (int32_t*)out);
   return (int)cudaGetLastError();
 }

@@ -141,13 +141,16 @@ def lib() -> ctypes.CDLL:
                 _VP, _VP, _VP, _VP, _I,  # out, bnd_out, carry, carry offsets, rows per launch
                 _I, _VP,  # device, stream
             ]
-            for grid in (handle.swt_score_grid_diag, handle.swt_score_grid_diag_s16x2, handle.swt_score_grid_row):
+            for grid, segments in ((handle.swt_score_grid_diag, []), (handle.swt_score_grid_diag_s16x2, []),
+                                   (handle.swt_score_grid_row, [_I, _I]),
+                                   (handle.swt_score_grid_row_s16x2, [_I, _I])):
                 grid.restype = _I
                 grid.argtypes = [
                     _VP, _I, _I,  # reads, r, m
                     _VP, _I, _I,  # refs, c, n
                     _I, _I, _I,  # match, mismatch, gap
                     _VP, _VP, _I,  # out, carry, reads per launch
+                    *segments,  # K5: segment stride and length
                     _I, _VP,  # device, stream
                 ]
             handle.swt_step_chain_best.restype = _I

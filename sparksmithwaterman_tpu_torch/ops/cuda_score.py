@@ -29,12 +29,15 @@ tensors it launches the kernel or raises; it never falls back.  Each
 launch adds one to :data:`LAUNCHES`, so a run can show that its main path
 went through the kernels.
 
-K1 and K4 have two forms each, and the data alone picks one, by one rule
-(:func:`k1_form`): rows (reads) of at most ONE_PASS_LANES lanes whose
-scores provably fit int16 run two rows per warp in the 16-bit halves of
-each register, the recurrence in DPX instructions ("s16x2"); every other
-row runs the int32 kernels, one pass or striped ("int32").
-:data:`K1_FORMS` and :data:`K4_FORMS` count the launches of each.
+K1, K4 and K5 have two forms each, and the data alone picks one, by one
+rule (:func:`k1_form`): rows (reads) of at most ONE_PASS_LANES lanes
+whose scores provably fit int16 run two rows per warp in the 16-bit
+halves of each register, the recurrence in DPX instructions ("s16x2");
+every other row runs the int32 kernels, one pass or striped ("int32").
+:data:`K1_FORMS`, :data:`K4_FORMS` and :data:`K5_FORMS` count the
+launches of each.  A K5 launch with too few blocks for the card cuts each
+reference into overlapping column segments, one block each
+(:func:`row_segments`).
 
 K1-K5 take rows (reads) of any width.  Up to :data:`ONE_PASS_LANES`
 lanes a warp sweeps a row in one pass; a wider row runs in stripes of
@@ -82,9 +85,10 @@ LAUNCHES = {
     "step_variant_best": 0,
 }
 
-# K1's and K4's launches per form (k1_form) since the last reset_launches().
+# K1's, K4's and K5's launches per form (k1_form) since the last reset_launches().
 K1_FORMS = {"s16x2": 0, "int32": 0}
 K4_FORMS = {"s16x2": 0, "int32": 0}
+K5_FORMS = {"s16x2": 0, "int32": 0}
 
 # Widest row a warp sweeps in one pass (32 threads x 32 lanes); wider
 # rows run in stripes of STRIPE_LANES (csrc/wavefront.cuh kMaxLanes,
@@ -101,7 +105,7 @@ _BLOCK_ROWS = 4
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, K1_FORMS, K4_FORMS):
+    for counts in (LAUNCHES, K1_FORMS, K4_FORMS, K5_FORMS):
         for key in counts:
             counts[key] = 0
 
@@ -606,12 +610,15 @@ def _carry_grid(m, r, c, n, row_form, device):
     return torch.empty(c * carry_elems(m, part, n, row_form=row_form), dtype=torch.int32, device=device), part
 
 
-def _launch_grid(entry, name, reads_u8, refs_u8, match, mismatch, gap, form=None):
-    """(R, C) int32 from a C entry with K4's and K5's arguments; a launch
-    also counts in K4_FORMS under ``form`` when given."""
+def _launch_grid(entry, name, forms, form, reads_u8, refs_u8, match, mismatch, gap, segments=()):
+    """(R, C) int32 from a C entry with K4's arguments, or K5's with
+    ``segments`` = (stride, length) of :func:`row_segments`; the launch
+    counts in LAUNCHES[name] and in ``forms[form]``."""
     r, m = reads_u8.shape
     c, n = refs_u8.shape
-    out = torch.empty((r, c), dtype=torch.int32, device=reads_u8.device)
+    # Segments take their max into the output with atomicMax.
+    split = bool(segments) and segments[0] < n
+    out = (torch.zeros if split else torch.empty)((r, c), dtype=torch.int32, device=reads_u8.device)
     if r == 0 or c == 0:
         return out
     if m == 0 or n == 0:
@@ -621,12 +628,11 @@ def _launch_grid(entry, name, reads_u8, refs_u8, match, mismatch, gap, form=None
     carry, part = _carry_grid(m, r, c, n, name == "score_grid_row", reads_u8.device)
     rc = entry(
         reads_u8.data_ptr(), r, m, refs_u8.data_ptr(), c, n,
-        match, mismatch, gap, out.data_ptr(), _ptr(carry), part, *_launch_target(reads_u8.device),
+        match, mismatch, gap, out.data_ptr(), _ptr(carry), part, *segments, *_launch_target(reads_u8.device),
     )
     _cuda.check(rc, name)
     LAUNCHES[name] += 1
-    if form is not None:
-        K4_FORMS[form] += 1
+    forms[form] += 1
     return out
 
 
@@ -681,20 +687,75 @@ def _score_grid_diag(reads_u8, refs_u8, match, mismatch, gap, *, form=None):
     _check_stripes("score_grid_diag", reads_u8.shape[1], mismatch, gap)
     lib = _cuda.lib()
     entry = lib.swt_score_grid_diag_s16x2 if form == "s16x2" else lib.swt_score_grid_diag
-    return _launch_grid(entry, "score_grid_diag", reads_u8, refs_u8, match, mismatch, gap, form)
+    return _launch_grid(entry, "score_grid_diag", K4_FORMS, form, reads_u8, refs_u8, match, mismatch, gap)
+
+
+# A K5 launch that splits its references aims at this many blocks per SM,
+# with segments at least this many propagation windows apart.
+_SPLIT_BLOCKS_PER_SM = 2
+_SEGMENT_WINDOWS = 4
+
+
+def row_segments(m: int, n: int, match: int, mismatch: int, gap: int, blocks: int, sms: int):
+    """(stride, length) of the column segments into which K5 cuts each
+    reference of ``n`` columns, for a launch of ``blocks`` blocks (read
+    blocks x references) on a card of ``sms`` SMs: segment k covers the
+    columns [k stride, k stride + length), one block each.  (n, n) is one
+    segment.
+
+    Exact: with match > 0, mismatch <= 0 and gap < 0 an alignment of
+    score > 0 of a read of at most ``m`` positions has fewer than match m
+    / |gap| reference gap columns, so it spans at most W = m + match m //
+    |gap| columns; segments that overlap by W - 1 hold every run of W
+    columns, and the max of their bests is the pair's best
+    (``pallas_score._propagation_window`` bounds the same reach).  Only
+    reads of at most ONE_PASS_LANES positions under those signs split,
+    and only until the launch has _SPLIT_BLOCKS_PER_SM blocks per SM,
+    with a stride of at least _SEGMENT_WINDOWS x W; else one segment.
+    """
+    if not (0 < m <= ONE_PASS_LANES and n > 0 and match > 0 and mismatch <= 0 and gap < 0 and blocks > 0):
+        return n, n
+    w = m + match * m // -gap
+    segs = min(-(-_SPLIT_BLOCKS_PER_SM * sms // blocks), n // (_SEGMENT_WINDOWS * w))
+    if segs <= 1:
+        return n, n
+    stride = -(-n // segs)
+    return stride, stride + w - 1
 
 
 def score_grid_row(reads_u8, refs_u8, match, mismatch, gap):
     """(R, C) int32 best local score of every (read, ref) pair: K5, the
-    row form (a prefix max per DP row), K4's contract.  Its plain version
-    is :func:`..ops.recurrence.score_grid`."""
+    row form (a scan along each DP row), K4's contract.  Its plain version
+    is :func:`..ops.recurrence.score_grid`.
+
+    K5's form follows from M and the scheme alone (:func:`k1_form`, the
+    rule of K1 and K4); a launch with too few blocks for the card cuts
+    each reference into column segments (:func:`row_segments`), which
+    gives the same scores.
+    """
+    return _score_grid_row(reads_u8, refs_u8, match, mismatch, gap)
+
+
+def _score_grid_row(reads_u8, refs_u8, match, mismatch, gap, *, form=None, split=True):
+    """:func:`score_grid_row` with K5's form given (``form=None``:
+    :func:`k1_form`'s), so that the two forms can be timed on the same
+    inputs; ``"s16x2"`` where k1_form says ``"int32"`` raises.
+    ``split=False`` runs each reference as one segment."""
     device = _check_grid_inputs("score_grid_row", reads_u8, refs_u8)
     match, mismatch, gap = int(match), int(mismatch), int(gap)
+    r, m = reads_u8.shape
+    c, n = refs_u8.shape
+    form = _check_form("K5", K5_FORMS, form, m, match, mismatch, gap)
     if device.type == "cpu":
-        if reads_u8.shape[1] == 0 or refs_u8.shape[1] == 0:
-            return torch.zeros((reads_u8.shape[0], refs_u8.shape[0]), dtype=torch.int32)
+        if m == 0 or n == 0:
+            return torch.zeros((r, c), dtype=torch.int32)
         return score_grid(reads_u8, refs_u8, match, mismatch, gap)
-    return _launch_grid(_cuda.lib().swt_score_grid_row, "score_grid_row", reads_u8, refs_u8, match, mismatch, gap)
+    reads_per_block = 2 * _BLOCK_ROWS if form == "s16x2" else _BLOCK_ROWS
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    segments = row_segments(m, n, match, mismatch, gap, -(-r // reads_per_block) * c, sms) if split else (n, n)
+    lib = _cuda.lib()
+    entry = lib.swt_score_grid_row_s16x2 if form == "s16x2" else lib.swt_score_grid_row
+    return _launch_grid(entry, "score_grid_row", K5_FORMS, form, reads_u8, refs_u8, match, mismatch, gap, segments)
 
 
 # -- K6 and K7: the TPU's step-chain probes ---------------------------------------

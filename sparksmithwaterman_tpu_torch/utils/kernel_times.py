@@ -7,11 +7,13 @@ ROOT (default: this checkout) is a directory that holds
 ``sparksmithwaterman_tpu_torch/``; each ROOT runs in a process of its
 own, in the order given, so an A/B of two trees on one card is one call
 (``ROOT_A ROOT_B ROOT_B ROOT_A``).  Inputs come from a fixed numpy seed,
-the same for every ROOT.  K1 and K4 are timed through their public
+the same for every ROOT.  K1, K4 and K5 are timed through their public
 wrappers (the form the rule picks) and, where the tree has the private
-entry that takes a form, in their int32 form too; K4 also with the same
-reads at the width of their longest read (``K4_150``), as the batch
-backend passes a read group.
+entry that takes a form, in their int32 form too; K4 and K5 also with
+the same reads at the width of their longest read (``K4_150``,
+``K5_150``), as the batch backend passes a read group, and K5 with 16 of
+them against one 131,072 bp ref (``K5_131k``: a launch of two blocks,
+which K5 splits into column segments).
 """
 
 from __future__ import annotations
@@ -89,6 +91,12 @@ def _times(root: str) -> dict:
         out["K4_int32"] = ms(lambda: cuda_score._score_grid_diag(*grid, *PARAMS, form="int32"))
         out["K4_150_int32"] = ms(lambda: cuda_score._score_grid_diag(*grid_150, *PARAMS, form="int32"))
     out["K5"] = ms(lambda: cuda_score.score_grid_row(*grid, *PARAMS))
+    out["K5_150"] = ms(lambda: cuda_score.score_grid_row(*grid_150, *PARAMS))
+    grid_131k = (up(encode_batch(reads[:16], 152, READ_PAD)), up(encode_batch(seqs([131_072]), 131_072, REF_PAD)))
+    out["K5_131k"] = ms(lambda: cuda_score.score_grid_row(*grid_131k, *PARAMS), 3)
+    if hasattr(cuda_score, "_score_grid_row"):
+        for key, args, iters in (("K5", grid, 10), ("K5_150", grid_150, 10), ("K5_131k", grid_131k, 3)):
+            out[f"{key}_int32"] = ms(lambda: cuda_score._score_grid_row(*args, *PARAMS, form="int32"), iters)
     chain = up(np.random.default_rng(0).integers(2, 6, size=(512, 128)).astype(np.int32))
     out["K6"] = ms(lambda: cuda_score.step_chain_best(chain, steps=131_072, unroll=64), 5)
     packed_7 = np.random.default_rng(0).integers(65, 85, size=(248, 256)).astype(np.int32)
