@@ -12,7 +12,8 @@ port's main path (``swtorch align --strategy batch``) end to end:
    K4's and K5's two forms in the built library: every s16x2 kernel runs
    the instruction of ``__viaddmax_s16x2_relu`` and spills nothing, and
    the ALU instructions per cell of both forms' inner loops at every L
-   (K1, K4) and of K5's s16x2 row loop;
+   (K1, K4) and of K5's s16x2 row loop; K8's s16x2 kernel runs that
+   instruction too, and none of K8's three kernels spills;
 1. K1 (packed lane best) against its plain version, in both forms
    (``cuda_score.k1_form``): 512 reads x 256 RefSeq-shaped refs, every
    start lane, and the two forms timed on them in turns (int32, s16x2,
@@ -24,6 +25,15 @@ port's main path (``swtorch align --strategy batch``) end to end:
    its ref at match 31 (31,744, s16x2) and 32 (int32);
 2. K2 (per-lane argmax) against its plain version: 2,000 reads x one 2 kb
    ref and 64 reads x one 131 kb ref, on the lanes the traceback reads;
+   K8 (the listing of every cell equal to a read's best) against its
+   plain version on the reads K2 finds tied inside a DP row there: every
+   count and cell equal, at 2 kb in both forms, at 131 kb split into
+   column segments, as one segment and in the int32 form, and at a
+   capacity below the counts (the count exact, the slots distinct cells
+   of the full listing); each form timed; ties planted around the borders
+   of the column segments of a 131 kb ref, listed once in both forms; and
+   ``find_max_cells_batched`` of a read with 130,923 ties, all listed on
+   the card (the host scan must not run);
 3. correctness leg: ``cli.main(["align", ...])`` on a ~1 Mbp RefSeq-shaped
    corpus with a 512-read input (full-fill traceback) and a 2,000-read
    input (windowed traceback through K2); each report's max score and
@@ -40,7 +50,8 @@ port's main path (``swtorch align --strategy batch``) end to end:
    refs with 256 reads, on the default mesh (every card): its report
    equals ``--strategy batch``'s apart from the time line, its winners'
    totals equal the row-form recurrence, and ``SeqParallelBackend`` on a
-   4-entry mesh of this card gives batch's totals;
+   4-entry mesh of this card gives batch's totals; K8 must launch in
+   the two runs (the 1 Mb winner's tied reads);
 7. ``--strategy shard_refs`` and ``shard_reads`` on the phase-3 corpus:
    reports equal to batch's apart from the time line; a (2, 2) mesh of
    this card gives batch's totals;
@@ -86,7 +97,9 @@ port's main path (``swtorch align --strategy batch``) end to end:
     to K1); at 2,048 lanes each again with a carry budget of 1, every
     launch then run in parts of one block of four rows, equal to the one
     launch on every lane; K1 at 2,048 lanes against one 131,072 bp ref and
-    the row-form recurrence; each kernel's time at 4,096 lanes; then
+    the row-form recurrence; K8 (int32 wide form) against its plain
+    version on reads of 1,025-8,000 bp and a repeat; each kernel's time at
+    4,096 lanes; then
     ``swtorch align`` with batch,
     wavefront, shard_refs, shard_reads and shard_seq, and ``run_pipeline``
     with ``pack_reads=False`` and ``kernel='row'``, on 128 reads (8 of
@@ -95,13 +108,13 @@ port's main path (``swtorch align --strategy batch``) end to end:
     recomputation.
 
 Launch counts are reset just before each main-path leg and read just
-after it, K1's, K4's and K5's per form too (``cuda_score.K1_FORMS``,
-``K4_FORMS``, ``K5_FORMS``): every K1 launch of phases 3-4, 7 and 13,
+after it, K1's, K4's, K5's and K8's per form too (``cuda_score.K1_FORMS``,
+``K4_FORMS``, ``K5_FORMS``, ``K8_FORMS``): every K1 launch of phases 3-4, 7 and 13,
 every K4 launch of phases 9, 10 and 13 and every K5 launch of phase 9
 must take the s16x2 form, every one at rows (reads) of more than 1,024
 lanes in 14 the int32 form.  The legs:
 phases 3-4 (batch; K1
-and K2 must launch), 6 (shard_seq; K3),
+and K2 must launch), 6 (shard_seq and batch; K3 and K8),
 7 (shard_refs and shard_reads; K1), 9 (unpacked and row paths; K4 and
 K5), 10 (scaling; K4), each bench leg of 13 (K4 on the kernel leg, K1 on
 the path legs, K2 on the long-ref leg, K6 on the roofline leg), each
@@ -116,7 +129,7 @@ which phase 0 checks against the SASS of the DPX intrinsics.  The other
 is its bytes (inputs read once, outputs written once) over 3.35 TB/s.
 The script fails if a kernel runs faster than its bound (``wide_*``
 keys: the same at 4,096 lanes).  No single
-PyTorch call computes any of the seven functions, so ``library_ms`` is
+PyTorch call computes any of the eight functions, so ``library_ms`` is
 null.  Any failure raises and exits non-zero.  The second-to-last line
 is the kernels' JSON summary; the last line is ``{"ok": true,
 "device": {...}}``.
@@ -341,6 +354,7 @@ def main() -> int:
     from sparksmithwaterman_tpu_torch.models.batch_backend import TorchBatchBackend
     from sparksmithwaterman_tpu_torch.models.pipeline import run_pipeline
     from sparksmithwaterman_tpu_torch.ops import _cuda, cuda_score
+    from sparksmithwaterman_tpu_torch.ops import longseq
     from sparksmithwaterman_tpu_torch.ops.longseq import find_max_cells_batched, sites_for_ref_long_batched
     from sparksmithwaterman_tpu_torch.ops.packing import START_BIT, pack_reads, read_best
     from sparksmithwaterman_tpu_torch.ops.recurrence import score_grid
@@ -409,6 +423,15 @@ def main() -> int:
     print(f"[0] K5 SASS: score_row_s16x2_kernel runs {relu_ops[0]}, {k5_regs[0]} (no spill); its row loop: "
           f"{len(k5_loop)} ALU instructions over {k5_rows:g} row(s) of 32 cells a thread = "
           f"{len(k5_loop) / (32 * k5_rows):.3f} per cell", flush=True)
+    # K8's three kernels: the s16x2 form runs the DPX instruction of
+    # __viaddmax_s16x2_relu, and none of them spills.
+    k8_sass = [instrs for fname, instrs in lib_sass.items() if re.search(r"\d+max_cells_s16x2_kernel", fname)]
+    fail_unless(len(k8_sass) == 1 and relu_ops[0] in {op for _, op, _ in k8_sass[0]},
+                f"K8's s16x2 kernel ({len(k8_sass)} found) lacks {relu_ops[0]}")
+    k8_regs = {k: w for k, w in register_summary(_cuda.build_info["log"]).items() if k.startswith("max_cells")}
+    fail_unless(sorted(k8_regs) == ["max_cells_kernel", "max_cells_s16x2_kernel", "max_cells_wide_kernel"]
+                and not any("s" in w for ws in k8_regs.values() for w in ws), f"K8's kernels: {k8_regs}")
+    print(f"[0] K8 SASS: max_cells_s16x2_kernel runs {relu_ops[0]}; registers {k8_regs} (no spill)", flush=True)
 
     def up(arr):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
@@ -504,10 +527,14 @@ def main() -> int:
                            lambda: read_best(k1(cuda_score.lane_best_packed_varlen, args_l), start_l))
     fail_unless(forms["s16x2"] == 1, f"K1 at 131 kb refs took {forms}")
     refs_l_pad = up(encode_batch(refs_l, LONG_N, REF_PAD))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
     want_l = torch.cat(
         [score_grid(up(encode_batch(reads_l, 152, READ_PAD)), refs_l_pad[c : c + 2], *PARAMS) for c in range(0, 8, 2)],
         dim=1,
     )
+    torch.cuda.synchronize()
+    kl_plain_ms = (time.perf_counter() - t) * 1e3  # the row-form recurrence: the same read bests
     err_l = int((got_l.to(torch.int64) - want_l).abs().max())
     fail_unless(err_l == 0, f"K1 at 131 kb refs differs from the row-form recurrence ({err_l})")
     kl_ms = cuda_ms(lambda: k1(cuda_score.lane_best_packed_varlen, args_l), 3)
@@ -516,8 +543,9 @@ def main() -> int:
         cells_l, sum(t.numel() * t.element_size() for t in args_l) + 8 * args_l[0].numel() * 4, sms, clock_mhz
     )
     print(f"[1] K1 (s16x2) 64 reads x 8 refs of {LONG_N} bp vs row-form recurrence: max abs err 0; "
-          f"kernel {kl_ms:.3f} ms ({cells_l / kl_ms / 1e6:.1f} GCUPS real cells); bound {kl_bound_ms:.3f} ms "
-          f"by {kl_bound_by} = {100 * kl_bound_ms / kl_ms:.1f}%", flush=True)
+          f"kernel {kl_ms:.3f} ms ({cells_l / kl_ms / 1e6:.1f} GCUPS real cells), the recurrence (plain) "
+          f"{kl_plain_ms:.1f} ms; bound {kl_bound_ms:.3f} ms by {kl_bound_by} = {100 * kl_bound_ms / kl_ms:.1f}%",
+          flush=True)
 
     edge_reads = ["", "A", "ACGT" * 10, ""] + rand_seqs(rng, rng.integers(1, 120, size=20))
     edge_refs = ["", "A", "C"] + rand_seqs(rng, [2, 700, 2049])
@@ -604,6 +632,138 @@ def main() -> int:
     print(f"[2] K2 64 reads x {LONG_N} bp ref: max abs err 0; kernel {k2l_ms:.3f} ms; bound {k2l_bound_ms:.3f} ms "
           f"by {k2l_bound_by} = {100 * k2l_bound_ms / k2l_ms:.1f}%", flush=True)
 
+    # -- 2. K8 against its plain version, on the reads K2 finds tied --------
+    def tied(args, reads):
+        """The rows of K2's reads that it finds tied inside a DP row, as
+        find_max_cells_batched picks them: (reads, bests, real bp)."""
+        best, _, count = (t[:, 0] for t in cuda_score.argmax_lane(*args, *PARAMS))
+        b = best.amax(dim=1)
+        idx = np.flatnonzero((((best == b[:, None]) & (count != 1)).any(dim=1) & (b > 0)).cpu().numpy())
+        fail_unless(idx.size > 0, "K2 finds no tied read")
+        idx_t = up(idx)
+        return args[0][idx_t].contiguous(), b[idx_t].to(torch.int32).contiguous(), sum(len(reads[k]) for k in idx)
+
+    def k8_plain(reads, ref, best, capacity):
+        """The plain listing, in groups of reads whose (R, M, N) stack of H
+        holds at most 2^27 entries."""
+        group = max(1, (1 << 27) // (reads.shape[1] * ref.shape[0]))
+        outs = [cuda_score.max_cells_row_plain(reads[k : k + group], ref, best[k : k + group], *PARAMS, capacity)
+                for k in range(0, reads.shape[0], group)]
+        return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+    def k8_check(what, reads, ref, best, capacity, want=None, **kw):
+        """K8 against the plain listing ``want`` at this capacity (computed
+        when None), in the form the rule or ``form=`` picks: every count
+        equal; the cells equal where the count fits the capacity, else the
+        slots distinct cells of the full listing in row-major order.
+        Returns (want, reads past the capacity)."""
+        form = kw.get("form") or cuda_score.k1_form(reads.shape[1], *PARAMS)
+        before = dict(cuda_score.K8_FORMS)
+        count, cells = cuda_score._max_cells_row(reads, ref, best, *PARAMS, capacity, **kw)
+        fail_unless(cuda_score.K8_FORMS[form] == before[form] + 1, f"K8 took {cuda_score.K8_FORMS}, not {form} ({what})")
+        want = k8_plain(reads, ref, best, capacity) if want is None else want
+        fail_unless(torch.equal(count, want[0]), f"K8 counts differ from plain ({what})")
+        fits = want[0] <= capacity
+        fail_unless(torch.equal(cells[fits], want[1][fits]), f"K8 cells differ from plain ({what})")
+        over = (~fits).nonzero()[:, 0]
+        if len(over):
+            full = k8_plain(reads[over], ref, best[over], int(want[0].max()))[1].cpu().numpy()
+            n = ref.shape[0]
+            for k, r in enumerate(over.tolist()):
+                key = cells[r].cpu().numpy().astype(np.int64) @ np.array([n, 1])
+                fail_unless((np.diff(key) > 0).all() and np.isin(key, full[k] @ np.array([n, 1])).all(),
+                            f"K8's slots past the capacity are not distinct cells of the listing ({what})")
+        return want, len(over)
+
+    reads_8, best_8, bp_8 = tied(args_2, reads_2)
+    ref_8 = args_2[1][0]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want_8 = k8_plain(reads_8, ref_8, best_8, 1024)
+    torch.cuda.synchronize()
+    k8_plain_ms = (time.perf_counter() - t) * 1e3
+    k8_check("2 kb", reads_8, ref_8, best_8, 1024, want_8)
+    k8_check("2 kb, int32", reads_8, ref_8, best_8, 1024, want_8, form="int32")
+    _, k8_over = k8_check("2 kb, capacity 2", reads_8, ref_8, best_8, 2)
+    fail_unless(k8_over > 0, "no tied read has more than 2 cells at its best")
+    k8_ms = cuda_ms(lambda: cuda_score.max_cells_row(reads_8, ref_8, best_8, *PARAMS, 1024), 10)
+    k8_int32_ms = cuda_ms(lambda: cuda_score._max_cells_row(reads_8, ref_8, best_8, *PARAMS, 1024, form="int32"), 10)
+
+    def k8_bytes(reads, ref, want):
+        """Reads, ref and bests in; counts and the listed cells out."""
+        return reads.numel() + ref.numel() + 12 * len(want[0]) + 8 * int(want[0].clamp(max=want[1].shape[1]).sum())
+
+    k8_bound_ms, k8_bound_by = bound(bp_8 * ref_8.numel(), k8_bytes(reads_8, ref_8, want_8), sms, clock_mhz)
+    print(f"[2] K8 {len(best_8)} of the 2000 reads tied (K2) x 2 kb ref, {int(want_8[0].sum())} cells at their "
+          f"bests (up to {int(want_8[0].max())} a read): counts and cells equal plain in both forms, and at capacity "
+          f"2 ({k8_over} reads past it) the counts and distinct cells of the listing; s16x2 {k8_ms:.3f} ms, int32 "
+          f"{k8_int32_ms:.3f} ms, plain {k8_plain_ms:.1f} ms; bound {k8_bound_ms:.3f} ms by {k8_bound_by} = "
+          f"{100 * k8_bound_ms / k8_ms:.1f}% of the kernel's time", flush=True)
+    reads_8l, best_8l, bp_8l = tied(args_2l, reads_l)
+    ref_8l = args_2l[1][0]
+    want_8l = k8_plain(reads_8l, ref_8l, best_8l, 1024)
+    k8_check("131 kb, segments", reads_8l, ref_8l, best_8l, 1024, want_8l)
+    k8_check("131 kb, one segment", reads_8l, ref_8l, best_8l, 1024, want_8l, split=False)
+    k8_check("131 kb, int32", reads_8l, ref_8l, best_8l, 1024, want_8l, form="int32")
+    k8l_ms = cuda_ms(lambda: cuda_score.max_cells_row(reads_8l, ref_8l, best_8l, *PARAMS, 1024), 3)
+    k8l_unsplit_ms = cuda_ms(lambda: cuda_score._max_cells_row(reads_8l, ref_8l, best_8l, *PARAMS, 1024, split=False), 3)
+    k8_stride = cuda_score.max_cells_segments(reads_8l.shape[1], LONG_N, *PARAMS, -(-len(best_8l) // 8), sms)[0]
+    k8_segments = -(-LONG_N // k8_stride)
+    k8l_bound_ms, k8l_bound_by = bound(bp_8l * LONG_N, k8_bytes(reads_8l, ref_8l, want_8l), sms, clock_mhz)
+    print(f"[2] K8 {len(best_8l)} of the 64 reads tied (K2) x {LONG_N} bp ref, {int(want_8l[0].sum())} cells at "
+          f"their bests: counts and cells equal plain in {k8_segments} column segments, as one segment and in the "
+          f"int32 form; s16x2 {k8l_ms:.3f} ms in segments, {k8l_unsplit_ms:.3f} ms as one; bound {k8l_bound_ms:.3f} "
+          f"ms by {k8l_bound_by} = {100 * k8l_bound_ms / k8l_ms:.1f}%", flush=True)
+
+    # Ties planted at the split K8 makes of a 131 kb ref for two 16 bp
+    # reads (one block): copies of each read (A, C and G only) in a ref of
+    # Ts, ending on either side of segment borders, inside a segment's
+    # first W - 1 columns (which the segment before lists) and on the first
+    # column a segment lists itself.  Each copy is a cell at the best, in
+    # both forms, listed once.
+    rng_b = np.random.default_rng(SEED + 8)
+    reads_b = ["".join(rng_b.choice(list("ACG"), size=16)) for _ in range(2)]
+    w_b = 16 + PARAMS[0] * 16 // -PARAMS[2]
+    stride_b, length_b, skip_b = cuda_score.max_cells_segments(16, LONG_N, *PARAMS, 1, sms)
+    fail_unless(stride_b < LONG_N and skip_b == w_b - 1 and length_b >= stride_b + skip_b,
+                f"K8 does not split 2 reads x {LONG_N} bp: {(stride_b, length_b, skip_b)}")
+    ends_b = [[stride_b + 5, 2 * stride_b + skip_b - 1, 3 * stride_b + skip_b, 4 * stride_b - 1, 5 * stride_b + 15],
+              [6 * stride_b, 7 * stride_b + skip_b // 2]]
+    ref_b = bytearray(b"T" * LONG_N)
+    for read, ends in zip(reads_b, ends_b):
+        for end in ends:
+            ref_b[end - 15 : end + 1] = read.encode()
+    args_b = (up(encode_batch(reads_b, 16, READ_PAD)), up(encode_batch([ref_b.decode()], LONG_N, REF_PAD)[0]))
+    best_b = up(np.full(2, 80, np.int32))
+    want_b, _ = k8_check("planted ties at the segment borders", *args_b, best_b, 64)
+    fail_unless(want_b[0].tolist() == [5, 2] and want_b[1][0, :5, 1].tolist() == ends_b[0],
+                f"the planted ties are not the plain listing's: {want_b[0].tolist()}")
+    k8_check("planted ties at the segment borders, int32", *args_b, best_b, 64, want_b, form="int32")
+
+    # A read with more ties than the CPU's cap: on the card the traceback
+    # lists them all on the device, and the host scan never runs.
+    many = ["A" * 150, reads_l[0]]
+    many_ref = "A" * LONG_N
+    want_many = longseq._max_cells_host(encode_batch(many[:1], 150, READ_PAD)[0],
+                                        encode_batch([many_ref], LONG_N, REF_PAD)[0], *PARAMS)
+    host_scan = longseq._max_cells_host
+
+    def no_host_scan(*_):
+        raise RuntimeError("chip_smoke: the host scan ran on the card")
+
+    longseq._max_cells_host = no_host_scan
+    try:
+        got_many = find_max_cells_batched(many, many_ref, PARAMS, device=dev)
+    finally:
+        longseq._max_cells_host = host_scan
+    fail_unless(got_many[0][0] == want_many[0] and np.array_equal(got_many[0][1], want_many[1])
+                and len(want_many[1]) > longseq._CAPACITY_CAP,
+                f"find_max_cells_batched of a read with {len(want_many[1])} ties differs from the host scan")
+    print(f"[2] K8 at the split of 2 reads x {LONG_N} bp ({-(-LONG_N // stride_b)} segments of stride {stride_b}, "
+          f"W - 1 = {skip_b}): {want_b[0].tolist()} ties planted around segment borders listed once each, equal to "
+          f"plain in both forms; find_max_cells_batched of a read with {len(want_many[1])} ties (past the CPU's cap of "
+          f"{longseq._CAPACITY_CAP}) on the card equal to the host scan, which did not run", flush=True)
+
     with tempfile.TemporaryDirectory(prefix="swtorch_smoke_") as work:
         # -- 3/4: the main path; launch counts cover exactly these runs ----
         slice_root = os.path.join(work, "slice")
@@ -640,6 +800,7 @@ def main() -> int:
         fail_unless(launches["lane_best_packed_varlen"] > 0 and launches["argmax_lane"] > 0,
                     f"a kernel of the batch path never launched: {launches}")
         k1_main_forms = collections.Counter(cuda_score.K1_FORMS)  # K1's forms on the main-path legs
+        k8_main_forms = collections.Counter(cuda_score.K8_FORMS)  # K8's
         fail_unless(k1_main_forms["s16x2"] == launches["lane_best_packed_varlen"],
                     f"K1 launches of phases 3-4 not all in the s16x2 form: {dict(k1_main_forms)}")
 
@@ -806,14 +967,20 @@ def main() -> int:
         seq_s = align(seq_root, "shard_seq", "out_seq")
         seq_launches = dict(cuda_score.LAUNCHES)
         fail_unless(seq_launches["band_lane_best"] > 0, f"K3 never launched on the shard_seq path: {seq_launches}")
+        k8_main_forms.update(cuda_score.K8_FORMS)
+        cuda_score.reset_launches()
         batch_s = align(seq_root, "batch", "out_batch")
+        seq_batch_launches = dict(cuda_score.LAUNCHES)
+        k8_main_forms.update(cuda_score.K8_FORMS)
+        fail_unless(seq_launches["max_cells_row"] + seq_batch_launches["max_cells_row"] > 0,
+                    f"K8 never launched in phase 6: {seq_launches}, {seq_batch_launches}")
         fail_unless(stripped(os.path.join(seq_root, "out_seq", "result1.txt"))
                     == stripped(os.path.join(seq_root, "out_batch", "result1.txt")),
                     "shard_seq report differs from batch's")
         print(f"[6] swtorch align on {seq_corpus['n_refs']} refs of 8 kb-1 Mb ({seq_corpus['ref_bp']} bp) x 256 reads "
               f"({seq_corpus['read_bp']} bp): shard_seq {seq_s:.3f} s ({seq_cells / seq_s / 1e9:.1f} real GCUPS), "
               f"batch {batch_s:.3f} s ({seq_cells / batch_s / 1e9:.1f} real GCUPS); reports equal apart from the time "
-              f"line; shard_seq launches {seq_launches}", flush=True)
+              f"line; launches of shard_seq {seq_launches}, of batch {seq_batch_launches}", flush=True)
 
         seq_reads = get_reads(os.path.join(seq_root, "inputs", "input1.fa"), ">gi")
         seq_refs = [rec for path in iter_files(os.path.join(seq_root, "refs")) for rec in get_ref_seqs(path, ">gi")]
@@ -855,6 +1022,7 @@ def main() -> int:
             print(f"[7] swtorch align --strategy {strategy}: 2 inputs x 1 Mbp in {shard_s:.2f} s, reports equal to "
                   f"batch's apart from the time line", flush=True)
         shard_launches = dict(cuda_score.LAUNCHES)
+        k8_main_forms.update(cuda_score.K8_FORMS)
         fail_unless(shard_launches["lane_best_packed_varlen"] > 0, f"K1 never launched on the sharded path: {shard_launches}")
         fail_unless(cuda_score.K1_FORMS["s16x2"] == shard_launches["lane_best_packed_varlen"],
                     f"K1 launches of phase 7 not all in the s16x2 form: {cuda_score.K1_FORMS}")
@@ -1084,6 +1252,7 @@ def main() -> int:
                     f"K5 launches of phase 9 not all in the s16x2 form: {cuda_score.K5_FORMS}")
         k4_main_forms = collections.Counter(cuda_score.K4_FORMS)  # K4's forms on the main-path legs
         k5_main_forms = collections.Counter(cuda_score.K5_FORMS)  # K5's
+        k8_main_forms.update(cuda_score.K8_FORMS)
         print(f"[9] ShardedBackend with pack_reads=False and with kernel='row' on a (2, 2) mesh of {dev}: totals equal "
               f"batch's for both inputs; launches over phase 9 {unpacked_launches}, K5 forms {cuda_score.K5_FORMS}",
               flush=True)
@@ -1104,6 +1273,7 @@ def main() -> int:
         fail_unless(cuda_score.K4_FORMS["s16x2"] == scaling_launches["score_grid_diag"],
                     f"K4 launches of phase 10 not all in the s16x2 form: {cuda_score.K4_FORMS}")
         k4_main_forms.update(cuda_score.K4_FORMS)
+        k8_main_forms.update(cuda_score.K8_FORMS)
         reads_10, refs_10 = workload(512, 128, 512, 4096)
         totals_10 = sharded_totals(reads_10, refs_10, *PARAMS, mesh=build_mesh((1, 1), devices=[dev]))
         sub = np.arange(0, 512, 32)
@@ -1214,6 +1384,7 @@ def main() -> int:
                             f"{k.upper()} launches of the bench's {leg} leg not all in the s16x2 form: {counts}")
             k1_main_forms.update({form: counts[f"k1_{form}"] for form in cuda_score.K1_FORMS})
             k4_main_forms.update({form: counts[f"k4_{form}"] for form in cuda_score.K4_FORMS})
+            k8_main_forms.update({form: counts[f"k8_{form}"] for form in cuda_score.K8_FORMS})
         print(f"[13] bench legs (one pass each, parity against the oracle passed, smoke {result['smoke']}) in "
               f"{bench_s:.1f} s: {json.dumps(result)}", flush=True)
         print(f"[13] launches per bench leg: {json.dumps(bench_launches)}", flush=True)
@@ -1334,6 +1505,11 @@ def main() -> int:
             wide_err["K4"] = max(wide_err["K4"], max_err(cuda_score.score_grid_diag(*args_g, *PARAMS), want_g))
             wide_err["K5"] = max(wide_err["K5"], max_err(cuda_score.score_grid_row(*args_g, *PARAMS), score_grid(*args_g, *PARAMS)))
             fail_unless(not any(wide_err.values()), f"a striped kernel differs from its plain version at {m} lanes: {wide_err}")
+            if m <= 4096 or m == 16384:  # K8's wide form on the same reads (to 8,000 bp) and a repeat
+                m8 = min(m, 8000)
+                args_8w = up(encode_batch([r[:m8] for r in reads_g[:-1]] + [("ACGT" * m8)[: m8 - 3]], m8, READ_PAD))
+                best_8w = score_grid(args_8w, args_2w[1], *PARAMS)[:, 0].to(torch.int32).contiguous()
+                k8_check(f"{m8} lanes", args_8w, args_2w[1][0], best_8w, 1024)
             if m == 2048:
                 # Again with a carry budget of 1: each launch then runs in
                 # parts of one block of four rows (reads), sharing one scratch.
@@ -1363,7 +1539,8 @@ def main() -> int:
               f"max abs err {wide_err} against the plain versions (K1, K3 at every start lane, K3 at every bnd_out lane "
               f"with a random left column; K2 on the traceback's lanes; K4, K5 every pair, K5 against the row-form "
               f"recurrence); reads over every stripe, starting on stripe boundaries and crossing them; K3 chained "
-              f"over 2 and 4 segments equal to K1 at every width; at 2,048 lanes with a carry budget of 1 (K1, K3 "
+              f"over 2 and 4 segments equal to K1 at every width; K8 (int32 wide form) equal to plain at 1,025-8,000 "
+              f"lanes; at 2,048 lanes with a carry budget of 1 (K1, K3 "
               f"in {split_parts[0]} launches of 4 rows, K2, K4, K5 in {split_parts[1]} of 4 reads) equal to one "
               f"launch on every lane ({time.perf_counter() - t14:.1f} s)", flush=True)
 
@@ -1463,6 +1640,7 @@ def main() -> int:
         fail_unless(min(lr_k5_forms.values()) > 0 and sum(lr_k5_forms.values()) == lr_launches["score_grid_row"],
                     f"K5's forms on the long-read paths: {lr_k5_forms} of {lr_launches['score_grid_row']}")
         k5_main_forms.update(lr_k5_forms)
+        k8_main_forms.update(cuda_score.K8_FORMS)
         fail_unless(all(lr_launches[k] > 0 for k in ("lane_best_packed_varlen", "argmax_lane", "band_lane_best",
                                                       "score_grid_diag", "score_grid_row")),
                     f"a kernel of K1-K5 never launched on the long-read paths: {lr_launches}")
@@ -1498,7 +1676,7 @@ def main() -> int:
               f"K5 forms {lr_k5_forms}; "
               f"phase 14 took {time.perf_counter() - t14:.1f} s", flush=True)
 
-    legs = (launches, seq_launches, shard_launches, unpacked_launches, scaling_launches,
+    legs = (launches, seq_launches, seq_batch_launches, shard_launches, unpacked_launches, scaling_launches,
             *bench_launches.values(), *probe_launches.values(), lr_launches)
     main_launches = {name: sum(leg[name] for leg in legs) for name in cuda_score.LAUNCHES}
 
@@ -1521,6 +1699,7 @@ def main() -> int:
             "forms": dict(k1_main_forms),
             "int32_ms": k1_int32_ms,
             "long_ms": kl_ms,
+            "long_plain_ms": kl_plain_ms,
             "long_bound_ms": kl_bound_ms,
         },
         {
@@ -1630,6 +1809,26 @@ def main() -> int:
             "library_ms": None,
             "variant_ms": {v: ms for v, (ms, _, _) in k7.items()},
         },
+        {
+            "name": "max_cells_row",
+            "route": "cuda",
+            "source": "sparksmithwaterman_tpu_torch/csrc/max_cells.cu",
+            "replaces": "sparksmithwaterman_tpu/ops/longseq.py:61",
+            "launches": main_launches["max_cells_row"],
+            "max_abs_err": 0,
+            "ms": k8_ms,
+            "plain_ms": k8_plain_ms,
+            "bound_ms": k8_bound_ms,
+            "bound_by": k8_bound_by,
+            "library_ms": None,
+            "forms": dict(k8_main_forms),
+            "int32_ms": k8_int32_ms,
+            "long_ms": k8l_ms,
+            "long_bound_ms": k8l_bound_ms,
+            "long_segments": k8_segments,
+            "long_unsplit_ms": k8l_unsplit_ms,
+            "long_unsplit_bound_ms": k8l_bound_ms,
+        },
     ]
     for entry, k in zip(kernels, ("K1", "K2", "K3", "K4", "K5")):  # rows of 4,096 lanes, in stripes
         entry.update(wide_max_abs_err=wide_err[k], wide_ms=wide_t[k][0], wide_bound_ms=wide_t[k][1])
@@ -1637,6 +1836,9 @@ def main() -> int:
         for key in [k for k in entry if k.endswith("bound_ms")]:
             ms = entry[key[: -len("bound_ms")] + "ms"]
             fail_unless(entry[key] <= ms, f"{entry['name']} ran in {ms} ms, under its {key} of {entry[key]} ms")
+    fail_unless(sum(k8_main_forms.values()) == main_launches["max_cells_row"],
+                f"K8's forms {dict(k8_main_forms)} do not sum to its {main_launches['max_cells_row']} main-path launches")
+    print(f"[end] K8 launches over the main-path legs by form: {dict(k8_main_forms)}", flush=True)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sparksmithwaterman_tpu"))
     fail_unless(not leaked, f"the run loaded JAX or the JAX package: {leaked[:5]}")
     print(f"[end] every phase passed in {time.perf_counter() - t_start:.1f} s")

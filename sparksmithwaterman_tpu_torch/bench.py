@@ -365,8 +365,8 @@ def run_bench(device="cuda", repeats=REPEATS, sizes=None):
     """Run every leg, the parity checks and the smoke.  ``sizes`` maps a
     leg name to keyword arguments of its function (the tests shrink the
     legs).  Returns (the JSON line's dict, {leg: kernel launches during
-    that leg, with K1's and K4's per form as ``k1_<form>`` and
-    ``k4_<form>``})."""
+    that leg, with K1's, K4's and K8's per form as ``k1_<form>``,
+    ``k4_<form>`` and ``k8_<form>``})."""
     sizes = sizes or {}
     launches = {}
 
@@ -374,7 +374,8 @@ def run_bench(device="cuda", repeats=REPEATS, sizes=None):
         cuda_score.reset_launches()
         out = fn(PARAMS, repeats=repeats, device=device, **sizes.get(name, {}))
         launches[name] = {**cuda_score.LAUNCHES, **{f"k1_{form}": n for form, n in cuda_score.K1_FORMS.items()},
-                          **{f"k4_{form}": n for form, n in cuda_score.K4_FORMS.items()}}
+                          **{f"k4_{form}": n for form, n in cuda_score.K4_FORMS.items()},
+                          **{f"k8_{form}": n for form, n in cuda_score.K8_FORMS.items()}}
         return out
 
     kernel, kernel_spread, (kreads, krefs, kgrid) = leg("kernel", bench_kernel)

@@ -24,7 +24,8 @@
 // consecutive columns of the tile in registers; the row's scan runs within
 // the lane, then in five shuffle steps across the warp, and the NW term of
 // a lane's first column is one shuffle.  A row step needs no barrier: each
-// warp's carried column and read codes live in its own shared memory.
+// warp's carried column and read codes live in its own shared memory.  The
+// row step of both forms is in csrc/row_scan.cuh, which K8 shares.
 // Two forms, chosen by the wrapper from the data alone (ops/cuda_score.py
 // k1_form, the rule of K1 and K4, with m the width of the reads tensor):
 //
@@ -74,14 +75,11 @@
 // zeroes (max is order-free, so the result is deterministic).  The
 // wrapper plans the split (ops/cuda_score.py row_segments); the entry
 // points refuse a plan that is not exact.
-#include "wavefront.cuh"
+#include "row_scan.cuh"
 
 namespace {
 
 using namespace swt;
-
-constexpr int kRowCols = 16;             // columns per lane
-constexpr int kRowTile = 32 * kRowCols;  // columns per warp per tile
 
 // A launch's column segments: reference c's columns [k * stride,
 // min(k * stride + length, n)) for k < count.
@@ -154,38 +152,10 @@ __device__ __forceinline__ void score_row_pair(const uint8_t* code, int* carry,
     const bool full = base + kRowTile <= len;
     int above = 0;  // H[i-1][base-1]
     for (int i = 0; i < used; ++i) {
-      const int ch = code[i];
       const int west = carry[i];  // H[i][base-1]
-      int left = __shfl_up_sync(0xffffffffu, h[kRowCols - 1], 1);
-      if (lane == 0) left = above;
-      // A[j] of this lane's columns, right to left so h[k-1] is still row i-1.
-#pragma unroll
-      for (int k = kRowCols - 1; k >= 0; --k) {
-        const int nw = k > 0 ? h[k - 1] : left;
-        const int sub = ch == rf[k] ? match : mismatch;
-        h[k] = max(max(nw + sub, h[k] + gap), 0);
-      }
-      // Prefix max of A[k] - gap*k within the lane, then across the warp.
-      int run = h[0] - ramp0;
-      h[0] = run;
-#pragma unroll
-      for (int k = 1; k < kRowCols; ++k) {
-        run = max(run, h[k] - ramp0 - gap * k);
-        h[k] = run;
-      }
-#pragma unroll
-      for (int s = 1; s < 32; s <<= 1) {
-        const int v = __shfl_up_sync(0xffffffffu, run, s);
-        if (lane >= s) run = max(run, v);
-      }
-      int before = __shfl_up_sync(0xffffffffu, run, 1);
-      // Column base-1 enters the scan as H[i][base-1] - gap*(-1).
-      before = lane > 0 ? max(before, west + gap) : west + gap;
-#pragma unroll
-      for (int k = 0; k < kRowCols; ++k) {
-        h[k] = max(h[k], before) + ramp0 + gap * k;
-        if (full || j0 + k < len) best = max(best, h[k]);
-      }
+      row_step(h, rf, code[i], west, above, ramp0, match, mismatch, gap, [&](int k, int v) {
+        if (full || j0 + k < len) best = max(best, v);
+      });
       above = west;
       __syncwarp();  // every lane has read carry[i]
       if (lane == 31) carry[i] = h[kRowCols - 1];
@@ -222,12 +192,6 @@ score_row_kernel(const uint8_t* __restrict__ reads, int r, int m,
   score_row_pair(code, carry, used, m, refs + (long long)p.c * n + p.j0, p.span, match,
                  mismatch, gap, trim, sg.count > 1, out + (long long)read * c_total + p.c);
 }
-
-// The scan's constants across the warp: g[q] = pair16(max(gap * kRowCols *
-// 2^q, -32768)), the decay over 2^q lanes.
-struct ScanGaps {
-  uint32_t g[5];
-};
 
 // The s16x2 form (see the top of this file).  Block b takes reads 8 rb ..
 // 8 rb + 7 of its place, warp w the pair 2w, 2w + 1; shared memory holds
@@ -275,33 +239,8 @@ score_row_s16x2_kernel(const uint8_t* __restrict__ reads, int r, int m,
     }
     uint32_t above = 0;  // H[i-1][base-1]
     for (int i = 0; i < used; ++i) {
-      const uint32_t ch = code2[i];
       const uint32_t west = carry2[i];  // H[i][base-1]
-      uint32_t left = __shfl_up_sync(0xffffffffu, h[kRowCols - 1], 1);
-      if (lane == 0) left = above;
-      // A[j] of this lane's columns, right to left so h[k-1] is still row i-1.
-#pragma unroll
-      for (int k = kRowCols - 1; k >= 0; --k) {
-        const uint32_t nw = k > 0 ? h[k - 1] : left;
-        const uint32_t v = eq_unit16x2(ch, rf2[k]) * k_sub + nw;
-        h[k] = __viaddmax_s16x2_relu(v, mismatch2, __vadd2(h[k], gap2));
-      }
-      // The decaying scan: H at this lane's last column from its own
-      // columns (lane 0's from column base-1 on), then across the warp.
-      uint32_t run = __viaddmax_s16x2_relu(lane == 0 ? west : 0u, gap2, h[0]);
-#pragma unroll
-      for (int k = 1; k < kRowCols; ++k) run = __viaddmax_s16x2_relu(run, gap2, h[k]);
-#pragma unroll
-      for (int q = 0; q < 5; ++q) {
-        const uint32_t v = __shfl_up_sync(0xffffffffu, run, 1 << q);
-        if (lane >= (1 << q)) run = __viaddmax_s16x2_relu(v, scan.g[q], run);
-      }
-      // H at the column left of this lane's first, then the lane's columns.
-      uint32_t in = __shfl_up_sync(0xffffffffu, run, 1);
-      if (lane == 0) in = west;
-      h[0] = __viaddmax_s16x2_relu(in, gap2, h[0]);
-#pragma unroll
-      for (int k = 1; k < kRowCols; ++k) h[k] = __viaddmax_s16x2_relu(h[k - 1], gap2, h[k]);
+      row_step_s16x2(h, rf2, code2[i], west, above, k_sub, mismatch2, gap2, scan);
 #pragma unroll
       for (int k = 0; k < kRowCols; k += 2) best2 = __vimax3_s16x2(best2, h[k], h[k + 1]);
       above = west;
@@ -410,11 +349,7 @@ extern "C" int swt_score_grid_row_s16x2(const void* reads, int r, int m,
   const long long read_blocks = (r + 2 * swt::kWarps - 1) / (2 * swt::kWarps);
   const long long blocks = read_blocks * c * sg.count;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  ScanGaps scan;
-  for (int q = 0; q < 5; ++q) {
-    const long long g = (long long)gap * kRowCols * (1 << q);
-    scan.g[q] = swt::pair16(g < -32768 ? -32768 : (int)g);
-  }
+  const ScanGaps scan = swt::scan_gaps(gap);
   swt::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   cudaStream_t s = (cudaStream_t)stream;

@@ -153,6 +153,17 @@ def lib() -> ctypes.CDLL:
                     *segments,  # K5: segment stride and length
                     _I, _VP,  # device, stream
                 ]
+            for listing in (handle.swt_max_cells_row, handle.swt_max_cells_row_s16x2):
+                listing.restype = _I
+                listing.argtypes = [
+                    _VP, _I, _I,  # reads, r, m
+                    _VP, _I,  # ref, n
+                    _VP, _I, _I, _I,  # best, match, mismatch, gap
+                    _VP, _VP, _LL,  # count, cells, capacity
+                    _VP, _I,  # carry, reads per launch
+                    _I, _I, _I,  # segment stride, length and skip
+                    _I, _VP,  # device, stream
+                ]
             handle.swt_step_chain_best.restype = _I
             handle.swt_step_chain_best.argtypes = [
                 _VP, _I, _I,  # reads, rb, m

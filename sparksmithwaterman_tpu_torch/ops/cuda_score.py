@@ -1,6 +1,6 @@
 """The scoring kernels: CUDA for tensors on the card, plain PyTorch on CPU.
 
-Seven kernels, each with its plain PyTorch version of the same function:
+Eight kernels, each with its plain PyTorch version of the same function:
 
 - K1 :func:`lane_best_packed_varlen` (``csrc/lane_best.cu``) replaces
   ``pallas_score.py:_diag_kernel_packed_varlen`` and
@@ -22,22 +22,27 @@ Seven kernels, each with its plain PyTorch version of the same function:
   ``ops/microbench.py:_roofline_kernel`` and, with ``masked=True``,
   ``experiments/triangle_timepack.py:_chain_kernel``;
 - K7 :func:`step_variant_best` (``csrc/step_variants.cu``) replaces
-  ``experiments/packed_step_variants.py:make_kernel``.
+  ``experiments/packed_step_variants.py:make_kernel``;
+- K8 :func:`max_cells_row` (``csrc/max_cells.cu``) replaces lax code, not
+  Pallas: ``sparksmithwaterman_tpu/ops/longseq.py:_max_cells_device_batch``,
+  the traceback's listing of every cell equal to a tied read's best; its
+  plain version is that row loop and ``device_traceback.argwhere_rows``.
 
 A wrapper takes the plain version only for tensors on the CPU.  For CUDA
 tensors it launches the kernel or raises; it never falls back.  Each
 launch adds one to :data:`LAUNCHES`, so a run can show that its main path
 went through the kernels.
 
-K1, K4 and K5 have two forms each, and the data alone picks one, by one
+K1, K4, K5 and K8 have two forms each, and the data alone picks one, by one
 rule (:func:`k1_form`): rows (reads) of at most ONE_PASS_LANES lanes
 whose scores provably fit int16 run two rows per warp in the 16-bit
 halves of each register, the recurrence in DPX instructions ("s16x2");
 every other row runs the int32 kernels, one pass or striped ("int32").
-:data:`K1_FORMS`, :data:`K4_FORMS` and :data:`K5_FORMS` count the
-launches of each.  A K5 launch with too few blocks for the card cuts each
-reference into overlapping column segments, one block each
-(:func:`row_segments`).
+:data:`K1_FORMS`, :data:`K4_FORMS`, :data:`K5_FORMS` and :data:`K8_FORMS`
+count the launches of each.  A K5 or K8 launch with too few blocks for the
+card cuts each reference into overlapping column segments, one block each
+(:func:`row_segments`; K8 lists each column in one segment only,
+:func:`owned_columns`).
 
 K1-K5 take rows (reads) of any width.  Up to :data:`ONE_PASS_LANES`
 lanes a warp sweeps a row in one pass; a wider row runs in stripes of
@@ -71,8 +76,9 @@ import torch
 
 from sparksmithwaterman_tpu_torch.io.fasta import REF_PAD
 from sparksmithwaterman_tpu_torch.ops import _cuda
+from sparksmithwaterman_tpu_torch.ops.device_traceback import argwhere_rows
 from sparksmithwaterman_tpu_torch.ops.packing import START_BIT
-from sparksmithwaterman_tpu_torch.ops.recurrence import score_grid
+from sparksmithwaterman_tpu_torch.ops.recurrence import _ramp, _row_update, _sub_scores, score_grid
 
 # Launches per kernel since the last reset_launches().
 LAUNCHES = {
@@ -83,12 +89,14 @@ LAUNCHES = {
     "score_grid_row": 0,
     "step_chain_best": 0,
     "step_variant_best": 0,
+    "max_cells_row": 0,
 }
 
-# K1's, K4's and K5's launches per form (k1_form) since the last reset_launches().
+# K1's, K4's, K5's and K8's launches per form (k1_form) since the last reset_launches().
 K1_FORMS = {"s16x2": 0, "int32": 0}
 K4_FORMS = {"s16x2": 0, "int32": 0}
 K5_FORMS = {"s16x2": 0, "int32": 0}
+K8_FORMS = {"s16x2": 0, "int32": 0}
 
 # Widest row a warp sweeps in one pass (32 threads x 32 lanes); wider
 # rows run in stripes of STRIPE_LANES (csrc/wavefront.cuh kMaxLanes,
@@ -105,7 +113,7 @@ _BLOCK_ROWS = 4
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, K1_FORMS, K4_FORMS, K5_FORMS):
+    for counts in (LAUNCHES, K1_FORMS, K4_FORMS, K5_FORMS, K8_FORMS):
         for key in counts:
             counts[key] = 0
 
@@ -756,6 +764,137 @@ def _score_grid_row(reads_u8, refs_u8, match, mismatch, gap, *, form=None, split
     lib = _cuda.lib()
     entry = lib.swt_score_grid_row_s16x2 if form == "s16x2" else lib.swt_score_grid_row
     return _launch_grid(entry, "score_grid_row", K5_FORMS, form, reads_u8, refs_u8, match, mismatch, gap, segments)
+
+
+# -- K8: the cells equal to each read's best ----------------------------------------
+
+
+def owned_columns(n: int, stride: int, skip: int):
+    """[(lo, hi)] of each column segment of K8: the reference's columns
+    that segment k lists, segment k covering [k stride, k stride + length)
+    (:func:`row_segments`).  Segment 0 lists [0, stride + skip), segment k
+    >= 1 [k stride + skip, (k + 1) stride + skip), clipped to n: each
+    column once.
+
+    A segment starts from H = 0 at its left edge, so its first W - 1
+    columns can underestimate H (W = m + match m // |gap|); they also lie
+    in the segment before.  With skip >= W - 1 (and length >= stride +
+    skip) a segment lists only columns where every positive cell is
+    exact: an alignment of positive score spans at most W columns.  One
+    segment (stride >= n) lists [0, n)."""
+    if n <= 0:
+        return []
+    return [(0 if k == 0 else k * stride + skip, min((k + 1) * stride + skip, n)) for k in range(-(-n // stride))]
+
+
+def max_cells_segments(m: int, n: int, match: int, mismatch: int, gap: int, blocks: int, sms: int):
+    """(stride, length, skip) of K8's column segments for a launch of
+    ``blocks`` blocks: K5's split (:func:`row_segments`) with skip = W - 1,
+    the columns at the start of each segment after the first that it
+    does not list (:func:`owned_columns`); (n, n, 0) is one segment."""
+    stride, length = row_segments(m, n, match, mismatch, gap, blocks, sms)
+    return stride, length, (m + match * m // -gap - 1 if stride < n else 0)
+
+
+def max_cells_row_plain(reads_u8, ref_u8, best, match, mismatch, gap, capacity):
+    """Plain PyTorch version of K8 (any device): the row loop of the JAX
+    package's ``_max_cells_device_batch`` into an (R, M, N) int32 stack of
+    H, its cells equal to each read's ``best``, then
+    :func:`..ops.device_traceback.argwhere_rows`.  Memory O(R x M x N)."""
+    r, m = reads_u8.shape
+    n = ref_u8.shape[-1]
+    device = ref_u8.device
+    ramp = _ramp(n, gap, device)
+    ref_i = ref_u8.to(torch.int32)[None, :]
+    reads_i = reads_u8.to(torch.int32)
+    h = torch.zeros((r, n), dtype=torch.int32, device=device)
+    stack = torch.empty((r, m, n), dtype=torch.int32, device=device)
+    for i in range(m):
+        sub = _sub_scores(ref_i, reads_i[:, i : i + 1], match, mismatch)
+        h, _, _ = _row_update(h, sub, gap, ramp)
+        stack[:, i] = h
+    eq = stack == best.to(torch.int32)[:, None, None]
+    return eq.sum(dim=(1, 2), dtype=torch.int64), argwhere_rows(eq, capacity)
+
+
+def max_cells_row(reads_u8, ref_u8, best, match, mismatch, gap, capacity):
+    """(count (R,) int64, cells (R, capacity, 2) int32): K8, every DP cell
+    of each read against ONE reference whose score equals the read's best.
+
+    reads_u8: (R, M) uint8, READ_PAD-padded; ref_u8: (N,) uint8; best: (R,)
+    int32, each read's best score (its max over the DP, as K2's lanes give
+    it).  ``count[r]`` is the number of cells (i, j) with H[i][j] ==
+    best[r] over the M x N plane; ``cells[r]`` their 0-based (i, j) in
+    row-major order, -1-filled.  Where count > capacity only the count is
+    part of the contract (the caller lists such a read again with more
+    capacity, or scans it on the host).  A read with best 0 gets count M x
+    N and the first cells of the plane, as the plain version and the JAX
+    package give, by arithmetic and without the kernel.
+
+    K8's form follows from M and the scheme alone (:func:`k1_form`); a
+    launch with too few blocks for the card cuts the reference into column
+    segments (:func:`max_cells_segments`), which gives the same listing.
+    On the card each read's slots are sorted row-major after the launch.
+    """
+    return _max_cells_row(reads_u8, ref_u8, best, match, mismatch, gap, capacity)
+
+
+def _max_cells_row(reads_u8, ref_u8, best, match, mismatch, gap, capacity, *, form=None, split=True):
+    """:func:`max_cells_row` with K8's form given (``form=None``:
+    :func:`k1_form`'s), so that the two forms can be timed on the same
+    inputs; ``"s16x2"`` where k1_form says ``"int32"`` raises.
+    ``split=False`` runs the reference as one segment."""
+    device = _device_of(reads_u8, ref_u8, best)
+    if reads_u8.dim() != 2 or reads_u8.dtype != torch.uint8:
+        raise ValueError("max_cells_row: reads_u8 must be an (R, M) uint8 tensor")
+    if ref_u8.dim() != 1 or ref_u8.dtype != torch.uint8:
+        raise ValueError("max_cells_row: ref_u8 must be an (N,) uint8 tensor")
+    r, m = reads_u8.shape
+    n = ref_u8.shape[0]
+    if best.shape != (r,) or best.dtype != torch.int32:
+        raise ValueError(f"max_cells_row: best must be an ({r},) int32 tensor")
+    capacity, match, mismatch, gap = int(capacity), int(match), int(mismatch), int(gap)
+    if capacity < 1:
+        raise ValueError(f"max_cells_row: capacity must be >= 1, got {capacity}")
+    form = _check_form("K8", K8_FORMS, form, m, match, mismatch, gap)
+    if device.type == "cpu":
+        return max_cells_row_plain(reads_u8, ref_u8, best, match, mismatch, gap, capacity)
+    count = torch.zeros((r,), dtype=torch.int64, device=device)
+    cells = torch.full((r, capacity, 2), -1, dtype=torch.int32, device=device)
+    if r == 0:
+        return count, cells
+    if m > 0 and n > 0:
+        reads_u8, ref_u8, best = reads_u8.contiguous(), ref_u8.contiguous(), best.contiguous()
+        reads_per_block = 2 * _BLOCK_ROWS if form == "s16x2" else _BLOCK_ROWS
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        segments = (max_cells_segments(m, n, match, mismatch, gap, -(-r // reads_per_block), sms)
+                    if split else (n, n, 0))
+        carry, part = _carry_grid(m, r, 1, n, True, device)
+        lib = _cuda.lib()
+        entry = lib.swt_max_cells_row_s16x2 if form == "s16x2" else lib.swt_max_cells_row
+        rc = entry(
+            reads_u8.data_ptr(), r, m, ref_u8.data_ptr(), n,
+            best.data_ptr(), match, mismatch, gap,
+            count.data_ptr(), cells.data_ptr(), capacity, _ptr(carry), part,
+            *segments, *_launch_target(device),
+        )
+        _cuda.check(rc, "max_cells_row")
+        LAUNCHES["max_cells_row"] += 1
+        K8_FORMS[form] += 1
+        # Row-major order: a sort of the key i n + j, empty slots last.
+        key = torch.where(cells[..., 0] >= 0, cells[..., 0].to(torch.int64) * n + cells[..., 1],
+                          torch.iinfo(torch.int64).max)
+        cells = cells.gather(1, key.argsort(dim=1)[..., None].expand(-1, -1, 2))
+    # best 0: every cell of the M x N plane; best < 0: none.  On the card
+    # longseq.find_max_cells passes K5's best, 0 for a read that scores 0
+    # (find_max_cells_batched takes such reads out before K8).
+    pos = torch.arange(capacity, device=device)
+    plane = torch.stack([torch.div(pos, max(n, 1), rounding_mode="floor"), torch.remainder(pos, max(n, 1))], dim=-1)
+    plane = torch.where((pos < m * n)[:, None], plane, -1).to(torch.int32)
+    zero = (best == 0)
+    count = torch.where(zero, m * n, count)
+    cells = torch.where(zero[:, None, None], plane[None], cells)
+    return count, cells
 
 
 # -- K6 and K7: the TPU's step-chain probes ---------------------------------------

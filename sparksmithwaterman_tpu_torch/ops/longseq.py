@@ -5,7 +5,9 @@ for long references and large read sets:
 
 1. :func:`find_max_cells_batched` finds every read's max cells with one
    pass of the argmax kernel (K2, ``ops.cuda_score.argmax_lane``); reads
-   with a tie inside one DP row fall back to an exact row scan;
+   with a tie inside one DP row are listed by K8
+   (``ops.cuda_score.max_cells_row``: the row recurrence of each read,
+   every cell equal to its best appended on the device);
 2. :func:`sites_for_ref_long_batched` re-fills only a window of reference
    columns ending at each max cell and walks it on the device.
 
@@ -25,21 +27,22 @@ import torch
 
 from sparksmithwaterman_tpu_torch.io.fasta import READ_PAD, REF_PAD, encode_batch, encode_seq
 from sparksmithwaterman_tpu_torch.io.report import Site
-from sparksmithwaterman_tpu_torch.ops.cuda_score import argmax_lane
-from sparksmithwaterman_tpu_torch.ops.device_traceback import (
-    argwhere_rows,
-    assemble_site,
-    trace_cells,
-)
-from sparksmithwaterman_tpu_torch.ops.recurrence import _ramp, _row_update, _sub_scores, fill_pairs
+from sparksmithwaterman_tpu_torch.ops.cuda_score import argmax_lane, max_cells_row, score_grid_row
+from sparksmithwaterman_tpu_torch.ops.device_traceback import assemble_site, trace_cells
+from sparksmithwaterman_tpu_torch.ops.recurrence import fill_pairs
 from sparksmithwaterman_tpu_torch.ops.traceback import degenerate_sites
 
 Cells = Tuple[int, np.ndarray]
 
-# Past this many tied cells per read the device argwhere stops doubling
-# and the exact host row scan takes over.
+# On the CPU, past this many tied cells per read the plain listing stops
+# growing and the exact host row scan takes over; a read of best 0 past it
+# gets the host scan's answer on any device (as the JAX package's).
 _CAPACITY_CAP = 1 << 15
-# Element budget of the (m, R, n) row stack of one fallback group.
+# Slots (reads x capacity) of one K8 listing of the reads past the first
+# capacity on the card, each listed at its own count (at least one read).
+_SLOT_BUDGET = 1 << 28
+# Element budget of the (R, m, n) row stack of one tie group of the plain
+# listing (on the CPU; K8 on the card needs no such stack).
 _GROUP_BUDGET = 1 << 26
 # Window fill jobs per device batch, and (B, M, W) cells of its fill.
 _JOB_BLOCK = 512
@@ -48,31 +51,6 @@ _FILL_CELLS = 1 << 30
 
 def _to(arr: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
-
-
-def _max_cells_device_batch(reads_enc, ref_enc, match, mismatch, gap, capacity: int):
-    """(R, m) reads vs ONE ref (n,), on the tensors' device.
-
-    Returns (best (R,), count (R,), cells (R, capacity, 2)) with cells
-    row-major and -1-filled.  Pad rows (READ_PAD matches nothing) decay,
-    so they never add max cells when best > 0.
-    """
-    r, m = reads_enc.shape
-    n = ref_enc.shape[-1]
-    device = ref_enc.device
-    ramp = _ramp(n, gap, device)
-    ref_i = ref_enc.to(torch.int32)[None, :]
-    reads_i = reads_enc.to(torch.int32)
-    h = torch.zeros((r, n), dtype=torch.int32, device=device)
-    stack = torch.empty((r, m, n), dtype=torch.int32, device=device)
-    for i in range(m):
-        sub = _sub_scores(ref_i, reads_i[:, i : i + 1], match, mismatch)
-        h, _, _ = _row_update(h, sub, gap, ramp)
-        stack[:, i] = h
-    best = stack.amax(dim=(1, 2))
-    eq = stack == best[:, None, None]
-    count = eq.sum(dim=(1, 2), dtype=torch.int64)
-    return best, count, argwhere_rows(eq, capacity)
 
 
 def _max_cells_host(read_enc: np.ndarray, ref_enc: np.ndarray, match, mismatch, gap) -> Cells:
@@ -108,34 +86,70 @@ def _max_cells_host(read_enc: np.ndarray, ref_enc: np.ndarray, match, mismatch, 
 
 
 def _exact_max_cells(
-    reads_enc: np.ndarray, ref_enc: np.ndarray, params, device, capacity: int = 1024
+    reads_enc: np.ndarray, ref_enc: np.ndarray, best: np.ndarray, params, device, capacity: int = 1024
 ) -> List[Cells]:
-    """Exact (best, cells) of each read row against one ref: device
-    argwhere with doubling capacity, host row scan past _CAPACITY_CAP."""
+    """Exact (best, cells) of each read row against one ref, given each
+    read's best: one listing (``max_cells_row``) at ``capacity``, then the
+    reads past it once more.  On the card each at the count the first
+    listing gave it (K8's memory is its slots, so nothing caps it); on the
+    CPU at the next power of two of their largest count, up to
+    ``_CAPACITY_CAP``, and the host row scan past that.  A read of best 0
+    past ``_CAPACITY_CAP`` gets the host scan's (0, no cells), as JAX's
+    ``find_max_cells``."""
     ref_t = _to(ref_enc, device)
     reads_t = _to(reads_enc, device)
-    while True:
-        best, count, cells = _max_cells_device_batch(reads_t, ref_t, *params, capacity=capacity)
-        count = count.cpu().numpy()
-        if (count <= capacity).all() or capacity >= _CAPACITY_CAP:
-            break
-        capacity *= 2
-    best, cells = best.cpu().numpy(), cells.cpu().numpy()
+    best_t = _to(best.astype(np.int32), device)
+    count, cells = (t.cpu().numpy() for t in max_cells_row(reads_t, ref_t, best_t, *params, capacity))
+    cells = list(cells)
+    caps = np.full(len(count), capacity)
+    flat = (best <= 0) & (count > _CAPACITY_CAP)
+    over = np.flatnonzero((count > capacity) & ~flat)
+    for group in _relist_groups(over[np.argsort(count[over], kind="stable")], count, device, capacity):
+        cap = int(count[group].max())
+        if torch.device(device).type != "cuda":
+            cap = min(_CAPACITY_CAP, 1 << (cap - 1).bit_length())
+        idx = _to(group, reads_t.device)
+        _, more = max_cells_row(reads_t[idx], ref_t, best_t[idx], *params, cap)
+        for k, listed in zip(group, more.cpu().numpy()):
+            cells[k], caps[k] = listed, cap
     out: List[Cells] = []
     for k in range(reads_enc.shape[0]):
-        if count[k] > capacity:
+        b = int(best[k])
+        if flat[k]:
+            out.append((0, np.empty((0, 2), np.int32)))
+        elif count[k] > caps[k]:  # only on the CPU
             out.append(_max_cells_host(reads_enc[k], ref_enc, *params))
+        elif b > 0 and count[k] == 0:
+            raise RuntimeError(f"read {k} has no cell equal to its best {b}: the best is wrong")
         else:
-            out.append((int(best[k]), cells[k][: int(count[k])]))
+            out.append((b, cells[k][: int(count[k])]))
     return out
 
 
+def _relist_groups(over: np.ndarray, count: np.ndarray, device, capacity: int) -> List[np.ndarray]:
+    """The reads past the first capacity (``over``, by count ascending) in
+    groups of one listing each: on the card groups whose reads x largest
+    count stays within _SLOT_BUDGET (at least one read); on the CPU all in
+    one, unless the capacity already reached _CAPACITY_CAP."""
+    if torch.device(device).type != "cuda":
+        return [over] if over.size and capacity < _CAPACITY_CAP else []
+    groups: List[np.ndarray] = []
+    start = 0
+    for end in range(1, over.size + 1):
+        if end == over.size or (end + 1 - start) * int(count[over[end]]) > _SLOT_BUDGET:
+            groups.append(over[start:end])
+            start = end
+    return groups
+
+
 def find_max_cells(read_seq: str, ref_seq: str, params, device="cuda") -> Cells:
-    """All (i, j) max cells (0-based, row-major) of one pair."""
+    """All (i, j) max cells (0-based, row-major) of one pair; its best from
+    K5 (``score_grid_row``, the row-form recurrence on the CPU)."""
     m, n = len(read_seq), len(ref_seq)
-    return _exact_max_cells(
-        encode_batch([read_seq], m, READ_PAD), encode_batch([ref_seq], n, REF_PAD)[0], params, device
-    )[0]
+    reads_enc = encode_batch([read_seq], m, READ_PAD)
+    ref_enc = encode_batch([ref_seq], n, REF_PAD)
+    best = score_grid_row(_to(reads_enc, device), _to(ref_enc, device), *params)[:, 0].cpu().numpy()
+    return _exact_max_cells(reads_enc, ref_enc[0], best, params, device)[0]
 
 
 def find_max_cells_batched(reads: List[str], ref_seq: str, params, device="cuda") -> List[Cells]:
@@ -145,8 +159,8 @@ def find_max_cells_batched(reads: List[str], ref_seq: str, params, device="cuda"
     gives each lane's (row best, first diagonal reaching it, tie count).
     A read's max cells are (lane, bestd - lane) over the lanes reaching
     its max when every such lane has count 1; a read with a tie inside
-    one DP row falls back to the exact scan, keeping the all-co-optimal-
-    cells contract (``SmithWaterman.java:176-185``).
+    one DP row is listed by K8 (``max_cells_row``) from that max, keeping
+    the all-co-optimal-cells contract (``SmithWaterman.java:176-185``).
     """
     m_pad = max(8, -(-max(len(r) for r in reads) // 8) * 8)
     reads_enc = encode_batch(reads, m_pad, READ_PAD)
@@ -158,6 +172,7 @@ def find_max_cells_batched(reads: List[str], ref_seq: str, params, device="cuda"
 
     out: List[Optional[Cells]] = []
     ties: List[int] = []
+    tie_best = {}
     for ridx in range(len(reads)):
         b = int(best[ridx].max())
         if b == 0:
@@ -167,22 +182,37 @@ def find_max_cells_batched(reads: List[str], ref_seq: str, params, device="cuda"
         if (count[ridx, lanes] != 1).any():
             out.append(None)
             ties.append(ridx)
+            tie_best[ridx] = b
             continue
         out.append((b, np.stack([lanes, bestd[ridx, lanes] - lanes], axis=1).astype(np.int32)))
-    # In-lane ties: exact positions, a group of reads per row scan, shortest
-    # first, each group's rows as many as its longest read needs.
+    # In-lane ties: exact positions, shortest read first, each group's rows
+    # as many as its longest read needs.
     ties.sort(key=lambda ridx: len(reads[ridx]))
-    start = 0
-    while start < len(ties):
-        stop = start + 1
-        while stop < len(ties) and (stop + 1 - start) * _tier(len(reads[ties[stop]]), 8) * len(ref_seq) <= _GROUP_BUDGET:
-            stop += 1
-        g = ties[start:stop]
+    for g in _tie_groups(ties, reads, len(ref_seq), device):
         m_g = _tier(len(reads[g[-1]]), 8)
-        for ridx, cells in zip(g, _exact_max_cells(reads_enc[g, :m_g], ref_enc[0], params, device)):
+        g_best = np.array([tie_best[ridx] for ridx in g], np.int32)
+        for ridx, cells in zip(g, _exact_max_cells(reads_enc[g, :m_g], ref_enc[0], g_best, params, device)):
             out[ridx] = cells
-        start = stop
     return out
+
+
+def _tie_groups(ties: List[int], reads: List[str], n: int, device) -> List[List[int]]:
+    """The tied reads (sorted by length) in groups of one listing each: on
+    the card one group per width tier (``_tier(len, 8)``), K8's memory
+    being O(reads x capacity); on the CPU groups whose (R, m, n) stack of
+    the plain listing stays under _GROUP_BUDGET (at least one read)."""
+    groups: List[List[int]] = []
+    for ridx in ties:
+        m = _tier(len(reads[ridx]), 8)
+        if groups and (
+            _tier(len(reads[groups[-1][0]]), 8) == m
+            if torch.device(device).type == "cuda"
+            else (len(groups[-1]) + 1) * m * n <= _GROUP_BUDGET
+        ):
+            groups[-1].append(ridx)
+        else:
+            groups.append([ridx])
+    return groups
 
 
 def _tier(m: int, step: int) -> int:

@@ -13,7 +13,10 @@ entry that takes a form, in their int32 form too; K4 and K5 also with
 the same reads at the width of their longest read (``K4_150``,
 ``K5_150``), as the batch backend passes a read group, and K5 with 16 of
 them against one 131,072 bp ref (``K5_131k``: a launch of two blocks,
-which K5 splits into column segments).
+which K5 splits into column segments).  K8 (where the tree has it) lists
+the cells at the bests of the 512 reads (at the width of their longest)
+against one 2 kb ref (``K8``) and of 16 against the 131,072 bp ref (``K8_131k``, split into
+column segments), the bests from K5.
 """
 
 from __future__ import annotations
@@ -97,6 +100,10 @@ def _times(root: str) -> dict:
     if hasattr(cuda_score, "_score_grid_row"):
         for key, args, iters in (("K5", grid, 10), ("K5_150", grid_150, 10), ("K5_131k", grid_131k, 3)):
             out[f"{key}_int32"] = ms(lambda: cuda_score._score_grid_row(*args, *PARAMS, form="int32"), iters)
+    if hasattr(cuda_score, "max_cells_row"):
+        for key, reads_8, ref_8, iters in (("K8", grid_150[0], ref_2, 10), ("K8_131k", grid_131k[0], grid_131k[1], 3)):
+            best_8 = cuda_score.score_grid_row(reads_8, ref_8, *PARAMS)[:, 0].contiguous()
+            out[key] = ms(lambda: cuda_score.max_cells_row(reads_8, ref_8[0], best_8, *PARAMS, 1024), iters)
     chain = up(np.random.default_rng(0).integers(2, 6, size=(512, 128)).astype(np.int32))
     out["K6"] = ms(lambda: cuda_score.step_chain_best(chain, steps=131_072, unroll=64), 5)
     packed_7 = np.random.default_rng(0).integers(65, 85, size=(248, 256)).astype(np.int32)

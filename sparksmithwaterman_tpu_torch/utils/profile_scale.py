@@ -22,8 +22,8 @@ path (K4).
   (padded batches; the full-fill traceback's encoding counts here too),
   ``L2.stage_grid`` its uploads and ``L2c.K4`` its K4 (or K5) calls;
 - ``L3.traceback``: one winner's traceback; ``L3a.max_cells`` (K2 and the
-  in-lane-tie fallback), ``L3b.window_fill_walk`` and ``L3c.full_fill``
-  its parts.
+  in-lane-tie listing), ``L3b.window_fill_walk`` and ``L3c.full_fill``
+  its parts; ``L3a.K8`` the listing's K8 calls (``max_cells_row``).
 
 A span's time is its wall time on the host (nested spans count inside
 their parents).  Device time is summed per kernel or copy, over device
@@ -68,6 +68,7 @@ SPANS = {
     "L2c.K4": ("batch_backend", "_score_grid"),
     "L3.traceback": ("backend", "sites_for_ref"),
     "L3a.max_cells": ("batch_backend", "find_max_cells_batched"),
+    "L3a.K8": ("longseq", "max_cells_row"),
     "L3b.window_fill_walk": ("batch_backend", "sites_for_ref_long_batched"),
     "L3c.full_fill": ("backend", "_sites_full_fill"),
 }
@@ -75,9 +76,11 @@ SPANS = {
 
 def _instrument(backend_cls) -> None:
     from sparksmithwaterman_tpu_torch.models import batch_backend, pipeline
+    from sparksmithwaterman_tpu_torch.ops import longseq
     from sparksmithwaterman_tpu_torch.parallel import seqparallel
 
-    owners = {"pipeline": pipeline, "batch_backend": batch_backend, "seqparallel": seqparallel, "backend": backend_cls}
+    owners = {"pipeline": pipeline, "batch_backend": batch_backend, "seqparallel": seqparallel, "longseq": longseq,
+              "backend": backend_cls}
     for span, (owner, name) in SPANS.items():
         _wrap(owners[owner], name, span)
 

@@ -141,9 +141,13 @@ def test_wrappers_take_plain_path_on_cpu_only():
     cuda_score.argmax_lane(
         torch.from_numpy(encode_batch(["ACGT"], 8, READ_PAD)), torch.from_numpy(refs), *PARAMS
     )
+    cuda_score.max_cells_row(
+        torch.from_numpy(encode_batch(["ACGT"], 8, READ_PAD)), torch.from_numpy(refs[0]),
+        torch.tensor([20], dtype=torch.int32), *PARAMS, 4,
+    )
     assert cuda_score.LAUNCHES == {
         "lane_best_packed_varlen": 0, "argmax_lane": 0, "band_lane_best": 0, "score_grid_diag": 0, "score_grid_row": 0,
-        "step_chain_best": 0, "step_variant_best": 0,
+        "step_chain_best": 0, "step_variant_best": 0, "max_cells_row": 0,
     }
     with pytest.raises(ValueError):
         cuda_score.lane_best_packed_varlen(
