@@ -13,7 +13,8 @@ port's main path (``swtorch align --strategy batch``) end to end:
    the instruction of ``__viaddmax_s16x2_relu`` and spills nothing, and
    the ALU instructions per cell of both forms' inner loops at every L
    (K1, K4) and of K5's s16x2 row loop; K8's s16x2 kernel runs that
-   instruction too, and none of K8's three kernels spills;
+   instruction too, and none of K8's three kernels spills, nor K9's two
+   (one per tie order) or K10's;
 1. K1 (packed lane best) against its plain version, in both forms
    (``cuda_score.k1_form``): 512 reads x 256 RefSeq-shaped refs, every
    start lane, and the two forms timed on them in turns (int32, s16x2,
@@ -33,7 +34,15 @@ port's main path (``swtorch align --strategy batch``) end to end:
    of the full listing); each form timed; ties planted around the borders
    of the column segments of a 131 kb ref, listed once in both forms; and
    ``find_max_cells_batched`` of a read with 130,923 ties, all listed on
-   the card (the host scan must not run);
+   the card (the host scan must not run); K9 (the traceback's fill with
+   direction codes, and H where asked) and K10 (its walk) exact against
+   their plain versions in both tie orders on 64 windowed jobs of 80-150
+   bp x 512 columns, a full-fill chunk of reads x one 2 kb ref broadcast
+   (H too, the cells from ``argwhere_rows``) and 4 windows of 1,025-2,048
+   bp reads, each kernel timed against its bound; reads with 99-300 max
+   cells x a 2 kb tandem repeat through the full-fill branch (past its
+   first listing of 64, listed and walked again on the card) equal the
+   oracle;
 3. correctness leg: ``cli.main(["align", ...])`` on a ~1 Mbp RefSeq-shaped
    corpus with a 512-read input (full-fill traceback) and a 2,000-read
    input (windowed traceback through K2); each report's max score and
@@ -114,11 +123,12 @@ every K4 launch of phases 9, 10 and 13 and every K5 launch of phase 9
 must take the s16x2 form, every one at rows (reads) of more than 1,024
 lanes in 14 the int32 form.  The legs:
 phases 3-4 (batch; K1
-and K2 must launch), 6 (shard_seq and batch; K3 and K8),
+and K2 must launch, and the traceback's K9 and K10), 6 (shard_seq and
+batch; K3 and K8, and K9 and K10 in each),
 7 (shard_refs and shard_reads; K1), 9 (unpacked and row paths; K4 and
 K5), 10 (scaling; K4), each bench leg of 13 (K4 on the kernel leg, K1 on
 the path legs, K2 on the long-ref leg, K6 on the roofline leg), each
-experiment (K6, K7) and the long-read paths of 14 (K1-K5).  A kernel's
+experiment (K6, K7) and the long-read paths of 14 (K1-K5, K9, K10).  A kernel's
 ``launches`` in the summary is its sum over those legs.
 
 Each kernel's ``bound_ms`` is the larger of two times.  One is its DP
@@ -128,8 +138,10 @@ fewest instructions the recurrence needs, the same for every kernel,
 which phase 0 checks against the SASS of the DPX intrinsics.  The other
 is its bytes (inputs read once, outputs written once) over 3.35 TB/s.
 The script fails if a kernel runs faster than its bound (``wide_*``
-keys: the same at 4,096 lanes).  No single
-PyTorch call computes any of the eight functions, so ``library_ms`` is
+keys: the same at 4,096 lanes).  K9's cells are every cell of its
+planes and its bytes the codes (and H) it writes; K10 does no DP cell,
+its bytes the cells, a byte per step and its outputs.  No single
+PyTorch call computes any of the ten functions, so ``library_ms`` is
 null.  Any failure raises and exits non-zero.  The second-to-last line
 is the kernels' JSON summary; the last line is ``{"ok": true,
 "device": {...}}``.
@@ -355,6 +367,7 @@ def main() -> int:
     from sparksmithwaterman_tpu_torch.models.pipeline import run_pipeline
     from sparksmithwaterman_tpu_torch.ops import _cuda, cuda_score
     from sparksmithwaterman_tpu_torch.ops import longseq
+    from sparksmithwaterman_tpu_torch.ops.device_traceback import path_cap
     from sparksmithwaterman_tpu_torch.ops.longseq import find_max_cells_batched, sites_for_ref_long_batched
     from sparksmithwaterman_tpu_torch.ops.packing import START_BIT, pack_reads, read_best
     from sparksmithwaterman_tpu_torch.ops.recurrence import score_grid
@@ -432,9 +445,22 @@ def main() -> int:
     fail_unless(sorted(k8_regs) == ["max_cells_kernel", "max_cells_s16x2_kernel", "max_cells_wide_kernel"]
                 and not any("s" in w for ws in k8_regs.values() for w in ws), f"K8's kernels: {k8_regs}")
     print(f"[0] K8 SASS: max_cells_s16x2_kernel runs {relu_ops[0]}; registers {k8_regs} (no spill)", flush=True)
+    # K9's two kernels (one per tie order) and K10's: none spills.
+    k910_regs = {k: w for k, w in register_summary(_cuda.build_info["log"]).items()
+                 if k in ("fill_dirs_kernel", "trace_walk_kernel")}
+    fail_unless(len(k910_regs.get("fill_dirs_kernel", [])) == 2 and len(k910_regs.get("trace_walk_kernel", [])) == 1
+                and not any("s" in w for ws in k910_regs.values() for w in ws), f"K9's and K10's kernels: {k910_regs}")
+    print(f"[0] K9 and K10 ptxas: registers {k910_regs} (no spill)", flush=True)
 
     def up(arr):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+
+    def traced(counts, leg):
+        """Fails unless a leg that traced a winner launched K9 and K10;
+        their launches, for its line."""
+        fail_unless(counts["fill_dirs"] > 0 and counts["trace_walk"] > 0,
+                    f"K9 or K10 never launched on {leg}: {counts}")
+        return f"K9 {counts['fill_dirs']}, K10 {counts['trace_walk']}"
 
     def k1_args(reads, refs, m_pack, padded=False, row_multiple=8):
         """K1's inputs on the card, the start lanes and the order of the
@@ -764,6 +790,133 @@ def main() -> int:
           f"plain in both forms; find_max_cells_batched of a read with {len(want_many[1])} ties (past the CPU's cap of "
           f"{longseq._CAPACITY_CAP}) on the card equal to the host scan, which did not run", flush=True)
 
+    # -- 2. K9 (fill with codes) and K10 (walk) against their plain versions --
+    rng_9 = np.random.default_rng(SEED + 9)  # leaves the later phases' inputs as they were
+
+    def window_jobs(ref, lens):
+        """Inputs of one windowed dispatch as longseq builds them: each read
+        a copy of the ref (about one base in 20 changed) ending at a random
+        column, its window of window_width columns ending there, REF_PAD on
+        the left to a multiple of 256; cells (K = 3): the read's last row in
+        the last column (the max cell the main path walks from), a random
+        cell of the plane, and none (-1).  Returns (reads, windows, cells, cap)."""
+        m = int(max(lens))
+        w = longseq.window_width(m, len(ref), *PARAMS)
+        w_pad = max(256, -(-w // 256) * 256)
+        table = np.frombuffer(b"ACGT", np.uint8)
+        reads, windows = [], np.full((len(lens), w_pad), REF_PAD, np.uint8)
+        for t, n in enumerate(lens):
+            end = int(rng_9.integers(n, len(ref) + 1))
+            read = np.frombuffer(ref[end - n : end].encode(), np.uint8).copy()
+            hit = rng_9.random(n) < 1 / 20
+            read[hit] = table[rng_9.integers(0, 4, int(hit.sum()))]
+            reads.append(read.tobytes().decode())
+            piece = ref[max(0, end - w) : end]
+            windows[t, w_pad - len(piece) :] = encode_batch([piece], len(piece), REF_PAD)[0]
+        cells = np.full((len(lens), 3, 2), -1, np.int32)
+        cells[:, 0] = np.stack([np.asarray(lens) - 1, np.full(len(lens), w_pad - 1)], 1)
+        cells[:, 1] = np.stack([rng_9.integers(0, m, len(lens)), rng_9.integers(0, w_pad, len(lens))], 1)
+        return up(encode_batch(reads, m, READ_PAD)), up(windows), up(cells), m + w_pad
+
+    def fill_walk_check(what, reads, refs, cells, cap, want_h):
+        """K9 (codes, and H where want_h) and K10 exact against their plain
+        versions in both tie orders; the plain walk's steps."""
+        for tie in ("serial", "distributed"):
+            h, dirs = cuda_score.fill_dirs(reads, refs, *PARAMS, tie_semantics=tie, want_h=want_h)
+            plain_h, want_d = cuda_score.fill_dirs_plain(reads, refs, *PARAMS, tie_semantics=tie, want_h=want_h)
+            fail_unless(torch.equal(dirs, want_d) and (not want_h or torch.equal(h, plain_h)),
+                        f"K9 differs from plain ({what}, {tie})")
+            got, want = cuda_score.trace_walk(dirs, cells, cap), cuda_score.trace_walk_plain(want_d, cells, cap)
+            fail_unless(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                        f"K10 differs from plain ({what}, {tie})")
+        return int((want[1] != 0).sum())
+
+    def host_timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    def k9_bytes(reads, refs, want_h):
+        """Reads and refs in; the codes, and H where asked, out."""
+        cells = reads.shape[0] * reads.shape[1] * refs.shape[1]
+        return reads.numel() + refs.numel() + cells * (5 if want_h else 1), cells
+
+    def k10_bytes(cells, cap, steps):
+        """Cells in and a byte of codes per step read; begins and the codes out."""
+        return cells.numel() * 4 + steps + cells.shape[0] * cells.shape[1] * (4 + cap)
+
+    ref_9 = rand_seqs(rng_9, [2000])[0]
+    win_9 = window_jobs(ref_9, rng_9.integers(80, 151, 64))
+    steps_9 = fill_walk_check("64 windows of 80-150 bp x 512", *win_9, False)
+    fail_unless(win_9[1].shape[1] == 512, f"the 150 bp windows are {win_9[1].shape[1]} columns, not 512")
+    main_cells_9 = win_9[2][:, :1].contiguous()  # the main path walks one cell a job
+    _, dirs_9 = cuda_score.fill_dirs(*win_9[:2], *PARAMS, tie_semantics="serial", want_h=False)
+    steps_10 = int((cuda_score.trace_walk_plain(dirs_9, main_cells_9, win_9[3])[1] != 0).sum())
+    k9_ms = cuda_ms(lambda: cuda_score.fill_dirs(*win_9[:2], *PARAMS, tie_semantics="serial", want_h=False), 10)
+    k9_plain_ms = host_timed(lambda: cuda_score.fill_dirs_plain(*win_9[:2], *PARAMS, tie_semantics="serial",
+                                                                 want_h=False))
+    k10_ms = cuda_ms(lambda: cuda_score.trace_walk(dirs_9, main_cells_9, win_9[3]), 10)
+    k10_plain_ms = host_timed(lambda: cuda_score.trace_walk_plain(dirs_9, main_cells_9, win_9[3]))
+    k9_nbytes, k9_cells = k9_bytes(*win_9[:2], False)
+    k9_bound_ms, k9_bound_by = bound(k9_cells, k9_nbytes, sms, clock_mhz)
+    k10_bound_ms, k10_bound_by = bound(0, k10_bytes(main_cells_9, win_9[3], steps_10), sms, clock_mhz)
+    print(f"[2] K9 and K10, 64 windows of 80-150 bp x 512 columns (3 cells a job, one of them -1; {steps_9} "
+          f"steps): codes and walks equal plain in both tie orders; K9 (codes only) {k9_ms:.3f} ms, plain "
+          f"{k9_plain_ms:.1f} ms, bound {k9_bound_ms:.4f} ms by {k9_bound_by} = {100 * k9_bound_ms / k9_ms:.1f}%; "
+          f"K10 (one cell a job, {steps_10} steps) {k10_ms:.3f} ms, plain {k10_plain_ms:.1f} ms, bound "
+          f"{k10_bound_ms:.5f} ms by {k10_bound_by} = {100 * k10_bound_ms / k10_ms:.1f}%", flush=True)
+
+    # The full-fill branch: a chunk of reads x one 2 kb ref broadcast, H too,
+    # the walks from argwhere_rows' cells at the branch's capacity and cap.
+    reads_f = args_2[0][: (1 << 26) // (152 * 2048)]
+    ref_f = up(encode_batch([ref_2], 2048, REF_PAD))
+    h_f, _ = cuda_score.fill_dirs(reads_f, ref_f, *PARAMS, tie_semantics="serial", want_h=True)
+    cells_f = cuda_score.argwhere_rows(h_f == h_f.amax(dim=(1, 2))[:, None, None], 64)
+    cap_f = path_cap(152, PARAMS[0], PARAMS[2])
+    steps_f = fill_walk_check(f"{reads_f.shape[0]} reads x 2 kb, ref broadcast", reads_f, ref_f, cells_f, cap_f, True)
+    k9f_ms = cuda_ms(lambda: cuda_score.fill_dirs(reads_f, ref_f, *PARAMS, tie_semantics="serial", want_h=True), 5)
+    k9f_plain_ms = host_timed(lambda: cuda_score.fill_dirs_plain(reads_f, ref_f, *PARAMS, tie_semantics="serial",
+                                                                  want_h=True))
+    _, dirs_f = cuda_score.fill_dirs(reads_f, ref_f, *PARAMS, tie_semantics="serial", want_h=False)
+    k10f_ms = cuda_ms(lambda: cuda_score.trace_walk(dirs_f, cells_f, cap_f), 5)
+    k9f_nbytes, k9f_cells = k9_bytes(reads_f, ref_f, True)
+    k9f_bound_ms, k9f_bound_by = bound(k9f_cells, k9f_nbytes, sms, clock_mhz)
+    k10f_bound_ms, _ = bound(0, k10_bytes(cells_f, cap_f, steps_f), sms, clock_mhz)
+    del h_f
+
+    # Windows of 1,025-2,048 bp reads (4 jobs of window_width(2,048) columns).
+    win_l = window_jobs(rand_seqs(rng_9, [8000])[0], [1025, 1300, 1777, 2048])
+    steps_l = fill_walk_check("4 windows of 1,025-2,048 bp", *win_l, False)
+    k9l_ms = cuda_ms(lambda: cuda_score.fill_dirs(*win_l[:2], *PARAMS, tie_semantics="serial", want_h=False), 3)
+    _, dirs_l = cuda_score.fill_dirs(*win_l[:2], *PARAMS, tie_semantics="serial", want_h=False)
+    k10l_ms = cuda_ms(lambda: cuda_score.trace_walk(dirs_l, win_l[2], win_l[3]), 3)
+    k9l_nbytes, k9l_cells = k9_bytes(*win_l[:2], False)
+    k9l_bound_ms, _ = bound(k9l_cells, k9l_nbytes, sms, clock_mhz)
+    k10l_bound_ms, _ = bound(0, k10_bytes(win_l[2], win_l[3], steps_l), sms, clock_mhz)
+    print(f"[2] K9 and K10, {reads_f.shape[0]} reads x one 2 kb ref broadcast (H too; up to 64 cells a read from "
+          f"argwhere_rows, cap {cap_f}): equal plain in both tie orders; K9 {k9f_ms:.3f} ms, plain {k9f_plain_ms:.1f} "
+          f"ms, bound {k9f_bound_ms:.3f} ms by {k9f_bound_by} = {100 * k9f_bound_ms / k9f_ms:.1f}%; K10 {k10f_ms:.3f} "
+          f"ms ({steps_f} steps), bound {k10f_bound_ms:.4f}. 4 windows of 1,025-2,048 bp x {win_l[1].shape[1]} "
+          f"columns: equal plain in both tie orders; K9 {k9l_ms:.3f} ms (bound {k9l_bound_ms:.4f}), K10 "
+          f"{k10l_ms:.3f} ms ({steps_l} steps, bound {k10l_bound_ms:.5f})", flush=True)
+
+    # Reads past the full-fill branch's first listing (64 max cells): a 2 kb
+    # ref of 100 copies of a 20 bp unit, so a 40 bp copy has 99 max cells and
+    # a 2 bp read about 200; the branch lists and walks them again on the card.
+    unit = "ACGTTGCAAGCTTCGAATGC"
+    ref_t = unit * 100
+    reads_t = [unit * 2, "GC", unit[3:17], "".join(rand_seqs(rng_9, [120]))]
+    tie_backend = TorchBatchBackend(AlignConfig(ref_dir=".", in_dir=".", out_dir="."), dev)
+    fail_unless(not tie_backend._windowed(ref_t, reads_t), "the many-tie reads do not take the full-fill branch")
+    per_read_t = [tie_backend.sites_for_ref(ref_t, [r]) for r in reads_t]
+    want_t = [sorted(oracle.opt_alignments(ref_t, r)[1], key=lambda site: site[0]) for r in reads_t]
+    fail_unless(per_read_t == want_t, "the full-fill branch's sites of the many-tie reads differ from the oracle")
+    fail_unless(min(map(len, per_read_t[:3])) > 64, f"a many-tie read has {min(map(len, per_read_t[:3]))} sites")
+    print(f"[2] full-fill branch past its first 64 cells: reads with {[len(p) for p in per_read_t]} max cells x a "
+          "2 kb tandem repeat, listed and walked again on the card, equal the oracle", flush=True)
+
     with tempfile.TemporaryDirectory(prefix="swtorch_smoke_") as work:
         # -- 3/4: the main path; launch counts cover exactly these runs ----
         slice_root = os.path.join(work, "slice")
@@ -812,7 +965,8 @@ def main() -> int:
         print(f"[4] run_pipeline: 512 reads ({scale_read_bp} bp) x {len(scale_refs)} refs ({ref_bp} bp, "
               f"{corpus['files']} files): wall {scale_s:.3f} s, real {scale_read_bp * ref_bp / scale_s / 1e9:.1f} GCUPS; "
               f"scoring dispatch window {backend.gcups.report()}; host parse {parse_s:.3f} s", flush=True)
-        print(f"[4] launches over phases 3-4: {launches}; K1 forms {dict(k1_main_forms)}", flush=True)
+        print(f"[4] launches over phases 3-4: {launches}; K1 forms {dict(k1_main_forms)}; the traceback's "
+              f"{traced(launches, 'phases 3-4')}", flush=True)
 
         # -- checks of what the main path wrote ------------------------------
         slice_refs = [rec for path in iter_files(os.path.join(slice_root, "refs")) for rec in get_ref_seqs(path, ">gi")]
@@ -974,13 +1128,15 @@ def main() -> int:
         k8_main_forms.update(cuda_score.K8_FORMS)
         fail_unless(seq_launches["max_cells_row"] + seq_batch_launches["max_cells_row"] > 0,
                     f"K8 never launched in phase 6: {seq_launches}, {seq_batch_launches}")
+        traced_6 = (traced(seq_launches, "phase 6, shard_seq"), traced(seq_batch_launches, "phase 6, batch"))
         fail_unless(stripped(os.path.join(seq_root, "out_seq", "result1.txt"))
                     == stripped(os.path.join(seq_root, "out_batch", "result1.txt")),
                     "shard_seq report differs from batch's")
         print(f"[6] swtorch align on {seq_corpus['n_refs']} refs of 8 kb-1 Mb ({seq_corpus['ref_bp']} bp) x 256 reads "
               f"({seq_corpus['read_bp']} bp): shard_seq {seq_s:.3f} s ({seq_cells / seq_s / 1e9:.1f} real GCUPS), "
               f"batch {batch_s:.3f} s ({seq_cells / batch_s / 1e9:.1f} real GCUPS); reports equal apart from the time "
-              f"line; launches of shard_seq {seq_launches}, of batch {seq_batch_launches}", flush=True)
+              f"line; launches of shard_seq {seq_launches}, of batch {seq_batch_launches}; the traceback's: shard_seq "
+              f"{traced_6[0]}, batch {traced_6[1]}", flush=True)
 
         seq_reads = get_reads(os.path.join(seq_root, "inputs", "input1.fa"), ">gi")
         seq_refs = [rec for path in iter_files(os.path.join(seq_root, "refs")) for rec in get_ref_seqs(path, ">gi")]
@@ -1672,6 +1828,7 @@ def main() -> int:
               f"{max_score}, {len(winners)} winner(s) equal to the row-form recurrence; all {n_sites} sites equal the "
               f"per-read recomputation ({'/'.join(sorted(branches))} branch); {time.perf_counter() - t14e:.1f} s "
               f"with the checks", flush=True)
+        print(f"[14] the traceback's launches over the long-read paths: {traced(lr_launches, 'phase 14')}", flush=True)
         print(f"[14] LAUNCHES over the long-read paths: {lr_launches}, K1 forms {lr_forms}, K4 forms {lr_k4_forms}, "
               f"K5 forms {lr_k5_forms}; "
               f"phase 14 took {time.perf_counter() - t14:.1f} s", flush=True)
@@ -1828,6 +1985,41 @@ def main() -> int:
             "long_segments": k8_segments,
             "long_unsplit_ms": k8l_unsplit_ms,
             "long_unsplit_bound_ms": k8l_bound_ms,
+        },
+        {
+            "name": "fill_dirs",
+            "route": "cuda",
+            "source": "sparksmithwaterman_tpu_torch/csrc/fill_dirs.cu",
+            "replaces": "sparksmithwaterman_tpu/ops/recurrence.py:146",
+            "launches": main_launches["fill_dirs"],
+            "max_abs_err": 0,
+            "ms": k9_ms,
+            "plain_ms": k9_plain_ms,
+            "bound_ms": k9_bound_ms,
+            "bound_by": k9_bound_by,
+            "library_ms": None,
+            "full_ms": k9f_ms,
+            "full_plain_ms": k9f_plain_ms,
+            "full_bound_ms": k9f_bound_ms,
+            "long_ms": k9l_ms,
+            "long_bound_ms": k9l_bound_ms,
+        },
+        {
+            "name": "trace_walk",
+            "route": "cuda",
+            "source": "sparksmithwaterman_tpu_torch/csrc/trace_walk.cu",
+            "replaces": "sparksmithwaterman_tpu/ops/device_traceback.py:41",
+            "launches": main_launches["trace_walk"],
+            "max_abs_err": 0,
+            "ms": k10_ms,
+            "plain_ms": k10_plain_ms,
+            "bound_ms": k10_bound_ms,
+            "bound_by": k10_bound_by,
+            "library_ms": None,
+            "full_ms": k10f_ms,
+            "full_bound_ms": k10f_bound_ms,
+            "long_ms": k10l_ms,
+            "long_bound_ms": k10l_bound_ms,
         },
     ]
     for entry, k in zip(kernels, ("K1", "K2", "K3", "K4", "K5")):  # rows of 4,096 lanes, in stripes

@@ -97,17 +97,19 @@ def scale_corpus(
     """The scale workload: a RefSeq-shaped corpus of ``corpus_bp`` under
     ``root/refs/corpus``, one file of ``long_refs`` references of
     ``long_len`` bp under ``root/refs/long`` (so long-reference flushes
-    run), and ``num_reads`` reads of 80-150 bp in
-    ``root/inputs/input1.fa``.  Returns {"ref_bp", "files", "read_bp"}."""
+    run; no such file when ``long_refs`` is 0), and ``num_reads`` reads of
+    80-150 bp in ``root/inputs/input1.fa``.  Returns {"ref_bp", "files",
+    "read_bp"}."""
     corpus = refseq_like(os.path.join(root, "refs", "corpus"), corpus_bp, seed=seed)
     rng = np.random.default_rng(seed + 1)
-    long_path = os.path.join(root, "refs", "long", f"long{REF_EXT}")
-    os.makedirs(os.path.dirname(long_path), exist_ok=True)
-    with open(long_path, "w") as f:
-        f.write("\n".join(f">gi|long|{i}\n{_fast_seq(rng, long_len)}" for i in range(long_refs)))
+    if long_refs:
+        long_path = os.path.join(root, "refs", "long", f"long{REF_EXT}")
+        os.makedirs(os.path.dirname(long_path), exist_ok=True)
+        with open(long_path, "w") as f:
+            f.write("\n".join(f">gi|long|{i}\n{_fast_seq(rng, long_len)}" for i in range(long_refs)))
     read_bp = reads_file(os.path.join(root, "inputs", "input1.fa"), num_reads, seed=seed + 2)
     return {
         "ref_bp": corpus["ref_bp"] + long_refs * long_len,
-        "files": corpus["files"] + 1,
+        "files": corpus["files"] + (1 if long_refs else 0),
         "read_bp": read_bp,
     }

@@ -37,7 +37,9 @@ from sparksmithwaterman_tpu_torch.io.fasta import READ_PAD, REF_PAD, encode_batc
 from sparksmithwaterman_tpu_torch.io.report import Site
 from sparksmithwaterman_tpu_torch.utils.profiling import GcupsCounter
 from sparksmithwaterman_tpu_torch.ops import cuda_score
-from sparksmithwaterman_tpu_torch.ops.cuda_score import carry_elems, lane_best_packed_varlen, score_grid_diag, score_grid_row
+from sparksmithwaterman_tpu_torch.ops.cuda_score import (
+    carry_elems, lane_best_packed_varlen, score_grid_diag, score_grid_row,
+)
 from sparksmithwaterman_tpu_torch.ops.device_traceback import (
     fill_and_trace,
     path_cap,
@@ -48,11 +50,9 @@ from sparksmithwaterman_tpu_torch.ops.longseq import (
     sites_for_ref_long_batched,
 )
 from sparksmithwaterman_tpu_torch.ops.packing import pack_reads, packed_col_sums
-from sparksmithwaterman_tpu_torch.ops.recurrence import fill_pairs
-from sparksmithwaterman_tpu_torch.ops.traceback import sites_from_fill
 
-# Max cells per pair walked on the device; a pair with more falls back
-# to a full fill and the host walk.
+# Max cells per pair listed by the first fill and walk; a pair with more is
+# filled, listed at its own count and walked again, still on the device.
 _TRACE_CAPACITY = 64
 # Element budget of the (B, M, N) fill of one traceback dispatch.
 _FILL_BUDGET = 1 << 26
@@ -394,12 +394,28 @@ class TorchBatchBackend:
 
     def _sites_full_fill(self, ref_seq: str, reads: Sequence[str]) -> List[List[Site]]:
         """Normal branch: per read-length group, fill with directions and
-        walk up to _TRACE_CAPACITY max cells per pair on the device."""
+        walk up to _TRACE_CAPACITY max cells per pair on the device; the
+        pairs with more are filled and walked again at their own counts."""
         per_read: List[List[Site]] = [[] for _ in reads]
         gap_char = self.scoring.gap_char
         tie = self.scoring.tie_semantics
         n_pad = _pad_len(len(ref_seq), self.ref_bucket)
         ref_t = self._upload(encode_batch([ref_seq], n_pad, REF_PAD))  # (1, N)
+
+        def trace(reads_enc, capacity, cap):
+            return fill_and_trace(
+                self._upload(reads_enc), ref_t, *self._params, capacity=capacity, cap=cap, tie_semantics=tie,
+            )
+
+        def collect(idx, outs, skip=()):
+            best, counts, cells, begins, codes = (t.cpu().numpy() for t in outs)
+            for k, ridx in enumerate(idx):
+                if k not in skip:
+                    per_read[ridx] = sites_from_trace(
+                        int(best[k]), int(counts[k]), cells[k], begins[k], codes[k],
+                        ref_seq, reads[ridx], gap_char,
+                    )
+
         dispatched = []
         for m_pad, read_idx in sorted(_group_by_padded_len(reads, self.read_bucket).items()):
             cap = path_cap(m_pad, self.scoring.match, self.scoring.gap)
@@ -407,27 +423,19 @@ class TorchBatchBackend:
             for start in range(0, len(read_idx), b_block):
                 chunk = read_idx[start : start + b_block]
                 reads_enc = encode_batch([reads[i] for i in chunk], m_pad, READ_PAD)
-                outs = fill_and_trace(
-                    self._upload(reads_enc), ref_t, *self._params,
-                    capacity=_TRACE_CAPACITY, cap=cap, tie_semantics=tie,
-                )
-                dispatched.append((chunk, reads_enc, outs))
-        for chunk, reads_enc, outs in dispatched:
-            best, counts, cells, begins, codes = (t.cpu().numpy() for t in outs)
-            overflow = [k for k in range(len(chunk)) if best[k] > 0 and counts[k] > _TRACE_CAPACITY]
-            for k, ridx in enumerate(chunk):
-                if k in overflow:
-                    continue
-                per_read[ridx] = sites_from_trace(
-                    int(best[k]), int(counts[k]), cells[k], begins[k], codes[k],
-                    ref_seq, reads[ridx], gap_char,
-                )
-            if overflow:
-                h, dirs = fill_pairs(
-                    self._upload(reads_enc[overflow]), ref_t, *self._params, tie_semantics=tie
-                )
-                h, dirs = h.cpu().numpy(), dirs.cpu().numpy()
-                for t, k in enumerate(overflow):
-                    ridx = chunk[k]
-                    per_read[ridx] = sites_from_fill(h[t], dirs[t], ref_seq, reads[ridx], gap_char)
+                dispatched.append((chunk, reads_enc, cap, trace(reads_enc, _TRACE_CAPACITY, cap)))
+        for chunk, reads_enc, cap, outs in dispatched:
+            best, counts = outs[0].cpu().numpy(), outs[1].cpu().numpy()
+            overflow = sorted((k for k in range(len(chunk)) if best[k] > 0 and counts[k] > _TRACE_CAPACITY),
+                              key=lambda k: counts[k])
+            collect(chunk, outs, skip=set(overflow))
+            # Groups of the overflow pairs, fewest cells first, each listed at
+            # its largest count with its walk codes inside the fill budget.
+            group: List[int] = []
+            for k in overflow + [None]:
+                if group and (k is None or (len(group) + 1) * int(counts[k]) * cap > _FILL_BUDGET):
+                    collect([chunk[g] for g in group], trace(reads_enc[group], int(counts[group[-1]]), cap))
+                    group = []
+                if k is not None:
+                    group.append(k)
         return per_read

@@ -164,6 +164,21 @@ def lib() -> ctypes.CDLL:
                     _I, _I, _I,  # segment stride, length and skip
                     _I, _VP,  # device, stream
                 ]
+            handle.swt_fill_dirs.restype = _I
+            handle.swt_fill_dirs.argtypes = [
+                _VP, _I, _I,  # reads, b, m
+                _VP, _LL, _I,  # refs, ref_stride, n
+                _I, _I, _I, _I,  # match, mismatch, gap, serial
+                _VP, _VP, _VP,  # dirs, h (or null), carry
+                _I, _VP,  # device, stream
+            ]
+            handle.swt_trace_walk.restype = _I
+            handle.swt_trace_walk.argtypes = [
+                _VP, _I, _I, _I,  # dirs, b, m, n
+                _VP, _I, _I,  # cells, k, cap
+                _VP, _VP,  # begins, codes
+                _I, _VP,  # device, stream
+            ]
             handle.swt_step_chain_best.restype = _I
             handle.swt_step_chain_best.argtypes = [
                 _VP, _I, _I,  # reads, rb, m

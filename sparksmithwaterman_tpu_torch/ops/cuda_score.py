@@ -1,6 +1,6 @@
-"""The scoring kernels: CUDA for tensors on the card, plain PyTorch on CPU.
+"""The kernels: CUDA for tensors on the card, plain PyTorch on CPU.
 
-Eight kernels, each with its plain PyTorch version of the same function:
+Ten kernels, each with its plain PyTorch version of the same function:
 
 - K1 :func:`lane_best_packed_varlen` (``csrc/lane_best.cu``) replaces
   ``pallas_score.py:_diag_kernel_packed_varlen`` and
@@ -26,7 +26,14 @@ Eight kernels, each with its plain PyTorch version of the same function:
 - K8 :func:`max_cells_row` (``csrc/max_cells.cu``) replaces lax code, not
   Pallas: ``sparksmithwaterman_tpu/ops/longseq.py:_max_cells_device_batch``,
   the traceback's listing of every cell equal to a tied read's best; its
-  plain version is that row loop and ``device_traceback.argwhere_rows``.
+  plain version is that row loop and :func:`argwhere_rows`;
+- K9 :func:`fill_dirs` (``csrc/fill_dirs.cu``) replaces lax code:
+  ``sparksmithwaterman_tpu/ops/recurrence.py:fill_pairs``, the traceback's
+  fill with direction codes; its plain version is
+  :func:`..ops.recurrence.fill_pairs`;
+- K10 :func:`trace_walk` (``csrc/trace_walk.cu``) replaces lax code:
+  ``sparksmithwaterman_tpu/ops/device_traceback.py:_trace_one``, the walk
+  from each max cell; its plain version is :func:`trace_walk_plain`.
 
 A wrapper takes the plain version only for tensors on the CPU.  For CUDA
 tensors it launches the kernel or raises; it never falls back.  Each
@@ -76,9 +83,10 @@ import torch
 
 from sparksmithwaterman_tpu_torch.io.fasta import REF_PAD
 from sparksmithwaterman_tpu_torch.ops import _cuda
-from sparksmithwaterman_tpu_torch.ops.device_traceback import argwhere_rows
 from sparksmithwaterman_tpu_torch.ops.packing import START_BIT
-from sparksmithwaterman_tpu_torch.ops.recurrence import _ramp, _row_update, _sub_scores, score_grid
+from sparksmithwaterman_tpu_torch.ops.recurrence import (
+    DIR_ALIGN, DIR_DEL, DIR_INS, _ramp, _row_update, _sub_scores, fill_pairs, score_grid,
+)
 
 # Launches per kernel since the last reset_launches().
 LAUNCHES = {
@@ -90,6 +98,8 @@ LAUNCHES = {
     "step_chain_best": 0,
     "step_variant_best": 0,
     "max_cells_row": 0,
+    "fill_dirs": 0,
+    "trace_walk": 0,
 }
 
 # K1's, K4's, K5's and K8's launches per form (k1_form) since the last reset_launches().
@@ -110,6 +120,11 @@ CARRY_BUDGET = 1 << 28
 _LANES_PER_THREAD = (1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 24, 32)
 # Rows (warps) per thread block of K1-K5 (csrc/wavefront.cuh kWarps).
 _BLOCK_ROWS = 4
+# Columns of one tile of K9 (csrc/fill_dirs.cu kTileCols): a fill of more
+# carries a column of M int32 per pair between tiles.
+_FILL_TILE = 512
+# The plain walk checks for completion every this many steps (one host sync).
+_DONE_CHECK = 32
 
 
 def reset_launches() -> None:
@@ -796,11 +811,32 @@ def max_cells_segments(m: int, n: int, match: int, mismatch: int, gap: int, bloc
     return stride, length, (m + match * m // -gap - 1 if stride < n else 0)
 
 
+def argwhere_rows(eq: torch.Tensor, capacity: int) -> torch.Tensor:
+    """Row-major positions of the true cells of each (M, N) plane.
+
+    eq: (B, M, N) bool.  Returns (B, capacity, 2) int32 (i, j), the first
+    ``capacity`` true cells of each plane in row-major order, -1-filled.
+    """
+    b, _, n = eq.shape
+    flat = eq.reshape(b, -1)
+    rank = torch.cumsum(flat, dim=1, dtype=torch.int32) - 1
+    keep = flat & (rank < capacity)
+    pos = torch.full((b, capacity + 1), -1, dtype=torch.int64, device=eq.device)
+    slot = torch.where(keep, rank.to(torch.int64), capacity)  # spill slot
+    src = torch.arange(flat.shape[1], device=eq.device).expand(b, -1)
+    pos.scatter_(1, slot, torch.where(keep, src, -1))
+    pos = pos[:, :capacity]
+    cells = torch.stack(
+        [torch.div(pos, n, rounding_mode="floor"), torch.remainder(pos, n)], dim=-1
+    )
+    return torch.where(pos[..., None] >= 0, cells, -1).to(torch.int32)
+
+
 def max_cells_row_plain(reads_u8, ref_u8, best, match, mismatch, gap, capacity):
     """Plain PyTorch version of K8 (any device): the row loop of the JAX
     package's ``_max_cells_device_batch`` into an (R, M, N) int32 stack of
     H, its cells equal to each read's ``best``, then
-    :func:`..ops.device_traceback.argwhere_rows`.  Memory O(R x M x N)."""
+    :func:`argwhere_rows`.  Memory O(R x M x N)."""
     r, m = reads_u8.shape
     n = ref_u8.shape[-1]
     device = ref_u8.device
@@ -895,6 +931,119 @@ def _max_cells_row(reads_u8, ref_u8, best, match, mismatch, gap, capacity, *, fo
     count = torch.where(zero, m * n, count)
     cells = torch.where(zero[:, None, None], plane[None], cells)
     return count, cells
+
+
+# -- K9 and K10: the traceback's fill with direction codes, and its walk ------------
+
+
+def fill_dirs_plain(reads_u8, refs_u8, match, mismatch, gap, *, tie_semantics, want_h):
+    """Plain PyTorch version of K9 (any device):
+    :func:`..ops.recurrence.fill_pairs`, a loop of M row updates; H is
+    dropped unless ``want_h``."""
+    h, dirs = fill_pairs(reads_u8, refs_u8, match, mismatch, gap, tie_semantics=tie_semantics)
+    return (h if want_h else None), dirs
+
+
+def fill_dirs(reads_u8, refs_u8, match, mismatch, gap, *, tie_semantics, want_h):
+    """(H (B, M, N) int32 or None, dirs (B, M, N) int8): K9, the full DP
+    fill of each read against its reference with the traceback's direction
+    codes, :func:`..ops.recurrence.fill_pairs`'s contract.
+
+    reads_u8: (B, M) uint8, READ_PAD-padded; refs_u8: (B, N) uint8, or (1,
+    N) for one reference of all B reads.  dirs: 0 none, 1 align, 2
+    insertion, 3 deletion, 0 wherever H = 0; ties a > ins > d under
+    ``tie_semantics="serial"``, d > ins > a under ``"distributed"``.  H
+    (rows 1..M) only when ``want_h``: the windowed traceback needs the codes
+    alone.
+    """
+    device = _device_of(reads_u8, refs_u8)
+    if reads_u8.dim() != 2 or reads_u8.dtype != torch.uint8:
+        raise ValueError("fill_dirs: reads_u8 must be a (B, M) uint8 tensor")
+    b, m = reads_u8.shape
+    if refs_u8.dim() != 2 or refs_u8.dtype != torch.uint8 or refs_u8.shape[0] not in (1, b):
+        raise ValueError(f"fill_dirs: refs_u8 must be a ({b}, N) or (1, N) uint8 tensor")
+    if tie_semantics not in ("serial", "distributed"):
+        raise ValueError(f"fill_dirs: tie_semantics must be 'serial' or 'distributed', got {tie_semantics!r}")
+    match, mismatch, gap = int(match), int(mismatch), int(gap)
+    if device.type == "cpu":
+        return fill_dirs_plain(reads_u8, refs_u8, match, mismatch, gap, tie_semantics=tie_semantics, want_h=want_h)
+    n = refs_u8.shape[1]
+    h = torch.empty((b, m, n), dtype=torch.int32, device=device) if want_h else None
+    dirs = torch.empty((b, m, n), dtype=torch.int8, device=device)
+    if dirs.numel() == 0:
+        return h, dirs
+    reads_u8, refs_u8 = reads_u8.contiguous(), refs_u8.contiguous()
+    carry = torch.empty(b * m, dtype=torch.int32, device=device) if n > _FILL_TILE else None
+    rc = _cuda.lib().swt_fill_dirs(
+        reads_u8.data_ptr(), b, m, refs_u8.data_ptr(), 0 if refs_u8.shape[0] == 1 else n, n,
+        match, mismatch, gap, int(tie_semantics == "serial"),
+        dirs.data_ptr(), _ptr(h), _ptr(carry), *_launch_target(device),
+    )
+    _cuda.check(rc, "fill_dirs")
+    LAUNCHES["fill_dirs"] += 1
+    return h, dirs
+
+
+def trace_walk_plain(dirs: torch.Tensor, cells: torch.Tensor, cap: int):
+    """Plain PyTorch version of K10 (any device): every (pair, cell) walk in
+    lock step, one gather per step, a host sync every _DONE_CHECK steps."""
+    b, m, n = dirs.shape
+    k = cells.shape[1]
+    flat = dirs.reshape(b, m * n)
+    i = cells[..., 0].to(torch.int64) + 1
+    j = cells[..., 1].to(torch.int64) + 1
+    begins = torch.zeros((b, k), dtype=torch.int64, device=dirs.device)
+    codes = torch.zeros((b, k, cap), dtype=torch.int8, device=dirs.device)
+    for step in range(cap):
+        in_bounds = (i > 0) & (j > 0)
+        idx = ((i - 1).clamp_min(0) * n + (j - 1).clamp_min(0)).reshape(b, k)
+        d = torch.where(in_bounds, flat.gather(1, idx), 0)
+        active = d != 0
+        if step % _DONE_CHECK == 0 and not bool(active.any()):
+            break
+        begins = torch.where(active, j, begins)
+        i = i - (active & ((d == DIR_ALIGN) | (d == DIR_INS))).to(torch.int64)
+        j = j - (active & ((d == DIR_ALIGN) | (d == DIR_DEL))).to(torch.int64)
+        codes[..., step] = d
+    return begins.to(torch.int32), codes
+
+
+def trace_walk(dirs: torch.Tensor, cells: torch.Tensor, cap: int):
+    """(begins (B, K) int32, codes (B, K, cap) int8): K10, the walk from
+    every start cell over its pair's (M, N) direction codes, the JAX
+    package's ``_trace_one`` per cell.
+
+    dirs: (B, M, N) int8 (:func:`fill_dirs`); cells: (B, K, 2) int32,
+    0-based (i, j) inside the plane, -1 for none.  begins are the 1-based
+    start columns (0 for a walk of no step); codes run end to start and are
+    0 after the stop (the first 0 code, the matrix edge, or ``cap`` steps).
+    """
+    device = _device_of(dirs, cells)
+    if dirs.dim() != 3 or dirs.dtype != torch.int8:
+        raise ValueError("trace_walk: dirs must be a (B, M, N) int8 tensor")
+    b, m, n = dirs.shape
+    if cells.dim() != 3 or cells.shape[0] != b or cells.shape[2] != 2 or cells.dtype != torch.int32:
+        raise ValueError(f"trace_walk: cells must be a ({b}, K, 2) int32 tensor")
+    cap = int(cap)
+    if cap < 0:
+        raise ValueError(f"trace_walk: cap must be >= 0, got {cap}")
+    if device.type == "cpu":
+        return trace_walk_plain(dirs, cells, cap)
+    k = cells.shape[1]
+    begins = torch.zeros((b, k), dtype=torch.int32, device=device)
+    codes = torch.zeros((b, k, cap), dtype=torch.int8, device=device)
+    if b * k == 0 or cap == 0 or m * n == 0:
+        return begins, codes
+    dirs, cells = dirs.contiguous(), cells.contiguous()
+    if cells.data_ptr() % 8:  # the kernel reads each cell as one int2
+        cells = cells.clone()
+    rc = _cuda.lib().swt_trace_walk(
+        dirs.data_ptr(), b, m, n, cells.data_ptr(), k, cap, begins.data_ptr(), codes.data_ptr(),
+        *_launch_target(device),
+    )
+    _cuda.check(rc, "trace_walk")
+    LAUNCHES["trace_walk"] += 1
+    return begins, codes
 
 
 # -- K6 and K7: the TPU's step-chain probes ---------------------------------------

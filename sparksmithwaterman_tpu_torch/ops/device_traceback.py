@@ -1,10 +1,11 @@
 """On-device traceback: batched fill, max-cell extraction and walks.
 
 Port of :mod:`sparksmithwaterman_tpu.ops.device_traceback`.  The fill's
-direction codes stay on the device; each pair's max cells are extracted
-row-major up to a fixed capacity (a cumulative-sum rank and a scatter);
-every (pair, cell) walk advances in lock step as one gather per step; only
-(cells, beginnings, walk codes) go to the host, where the strings are
+direction codes stay on the device (K9, ``cuda_score.fill_dirs``); each
+pair's max cells are extracted row-major up to a fixed capacity (a
+cumulative-sum rank and a scatter, ``cuda_score.argwhere_rows``); every
+(pair, cell) walk runs on the device (K10, ``cuda_score.trace_walk``);
+only (cells, beginnings, walk codes) go to the host, where the strings are
 assembled.
 """
 
@@ -16,11 +17,8 @@ import numpy as np
 import torch
 
 from sparksmithwaterman_tpu_torch.io.report import Site
-from sparksmithwaterman_tpu_torch.ops.recurrence import DIR_ALIGN, DIR_DEL, DIR_INS, fill_pairs
+from sparksmithwaterman_tpu_torch.ops.cuda_score import argwhere_rows, fill_dirs, trace_walk
 from sparksmithwaterman_tpu_torch.ops.traceback import degenerate_sites
-
-# Walks are checked for completion every this many steps (one host sync).
-_DONE_CHECK = 32
 
 
 def path_cap(m: int, match: int, gap: int) -> int:
@@ -35,55 +33,6 @@ def path_cap(m: int, match: int, gap: int) -> int:
     """
     m = max(m, 1)
     return max(4 * m, m + -(-match * m // -gap) + 1)
-
-
-def argwhere_rows(eq: torch.Tensor, capacity: int) -> torch.Tensor:
-    """Row-major positions of the true cells of each (M, N) plane.
-
-    eq: (B, M, N) bool.  Returns (B, capacity, 2) int32 (i, j), the first
-    ``capacity`` true cells of each plane in row-major order, -1-filled.
-    """
-    b, _, n = eq.shape
-    flat = eq.reshape(b, -1)
-    rank = torch.cumsum(flat, dim=1, dtype=torch.int32) - 1
-    keep = flat & (rank < capacity)
-    pos = torch.full((b, capacity + 1), -1, dtype=torch.int64, device=eq.device)
-    slot = torch.where(keep, rank.to(torch.int64), capacity)  # spill slot
-    src = torch.arange(flat.shape[1], device=eq.device).expand(b, -1)
-    pos.scatter_(1, slot, torch.where(keep, src, -1))
-    pos = pos[:, :capacity]
-    cells = torch.stack(
-        [torch.div(pos, n, rounding_mode="floor"), torch.remainder(pos, n)], dim=-1
-    )
-    return torch.where(pos[..., None] >= 0, cells, -1).to(torch.int32)
-
-
-def trace_cells(dirs: torch.Tensor, cells: torch.Tensor, cap: int):
-    """Walk every start cell over its pair's (M, N) direction codes.
-
-    dirs: (B, M, N) int8; cells: (B, K, 2) int32 0-based, -1 for none.
-    Returns (begins (B, K) int32 1-based start columns, codes (B, K, cap)
-    int8 walk codes end-to-start, 0 after the stop).
-    """
-    b, m, n = dirs.shape
-    k = cells.shape[1]
-    flat = dirs.reshape(b, m * n)
-    i = cells[..., 0].to(torch.int64) + 1
-    j = cells[..., 1].to(torch.int64) + 1
-    begins = torch.zeros((b, k), dtype=torch.int64, device=dirs.device)
-    codes = torch.zeros((b, k, cap), dtype=torch.int8, device=dirs.device)
-    for step in range(cap):
-        in_bounds = (i > 0) & (j > 0)
-        idx = ((i - 1).clamp_min(0) * n + (j - 1).clamp_min(0)).reshape(b, k)
-        d = torch.where(in_bounds, flat.gather(1, idx), 0)
-        active = d != 0
-        if step % _DONE_CHECK == 0 and not bool(active.any()):
-            break
-        begins = torch.where(active, j, begins)
-        i = i - (active & ((d == DIR_ALIGN) | (d == DIR_INS))).to(torch.int64)
-        j = j - (active & ((d == DIR_ALIGN) | (d == DIR_DEL))).to(torch.int64)
-        codes[..., step] = d
-    return begins.to(torch.int32), codes
 
 
 def fill_and_trace(
@@ -102,17 +51,17 @@ def fill_and_trace(
     reads: (B, M) uint8; refs: (B, N) or (1, N) uint8.  Returns
       best:   (B,) int32 max score per pair
       counts: (B,) int32 number of max cells (may exceed capacity; the
-              caller falls back for those pairs)
+              caller lists and walks those pairs again at their counts)
       cells:  (B, capacity, 2) int32 row-major max cells, -1-filled
       begins: (B, capacity) int32 1-based start columns
       codes:  (B, capacity, cap) int8 walk codes (end-to-start)
     """
-    h, dirs = fill_pairs(reads, refs, match, mismatch, gap, tie_semantics=tie_semantics)
+    h, dirs = fill_dirs(reads, refs, match, mismatch, gap, tie_semantics=tie_semantics, want_h=True)
     best = h.amax(dim=(1, 2))
     eq = h == best[:, None, None]
     counts = eq.sum(dim=(1, 2), dtype=torch.int32)
     cells = argwhere_rows(eq, capacity)
-    begins, codes = trace_cells(dirs, cells, cap)
+    begins, codes = trace_walk(dirs, cells, cap)
     return best, counts, cells, begins, codes
 
 

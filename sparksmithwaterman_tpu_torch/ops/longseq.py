@@ -9,7 +9,8 @@ for long references and large read sets:
    (``ops.cuda_score.max_cells_row``: the row recurrence of each read,
    every cell equal to its best appended on the device);
 2. :func:`sites_for_ref_long_batched` re-fills only a window of reference
-   columns ending at each max cell and walks it on the device.
+   columns ending at each max cell (K9, ``ops.cuda_score.fill_dirs``) and
+   walks it on the device (K10, ``ops.cuda_score.trace_walk``).
 
 Window soundness, for any scoring scheme: a path with score >= 1 has
 (mismatches + deletions) * min(|mismatch|, |gap|) < match * m, so its
@@ -27,9 +28,10 @@ import torch
 
 from sparksmithwaterman_tpu_torch.io.fasta import READ_PAD, REF_PAD, encode_batch, encode_seq
 from sparksmithwaterman_tpu_torch.io.report import Site
-from sparksmithwaterman_tpu_torch.ops.cuda_score import argmax_lane, max_cells_row, score_grid_row
-from sparksmithwaterman_tpu_torch.ops.device_traceback import assemble_site, trace_cells
-from sparksmithwaterman_tpu_torch.ops.recurrence import fill_pairs
+from sparksmithwaterman_tpu_torch.ops.cuda_score import (
+    argmax_lane, fill_dirs, max_cells_row, score_grid_row, trace_walk,
+)
+from sparksmithwaterman_tpu_torch.ops.device_traceback import assemble_site
 from sparksmithwaterman_tpu_torch.ops.traceback import degenerate_sites
 
 Cells = Tuple[int, np.ndarray]
@@ -227,11 +229,12 @@ def window_width(m: int, n: int, match: int, mismatch: int, gap: int) -> int:
 
 
 def _fill_walk_known(read_win, windows, cells, match, mismatch, gap, *, cap: int, tie_semantics: str):
-    """Window fill + device walk of one known max cell per pair.
+    """Window fill (K9, the codes alone) + walk (K10) of one known max cell
+    per pair.
 
     Returns (begins (B,), codes (B, cap)) in window coordinates."""
-    _h, dirs = fill_pairs(read_win, windows, match, mismatch, gap, tie_semantics=tie_semantics)
-    begins, codes = trace_cells(dirs, cells[:, None, :], cap)
+    _, dirs = fill_dirs(read_win, windows, match, mismatch, gap, tie_semantics=tie_semantics, want_h=False)
+    begins, codes = trace_walk(dirs, cells[:, None, :], cap)
     return begins[:, 0], codes[:, 0]
 
 

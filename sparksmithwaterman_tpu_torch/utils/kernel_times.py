@@ -16,7 +16,11 @@ them against one 131,072 bp ref (``K5_131k``: a launch of two blocks,
 which K5 splits into column segments).  K8 (where the tree has it) lists
 the cells at the bests of the 512 reads (at the width of their longest)
 against one 2 kb ref (``K8``) and of 16 against the 131,072 bp ref (``K8_131k``, split into
-column segments), the bests from K5.
+column segments), the bests from K5.  ``fill_walk`` is one dispatch of
+the windowed traceback (``longseq._fill_walk_known``: 64 reads of 80-150
+bp in windows of 512 columns), which K9 and K10 run where the tree has
+them (``K9``, ``K10``: each alone on those inputs); ``longref_traceback``
+is the bench's ``longref_traceback_ms`` (median of 3).
 """
 
 from __future__ import annotations
@@ -35,8 +39,9 @@ def _times(root: str) -> dict:
     import torch
 
     sys.path.insert(0, os.path.abspath(root))
+    from sparksmithwaterman_tpu_torch import bench
     from sparksmithwaterman_tpu_torch.io.fasta import READ_PAD, REF_PAD, encode_batch, encode_concat
-    from sparksmithwaterman_tpu_torch.ops import _cuda, cuda_score
+    from sparksmithwaterman_tpu_torch.ops import _cuda, cuda_score, longseq
     from sparksmithwaterman_tpu_torch.ops.packing import pack_reads
 
     if not torch.cuda.is_available():
@@ -110,6 +115,25 @@ def _times(root: str) -> dict:
     packed_7[:, 0] |= 256
     packed_7, refs_7 = up(packed_7), up(encode_batch(seqs([1024] * 64), 1024, REF_PAD))
     out["K7"] = ms(lambda: cuda_score.step_variant_best(packed_7, refs_7, variant="A"))
+    # One dispatch of the windowed traceback: 64 reads of 80-150 bp, each in
+    # a window of 512 columns ending at its copy in a 2 kb ref (REF_PAD on the
+    # left), walked from its last row.
+    ref_w = seqs([2000])[0]
+    lens_w = rng.integers(80, 151, 64)
+    ends_w = rng.integers(lens_w, 2001)
+    wins = np.full((64, 512), REF_PAD, np.uint8)
+    for t, e in enumerate(ends_w):
+        piece = ref_w[max(0, e - 402) : e]  # longseq.window_width(150, ...) columns
+        wins[t, 512 - len(piece) :] = encode_batch([piece], len(piece), REF_PAD)[0]
+    m_w = int(lens_w.max())
+    args_w = (up(encode_batch([ref_w[e - n : e] for e, n in zip(ends_w, lens_w)], m_w, READ_PAD)), up(wins),
+              up(np.stack([lens_w - 1, np.full(64, 511)], 1).astype(np.int32)))
+    out["fill_walk"] = ms(lambda: longseq._fill_walk_known(*args_w, *PARAMS, cap=m_w + 512, tie_semantics="serial"), 3)
+    if hasattr(cuda_score, "fill_dirs"):
+        out["K9"] = ms(lambda: cuda_score.fill_dirs(*args_w[:2], *PARAMS, tie_semantics="serial", want_h=False))
+        dirs_w = cuda_score.fill_dirs(*args_w[:2], *PARAMS, tie_semantics="serial", want_h=False)[1]
+        out["K10"] = ms(lambda: cuda_score.trace_walk(dirs_w, args_w[2][:, None, :], m_w + 512))
+    out["longref_traceback"] = bench.bench_longref(device=dev)[0]["traceback_ms"][0]
     return out, _registers(_cuda.build_info["log"])
 
 

@@ -4,15 +4,19 @@ CUDA card.
     python -m sparksmithwaterman_tpu_torch.utils.profile_scale [--out FILE] [--corpus-bp N]
     python -m sparksmithwaterman_tpu_torch.utils.profile_scale --workload long_ref --strategy shard_seq
     python -m sparksmithwaterman_tpu_torch.utils.profile_scale --no-pack-reads
+    python -m sparksmithwaterman_tpu_torch.utils.profile_scale --long-refs 0
 
 Builds the workload (``scale``: ``metrics.engineer_data.scale_corpus``, a
-RefSeq-shaped corpus plus 8 references of 131,072 bp, 512 reads;
-``long_ref``: ``long_ref_corpus``, references of 8 kb-1 Mb, 256 reads),
+RefSeq-shaped corpus plus ``--long-refs`` references of 131,072 bp
+(default 8), 512 reads; ``long_ref``: ``long_ref_corpus``, references of
+8 kb-1 Mb, 256 reads),
 runs ``run_pipeline`` with the strategy's backend once to build and warm
 up, twice timed, then once under ``torch.profiler`` with the pipeline's
 layers wrapped in named spans.  ``--no-pack-reads`` sets the config's
 ``pack_reads=False``: the batch backend then scores through the unpacked
-path (K4).
+path (K4).  With ``--long-refs 0`` the scale workload's winner is a
+RefSeq-shaped reference of a few kb, which takes the full-fill traceback
+(``L3c``) where the 131 kb winner takes the windowed one (``L3b``).
 
 - ``L1.parse``: reference-file parsing;
 - ``L2.score_flush``: one scoring flush on the host (encode, upload,
@@ -23,13 +27,18 @@ path (K4).
   ``L2.stage_grid`` its uploads and ``L2c.K4`` its K4 (or K5) calls;
 - ``L3.traceback``: one winner's traceback; ``L3a.max_cells`` (K2 and the
   in-lane-tie listing), ``L3b.window_fill_walk`` and ``L3c.full_fill``
-  its parts; ``L3a.K8`` the listing's K8 calls (``max_cells_row``).
+  its parts; ``L3a.K8`` the listing's K8 calls (``max_cells_row``);
+  ``L3b.K9`` and ``L3b.K10`` the window fills' K9 calls (``fill_dirs``)
+  and walks' K10 calls (``trace_walk``); ``L3c.K9`` and ``L3c.K10`` the
+  full fills' and their walks'.
 
 A span's time is its wall time on the host (nested spans count inside
 their parents).  Device time is summed per kernel or copy, over device
 events only: summing spans or ``aten`` operators too would count each
 kernel again.  The idle share is 1 - busy / wall of the profiled pass.
-The span wrappers exist only in this script; with ``--out`` the summary
+The span wrappers exist only in this script, and a function the
+package does not have is not wrapped (so the script also profiles an
+older tree put first on ``PYTHONPATH``); with ``--out`` the summary
 and the full operator table are also written to that file.
 """
 
@@ -70,19 +79,24 @@ SPANS = {
     "L3a.max_cells": ("batch_backend", "find_max_cells_batched"),
     "L3a.K8": ("longseq", "max_cells_row"),
     "L3b.window_fill_walk": ("batch_backend", "sites_for_ref_long_batched"),
+    "L3b.K9": ("longseq", "fill_dirs"),
+    "L3b.K10": ("longseq", "trace_walk"),
     "L3c.full_fill": ("backend", "_sites_full_fill"),
+    "L3c.K9": ("device_traceback", "fill_dirs"),
+    "L3c.K10": ("device_traceback", "trace_walk"),
 }
 
 
 def _instrument(backend_cls) -> None:
     from sparksmithwaterman_tpu_torch.models import batch_backend, pipeline
-    from sparksmithwaterman_tpu_torch.ops import longseq
+    from sparksmithwaterman_tpu_torch.ops import device_traceback, longseq
     from sparksmithwaterman_tpu_torch.parallel import seqparallel
 
     owners = {"pipeline": pipeline, "batch_backend": batch_backend, "seqparallel": seqparallel, "longseq": longseq,
-              "backend": backend_cls}
+              "device_traceback": device_traceback, "backend": backend_cls}
     for span, (owner, name) in SPANS.items():
-        _wrap(owners[owner], name, span)
+        if hasattr(owners[owner], name):
+            _wrap(owners[owner], name, span)
 
 
 def main(argv=None) -> int:
@@ -91,6 +105,7 @@ def main(argv=None) -> int:
     parser.add_argument("--workload", choices=["scale", "long_ref"], default="scale")
     parser.add_argument("--strategy", choices=["batch", "shard_seq"], default="batch")
     parser.add_argument("--corpus-bp", type=int, default=None, help="default 64 Mbp (scale), 16 Mbp (long_ref)")
+    parser.add_argument("--long-refs", type=int, default=8, help="scale workload: references of 131,072 bp")
     parser.add_argument("--seed", type=int, default=20261016)
     parser.add_argument("--no-pack-reads", dest="pack_reads", action="store_false",
                         help="AlignConfig(pack_reads=False): score through the unpacked path (K4)")
@@ -111,7 +126,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory(prefix="swtorch_profile_") as work:
         if args.workload == "scale":
-            corpus = scale_corpus(work, corpus_bp=args.corpus_bp or 64_000_000, seed=args.seed)
+            corpus = scale_corpus(work, corpus_bp=args.corpus_bp or 64_000_000, long_refs=args.long_refs,
+                                  seed=args.seed)
         else:
             corpus = long_ref_corpus(work, args.corpus_bp or 16_000_000, seed=args.seed)
         cells = corpus["ref_bp"] * corpus["read_bp"]
@@ -147,6 +163,7 @@ def main(argv=None) -> int:
     busy = sum(kernels.values()) / 1e6
     lines = [
         f"profile_scale: {args.workload} workload, {args.strategy}, pack_reads={args.pack_reads}, "
+        f"long_refs={args.long_refs if args.workload == 'scale' else 0}, "
         f"{torch.cuda.get_device_name(0)}: "
         f"{corpus['read_bp']} read bp x {corpus['ref_bp']} ref bp",
         "walls s (the first builds and warms up): " + ", ".join(f"{w:.3f}" for w in walls)
