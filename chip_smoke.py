@@ -14,7 +14,10 @@ port's main path (``swtorch align --strategy batch``) end to end:
    the ALU instructions per cell of both forms' inner loops at every L
    (K1, K4) and of K5's s16x2 row loop; K8's s16x2 kernel runs that
    instruction too, and none of K8's three kernels spills, nor K9's two
-   (one per tie order) or K10's;
+   (one per tie order) or K10's; K6's and K7's s16x2 kernels (every L,
+   K6 masked or not, K7's A, B, D, E) run it and spill nothing, and K6's
+   inner loop takes no more ALU instructions per cell than sweep_s16x2's
+   (K4's) at L = 4, the bench's width;
 1. K1 (packed lane best) against its plain version, in both forms
    (``cuda_score.k1_form``): 512 reads x 256 RefSeq-shaped refs, every
    start lane, and the two forms timed on them in turns (int32, s16x2,
@@ -89,16 +92,28 @@ port's main path (``swtorch align --strategy batch``) end to end:
     4,096 bp, through K4; on 1, 2 and 4 cards where the host has four)
     and ``--axis seq``; the refs totals of a subset of refs equal the
     row-form recurrence;
-11. K6 (step chain) against its plain version: 512 x 128 and 248 x 256
-    lanes, 131,072 steps, unroll 64, with and without the moving
-    boundary; small cases (32-1,024 lanes, odd unroll, start lanes);
+11. K6 (step chain) against its plain version, each call in the form
+    ``cuda_score.k6_form`` gives: the JAX microbench's rows (no start bit,
+    int32) at 512 x 128 and 248 x 256 lanes, 131,072 steps, unroll 64,
+    with and without the moving boundary, and the public wrapper's
+    lane-0 read timed against the int32 form given; the bench's rows
+    (lane 0 a start, s16x2) at ``bench.roofline_rows``; the two forms
+    timed in turns (int32, s16x2, s16x2, int32) at 512 and at the
+    card-filling rows, each form's result held; the s16x2 rate at 8 x SMs
+    x w rows for w = 1-32 (no w may beat the bench's by more than 5%);
+    the steps bound's edge (a row at 32,767 in s16x2, two steps more in
+    int32); small cases in both forms (8 and 7 rows of 32-1,024 lanes,
+    odd unroll, start lanes, masked or not);
 12. K7 (packed step variants A-E) against its plain version at 248 rows
-    of 256 lanes x 64 refs of 1,024 bp and in small cases; the suffix
-    max of E equals A;
+    of 256 lanes x 64 refs of 1,024 bp and in small cases of odd and
+    even row counts, A, B, D and E in both forms (s16x2 by the rule),
+    C in int32; each variant's two forms timed in turns at the first
+    shape; the suffix max of E equals A;
 13. the port's bench (``bench.run_bench``, one pass per leg, the e2e leg
     at 64 reads and readscale at 5,000: parity against the oracle, the
-    smoke of every kernel, the line's keys) and the two experiments at
-    reduced sizes;
+    smoke of every kernel, the line's keys; K4 on the kernel leg and K6
+    on the roofline leg only in s16x2, and ``kernel_pct_roofline`` at most
+    100%) and the two experiments at reduced sizes;
 14. long reads: K1-K5 on rows (reads) of 1,025, 2,048, 4,096 and 16,384
     lanes, swept in stripes of 512, against their plain versions (reads
     over every stripe, starting on stripe boundaries and crossing them;
@@ -117,11 +132,12 @@ port's main path (``swtorch align --strategy batch``) end to end:
     recomputation.
 
 Launch counts are reset just before each main-path leg and read just
-after it, K1's, K4's, K5's and K8's per form too (``cuda_score.K1_FORMS``,
-``K4_FORMS``, ``K5_FORMS``, ``K8_FORMS``): every K1 launch of phases 3-4, 7 and 13,
-every K4 launch of phases 9, 10 and 13 and every K5 launch of phase 9
-must take the s16x2 form, every one at rows (reads) of more than 1,024
-lanes in 14 the int32 form.  The legs:
+after it, K1's, K4's, K5's, K6's, K7's and K8's per form too
+(``cuda_score.K1_FORMS`` .. ``K8_FORMS``): every K1 launch of phases
+3-4, 7 and 13, every K4 launch of phases 9, 10 and 13, every K5 launch
+of phase 9 and every K6 launch of the bench's roofline leg must take the
+s16x2 form, every one at rows (reads) of more than 1,024 lanes in 14 the
+int32 form; K6 and K7 must launch in both forms over the legs.  The legs:
 phases 3-4 (batch; K1
 and K2 must launch, and the traceback's K9 and K10), 6 (shard_seq and
 batch; K3 and K8, and K9 and K10 in each),
@@ -309,6 +325,18 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def in_turns(fn, iters: int):
+    """A kernel's two forms on the same inputs, fn(form) for form "int32"
+    and "s16x2": ({form: [ms, ms]} timed in turns int32, s16x2, s16x2,
+    int32; {form: fn(form)} of one call each before the timing), so that
+    the caller holds both forms' results as well as their times."""
+    outs = {form: fn(form) for form in ("int32", "s16x2")}
+    turns = collections.defaultdict(list)
+    for form in ("int32", "s16x2", "s16x2", "int32"):
+        turns[form].append(cuda_ms(lambda: fn(form), iters))
+    return turns, outs
+
+
 def register_summary(ptxas_log: str):
     """{kernel: ["[L=<lanes>:]<registers>r[+<spill bytes>s]", ...]} from nvcc's -Xptxas -v log."""
     out, current = collections.defaultdict(list), None
@@ -369,6 +397,7 @@ def main() -> int:
     from sparksmithwaterman_tpu_torch.ops import longseq
     from sparksmithwaterman_tpu_torch.ops.device_traceback import path_cap
     from sparksmithwaterman_tpu_torch.ops.longseq import find_max_cells_batched, sites_for_ref_long_batched
+    from sparksmithwaterman_tpu_torch.ops.microbench import roofline_reads
     from sparksmithwaterman_tpu_torch.ops.packing import START_BIT, pack_reads, read_best
     from sparksmithwaterman_tpu_torch.ops.recurrence import score_grid
     from sparksmithwaterman_tpu_torch.parallel import SeqParallelBackend, ShardedBackend, build_mesh, sharded_totals
@@ -405,8 +434,10 @@ def main() -> int:
     # K1's and K4's two forms in the built library: every s16x2 kernel must
     # run the DPX instruction of __viaddmax_s16x2_relu and spill nothing.
     lib_sass = sass_functions(os.path.join(os.path.dirname(nvcc), "cuobjdump"), _cuda.build_info["path"])
+    s16x2_cell = {}  # K1's and K4's s16x2 inner loops: ALU instructions per cell at each L
     for k, name in (("K1", "lane_best"), ("K4", "score_grid")):
         per_cell = collections.defaultdict(dict)
+        s16x2_cell[k] = per_cell["s16x2"]
         for fname, instrs in lib_sass.items():
             hit = re.search(rf"\d({name}_s16x2_kernel|{name}_kernel)ILi(\d+)E", fname)
             if hit:
@@ -451,6 +482,36 @@ def main() -> int:
     fail_unless(len(k910_regs.get("fill_dirs_kernel", [])) == 2 and len(k910_regs.get("trace_walk_kernel", [])) == 1
                 and not any("s" in w for ws in k910_regs.values() for w in ws), f"K9's and K10's kernels: {k910_regs}")
     print(f"[0] K9 and K10 ptxas: registers {k910_regs} (no spill)", flush=True)
+    # K6's and K7's s16x2 kernels (every L, K6 masked or not, K7's variants
+    # A, B, D, E): each runs the DPX instruction and spills nothing, and
+    # K6's inner loop, the bench's yardstick for K4, takes no more ALU
+    # instructions per cell than sweep_s16x2's (K4's) at the bench's L = 4.
+    k67_cell = collections.defaultdict(dict)
+    for fname, instrs in lib_sass.items():
+        for k, pattern in (("K6", r"\dstep_chain_s16x2_kernelILi(\d+)ELb([01])E"),
+                           ("K7", r"\dstep_variant_s16x2_kernelILi(\d+)ELi(\d+)E")):
+            hit = re.search(pattern, fname)
+            if hit:
+                fail_unless(relu_ops[0] in {op for _, op, _ in instrs},
+                            f"{k}'s s16x2 kernel {hit.group(1, 2)} lacks {relu_ops[0]}")
+                k67_cell[k][int(hit.group(1)), int(hit.group(2))] = inner_loop_per_cell(instrs, 2)
+    fail_unless(sorted(k67_cell["K6"]) == [(l, mk) for l in _LANES for mk in (0, 1)]
+                and sorted(k67_cell["K7"]) == [(l, v) for l in (1, 2, 4, 8, 16, 32) for v in (0, 1, 3, 4)],
+                f"K6's and K7's s16x2 kernels in the SASS: {sorted(k67_cell['K6'])}, {sorted(k67_cell['K7'])}")
+    k67_regs = {k: w for k, w in register_summary(_cuda.build_info["log"]).items()
+                if k in ("step_chain_s16x2_kernel", "step_variant_s16x2_kernel")}
+    fail_unless(len(k67_regs.get("step_chain_s16x2_kernel", [])) == 2 * len(_LANES)
+                and len(k67_regs.get("step_variant_s16x2_kernel", [])) == 4 * 6
+                and not any("s" in w.split(":")[-1] for ws in k67_regs.values() for w in ws),
+                f"K6's and K7's s16x2 kernels spill: {k67_regs}")
+    fail_unless(k67_cell["K6"][4, 0] <= s16x2_cell["K4"][4],
+                f"K6's s16x2 loop takes {k67_cell['K6'][4, 0]:.3f} ALU instructions a cell at L=4, "
+                f"sweep_s16x2 (K4) {s16x2_cell['K4'][4]:.3f}: not a ceiling for K4")
+    print(f"[0] K6 and K7 SASS: every s16x2 kernel runs {relu_ops[0]}, none spills; ALU instructions per cell of "
+          f"the inner loop, L: K6 | K6 masked | K7 A | sweep_s16x2 (K4): " + ", ".join(
+              f"{l}: {k67_cell['K6'][l, 0]:.3f} | {k67_cell['K6'][l, 1]:.3f} | "
+              + (f"{k67_cell['K7'][l, 0]:.3f}" if (l, 0) in k67_cell["K7"] else "-")
+              + f" | {s16x2_cell['K4'][l]:.3f}" for l in _LANES), flush=True)
 
     def up(arr):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
@@ -533,9 +594,7 @@ def main() -> int:
     cells_1 = sum(map(len, reads_1)) * sum(map(len, refs_1))
     k1_bytes = sum(t.numel() * t.element_size() for t in args_1) + len(refs_1) * args_1[0].numel() * 4
     k1_bound_ms, k1_bound_by = bound(cells_1, k1_bytes, sms, clock_mhz)
-    k1_ab = collections.defaultdict(list)  # the two forms on the same inputs, in turns
-    for form in ("int32", "s16x2", "s16x2", "int32"):
-        k1_ab[form].append(cuda_ms(lambda: k1(cuda_score._lane_best_packed_varlen, args_1, form=form), 10))
+    k1_ab, _ = in_turns(lambda form: k1(cuda_score._lane_best_packed_varlen, args_1, form=form), 10)
     k1_ms, k1_int32_ms = (float(np.mean(k1_ab[form])) for form in ("s16x2", "int32"))
     print(f"[1] K1 512 reads x 256 refs (500-4000 bp, flat buffer), rows {tuple(args_1[0].shape)}: max abs err 0 in "
           f"both forms; in turns int32 {k1_ab['int32'][0]:.3f}, s16x2 {k1_ab['s16x2'][0]:.3f}, s16x2 "
@@ -1280,12 +1339,11 @@ def main() -> int:
               f"and to each other; K5 s16x2 as one segment {k5_unsplit_ms:.3f} ms (bound {k5l_bound_ms:.3f} ms)",
               flush=True)
 
-        def in_turns(k, fn, args, iters, cells, bound_ms):
-            """{form: mean ms} of a kernel's two forms on the same inputs,
-            timed in turns int32, s16x2, s16x2, int32."""
-            turns = collections.defaultdict(list)
-            for form in ("int32", "s16x2", "s16x2", "int32"):
-                turns[form].append(cuda_ms(lambda: fn(*args, *PARAMS, form=form), iters))
+        def k45_turns(k, fn, args, iters, cells, bound_ms):
+            """{form: mean ms} of K4's or K5's two forms on the same inputs
+            (:func:`in_turns`), which must agree."""
+            turns, outs = in_turns(lambda form: fn(*args, *PARAMS, form=form), iters)
+            fail_unless(torch.equal(outs["int32"], outs["s16x2"]), f"{k}'s two forms differ at {tuple(args[0].shape)}")
             ab = {form: float(np.mean(v)) for form, v in turns.items()}
             s16, i32 = ab["s16x2"], ab["int32"]
             print(f"[8] {k} {tuple(args[0].shape)} reads x {tuple(args[1].shape)} refs, in turns int32 "
@@ -1299,11 +1357,11 @@ def main() -> int:
         # kernel table's row), the same reads at 150 lanes, and the 131 kb
         # refs (K5: 16 reads x one, split).
         cells_8l = sum(map(len, reads_l)) * 2 * LONG_N
-        k4_ab = {key: in_turns("K4", cuda_score._score_grid_diag, *case)
+        k4_ab = {key: k45_turns("K4", cuda_score._score_grid_diag, *case)
                  for key, *case in (("256", args_8, 10, cells_8, grid_bound_ms),
                                     ("150", args_150, 10, cells_8, k4_150_bound_ms),
                                     ("131k", args_8l, 3, cells_8l, k4l_bound_ms))}
-        k5_ab = {key: in_turns("K5", cuda_score._score_grid_row, *case)
+        k5_ab = {key: k45_turns("K5", cuda_score._score_grid_row, *case)
                  for key, *case in (("256", args_8, 10, cells_8, grid_bound_ms),
                                     ("150", args_150, 10, cells_8, k4_150_bound_ms),
                                     ("131k", args_8r, 3, cells_8r, k5l_bound_ms))}
@@ -1447,33 +1505,122 @@ def main() -> int:
                 reads[r.random((rb, m)) < 1 / 12] |= 256
             return up(reads)
 
+        def k6_run(reads, form, *args, **kw):
+            """K6 through its public wrapper, failing unless it took ``form``."""
+            cuda_score.reset_launches()
+            got = cuda_score.step_chain_best(reads, *args, **kw)
+            fail_unless(cuda_score.K6_FORMS[form] == 1, f"K6 took {cuda_score.K6_FORMS}, not {form}, at "
+                                                        f"{tuple(reads.shape)} {kw}")
+            return got
+
         k6 = {}
+        # The JAX microbench's inputs (codes 2-5, no start bit): row 0 grows
+        # around the ring, so at 131,072 steps the rule gives int32.
         for rb, m in ((512, 128), (248, 256)):
-            reads = chain_reads(rb, m, False, 0)  # the JAX microbench's inputs
+            reads = chain_reads(rb, m, False, 0)
             for masked in (False, True):
-                got = cuda_score.step_chain_best(reads, steps=LONG_N, unroll=64, masked=masked)
+                got = k6_run(reads, "int32", steps=LONG_N, unroll=64, masked=masked)
                 want, plain_ms = host_ms(lambda: cuda_score.step_chain_best_plain(reads, LONG_N, 64, *PARAMS, masked))
                 err = max_err(got, want)
                 fail_unless(err == 0, f"K6 {rb} x {m} masked={masked} differs from plain ({err})")
                 ms = cuda_ms(lambda: cuda_score.step_chain_best(reads, steps=LONG_N, unroll=64, masked=masked), 5)
                 cells = rb * m * LONG_N
                 k6[rb, m, masked] = (ms, plain_ms, *bound(cells, 8 * rb * m, sms, clock_mhz))
-                print(f"[11] K6 {rb} x {m}, {LONG_N} steps, unroll 64, masked={masked}: max abs err 0; kernel "
-                      f"{ms:.3f} ms ({cells / ms / 1e6:.1f} padded GCUPS), plain {plain_ms:.1f} ms; bound "
+                print(f"[11] K6 {rb} x {m}, {LONG_N} steps, unroll 64, masked={masked}, the JAX inputs (int32): max abs "
+                      f"err 0; kernel {ms:.3f} ms ({cells / ms / 1e6:.1f} padded GCUPS), plain {plain_ms:.1f} ms; bound "
                       f"{k6[rb, m, masked][2]:.3f} ms by {k6[rb, m, masked][3]} = "
                       f"{100 * k6[rb, m, masked][2] / ms:.1f}% of the kernel's time", flush=True)
+        # The lane-0 read: the public wrapper reads lane 0 of every row (one
+        # reduction and one sync) on each call where the rule needs it, the
+        # int32 form given reads nothing.  Both in turns on the JAX inputs.
+        reads = chain_reads(512, 128, False, 0)
+        chain_ways = {"public": lambda: cuda_score.step_chain_best(reads, steps=LONG_N, unroll=64),
+                      "given": lambda: cuda_score._step_chain_best(reads, steps=LONG_N, unroll=64, form="int32")}
+        read_turns = collections.defaultdict(list)
+        for way in ("public", "given", "given", "public"):
+            read_turns[way].append(cuda_ms(chain_ways[way], 10))
+        read_ms = float(np.mean(read_turns["public"]) - np.mean(read_turns["given"]))
+        print(f"[11] K6 512 x 128, the JAX inputs, in turns: public wrapper (reads lane 0) "
+              f"{read_turns['public'][0]:.3f}, int32 given {read_turns['given'][0]:.3f}, "
+              f"{read_turns['given'][1]:.3f}, public {read_turns['public'][1]:.3f} ms: the read costs {read_ms:.3f} ms "
+              f"a call ({100 * read_ms / np.mean(read_turns['public']):.1f}%)", flush=True)
+        # The bench's rows (START_BIT on lane 0 of every row, as each read
+        # restarts there): s16x2 at the card-filling rows, against plain; the
+        # two forms in turns there and at 512 rows, each agreeing (lane 0
+        # read once, outside the timed calls, as the bench does).
+        rb_fill, steps_fill = bench.roofline_rows(dev), bench.ROOFLINE_STEPS
+        reads_fill = up(roofline_reads(rb_fill, 128, lane0_starts=True))
+        got = k6_run(reads_fill, "s16x2", steps=steps_fill, unroll=64)
+        want, fill_plain_ms = host_ms(lambda: cuda_score.step_chain_best_plain(reads_fill, steps_fill, 64, *PARAMS,
+                                                                               False))
+        fail_unless(max_err(got, want) == 0, f"K6 s16x2 {rb_fill} x 128 differs from plain ({max_err(got, want)})")
+        k6_turns = {}
+        for rb in (512, rb_fill):
+            reads = reads_fill if rb == rb_fill else up(roofline_reads(rb, 128, lane0_starts=True))
+            starts = cuda_score.lane0_starts(reads)
+            k6_turns[rb], outs = in_turns(lambda form: cuda_score._step_chain_best(reads, steps=steps_fill, unroll=64,
+                                                                                   form=form, starts=starts), 3)
+            fail_unless(torch.equal(outs["int32"], outs["s16x2"]) and (rb != rb_fill or torch.equal(outs["int32"], want)),
+                        f"K6's two forms differ (or differ from plain) at {rb} x 128 of the bench's rows")
+        fill_bound = bound(rb_fill * 128 * steps_fill, 8 * rb_fill * 128, sms, clock_mhz)
+        rows512_bound = bound(512 * 128 * steps_fill, 8 * 512 * 128, sms, clock_mhz)
+        print(f"[11] K6 the bench's rows ({rb_fill} = 8 x {sms} SMs x {bench.ROOFLINE_WARPS} rows x 128 lanes, "
+              f"lane 0 a start, {steps_fill} steps): s16x2 equal to plain (plain {fill_plain_ms:.1f} ms), int32 equal "
+              f"to s16x2; in turns "
+              + "; ".join(f"{rb} rows: int32 {t['int32'][0]:.3f}, s16x2 {t['s16x2'][0]:.3f}, s16x2 "
+                          f"{t['s16x2'][1]:.3f}, int32 {t['int32'][1]:.3f} ms"
+                          f" ({rb * 128 * steps_fill / min(t['s16x2']) / 1e6:.1f} and "
+                          f"{rb * 128 * steps_fill / min(t['int32']) / 1e6:.1f} GCUPS)" for rb, t in k6_turns.items())
+              + f"; bound {fill_bound[0]:.3f} ms by {fill_bound[1]} at {rb_fill} rows, {rows512_bound[0]:.3f} at 512",
+              flush=True)
+        # Warps a scheduler: the bench's w must be one that no larger w beats
+        # in K6's s16x2 rate by more than 5% (the leg is K4's ceiling).
+        w_rates = {}
+        for w in (1, 2, 4, 8, 16, 32):
+            rb = bench.roofline_rows(dev, w)
+            reads = up(roofline_reads(rb, 128, lane0_starts=True))
+            starts = cuda_score.lane0_starts(reads)
+            steps_w = steps_fill * bench.ROOFLINE_WARPS // w
+            w_ms = cuda_ms(lambda: cuda_score._step_chain_best(reads, steps=steps_w, unroll=64, starts=starts), 5)
+            w_rates[w] = (rb * 128 * steps_w / w_ms / 1e6, w_ms)
+        pick = min(w for w in w_rates if all(r <= 1.05 * w_rates[w][0] for w2, (r, _) in w_rates.items() if w2 > w))
+        print(f"[11] K6 s16x2 rate at 8 x {sms} x w rows of 128 lanes (steps x w constant): " + ", ".join(
+            f"w={w} {r:.1f} GCUPS ({ms:.3f} ms)" for w, (r, ms) in w_rates.items())
+              + f"; the smallest w that no larger w beats by more than 5% is {pick}, the bench runs "
+              f"w={bench.ROOFLINE_WARPS}", flush=True)
+        fail_unless(max(r for r, _ in w_rates.values()) <= 1.05 * w_rates[bench.ROOFLINE_WARPS][0],
+                    f"K6's rate at w={bench.ROOFLINE_WARPS} is beaten by more than 5%: the roofline leg is no ceiling")
+
+        def k6_both(reads, rule_form, steps, unroll, masked=False, params=PARAMS):
+            """K6 at the rule's form (through the public wrapper) and in int32
+            given, each held to plain: the max abs error and the plain result."""
+            want = cuda_score.step_chain_best_plain(reads, steps, unroll, *params, masked)
+            kw = dict(steps=steps, unroll=unroll, masked=masked, match=params[0], mismatch=params[1], gap=params[2])
+            err = max(max_err(k6_run(reads, rule_form, **kw), want),
+                      max_err(cuda_score._step_chain_best(reads, form="int32", **kw), want))
+            return err, want
+
+        # The steps bound's edge: row 0 of the microbench's inputs gains 7
+        # every two steps, 7 x 4,681 = 32,767 after 9,362 steps (s16x2);
+        # two steps more take int32.
+        reads = chain_reads(8, 128, False, 1)
+        for steps, unroll, form, top in ((9362, 62, "s16x2", 32767), (9364, 2, "int32", 32774)):
+            err, want = k6_both(reads, form, steps, unroll, params=(7, -3, -4))
+            fail_unless(err == 0 and int(want.max()) == top,
+                        f"K6 at the steps bound's edge ({steps} steps, {form}): max {int(want.max())}, err {err}")
         n_small = 0
         for m in (32, 96, 128, 1024):
-            for starts in (False, True):
-                reads = chain_reads(8, m, starts, m)
+            for rb, starts in ((8, False), (8, True), (7, True)):
+                reads = chain_reads(rb, m, starts, m + rb)
                 for unroll, masked in ((8, False), (7, False), (7, True), (1, True), (64, True)):
-                    err = max_err(cuda_score.step_chain_best(reads, steps=1500, unroll=unroll, masked=masked),
-                                  cuda_score.step_chain_best_plain(reads, 1500, unroll, *PARAMS, masked))
-                    fail_unless(err == 0, f"K6 differs from plain at m={m}, starts={starts}, unroll={unroll}, "
+                    err, _ = k6_both(reads, "s16x2", 1500, unroll, masked)
+                    fail_unless(err == 0, f"K6 differs from plain at {rb} x {m}, starts={starts}, unroll={unroll}, "
                                           f"masked={masked} ({err})")
                     n_small += 1
-        print(f"[11] K6 against plain in {n_small} small cases (8 rows of 32, 96, 128 and 1024 lanes, 1,500 steps, "
-              f"unroll 8, 7, 1 and 64, start lanes or not, masked or not): max abs err 0", flush=True)
+        print(f"[11] K6 in both forms (s16x2 by the rule, int32 given) against plain in {n_small} small cases (8 and "
+              f"7 rows of 32, 96, 128 and 1024 lanes, 1,500 steps, unroll 8, 7, 1 and 64, start lanes or not, masked "
+              f"or not) and at the steps bound's edge (7/-3/-4, 9,362 steps, row 0 at 32,767; 9,364 steps in int32 "
+              f"only, 32,774): max abs err 0", flush=True)
 
         # -- 12. K7 against its plain version ----------------------------------------
         packed_12 = np.random.default_rng(0).integers(65, 85, size=(248, 256)).astype(np.int32)
@@ -1484,35 +1631,61 @@ def main() -> int:
         cells_12 = 248 * 256 * 64 * 1024
         bytes_12 = packed_12.numel() * 4 + refs_12.numel() + 64 * packed_12.numel() * 4
         k7_bound_ms, k7_bound_by = bound(cells_12, bytes_12, sms, clock_mhz)
+
+        def k7_forms(packed, refs, variant, unroll=16):
+            """K7 at the rule's form (through the public wrapper; every
+            variant s16x2 but C) and, but for C, in int32 given: {form:
+            result}."""
+            cuda_score.reset_launches()
+            rule_form = "int32" if variant == "C" else "s16x2"
+            outs = {rule_form: cuda_score.step_variant_best(packed, refs, variant=variant, unroll=unroll)}
+            fail_unless(cuda_score.K7_FORMS[rule_form] == 1,
+                        f"K7 {variant} took {cuda_score.K7_FORMS} at {tuple(packed.shape)} x {tuple(refs.shape)}")
+            if variant != "C":
+                outs["int32"] = cuda_score._step_variant_best(packed, refs, variant=variant, unroll=unroll,
+                                                              form="int32")
+            return outs
+
         for variant in cuda_score.STEP_VARIANTS:
-            got = cuda_score.step_variant_best(packed_12, refs_12, variant=variant)
+            outs = k7_forms(packed_12, refs_12, variant)
             want, plain_ms = host_ms(lambda: cuda_score.step_variant_best_plain(packed_12, refs_12, variant, 16, *PARAMS))
-            k7_max_err = max(k7_max_err, max_err(got, want))
-            fail_unless(k7_max_err == 0, f"K7 variant {variant} differs from plain ({k7_max_err})")
-            k7[variant] = (cuda_ms(lambda: cuda_score.step_variant_best(packed_12, refs_12, variant=variant), 10),
-                           plain_ms, got)
+            if variant == "C":
+                ms_c = cuda_ms(lambda: cuda_score.step_variant_best(packed_12, refs_12, variant="C"), 10)
+                turns = {"int32": [ms_c, ms_c], "s16x2": [None, None]}
+            else:
+                turns, timed = in_turns(lambda form: cuda_score._step_variant_best(packed_12, refs_12, variant=variant,
+                                                                                   form=form), 10)
+                outs.update({f"timed {form}": got for form, got in timed.items()})
+            k7_max_err = max(k7_max_err, *(max_err(got, want) for got in outs.values()))
+            fail_unless(k7_max_err == 0, f"K7 variant {variant} differs from plain in a form ({k7_max_err})")
+            k7[variant] = (turns, plain_ms, outs["int32"])
         fail_unless(torch.equal(cuda_score.segmented_suffix_max(k7["E"][2], packed_12 >= 256), k7["A"][2]),
                     "the suffix max of K7's E differs from A")
         fail_unless(torch.equal(k7["C"][2], k7["A"][2]), "K7's C differs from A")
-        print(f"[12] K7 248 x 256 x 64 refs of 1024 bp, unroll 16: every variant equal to plain, suffix max of E "
-              f"and C equal to A; " + ", ".join(
-                  f"{v} {ms:.3f} ms ({cells_12 / ms / 1e6:.1f} padded GCUPS, plain {p:.1f} ms)"
-                  for v, (ms, p, _) in k7.items())
-              + f"; bound {k7_bound_ms:.3f} ms by {k7_bound_by} = {100 * k7_bound_ms / k7['A'][0]:.1f}% of A's time",
-              flush=True)
+        print(f"[12] K7 248 x 256 x 64 refs of 1024 bp, unroll 16: every variant equal to plain in both forms (A, B, D, "
+              f"E; C in int32 only), suffix max of E and C equal to A; in turns int32, s16x2, s16x2, int32: " + "; ".join(
+                  f"{v} " + (f"{t['int32'][0]:.3f}, {t['s16x2'][0]:.3f}, {t['s16x2'][1]:.3f}, {t['int32'][1]:.3f} ms "
+                             f"({cells_12 / min(t['s16x2']) / 1e6:.1f} padded GCUPS)" if v != "C" else
+                             f"int32 only {t['int32'][0]:.3f} ms") + f", plain {p:.1f} ms"
+                  for v, (t, p, _) in k7.items())
+              + f"; bound {k7_bound_ms:.3f} ms by {k7_bound_by} = "
+              f"{100 * k7_bound_ms / min(k7['A'][0]['s16x2']):.1f}% of A's s16x2 time", flush=True)
         n_small = 0
-        for m, n, unroll in ((32, 40, 16), (64, 1, 7), (128, 300, 16), (512, 64, 5), (1024, 100, 16)):
+        for m, n, unroll, rows in ((32, 40, 16, 8), (64, 1, 7, 7), (128, 300, 16, 13), (512, 64, 5, 8),
+                                   (1024, 100, 16, 7)):
             reads_e = rand_seqs(rng, rng.integers(1, min(m, 150) + 1, size=40)) + [""]
-            packed_e = up(pack_reads(reads_e, m, row_multiple=8)[0])
+            packed_e = up(pack_reads(reads_e, m, row_multiple=8)[0][:rows])
             refs_e = up(encode_batch(rand_seqs(rng, [n] * 3), n, REF_PAD))
             for variant in cuda_score.STEP_VARIANTS:
-                err = max_err(cuda_score.step_variant_best(packed_e, refs_e, variant=variant, unroll=unroll),
-                              cuda_score.step_variant_best_plain(packed_e, refs_e, variant, unroll, *PARAMS))
-                fail_unless(err == 0, f"K7 {variant} differs from plain at m={m}, n={n}, unroll={unroll} ({err})")
-                k7_max_err = max(k7_max_err, err)
+                want = cuda_score.step_variant_best_plain(packed_e, refs_e, variant, unroll, *PARAMS)
+                for form, got in k7_forms(packed_e, refs_e, variant, unroll).items():
+                    err = max_err(got, want)
+                    fail_unless(err == 0, f"K7 {variant} {form} differs from plain at {rows} x {m}, n={n}, "
+                                          f"unroll={unroll} ({err})")
+                    k7_max_err = max(k7_max_err, err)
                 n_small += 1
-        print(f"[12] K7 against plain in {n_small} small cases (packed rows of 32-1024 lanes, refs of 1-300 bp, "
-              f"unroll 5, 7 and 16): max abs err 0", flush=True)
+        print(f"[12] K7 against plain in {n_small} small cases (7-13 packed rows of 32-1024 lanes, refs of 1-300 bp, "
+              f"unroll 5, 7 and 16; A, B, D, E in both forms, C in int32): max abs err 0", flush=True)
 
         # -- 13. the port's bench, and the two probes of experiments/ -------------------
         # Full sizes but two cuts: the e2e leg's oracle parity check is pure
@@ -1534,19 +1707,24 @@ def main() -> int:
                             ("readscale", "lane_best_packed_varlen"), ("longref", "lane_best_packed_varlen"),
                             ("longref", "argmax_lane"), ("roofline", "step_chain_best")):
             fail_unless(bench_launches[leg][kernel] > 0, f"{kernel} never launched on the bench's {leg} leg")
+        k6_main_forms, k7_main_forms = collections.Counter(), collections.Counter()  # K6's, K7's on the main path
         for leg, counts in bench_launches.items():
-            for k, name in (("k1", "lane_best_packed_varlen"), ("k4", "score_grid_diag")):
+            for k, name in (("k1", "lane_best_packed_varlen"), ("k4", "score_grid_diag"), ("k6", "step_chain_best")):
                 fail_unless(counts[f"{k}_s16x2"] == counts[name],
                             f"{k.upper()} launches of the bench's {leg} leg not all in the s16x2 form: {counts}")
-            k1_main_forms.update({form: counts[f"k1_{form}"] for form in cuda_score.K1_FORMS})
-            k4_main_forms.update({form: counts[f"k4_{form}"] for form in cuda_score.K4_FORMS})
-            k8_main_forms.update({form: counts[f"k8_{form}"] for form in cuda_score.K8_FORMS})
+            for k, forms in (("k1", k1_main_forms), ("k4", k4_main_forms), ("k6", k6_main_forms),
+                             ("k7", k7_main_forms), ("k8", k8_main_forms)):
+                forms.update({form: counts[f"{k}_{form}"] for form in cuda_score.K1_FORMS})
+        # F8: K4's step rate over K6's, both in the s16x2 form, is a share
+        # of a ceiling only if it is at most 100%.
+        fail_unless(result["kernel_pct_roofline"] <= 100,
+                    f"kernel_pct_roofline {result['kernel_pct_roofline']:.1f}% > 100%: K6 is not a ceiling for K4")
         print(f"[13] bench legs (one pass each, parity against the oracle passed, smoke {result['smoke']}) in "
               f"{bench_s:.1f} s: {json.dumps(result)}", flush=True)
         print(f"[13] launches per bench leg: {json.dumps(bench_launches)}", flush=True)
         from sparksmithwaterman_tpu_torch.experiments import packed_step_variants, triangle_timepack
 
-        probe_launches = {}
+        probe_launches, probe_forms = {}, {}
         for name, module, argv in (("triangle_timepack", triangle_timepack, ["--steps", "16384"]),
                                    ("packed_step_variants", packed_step_variants, ["--n", "256"])):
             out = io.StringIO()
@@ -1554,11 +1732,19 @@ def main() -> int:
             with contextlib.redirect_stdout(out):
                 fail_unless(module.main(argv) == 0, f"experiments.{name} failed")
             probe_launches[name] = dict(cuda_score.LAUNCHES)
+            k6_main_forms.update(cuda_score.K6_FORMS)
+            k7_main_forms.update(cuda_score.K7_FORMS)
+            probe_forms[name] = {"k6": dict(cuda_score.K6_FORMS), "k7": dict(cuda_score.K7_FORMS)}
             for line in out.getvalue().splitlines():
                 print(f"[13] {name} {' '.join(argv)}: {line}", flush=True)
         fail_unless(probe_launches["triangle_timepack"]["step_chain_best"] > 0, "K6 never launched by triangle_timepack")
         fail_unless(probe_launches["packed_step_variants"]["step_variant_best"] > 0,
                     "K7 never launched by packed_step_variants")
+        # The probes' inputs: the time-packing chain has no start bit (int32
+        # at 16,384 steps); the variants' 512 steps admit s16x2 but for C.
+        k7_probe = probe_forms["packed_step_variants"]["k7"]
+        fail_unless(k7_probe["s16x2"] == 4 * k7_probe["int32"] > 0, f"K7's forms in the probe: {k7_probe}")
+        print(f"[13] K6's and K7's forms in the probes: {json.dumps(probe_forms)}", flush=True)
 
         # -- 14. long reads: K1-K5 on rows wider than 1,024 lanes (stripes) ---------
         t14 = time.perf_counter()
@@ -1943,11 +2129,25 @@ def main() -> int:
             "also_replaces": ["experiments/triangle_timepack.py:42"],
             "launches": main_launches["step_chain_best"],
             "max_abs_err": 0,
-            "ms": k6[512, 128, False][0],
-            "plain_ms": k6[512, 128, False][1],
-            "bound_ms": k6[512, 128, False][2],
-            "bound_by": k6[512, 128, False][3],
+            # the bench's roofline leg: card-filling rows, lane 0 a start, s16x2
+            "ms": min(k6_turns[rb_fill]["s16x2"]),
+            "plain_ms": fill_plain_ms,
+            "bound_ms": fill_bound[0],
+            "bound_by": fill_bound[1],
             "library_ms": None,
+            "forms": dict(k6_main_forms),
+            "rows": rb_fill,
+            "int32_ms": min(k6_turns[rb_fill]["int32"]),
+            "int32_bound_ms": fill_bound[0],
+            "rows512_ms": min(k6_turns[512]["s16x2"]),
+            "rows512_int32_ms": min(k6_turns[512]["int32"]),
+            "rows512_bound_ms": rows512_bound[0],
+            "warps_gcups": {w: r for w, (r, _) in w_rates.items()},
+            # the JAX microbench's inputs, int32 by the rule
+            "jax_inputs_ms": k6[512, 128, False][0],
+            "jax_inputs_plain_ms": k6[512, 128, False][1],
+            "jax_inputs_bound_ms": k6[512, 128, False][2],
+            "jax_inputs_lane0_read_ms": read_ms,
             "masked_ms": k6[248, 256, True][0],
             "masked_plain_ms": k6[248, 256, True][1],
             "masked_bound_ms": k6[248, 256, True][2],
@@ -1959,12 +2159,16 @@ def main() -> int:
             "replaces": "experiments/packed_step_variants.py:18",
             "launches": main_launches["step_variant_best"],
             "max_abs_err": k7_max_err,
-            "ms": k7["A"][0],
+            "ms": min(k7["A"][0]["s16x2"]),
             "plain_ms": k7["A"][1],
             "bound_ms": k7_bound_ms,
             "bound_by": k7_bound_by,
             "library_ms": None,
-            "variant_ms": {v: ms for v, (ms, _, _) in k7.items()},
+            "forms": dict(k7_main_forms),
+            "int32_ms": min(k7["A"][0]["int32"]),
+            "int32_bound_ms": k7_bound_ms,
+            "variant_ms": {v: min(t["s16x2"] if v != "C" else t["int32"]) for v, (t, _, _) in k7.items()},
+            "variant_int32_ms": {v: min(t["int32"]) for v, (t, _, _) in k7.items()},
         },
         {
             "name": "max_cells_row",
@@ -2031,6 +2235,11 @@ def main() -> int:
     fail_unless(sum(k8_main_forms.values()) == main_launches["max_cells_row"],
                 f"K8's forms {dict(k8_main_forms)} do not sum to its {main_launches['max_cells_row']} main-path launches")
     print(f"[end] K8 launches over the main-path legs by form: {dict(k8_main_forms)}", flush=True)
+    for name, forms in (("step_chain_best", k6_main_forms), ("step_variant_best", k7_main_forms)):
+        fail_unless(sum(forms.values()) == main_launches[name] and forms["s16x2"] > 0 and forms["int32"] > 0,
+                    f"{name}'s forms {dict(forms)} over the main-path legs: {main_launches[name]} launches")
+    print(f"[end] K6 and K7 launches over the main-path legs by form: {dict(k6_main_forms)}, {dict(k7_main_forms)}",
+          flush=True)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sparksmithwaterman_tpu"))
     fail_unless(not leaked, f"the run loaded JAX or the JAX package: {leaked[:5]}")
     print(f"[end] every phase passed in {time.perf_counter() - t_start:.1f} s")

@@ -16,8 +16,11 @@ defaults are that bench's sizes:
 - ``longref`` (:func:`bench_longref`): 64 reads x 8 refs of 131,072 bp,
   sustained over ``best_of_async``, one ``totals`` call at a time, and the
   warm traceback of the winner in ms (K1, K2);
-- ``roofline`` (:func:`bench_roofline`): the step chain of K6 at 512 x
-  128, ``ops.microbench.step_roofline``.
+- ``roofline`` (:func:`bench_roofline`): the step chain of K6,
+  ``ops.microbench.step_roofline``, at the kernel leg's read width (128
+  lanes), every row restarting at lane 0 as each read does, in the form
+  K4 takes on the kernel leg, on :func:`roofline_rows` rows (enough to
+  fill the card).
 
 Each rate is the median of ``repeats`` passes (default :data:`REPEATS`),
 and each leg's ``*_spread`` lists every pass, sorted.  Then the parity
@@ -60,6 +63,12 @@ from sparksmithwaterman_tpu_torch.ops.packing import pack_reads, read_best
 from sparksmithwaterman_tpu_torch.ops.recurrence import score_grid
 
 PARAMS = (5, -3, -4)
+# The roofline leg's rows: 2 rows a warp x 4 schedulers x SMs x this many
+# warps a scheduler (:func:`roofline_rows`; the smallest w of 1-32 that no
+# larger w beats in K6's rate by more than 5%, PERF.md; chip_smoke.py [11]
+# fails otherwise), and its steps a call (a call of 10 ms or more there).
+ROOFLINE_WARPS = 8
+ROOFLINE_STEPS = 81_920
 # Measurement passes per leg; the line reports their median.
 REPEATS = 3
 # The keys of the JSON line, in order.
@@ -247,12 +256,31 @@ def bench_longref(params=PARAMS, *, n_reads=64, read_len=128, n_refs=8, ref_len=
     return out, (reads, refs, totals)
 
 
-def bench_roofline(params=PARAMS, *, rb=512, m=128, steps=131_072, iters=20, unroll=64, repeats=REPEATS,
+def roofline_rows(device="cuda", warps=ROOFLINE_WARPS) -> int:
+    """Rows of the roofline leg on the card: 2 rows a warp (K6's 16-bit
+    form) x 4 schedulers x the SMs x ``warps`` warps a scheduler, so that
+    the step chain fills the card as the kernel leg's K4 launch does."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"roofline_rows sizes the leg from a card, not {device}: pass rb")
+    return 2 * 4 * torch.cuda.get_device_properties(device).multi_processor_count * warps
+
+
+def bench_roofline(params=PARAMS, *, rb=None, m=128, steps=ROOFLINE_STEPS, iters=20, unroll=64, repeats=REPEATS,
                    device="cuda"):
     """The step-chain ceiling through K6 at the kernel leg's read width:
-    (median padded GCUPS, spread)."""
+    (median padded GCUPS, spread).  Every row restarts at lane 0, as each
+    read of the kernel leg does, so K6 runs in the form that K4 takes there
+    (:func:`..ops.cuda_score.k1_form`); raises if K6's rule
+    (:func:`..ops.cuda_score.step_form`) gives another.  ``rb=None``:
+    :func:`roofline_rows`."""
+    rb = roofline_rows(device) if rb is None else rb
+    form = cuda_score.step_form(m, steps // unroll * unroll, *params, lane0_starts=True)
+    if form != cuda_score.k1_form(m, *params):
+        raise RuntimeError(f"roofline: K6 would run {form}, K4 {cuda_score.k1_form(m, *params)} at m={m}")
     return _median(
-        lambda: step_roofline(rb=rb, m=m, steps=steps, iters=iters, unroll=unroll, params=params, device=device),
+        lambda: step_roofline(rb=rb, m=m, steps=steps, iters=iters, unroll=unroll, params=params, device=device,
+                              lane0_starts=True),
         repeats,
     )
 
@@ -365,17 +393,18 @@ def run_bench(device="cuda", repeats=REPEATS, sizes=None):
     """Run every leg, the parity checks and the smoke.  ``sizes`` maps a
     leg name to keyword arguments of its function (the tests shrink the
     legs).  Returns (the JSON line's dict, {leg: kernel launches during
-    that leg, with K1's, K4's and K8's per form as ``k1_<form>``,
-    ``k4_<form>`` and ``k8_<form>``})."""
+    that leg, with K1's, K4's, K6's, K7's and K8's per form as
+    ``k1_<form>`` .. ``k8_<form>``})."""
     sizes = sizes or {}
     launches = {}
+    forms = {"k1": cuda_score.K1_FORMS, "k4": cuda_score.K4_FORMS, "k6": cuda_score.K6_FORMS,
+             "k7": cuda_score.K7_FORMS, "k8": cuda_score.K8_FORMS}
 
     def leg(name, fn):
         cuda_score.reset_launches()
         out = fn(PARAMS, repeats=repeats, device=device, **sizes.get(name, {}))
-        launches[name] = {**cuda_score.LAUNCHES, **{f"k1_{form}": n for form, n in cuda_score.K1_FORMS.items()},
-                          **{f"k4_{form}": n for form, n in cuda_score.K4_FORMS.items()},
-                          **{f"k8_{form}": n for form, n in cuda_score.K8_FORMS.items()}}
+        launches[name] = {**cuda_score.LAUNCHES, **{f"{k}_{form}": n for k, counts in forms.items()
+                                                    for form, n in counts.items()}}
         return out
 
     kernel, kernel_spread, (kreads, krefs, kgrid) = leg("kernel", bench_kernel)

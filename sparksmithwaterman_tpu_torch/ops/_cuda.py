@@ -179,21 +179,23 @@ def lib() -> ctypes.CDLL:
                 _VP, _VP,  # begins, codes
                 _I, _VP,  # device, stream
             ]
-            handle.swt_step_chain_best.restype = _I
-            handle.swt_step_chain_best.argtypes = [
-                _VP, _I, _I,  # reads, rb, m
-                _I, _I,  # steps, unroll
-                _I, _I, _I, _I,  # match, mismatch, gap, masked
-                _VP, _I, _VP,  # out, device, stream
-            ]
-            handle.swt_step_variant_best.restype = _I
-            handle.swt_step_variant_best.argtypes = [
-                _VP, _I, _I,  # packed, rows, m
-                _VP, _I, _I,  # refs, c, n
-                _I, _I,  # variant (0-4 = A-E), steps
-                _I, _I, _I,  # match, mismatch, gap
-                _VP, _I, _VP,  # out, device, stream
-            ]
+            for chain in (handle.swt_step_chain_best, handle.swt_step_chain_best_s16x2):
+                chain.restype = _I
+                chain.argtypes = [
+                    _VP, _I, _I,  # reads, rb, m
+                    _I, _I,  # steps, unroll
+                    _I, _I, _I, _I,  # match, mismatch, gap, masked
+                    _VP, _I, _VP,  # out, device, stream
+                ]
+            for variants in (handle.swt_step_variant_best, handle.swt_step_variant_best_s16x2):
+                variants.restype = _I
+                variants.argtypes = [
+                    _VP, _I, _I,  # packed, rows, m
+                    _VP, _I, _I,  # refs, c, n
+                    _I, _I,  # variant (0-4 = A-E), steps
+                    _I, _I, _I,  # match, mismatch, gap
+                    _VP, _I, _VP,  # out, device, stream
+                ]
             _lib = handle
         return _lib
 

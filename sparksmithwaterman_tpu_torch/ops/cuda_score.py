@@ -46,10 +46,12 @@ whose scores provably fit int16 run two rows per warp in the 16-bit
 halves of each register, the recurrence in DPX instructions ("s16x2");
 every other row runs the int32 kernels, one pass or striped ("int32").
 :data:`K1_FORMS`, :data:`K4_FORMS`, :data:`K5_FORMS` and :data:`K8_FORMS`
-count the launches of each.  A K5 or K8 launch with too few blocks for the
-card cuts each reference into overlapping column segments, one block each
-(:func:`row_segments`; K8 lists each column in one segment only,
-:func:`owned_columns`).
+count the launches of each.  K6 and K7, whose circular shift lets a
+value grow past a row's lanes, take the same two forms by their own rule
+(:func:`step_form`; :data:`K6_FORMS`, :data:`K7_FORMS`).  A K5 or K8
+launch with too few blocks for the card cuts each reference into
+overlapping column segments, one block each (:func:`row_segments`; K8
+lists each column in one segment only, :func:`owned_columns`).
 
 K1-K5 take rows (reads) of any width.  Up to :data:`ONE_PASS_LANES`
 lanes a warp sweeps a row in one pass; a wider row runs in stripes of
@@ -107,6 +109,9 @@ K1_FORMS = {"s16x2": 0, "int32": 0}
 K4_FORMS = {"s16x2": 0, "int32": 0}
 K5_FORMS = {"s16x2": 0, "int32": 0}
 K8_FORMS = {"s16x2": 0, "int32": 0}
+# K6's and K7's launches per form (step_form) since the last reset_launches().
+K6_FORMS = {"s16x2": 0, "int32": 0}
+K7_FORMS = {"s16x2": 0, "int32": 0}
 
 # Widest row a warp sweeps in one pass (32 threads x 32 lanes); wider
 # rows run in stripes of STRIPE_LANES (csrc/wavefront.cuh kMaxLanes,
@@ -128,7 +133,7 @@ _DONE_CHECK = 32
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, K1_FORMS, K4_FORMS, K5_FORMS, K8_FORMS):
+    for counts in (LAUNCHES, K1_FORMS, K4_FORMS, K5_FORMS, K8_FORMS, K6_FORMS, K7_FORMS):
         for key in counts:
             counts[key] = 0
 
@@ -173,14 +178,13 @@ def carry_rows(rows: int, elems: int) -> int:
     return _BLOCK_ROWS * max(1, min(blocks, fit))
 
 
-def _check_form(what: str, forms: dict, form, m: int, match: int, mismatch: int, gap: int) -> str:
-    """The form a kernel with two forms runs: ``form``, or the rule's when
-    None; raises for a form the kernel lacks, or ``"s16x2"`` where the
-    rule (:func:`k1_form`) says ``"int32"``."""
-    rule = k1_form(m, match, mismatch, gap)
+def _check_form(what: str, forms: dict, form, rule: str) -> str:
+    """The form a kernel with two forms runs: ``form``, or its rule's
+    (:func:`k1_form`, :func:`step_form`) when None; raises for a form the
+    kernel lacks, or ``"s16x2"`` where the rule says ``"int32"``."""
     form = rule if form is None else form
     if form not in forms or (form == "s16x2" and rule != "s16x2"):
-        raise ValueError(f"{what} cannot take form {form!r} at m={m}, scheme {(match, mismatch, gap)}")
+        raise ValueError(f"{what} cannot take form {form!r} where its rule gives {rule!r}")
     return form
 
 
@@ -358,7 +362,7 @@ def _lane_best_packed_varlen(packed, refs_u8, lens, match, mismatch, gap, offset
         raise ValueError("lens must be a (C,) int32 tensor")
     match, mismatch, gap = int(match), int(mismatch), int(gap)
     rows, m = packed.shape
-    form = _check_form("K1", K1_FORMS, form, m, match, mismatch, gap)
+    form = _check_form("K1", K1_FORMS, form, k1_form(m, match, mismatch, gap))
     if device.type == "cpu":
         return lane_best_packed_varlen_plain(packed, refs_u8, lens, match, mismatch, gap, offsets)
     _check_stripes("lane_best_packed_varlen", m, mismatch, gap)
@@ -704,7 +708,7 @@ def _score_grid_diag(reads_u8, refs_u8, match, mismatch, gap, *, form=None):
     inputs; ``"s16x2"`` where k1_form says ``"int32"`` raises."""
     device = _check_grid_inputs("score_grid_diag", reads_u8, refs_u8)
     match, mismatch, gap = int(match), int(mismatch), int(gap)
-    form = _check_form("K4", K4_FORMS, form, reads_u8.shape[1], match, mismatch, gap)
+    form = _check_form("K4", K4_FORMS, form, k1_form(reads_u8.shape[1], match, mismatch, gap))
     if device.type == "cpu":
         return score_grid_diag_plain(reads_u8, refs_u8, match, mismatch, gap)
     _check_stripes("score_grid_diag", reads_u8.shape[1], mismatch, gap)
@@ -768,7 +772,7 @@ def _score_grid_row(reads_u8, refs_u8, match, mismatch, gap, *, form=None, split
     match, mismatch, gap = int(match), int(mismatch), int(gap)
     r, m = reads_u8.shape
     c, n = refs_u8.shape
-    form = _check_form("K5", K5_FORMS, form, m, match, mismatch, gap)
+    form = _check_form("K5", K5_FORMS, form, k1_form(m, match, mismatch, gap))
     if device.type == "cpu":
         if m == 0 or n == 0:
             return torch.zeros((r, c), dtype=torch.int32)
@@ -892,7 +896,7 @@ def _max_cells_row(reads_u8, ref_u8, best, match, mismatch, gap, capacity, *, fo
     capacity, match, mismatch, gap = int(capacity), int(match), int(mismatch), int(gap)
     if capacity < 1:
         raise ValueError(f"max_cells_row: capacity must be >= 1, got {capacity}")
-    form = _check_form("K8", K8_FORMS, form, m, match, mismatch, gap)
+    form = _check_form("K8", K8_FORMS, form, k1_form(m, match, mismatch, gap))
     if device.type == "cpu":
         return max_cells_row_plain(reads_u8, ref_u8, best, match, mismatch, gap, capacity)
     count = torch.zeros((r,), dtype=torch.int64, device=device)
@@ -1056,6 +1060,104 @@ def _check_lane_row(what: str, m: int, lanes_per_thread) -> None:
         raise ValueError(f"{what} takes rows of {widths} lanes on CUDA, got {m}")
 
 
+def step_form(m: int, steps: int, match: int, mismatch: int, gap: int, *, variant=None, masked: bool = False,
+              lane0_starts: bool = False) -> str:
+    """The form of one K6 call (``variant=None``) or K7 call (``variant``
+    one of :data:`STEP_VARIANTS`) on rows of ``m`` lanes that runs
+    ``steps`` steps: ``"s16x2"`` (two rows per warp, one in each 16-bit
+    half of every register, the step in DPX instructions) when every value
+    and every intermediate provably fits int16, else ``"int32"``.
+    ``lane0_starts`` (K6 only): every row of K6's input has START_BIT on
+    lane 0 (K6 reads it from the data, :func:`k6_form`); ``masked``: K6's
+    moving boundary.  K7's rule reads no data.
+
+    :func:`k1_form`'s proof does not hold here: it rests on lane 0 always
+    starting a segment, and K6 and K7 shift with the TPU's circular roll,
+    so a row whose lane 0 is not a start keeps growing around the ring
+    (the JAX microbench's inputs, codes 2-5 with no start bit, are such
+    rows: row 0 compares with itself and gains ``match`` every two steps).
+
+    The proof.  Under k1_form's signs (0 <= match, -32768 <= mismatch,
+    gap <= 0, m <= ONE_PASS_LANES), with c1(t) the value a lane computes on
+    step t (before any mask) and V(t) its max over lanes:
+
+    - c1(t) = max(0, r2 + sub, max(r1, d1) + gap) where r2 is a value of
+      step t - 2 and r1, d1 of step t - 1 (or 0), and sub <= match; masks
+      only zero values.  So V(t) <= max(0, V(t - 2) + match, V(t - 1)),
+      and by induction V(t) <= match * ceil((t + 1) / 2): a call of S steps
+      keeps every value at most match * ceil(S / 2).  Only a diagonal move
+      adds to a value, and it spans two steps.
+    - When the shift zeroes lane 0 on every step (K7's B; K6 when every
+      row has START_BIT on lane 0), lane 0's r2 and r1 are
+      0, and lane i's come from lane i - 1: by induction over the steps,
+      lane i holds at most match * (i + 1), so every value is at most
+      match * m.
+    - In the masked K6 at m = 1024, lane 1023 is never live (lanes i >=
+      (s & 1023) are dead), so its state stays 0 and its value is at most
+      match; that value is all the wrap hands lane 0, and the same
+      induction gives lane i <= match * (i + 2) for i <= 1022: every value
+      is at most match * m.  At m < 1024 the boundary gives no bound: once
+      s & 1023 >= m every lane is live, and a value rides the ring from
+      lane m - 1 at step 1023 of one block into lane 0 at step 1 of the
+      next (row 0 of the microbench's inputs at 256 lanes reaches 10,240
+      after 4,096 masked steps, as unmasked).
+
+    Every intermediate lies within the bound B (the tightest that applies)
+    and min(mismatch, gap): r2 + sub and max(r1, d1) + gap are terms of a
+    max that is at most B, and at least mismatch or gap since the values
+    are >= 0.  K7's substitution is sweep_s16x2's IMAD
+    (``csrc/wavefront.cuh``): V = r2 + e (match - mismatch) over both
+    halves of a 32-bit register, e 0 or 1 per half; r2 + match is itself a
+    bound of a later step's term (<= B), so each half of V is at most
+    B - mismatch <= 65535 and nothing carries into the high half, and V +
+    mismatch wraps back to r2 + sub.  K6's sub is made once per register
+    before the loop, so its step has no IMAD.  So s16x2 is admitted when B
+    <= 32767.  Variant C stays int32: its point is the multiply by "not a
+    start", and there is no 16x2 integer multiply.
+
+    K6's ``lane0_starts`` costs one device reduction over its input and one
+    host sync per call of :func:`step_chain_best` (:func:`k6_form`, only
+    when the other bounds do not already decide): 0.124 ms of a 2.75 ms
+    call on 512 x 128 rows of 131,072 steps (4.5%; NVIDIA H100 80GB HBM3,
+    700.00 W, ``chip_smoke.py`` [11]), more where the host is slow to
+    resume after the sync.  A caller that passes ``form="int32"`` reads
+    nothing (the rule only refuses ``"s16x2"``), and a timed loop reads the
+    rows once before it (``ops.microbench.step_roofline``).
+    """
+    if variant is not None and variant not in STEP_VARIANTS:
+        raise ValueError(f"variant must be one of {STEP_VARIANTS}, got {variant!r}")
+    if lane0_starts and variant is not None:
+        raise ValueError("lane0_starts is K6's (variant=None): K7's rule reads no data")
+    signs = 0 <= match and _INT16_MIN <= min(mismatch, gap) and max(mismatch, gap) <= 0
+    if not signs or m > ONE_PASS_LANES or variant == "C":
+        return "int32"
+    bound = match * -(-int(steps) // 2)
+    lane0 = variant == "B" or (lane0_starts and variant is None)
+    if lane0 or (variant is None and masked and m >= ONE_PASS_LANES):
+        bound = min(bound, match * m)
+    return "s16x2" if bound <= _INT16_MAX else "int32"
+
+
+def lane0_starts(reads: torch.Tensor) -> bool:
+    """Whether every row of K6's (RB, M) input has START_BIT on lane 0
+    (one reduction and one sync on the card)."""
+    return reads.shape[0] == 0 or int(reads[:, 0].min()) >= START_BIT
+
+
+def k6_form(reads: torch.Tensor, steps: int, match: int, mismatch: int, gap: int, masked: bool,
+            starts=None) -> str:
+    """K6's form for one call (:func:`step_form` of the steps that run).
+    ``starts``: :func:`lane0_starts` of ``reads`` where the caller has it;
+    None reads it (one reduction and one sync), only when that could
+    change the answer."""
+    m = reads.shape[1]
+    form = step_form(m, steps, match, mismatch, gap, masked=masked)
+    if form == "int32" and step_form(m, steps, match, mismatch, gap, masked=masked, lane0_starts=True) == "s16x2":
+        starts = lane0_starts(reads) if starts is None else starts
+        form = step_form(m, steps, match, mismatch, gap, masked=masked, lane0_starts=starts)
+    return form
+
+
 def step_chain_best_plain(reads, steps, unroll, match, mismatch, gap, masked):
     """Plain PyTorch version of K6 (any device): the step loop on the
     (RB, M) state."""
@@ -1098,7 +1200,22 @@ def step_chain_best(reads, *, steps, unroll=64, match=5, mismatch=-3, gap=-4, ma
     ``masked=True`` is ``triangle_timepack.py:_chain_kernel``: on step s,
     lanes i >= (s & 1023) are zeroed in both the new values and the
     shifted ones, and every step counts.
+
+    On the card the form follows from the data (:func:`k6_form`, which
+    may read lane 0 of every row): two rows per warp in 16-bit halves
+    where every value provably fits int16, else int32.
     """
+    return _step_chain_best(reads, steps=steps, unroll=unroll, match=match, mismatch=mismatch, gap=gap,
+                            masked=masked)
+
+
+def _step_chain_best(reads, *, steps, unroll=64, match=5, mismatch=-3, gap=-4, masked=False, form=None,
+                     starts=None):
+    """:func:`step_chain_best` with K6's form given (``form=None``:
+    :func:`k6_form`'s), so that the two forms can be timed on the same
+    inputs; ``"s16x2"`` where the rule says ``"int32"`` raises, and
+    ``"int32"`` reads no data.  ``starts``: :func:`lane0_starts` of
+    ``reads``, read once by a caller that times many calls on them."""
     device = _device_of(reads)
     if reads.dim() != 2 or reads.dtype != torch.int32:
         raise ValueError("reads must be an (RB, M) int32 tensor")
@@ -1110,6 +1227,9 @@ def step_chain_best(reads, *, steps, unroll=64, match=5, mismatch=-3, gap=-4, ma
     if unroll < 1 or (unroll == 1 and not masked):
         raise ValueError(f"unroll must be >= {1 if masked else 2}, got {unroll}")
     match, mismatch, gap = int(match), int(mismatch), int(gap)
+    if form != "int32" and (form is not None or device.type != "cpu"):
+        form = _check_form("K6", K6_FORMS, form, k6_form(reads, steps // unroll * unroll, match, mismatch, gap,
+                                                           masked, starts))
     if device.type == "cpu":
         return step_chain_best_plain(reads, steps, unroll, match, mismatch, gap, masked)
     rb, m = reads.shape
@@ -1118,12 +1238,15 @@ def step_chain_best(reads, *, steps, unroll=64, match=5, mismatch=-3, gap=-4, ma
     if rb == 0:
         return out
     reads = reads.contiguous()
-    rc = _cuda.lib().swt_step_chain_best(
+    lib = _cuda.lib()
+    entry = lib.swt_step_chain_best_s16x2 if form == "s16x2" else lib.swt_step_chain_best
+    rc = entry(
         reads.data_ptr(), rb, m, steps, unroll, match, mismatch, gap, int(masked),
         out.data_ptr(), *_launch_target(device),
     )
     _cuda.check(rc, "step_chain_best")
     LAUNCHES["step_chain_best"] += 1
+    K6_FORMS[form] += 1
     return out
 
 
@@ -1186,7 +1309,19 @@ def step_variant_best(packed, refs_u8, *, variant, unroll=16, match=5, mismatch=
     segmented suffix max over the start lanes; E returns the raw lane
     bests.  B and D are wrong Smith-Waterman on purpose: the JAX script
     timed them, and K7 reproduces them exactly.
+
+    On the card the form follows from the shape and the scheme
+    (:func:`step_form`, no data read): 16-bit halves, two rows per warp,
+    where every value provably fits int16 (never for C), else int32.
     """
+    return _step_variant_best(packed, refs_u8, variant=variant, unroll=unroll, match=match, mismatch=mismatch,
+                              gap=gap)
+
+
+def _step_variant_best(packed, refs_u8, *, variant, unroll=16, match=5, mismatch=-3, gap=-4, form=None):
+    """:func:`step_variant_best` with K7's form given (``form=None``:
+    :func:`step_form`'s), so that the two forms can be timed on the same
+    inputs; ``"s16x2"`` where the rule says ``"int32"`` raises."""
     if variant not in STEP_VARIANTS:
         raise ValueError(f"variant must be one of {STEP_VARIANTS}, got {variant!r}")
     device = _device_of(packed, refs_u8)
@@ -1198,21 +1333,26 @@ def step_variant_best(packed, refs_u8, *, variant, unroll=16, match=5, mismatch=
     if unroll < 1:
         raise ValueError(f"unroll must be >= 1, got {unroll}")
     match, mismatch, gap = int(match), int(mismatch), int(gap)
-    if device.type == "cpu":
-        return step_variant_best_plain(packed, refs_u8, variant, unroll, match, mismatch, gap)
     rows, m = packed.shape
     c, n = refs_u8.shape
+    steps = variant_steps(m, n, unroll)
+    form = _check_form("K7", K7_FORMS, form, step_form(m, steps, match, mismatch, gap, variant=variant))
+    if device.type == "cpu":
+        return step_variant_best_plain(packed, refs_u8, variant, unroll, match, mismatch, gap)
     _check_lane_row("step_variant_best", m, _VARIANT_LANES)
     out = torch.empty((c, rows, m), dtype=torch.int32, device=device)
     if c == 0 or rows == 0:
         return out
     packed = packed.contiguous()
     refs_u8 = refs_u8.contiguous()
-    rc = _cuda.lib().swt_step_variant_best(
+    lib = _cuda.lib()
+    entry = lib.swt_step_variant_best_s16x2 if form == "s16x2" else lib.swt_step_variant_best
+    rc = entry(
         packed.data_ptr(), rows, m, refs_u8.data_ptr(), c, n,
-        STEP_VARIANTS.index(variant), variant_steps(m, n, unroll), match, mismatch, gap,
+        STEP_VARIANTS.index(variant), steps, match, mismatch, gap,
         out.data_ptr(), *_launch_target(device),
     )
     _cuda.check(rc, "step_variant_best")
     LAUNCHES["step_variant_best"] += 1
+    K7_FORMS[form] += 1
     return out

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from sparksmithwaterman_tpu_torch.ops import cuda_score
+from sparksmithwaterman_tpu_torch.ops.packing import START_BIT
 
 
 def seconds_per_call(fn, iters: int, device) -> float:
@@ -37,6 +38,16 @@ def seconds_per_call(fn, iters: int, device) -> float:
     return (time.perf_counter() - t0) / iters
 
 
+def roofline_reads(rb: int, m: int, lane0_starts: bool = False) -> np.ndarray:
+    """(rb, m) int32 rows of the step chain: the JAX microbench's codes 2-5
+    from ``numpy.random.default_rng(0)``, with START_BIT on lane 0 of every
+    row when ``lane0_starts``."""
+    reads = np.random.default_rng(0).integers(2, 6, size=(rb, m)).astype(np.int32)
+    if lane0_starts:
+        reads[:, 0] |= START_BIT
+    return reads
+
+
 def step_roofline(
     rb: int = 248,
     m: int = 256,
@@ -46,22 +57,28 @@ def step_roofline(
     params=(5, -3, -4),
     masked: bool = False,
     device="cuda",
+    lane0_starts: bool = False,
 ) -> float:
     """Measured step-chain ceiling in padded GCUPS (rb * m * steps cells
     per call) of K6 at kernel shapes; the defaults are the JAX function's
     (the packed path's rows), and so are the inputs: codes 2-5 drawn by
-    ``numpy.random.default_rng(0)``.  ``masked=True`` adds the
-    time-packing probe's moving boundary.  Timed by
-    :func:`seconds_per_call` (on the CPU: the plain version)."""
+    ``numpy.random.default_rng(0)`` (:func:`roofline_reads`).
+    ``masked=True`` adds the time-packing probe's moving boundary;
+    ``lane0_starts=True`` restarts every row at lane 0, as each read of
+    the scoring kernels restarts (K6 then takes the 16-bit form where
+    ``match * m`` fits int16, ``cuda_score.step_form``).  Timed by
+    :func:`seconds_per_call` (on the CPU: the plain version); the rows'
+    lane-0 starts are read once before the timed calls, so that no call
+    waits on a sync."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not available")
-    rng = np.random.default_rng(0)
-    reads = torch.from_numpy(rng.integers(2, 6, size=(rb, m)).astype(np.int32)).to(device)
+    reads = torch.from_numpy(roofline_reads(rb, m, lane0_starts)).to(device)
+    starts = cuda_score.lane0_starts(reads)
     match, mismatch, gap = (int(p) for p in params)
     seconds = seconds_per_call(
-        lambda: cuda_score.step_chain_best(
-            reads, steps=steps, unroll=unroll, match=match, mismatch=mismatch, gap=gap, masked=masked
+        lambda: cuda_score._step_chain_best(
+            reads, steps=steps, unroll=unroll, match=match, mismatch=mismatch, gap=gap, masked=masked, starts=starts
         ),
         iters, device,
     )

@@ -20,7 +20,12 @@ column segments), the bests from K5.  ``fill_walk`` is one dispatch of
 the windowed traceback (``longseq._fill_walk_known``: 64 reads of 80-150
 bp in windows of 512 columns), which K9 and K10 run where the tree has
 them (``K9``, ``K10``: each alone on those inputs); ``longref_traceback``
-is the bench's ``longref_traceback_ms`` (median of 3).
+is the bench's ``longref_traceback_ms`` (median of 3).  K6 runs on the
+JAX microbench's 512 x 128 rows (``K6``) and at the bench's roofline
+shape (``K6_bench``: rows restarting at lane 0, the 16-bit form where the
+tree has it), and K7 in variant A; each also in its int32 form where the
+tree has the private entry that takes a form (``K6_int32``, which reads
+no lane 0 as the public wrapper does, ``K6_bench_int32``, ``K7_int32``).
 """
 
 from __future__ import annotations
@@ -32,6 +37,10 @@ import sys
 
 SEED = 20261017
 PARAMS = (5, -3, -4)
+# The bench's roofline leg (bench.ROOFLINE_WARPS, bench.ROOFLINE_STEPS),
+# fixed here so that two trees time K6 at one shape.
+K6_WARPS = 8
+K6_STEPS = 81_920
 
 
 def _times(root: str) -> dict:
@@ -111,10 +120,24 @@ def _times(root: str) -> dict:
             out[key] = ms(lambda: cuda_score.max_cells_row(reads_8, ref_8[0], best_8, *PARAMS, 1024), iters)
     chain = up(np.random.default_rng(0).integers(2, 6, size=(512, 128)).astype(np.int32))
     out["K6"] = ms(lambda: cuda_score.step_chain_best(chain, steps=131_072, unroll=64), 5)
+    if hasattr(cuda_score, "_step_chain_best"):  # the int32 form given: no lane-0 read
+        out["K6_int32"] = ms(lambda: cuda_score._step_chain_best(chain, steps=131_072, unroll=64, form="int32"), 5)
+    # The bench's roofline leg: 8 x SMs x K6_WARPS rows of 128 lanes, lane 0
+    # of every row a start, K6_STEPS steps.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chain_b = np.random.default_rng(0).integers(2, 6, size=(8 * sms * K6_WARPS, 128)).astype(np.int32)
+    chain_b[:, 0] |= 256
+    chain_b = up(chain_b)
+    out["K6_bench"] = ms(lambda: cuda_score.step_chain_best(chain_b, steps=K6_STEPS, unroll=64), 5)
+    if hasattr(cuda_score, "_step_chain_best"):
+        out["K6_bench_int32"] = ms(lambda: cuda_score._step_chain_best(chain_b, steps=K6_STEPS, unroll=64,
+                                                                       form="int32"), 5)
     packed_7 = np.random.default_rng(0).integers(65, 85, size=(248, 256)).astype(np.int32)
     packed_7[:, 0] |= 256
     packed_7, refs_7 = up(packed_7), up(encode_batch(seqs([1024] * 64), 1024, REF_PAD))
     out["K7"] = ms(lambda: cuda_score.step_variant_best(packed_7, refs_7, variant="A"))
+    if hasattr(cuda_score, "_step_variant_best"):
+        out["K7_int32"] = ms(lambda: cuda_score._step_variant_best(packed_7, refs_7, variant="A", form="int32"))
     # One dispatch of the windowed traceback: 64 reads of 80-150 bp, each in
     # a window of 512 columns ending at its copy in a 2 kb ref (REF_PAD on the
     # left), walked from its last row.
