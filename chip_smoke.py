@@ -12,9 +12,11 @@ port's main path (``swtorch align --strategy batch``) end to end:
    K4's and K5's two forms in the built library: every s16x2 kernel runs
    the instruction of ``__viaddmax_s16x2_relu`` and spills nothing, and
    the ALU instructions per cell of both forms' inner loops at every L
-   (K1, K4) and of K5's s16x2 row loop; K8's s16x2 kernel runs that
-   instruction too, and none of K8's three kernels spills, nor K9's two
-   (one per tie order) or K10's; K6's and K7's s16x2 kernels (every L,
+   (K1, K4) and of K5's s16x2 row loop; K2's s16x2 kernel (every L) and
+   K8's run that instruction too, and neither spills, nor K2's merge, K8's
+   other two kernels and its finish, K9's two (one per tie order) or
+   K10's; the ALU instructions per cell of K2's s16x2 loop at every L;
+   K6's and K7's s16x2 kernels (every L,
    K6 masked or not, K7's A, B, D, E) run it and spill nothing, and K6's
    inner loop takes no more ALU instructions per cell than sweep_s16x2's
    (K4's) at L = 4, the bench's width;
@@ -27,15 +29,27 @@ port's main path (``swtorch align --strategy batch``) end to end:
    number of rows, on hand-packed pairs of rows with different segment
    layouts and at gap (and mismatch) -32,768; a 1,024 bp read equal to
    its ref at match 31 (31,744, s16x2) and 32 (int32);
-2. K2 (per-lane argmax) against its plain version: 2,000 reads x one 2 kb
-   ref and 64 reads x one 131 kb ref, on the lanes the traceback reads;
+2. K2 (per-lane argmax) against its plain version on the lanes the
+   traceback reads, in its s16x2 form (in column segments where its plan
+   splits), the s16x2 form as one segment and the int32 form: 2,000 reads
+   x one 2 kb ref (the forms timed in turns) and 64 reads x one 131 kb ref
+   (split into segments; each way timed, the segments at least 5x faster
+   than one); 24 small cases (1-19 reads of every width, 1-3 refs,
+   mismatch and gap 0); ties planted around the borders of K2's segments
+   of a 131 kb ref, equal to plain (one diagonal loop over both 131 kb
+   refs) and to where they were planted; 256 reads x a 0.95 Mb ref (the
+   long-ref workload's winner), the s16x2 form equal to the int32 form,
+   both timed in turns;
    K8 (the listing of every cell equal to a read's best) against its
    plain version on the reads K2 finds tied inside a DP row there: every
-   count and cell equal, at 2 kb in both forms, at 131 kb split into
-   column segments, as one segment and in the int32 form, and at a
-   capacity below the counts (the count exact, the slots distinct cells
-   of the full listing); each form timed; ties planted around the borders
-   of the column segments of a 131 kb ref, listed once in both forms; and
+   count and cell equal, at 2 kb in both forms and as one segment, at
+   131 kb split into column segments, as one segment and in the int32
+   form, and at a capacity below the counts (the count exact, the slots
+   distinct cells of the full listing); each form timed, and the listing
+   kernel and its finish alone from one profiler pass; the finish against
+   its plain version on shuffled slots at capacity 1,024 and 5,000; ties
+   planted around the borders of K8's column segments of a 131 kb ref,
+   listed once in both forms; and
    ``find_max_cells_batched`` of a read with 130,923 ties, all listed on
    the card (the host scan must not run); K9 (the traceback's fill with
    direction codes, and H where asked) and K10 (its walk) exact against
@@ -132,18 +146,18 @@ port's main path (``swtorch align --strategy batch``) end to end:
     recomputation.
 
 Launch counts are reset just before each main-path leg and read just
-after it, K1's, K4's, K5's, K6's, K7's and K8's per form too
+after it, K1's, K2's, K4's, K5's, K6's, K7's and K8's per form too
 (``cuda_score.K1_FORMS`` .. ``K8_FORMS``): every K1 launch of phases
-3-4, 7 and 13, every K4 launch of phases 9, 10 and 13, every K5 launch
-of phase 9 and every K6 launch of the bench's roofline leg must take the
-s16x2 form, every one at rows (reads) of more than 1,024 lanes in 14 the
-int32 form; K6 and K7 must launch in both forms over the legs.  The legs:
+3-4, 7 and 13, every K2 launch of phases 3-4 and 13, every K4 launch of
+phases 9, 10 and 13, every K5 launch of phase 9 and every K6 launch of
+the bench's roofline leg must take the s16x2 form, every one at rows
+(reads) of more than 1,024 lanes in 14 the int32 form; K6 and K7 must launch in both forms over the legs.  The legs:
 phases 3-4 (batch; K1
 and K2 must launch, and the traceback's K9 and K10), 6 (shard_seq and
 batch; K3 and K8, and K9 and K10 in each),
 7 (shard_refs and shard_reads; K1), 9 (unpacked and row paths; K4 and
 K5), 10 (scaling; K4), each bench leg of 13 (K4 on the kernel leg, K1 on
-the path legs, K2 on the long-ref leg, K6 on the roofline leg), each
+the path legs, K2 in s16x2 on the long-ref leg, K6 on the roofline leg), each
 experiment (K6, K7) and the long-read paths of 14 (K1-K5, K9, K10).  A kernel's
 ``launches`` in the summary is its sum over those legs.
 
@@ -467,15 +481,36 @@ def main() -> int:
     print(f"[0] K5 SASS: score_row_s16x2_kernel runs {relu_ops[0]}, {k5_regs[0]} (no spill); its row loop: "
           f"{len(k5_loop)} ALU instructions over {k5_rows:g} row(s) of 32 cells a thread = "
           f"{len(k5_loop) / (32 * k5_rows):.3f} per cell", flush=True)
-    # K8's three kernels: the s16x2 form runs the DPX instruction of
-    # __viaddmax_s16x2_relu, and none of them spills.
+    # K8's three kernels and its finish: the s16x2 form runs the DPX
+    # instruction of __viaddmax_s16x2_relu, and none of them spills.
     k8_sass = [instrs for fname, instrs in lib_sass.items() if re.search(r"\d+max_cells_s16x2_kernel", fname)]
     fail_unless(len(k8_sass) == 1 and relu_ops[0] in {op for _, op, _ in k8_sass[0]},
                 f"K8's s16x2 kernel ({len(k8_sass)} found) lacks {relu_ops[0]}")
     k8_regs = {k: w for k, w in register_summary(_cuda.build_info["log"]).items() if k.startswith("max_cells")}
-    fail_unless(sorted(k8_regs) == ["max_cells_kernel", "max_cells_s16x2_kernel", "max_cells_wide_kernel"]
+    fail_unless(sorted(k8_regs) == ["max_cells_finish_kernel", "max_cells_kernel", "max_cells_s16x2_kernel",
+                                    "max_cells_wide_kernel"]
                 and not any("s" in w for ws in k8_regs.values() for w in ws), f"K8's kernels: {k8_regs}")
     print(f"[0] K8 SASS: max_cells_s16x2_kernel runs {relu_ops[0]}; registers {k8_regs} (no spill)", flush=True)
+    # K2's s16x2 kernel at every L runs the DPX instruction and spills
+    # nothing, nor does its merge; the ALU instructions a cell of its inner
+    # loop (two cells a register: the substitution's one f16 compare each).
+    k2_cell = {}
+    for fname, instrs in lib_sass.items():
+        hit = re.search(r"\dargmax_s16x2_kernelILi(\d+)E", fname)
+        if hit:
+            fail_unless(relu_ops[0] in {op for _, op, _ in instrs}, f"K2's s16x2 kernel at L={hit.group(1)} lacks "
+                                                                    f"{relu_ops[0]}")
+            loop = inner_loop_alu(instrs)
+            k2_cell[int(hit.group(1))] = len(loop) / (2 * max(1, sum(op.startswith("HSET2") for op in loop)))
+    k2_regs = {k: w for k, w in register_summary(_cuda.build_info["log"]).items() if k.startswith("argmax")}
+    fail_unless(sorted(k2_cell) == list(_LANES) and len(k2_regs.get("argmax_s16x2_kernel", [])) == len(_LANES)
+                and not any("s" in w.split(":")[-1] for k in ("argmax_s16x2_kernel", "argmax_merge_kernel")
+                            for w in k2_regs.get(k, ["-s"])), f"K2's s16x2 kernels: {sorted(k2_cell)}, {k2_regs}")
+    print(f"[0] K2 SASS: every argmax_s16x2_kernel runs {relu_ops[0]}, it and argmax_merge_kernel spill nothing; "
+          f"ALU instructions per cell of its inner loop, L: "
+          + ", ".join(f"{l}: {k2_cell[l]:.3f}" for l in _LANES)
+          + f"; the int32 kernels (as in earlier trees): {k2_regs.get('argmax_kernel')}, "
+            f"{k2_regs.get('argmax_wide_kernel')}", flush=True)
     # K9's two kernels (one per tie order) and K10's: none spills.
     k910_regs = {k: w for k, w in register_summary(_cuda.build_info["log"]).items()
                  if k in ("fill_dirs_kernel", "trace_walk_kernel")}
@@ -681,41 +716,135 @@ def main() -> int:
           f"equal to plain", flush=True)
 
     # -- 2. K2 against its plain version -----------------------------------
-    def k2_err(reads, ref):
-        m_pad = max(8, -(-max(map(len, reads)) // 8) * 8)
-        args = (up(encode_batch(reads, m_pad, READ_PAD)), up(encode_batch([ref], len(ref), REF_PAD)))
-        k = cuda_score.argmax_lane(*args, *PARAMS)
-        p = cuda_score.argmax_lane_plain(*args, *PARAMS)
+    def consumed_err(k, p, what):
+        """Max abs error of K2's outputs ``k`` against ``p`` on the lanes
+        the traceback reads (best = the read's max), failing unless those
+        lanes are the same."""
         consumed = p[0] == p[0].amax(dim=2, keepdim=True)
-        fail_unless(torch.equal(k[0] == k[0].amax(dim=2, keepdim=True), consumed), "K2 max lanes differ")
-        err = max(int((a.to(torch.int64) - b)[consumed].abs().max()) for a, b in zip(k, p))
-        return err, args
+        fail_unless(torch.equal(k[0] == k[0].amax(dim=2, keepdim=True), consumed), f"K2 max lanes differ ({what})")
+        return max(int((a.to(torch.int64) - b)[consumed].abs().max()) for a, b in zip(k, p))
+
+    def k2_grid(reads, ref):
+        m_pad = max(8, -(-max(map(len, reads)) // 8) * 8)
+        return up(encode_batch(reads, m_pad, READ_PAD)), up(encode_batch([ref], len(ref), REF_PAD))
+
+    def k2_forms_err(args, want, what):
+        """Max abs error on the consumed lanes of K2 against ``want`` in its
+        s16x2 form (in column segments where its plan splits), the s16x2
+        form as one segment and the int32 form, each checked to take its
+        form."""
+        err = 0
+        for kw in ({}, {"split": False}, {"form": "int32"}):
+            form = kw.get("form", "s16x2")
+            before = dict(cuda_score.K2_FORMS)
+            k = cuda_score._argmax_lane(*args, *PARAMS, **kw)
+            fail_unless(cuda_score.K2_FORMS[form] == before[form] + 1, f"K2 took {cuda_score.K2_FORMS}, not {form}")
+            err = max(err, consumed_err(k, want, f"{what}, {form} {kw}"))
+        return err
+
+    def k2_bound(args):
+        """K2's bound: the reads' real cells x the ref, its inputs and three
+        outputs of 4 bytes a lane."""
+        real = int((args[0] != READ_PAD).sum())
+        return bound(real * args[1].shape[1], sum(t.numel() * t.element_size() for t in args) + 12 * args[0].numel(),
+                     sms, clock_mhz)
 
     reads_2 = rand_seqs(rng, rng.integers(80, 151, size=2000))
     ref_2 = rand_seqs(rng, [2000])[0]
-    k2_max_err, args_2 = k2_err(reads_2, ref_2)
-    fail_unless(k2_max_err == 0, f"K2 differs from plain on consumed lanes ({k2_max_err})")
-    k2_ms = cuda_ms(lambda: cuda_score.argmax_lane(*args_2, *PARAMS), 10)
+    args_2 = k2_grid(reads_2, ref_2)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    cuda_score.argmax_lane_plain(*args_2, *PARAMS)
+    want_2 = cuda_score.argmax_lane_plain(*args_2, *PARAMS)
     torch.cuda.synchronize()
     k2_plain_ms = (time.perf_counter() - t) * 1e3
-    cells_2 = sum(map(len, reads_2)) * len(ref_2)
-    k2_bytes = sum(t.numel() * t.element_size() for t in args_2) + 3 * args_2[0].numel() * 4
-    k2_bound_ms, k2_bound_by = bound(cells_2, k2_bytes, sms, clock_mhz)
-    print(f"[2] K2 2000 reads x 2 kb ref: max abs err 0; kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.1f} ms; "
-          f"bound {k2_bound_ms:.3f} ms by {k2_bound_by} ({cells_2:.3e} cells, {k2_bytes} bytes) = "
-          f"{100 * k2_bound_ms / k2_ms:.1f}% of the kernel's time", flush=True)
-    err, args_2l = k2_err(reads_l, refs_l[0])
+    k2_max_err = k2_forms_err(args_2, want_2, "2 kb")
+    fail_unless(k2_max_err == 0, f"K2 differs from plain on consumed lanes ({k2_max_err})")
+    k2_ab, _ = in_turns(lambda form: cuda_score._argmax_lane(*args_2, *PARAMS, form=form), 10)
+    k2_ms, k2_int32_ms = (float(np.mean(k2_ab[form])) for form in ("s16x2", "int32"))
+    k2_bound_ms, k2_bound_by = k2_bound(args_2)
+    print(f"[2] K2 2000 reads x 2 kb ref: max abs err 0 in both forms and as one segment; in turns int32 "
+          f"{k2_ab['int32'][0]:.3f}, s16x2 {k2_ab['s16x2'][0]:.3f}, s16x2 {k2_ab['s16x2'][1]:.3f}, int32 "
+          f"{k2_ab['int32'][1]:.3f} ms ({k2_int32_ms / k2_ms:.2f}x), plain {k2_plain_ms:.1f} ms; bound "
+          f"{k2_bound_ms:.3f} ms by {k2_bound_by} = {100 * k2_bound_ms / k2_ms:.1f}% of the s16x2 form's time",
+          flush=True)
+    # Ties planted at the segment borders K2's plan makes of a 131 kb ref
+    # for two 16 bp reads (A, C and G only) in a ref of Ts: copies whose
+    # last cell (lane 15, diagonal end + 15) lies on either side of a
+    # segment's first owned diagonal and inside a segment's first W - 1
+    # columns (owned by the segment before).  Each copy is a cell at the
+    # best 80: counted once, the first copy's diagonal kept.
+    rng_k2 = np.random.default_rng(SEED + 2)
+    reads_k2b = ["".join(rng_k2.choice(list("ACG"), size=16)) for _ in range(2)]
+    st_b, _, off_b, cnt_b = cuda_score.argmax_segments(16, LONG_N, *PARAMS, 1, sms)
+    first_d = [s * st_b + off_b for s in range(cnt_b)]  # global diagonal segment s >= 1 owns from
+    ends_k2b = [[first_d[30] - 16, first_d[70] - 15, 110 * st_b + 20], [first_d[150] - 14, 200 * st_b + 30]]
+    ref_k2b = bytearray(b"T" * LONG_N)
+    for read, ends in zip(reads_k2b, ends_k2b):
+        for end in ends:
+            ref_k2b[end - 15 : end + 1] = read.encode()
+    args_k2b = k2_grid(reads_k2b, ref_k2b.decode())
+    # The plain version of both: one diagonal loop over the two refs (its
+    # cost is per diagonal), sliced to each case's reads, ref and lanes.
+    args_2l = k2_grid(reads_l, refs_l[0])
+    plain_2 = cuda_score.argmax_lane_plain(
+        up(encode_batch(reads_l + reads_k2b, args_2l[0].shape[1], READ_PAD)),
+        up(encode_batch([refs_l[0], ref_k2b.decode()], LONG_N, REF_PAD)), *PARAMS)
+    want_2l = tuple(t[: len(reads_l), :1] for t in plain_2)
+    want_k2b = tuple(t[len(reads_l) :, 1:, :16] for t in plain_2)
+    err = k2_forms_err(args_2l, want_2l, "131 kb")
     fail_unless(err == 0, f"K2 at a 131 kb ref differs from plain ({err})")
+    fail_unless(want_k2b[0][:, 0, 15].tolist() == [80, 80] and want_k2b[2][:, 0, 15].tolist() == [3, 2]
+                and want_k2b[1][:, 0, 15].tolist() == [ends_k2b[0][0] + 15, ends_k2b[1][0] + 15],
+                f"the plain version misses the planted ties: {[w[:, 0, 15].tolist() for w in want_k2b]}")
+    err = k2_forms_err(args_k2b, want_k2b, "planted ties at the segment borders")
+    fail_unless(err == 0 and cnt_b > 200, f"K2 differs on the ties planted at its segment borders ({err}, {cnt_b})")
+    k2l_plan = cuda_score.argmax_segments(args_2l[0].shape[1], LONG_N, *PARAMS, -(-len(reads_l) // 8), sms)
+    k2l_int32_ms = cuda_ms(lambda: cuda_score._argmax_lane(*args_2l, *PARAMS, form="int32"), 3)
     k2l_ms = cuda_ms(lambda: cuda_score.argmax_lane(*args_2l, *PARAMS), 3)
-    k2l_bound_ms, k2l_bound_by = bound(
-        sum(map(len, reads_l)) * LONG_N,
-        sum(t.numel() * t.element_size() for t in args_2l) + 3 * args_2l[0].numel() * 4, sms, clock_mhz,
-    )
-    print(f"[2] K2 64 reads x {LONG_N} bp ref: max abs err 0; kernel {k2l_ms:.3f} ms; bound {k2l_bound_ms:.3f} ms "
-          f"by {k2l_bound_by} = {100 * k2l_bound_ms / k2l_ms:.1f}%", flush=True)
+    k2l_unsplit_ms = cuda_ms(lambda: cuda_score._argmax_lane(*args_2l, *PARAMS, split=False), 3)
+    k2l_bound_ms, k2l_bound_by = k2_bound(args_2l)
+    fail_unless(k2l_plan[3] > 1 and k2l_unsplit_ms >= 5 * k2l_ms,
+                f"K2's s16x2 form at 131 kb in {k2l_plan[3]} segments takes {k2l_ms:.3f} ms, "
+                f"as one {k2l_unsplit_ms:.3f}")
+    print(f"[2] K2 64 reads x {LONG_N} bp ref: max abs err 0 in the s16x2 form in {k2l_plan[3]} column segments "
+          f"(stride {k2l_plan[0]}, offset {k2l_plan[2]}), as one segment and in int32; s16x2 {k2l_ms:.3f} ms in "
+          f"segments, {k2l_unsplit_ms:.3f} as one, int32 {k2l_int32_ms:.3f}; bound {k2l_bound_ms:.3f} ms by "
+          f"{k2l_bound_by} = {100 * k2l_bound_ms / k2l_ms:.1f}%", flush=True)
+    # Small cases against plain: 1-19 reads (odd counts leave a warp's high
+    # half empty) of every L's width, 1-3 refs of 1-3,000 bp (segments
+    # where the plan splits them), schemes with mismatch or gap 0 (one
+    # segment; the padding diagonals masked).
+    rng_k2s = np.random.default_rng(SEED + 22)
+    for case in range(24):
+        m_s = int(rng_k2s.choice([8, 24, 40, 100, 152, 200, 320, 500, 1000, 1024]))
+        params_s = [PARAMS, (5, 0, -4), (5, -3, 0), (5, 0, 0), (2, -1, -1), (31, -3, -4)][case % 6]
+        reads_s = rand_seqs(rng_k2s, rng_k2s.integers(1, m_s + 1, int(rng_k2s.integers(1, 20))))
+        refs_s = rand_seqs(rng_k2s, rng_k2s.integers(1, 3001, int(rng_k2s.integers(1, 4))))
+        args_s = (up(encode_batch(reads_s, m_s, READ_PAD)), up(encode_batch(refs_s, max(map(len, refs_s)), REF_PAD)))
+        want_s = cuda_score.argmax_lane_plain(*args_s, *params_s)
+        for kw in ({}, {"split": False}):
+            got_s = cuda_score._argmax_lane(*args_s, *params_s, form="s16x2", **kw)
+            cons_s = want_s[0] == want_s[0].amax(dim=2, keepdim=True)
+            fail_unless(all(torch.equal(g[cons_s], w[cons_s]) for g, w in zip(got_s, want_s))
+                        and torch.equal(got_s[0] == got_s[0].amax(dim=2, keepdim=True), cons_s),
+                        f"K2's s16x2 form differs from plain: {len(reads_s)} reads of width {m_s} x refs of "
+                        f"{list(map(len, refs_s))} bp, scheme {params_s}, {kw}")
+    print("[2] K2's s16x2 form equal to plain in 24 small cases (1-19 reads of width 8-1,024, 1-3 refs of 1-3,000 "
+          "bp, mismatch and gap 0, match x width up to 31,744), in segments and as one", flush=True)
+    # The long-ref workload's winner: 256 reads x a 0.95 Mb ref, held to the
+    # int32 form as one segment (itself held to plain at 131 kb above).
+    reads_2x = rand_seqs(rng_k2, rng_k2.integers(80, 151, size=256))
+    args_2x = k2_grid(reads_2x, rand_seqs(rng_k2, [950_000])[0])
+    want_2x = cuda_score._argmax_lane(*args_2x, *PARAMS, form="int32")
+    err = consumed_err(cuda_score.argmax_lane(*args_2x, *PARAMS), want_2x, "0.95 Mb")
+    fail_unless(err == 0, f"K2's s16x2 form at 0.95 Mb differs from its int32 form ({err})")
+    k2x_ab, _ = in_turns(lambda form: cuda_score._argmax_lane(*args_2x, *PARAMS, form=form), 2)
+    k2x_ms, k2x_int32_ms = (float(np.mean(k2x_ab[form])) for form in ("s16x2", "int32"))
+    k2x_bound_ms, _ = k2_bound(args_2x)
+    print(f"[2] K2 ties planted at {len(ends_k2b[0]) + len(ends_k2b[1])} places around the borders of {cnt_b} "
+          f"segments of a {LONG_N} bp ref (stride {st_b}, offset {off_b}): equal to plain in both forms and as one "
+          f"segment; 256 reads x 0.95 Mb: the s16x2 form equal to int32, in turns s16x2 {k2x_ms:.3f} ms, "
+          f"int32 {k2x_int32_ms:.3f} ms ({k2x_int32_ms / k2x_ms:.2f}x); bound {k2x_bound_ms:.3f} ms", flush=True)
 
     # -- 2. K8 against its plain version, on the reads K2 finds tied --------
     def tied(args, reads):
@@ -768,11 +897,47 @@ def main() -> int:
     torch.cuda.synchronize()
     k8_plain_ms = (time.perf_counter() - t) * 1e3
     k8_check("2 kb", reads_8, ref_8, best_8, 1024, want_8)
+    k8_check("2 kb, one segment", reads_8, ref_8, best_8, 1024, want_8, split=False)
     k8_check("2 kb, int32", reads_8, ref_8, best_8, 1024, want_8, form="int32")
     _, k8_over = k8_check("2 kb, capacity 2", reads_8, ref_8, best_8, 2)
     fail_unless(k8_over > 0, "no tied read has more than 2 cells at its best")
     k8_ms = cuda_ms(lambda: cuda_score.max_cells_row(reads_8, ref_8, best_8, *PARAMS, 1024), 10)
     k8_int32_ms = cuda_ms(lambda: cuda_score._max_cells_row(reads_8, ref_8, best_8, *PARAMS, 1024, form="int32"), 10)
+    k8_plan = cuda_score.max_cells_segments(reads_8.shape[1], ref_8.numel(), *PARAMS, -(-len(best_8) // 8), sms)
+    # The listing's kernel and its finish alone, from one profiler pass over
+    # the wrapper (the wrapper's time above also holds the count's zeroing
+    # and the host's launches).
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            cuda_score.max_cells_row(reads_8, ref_8, best_8, *PARAMS, 1024)
+        torch.cuda.synchronize()
+    k8_device = collections.defaultdict(float)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k8_device[e.name] += e.time_range.elapsed_us() / 10 / 1e3
+    k8_kernel_ms = sum(v for k, v in k8_device.items() if "max_cells_s16x2_kernel" in k)
+    k8_finish_ms = sum(v for k, v in k8_device.items() if "max_cells_finish_kernel" in k)
+    fail_unless(k8_kernel_ms > 0 and k8_finish_ms > 0, f"the profiler saw no K8 kernel: {dict(k8_device)}")
+    # The finish against its plain version: each read's cells of the plain
+    # listing shuffled into its slots (-1 past them), and at a capacity past
+    # the finish's shared memory (4,500 random cells of a 150 x 131,072 plane
+    # a read) with a read of best 0 and one of best -1.
+    rng_f = np.random.default_rng(SEED + 14)
+
+    def finish_case(listings, best, m, n, capacity):
+        count = torch.tensor([len(c) for c in listings], dtype=torch.int64)
+        slots = torch.full((len(listings), capacity, 2), -1, dtype=torch.int32)
+        for r, c in enumerate(listings):
+            slots[r, : min(len(c), capacity)] = torch.from_numpy(rng_f.permutation(c)[:capacity].astype(np.int32))
+        want = cuda_score.max_cells_finish_plain(count.to(dev), slots.to(dev), best, m, n)
+        got = cuda_score.max_cells_finish(count.to(dev), slots.to(dev), best, m, n)
+        fail_unless(all(torch.equal(g, w) for g, w in zip(got, want)),
+                    f"K8's finish differs from plain (capacity {capacity})")
+
+    finish_case([want_8[1][r, : int(want_8[0][r])].cpu().numpy() for r in range(len(best_8))], best_8,
+                reads_8.shape[1], ref_8.numel(), 1024)
+    big = [np.stack(np.divmod(rng_f.choice(150 * LONG_N, 4500, replace=False), LONG_N), 1) for _ in range(4)]
+    finish_case(big, up(np.array([80, 5, 0, -1], np.int32)), 150, LONG_N, 5000)
 
     def k8_bytes(reads, ref, want):
         """Reads, ref and bests in; counts and the listed cells out."""
@@ -781,9 +946,11 @@ def main() -> int:
     k8_bound_ms, k8_bound_by = bound(bp_8 * ref_8.numel(), k8_bytes(reads_8, ref_8, want_8), sms, clock_mhz)
     print(f"[2] K8 {len(best_8)} of the 2000 reads tied (K2) x 2 kb ref, {int(want_8[0].sum())} cells at their "
           f"bests (up to {int(want_8[0].max())} a read): counts and cells equal plain in both forms, and at capacity "
-          f"2 ({k8_over} reads past it) the counts and distinct cells of the listing; s16x2 {k8_ms:.3f} ms, int32 "
-          f"{k8_int32_ms:.3f} ms, plain {k8_plain_ms:.1f} ms; bound {k8_bound_ms:.3f} ms by {k8_bound_by} = "
-          f"{100 * k8_bound_ms / k8_ms:.1f}% of the kernel's time", flush=True)
+          f"2 ({k8_over} reads past it) the counts and distinct cells of the listing; in {k8_plan} segments "
+          f"(stride, length, skip) and as one; the finish equal to its plain version at capacity 1,024 and 5,000; "
+          f"s16x2 {k8_ms:.3f} ms (of it the listing kernel {k8_kernel_ms:.4f} ms and the finish {k8_finish_ms:.4f} "
+          f"ms, profiler), int32 {k8_int32_ms:.3f} ms, plain {k8_plain_ms:.1f} ms; bound {k8_bound_ms:.3f} ms by "
+          f"{k8_bound_by} = {100 * k8_bound_ms / k8_ms:.1f}% of the wrapper's time", flush=True)
     reads_8l, best_8l, bp_8l = tied(args_2l, reads_l)
     ref_8l = args_2l[1][0]
     want_8l = k8_plain(reads_8l, ref_8l, best_8l, 1024)
@@ -1013,6 +1180,9 @@ def main() -> int:
                     f"a kernel of the batch path never launched: {launches}")
         k1_main_forms = collections.Counter(cuda_score.K1_FORMS)  # K1's forms on the main-path legs
         k8_main_forms = collections.Counter(cuda_score.K8_FORMS)  # K8's
+        k2_main_forms = collections.Counter(cuda_score.K2_FORMS)  # K2's
+        fail_unless(k2_main_forms["s16x2"] == launches["argmax_lane"],
+                    f"K2 launches of phases 3-4 not all in the s16x2 form: {dict(k2_main_forms)}")
         fail_unless(k1_main_forms["s16x2"] == launches["lane_best_packed_varlen"],
                     f"K1 launches of phases 3-4 not all in the s16x2 form: {dict(k1_main_forms)}")
 
@@ -1181,10 +1351,12 @@ def main() -> int:
         seq_launches = dict(cuda_score.LAUNCHES)
         fail_unless(seq_launches["band_lane_best"] > 0, f"K3 never launched on the shard_seq path: {seq_launches}")
         k8_main_forms.update(cuda_score.K8_FORMS)
+        k2_main_forms.update(cuda_score.K2_FORMS)
         cuda_score.reset_launches()
         batch_s = align(seq_root, "batch", "out_batch")
         seq_batch_launches = dict(cuda_score.LAUNCHES)
         k8_main_forms.update(cuda_score.K8_FORMS)
+        k2_main_forms.update(cuda_score.K2_FORMS)
         fail_unless(seq_launches["max_cells_row"] + seq_batch_launches["max_cells_row"] > 0,
                     f"K8 never launched in phase 6: {seq_launches}, {seq_batch_launches}")
         traced_6 = (traced(seq_launches, "phase 6, shard_seq"), traced(seq_batch_launches, "phase 6, batch"))
@@ -1238,6 +1410,7 @@ def main() -> int:
                   f"batch's apart from the time line", flush=True)
         shard_launches = dict(cuda_score.LAUNCHES)
         k8_main_forms.update(cuda_score.K8_FORMS)
+        k2_main_forms.update(cuda_score.K2_FORMS)
         fail_unless(shard_launches["lane_best_packed_varlen"] > 0, f"K1 never launched on the sharded path: {shard_launches}")
         fail_unless(cuda_score.K1_FORMS["s16x2"] == shard_launches["lane_best_packed_varlen"],
                     f"K1 launches of phase 7 not all in the s16x2 form: {cuda_score.K1_FORMS}")
@@ -1467,6 +1640,7 @@ def main() -> int:
         k4_main_forms = collections.Counter(cuda_score.K4_FORMS)  # K4's forms on the main-path legs
         k5_main_forms = collections.Counter(cuda_score.K5_FORMS)  # K5's
         k8_main_forms.update(cuda_score.K8_FORMS)
+        k2_main_forms.update(cuda_score.K2_FORMS)
         print(f"[9] ShardedBackend with pack_reads=False and with kernel='row' on a (2, 2) mesh of {dev}: totals equal "
               f"batch's for both inputs; launches over phase 9 {unpacked_launches}, K5 forms {cuda_score.K5_FORMS}",
               flush=True)
@@ -1488,6 +1662,7 @@ def main() -> int:
                     f"K4 launches of phase 10 not all in the s16x2 form: {cuda_score.K4_FORMS}")
         k4_main_forms.update(cuda_score.K4_FORMS)
         k8_main_forms.update(cuda_score.K8_FORMS)
+        k2_main_forms.update(cuda_score.K2_FORMS)
         reads_10, refs_10 = workload(512, 128, 512, 4096)
         totals_10 = sharded_totals(reads_10, refs_10, *PARAMS, mesh=build_mesh((1, 1), devices=[dev]))
         sub = np.arange(0, 512, 32)
@@ -1705,15 +1880,16 @@ def main() -> int:
         for leg, kernel in (("kernel", "score_grid_diag"), ("e2e", "lane_best_packed_varlen"),
                             ("pipeline", "lane_best_packed_varlen"), ("corpus", "lane_best_packed_varlen"),
                             ("readscale", "lane_best_packed_varlen"), ("longref", "lane_best_packed_varlen"),
-                            ("longref", "argmax_lane"), ("roofline", "step_chain_best")):
+                            ("longref", "argmax_lane"), ("longref", "k2_s16x2"), ("roofline", "step_chain_best")):
             fail_unless(bench_launches[leg][kernel] > 0, f"{kernel} never launched on the bench's {leg} leg")
         k6_main_forms, k7_main_forms = collections.Counter(), collections.Counter()  # K6's, K7's on the main path
         for leg, counts in bench_launches.items():
-            for k, name in (("k1", "lane_best_packed_varlen"), ("k4", "score_grid_diag"), ("k6", "step_chain_best")):
+            for k, name in (("k1", "lane_best_packed_varlen"), ("k2", "argmax_lane"), ("k4", "score_grid_diag"),
+                            ("k6", "step_chain_best")):
                 fail_unless(counts[f"{k}_s16x2"] == counts[name],
                             f"{k.upper()} launches of the bench's {leg} leg not all in the s16x2 form: {counts}")
-            for k, forms in (("k1", k1_main_forms), ("k4", k4_main_forms), ("k6", k6_main_forms),
-                             ("k7", k7_main_forms), ("k8", k8_main_forms)):
+            for k, forms in (("k1", k1_main_forms), ("k2", k2_main_forms), ("k4", k4_main_forms),
+                             ("k6", k6_main_forms), ("k7", k7_main_forms), ("k8", k8_main_forms)):
                 forms.update({form: counts[f"{k}_{form}"] for form in cuda_score.K1_FORMS})
         # F8: K4's step rate over K6's, both in the s16x2 form, is a share
         # of a ceiling only if it is at most 100%.
@@ -1840,7 +2016,9 @@ def main() -> int:
                 fail_unless(torch.equal(chain_k3(packed_t, start_t, refs_w, segs)[0], k1_w.T),
                             f"{segs} chained K3 segments differ from K1 at {m} lanes")
             reads_g = [piece(m), piece(m - 1), piece(600), piece(1), piece(513), piece(min(m, 1100)), piece(m - 512), ""]
-            err, args_2w = k2_err(reads_g, refs_w[0])
+            args_2w = k2_grid(reads_g, refs_w[0])
+            err = consumed_err(cuda_score.argmax_lane(*args_2w, *PARAMS),
+                               cuda_score.argmax_lane_plain(*args_2w, *PARAMS), f"{m} lanes")
             wide_err["K2"] = max(wide_err["K2"], err)
             args_g = grid_args(reads_g, refs_w, m)
             want_g = cuda_score.score_grid_diag_plain(*args_g, *PARAMS)
@@ -1983,6 +2161,7 @@ def main() -> int:
                     f"K5's forms on the long-read paths: {lr_k5_forms} of {lr_launches['score_grid_row']}")
         k5_main_forms.update(lr_k5_forms)
         k8_main_forms.update(cuda_score.K8_FORMS)
+        k2_main_forms.update(cuda_score.K2_FORMS)
         fail_unless(all(lr_launches[k] > 0 for k in ("lane_best_packed_varlen", "argmax_lane", "band_lane_best",
                                                       "score_grid_diag", "score_grid_row")),
                     f"a kernel of K1-K5 never launched on the long-read paths: {lr_launches}")
@@ -2057,8 +2236,17 @@ def main() -> int:
             "bound_ms": k2_bound_ms,
             "bound_by": k2_bound_by,
             "library_ms": None,
+            "forms": dict(k2_main_forms),
+            "int32_ms": k2_int32_ms,
             "long_ms": k2l_ms,
             "long_bound_ms": k2l_bound_ms,
+            "long_segments": k2l_plan[3],
+            "long_unsplit_ms": k2l_unsplit_ms,
+            "long_unsplit_bound_ms": k2l_bound_ms,
+            "long_int32_ms": k2l_int32_ms,
+            "longref_ms": k2x_ms,
+            "longref_bound_ms": k2x_bound_ms,
+            "longref_int32_ms": k2x_int32_ms,
         },
         {
             "name": "band_lane_best",
@@ -2183,6 +2371,8 @@ def main() -> int:
             "bound_by": k8_bound_by,
             "library_ms": None,
             "forms": dict(k8_main_forms),
+            "kernel_ms": k8_kernel_ms,
+            "finish_ms": k8_finish_ms,
             "int32_ms": k8_int32_ms,
             "long_ms": k8l_ms,
             "long_bound_ms": k8l_bound_ms,
@@ -2232,6 +2422,9 @@ def main() -> int:
         for key in [k for k in entry if k.endswith("bound_ms")]:
             ms = entry[key[: -len("bound_ms")] + "ms"]
             fail_unless(entry[key] <= ms, f"{entry['name']} ran in {ms} ms, under its {key} of {entry[key]} ms")
+    fail_unless(sum(k2_main_forms.values()) == main_launches["argmax_lane"] and k2_main_forms["s16x2"] > 0,
+                f"K2's forms {dict(k2_main_forms)} over the main-path legs: {main_launches['argmax_lane']} launches")
+    print(f"[end] K2 launches over the main-path legs by form: {dict(k2_main_forms)}", flush=True)
     fail_unless(sum(k8_main_forms.values()) == main_launches["max_cells_row"],
                 f"K8's forms {dict(k8_main_forms)} do not sum to its {main_launches['max_cells_row']} main-path launches")
     print(f"[end] K8 launches over the main-path legs by form: {dict(k8_main_forms)}", flush=True)

@@ -393,12 +393,12 @@ def run_bench(device="cuda", repeats=REPEATS, sizes=None):
     """Run every leg, the parity checks and the smoke.  ``sizes`` maps a
     leg name to keyword arguments of its function (the tests shrink the
     legs).  Returns (the JSON line's dict, {leg: kernel launches during
-    that leg, with K1's, K4's, K6's, K7's and K8's per form as
+    that leg, with K1's, K2's, K4's, K6's, K7's and K8's per form as
     ``k1_<form>`` .. ``k8_<form>``})."""
     sizes = sizes or {}
     launches = {}
-    forms = {"k1": cuda_score.K1_FORMS, "k4": cuda_score.K4_FORMS, "k6": cuda_score.K6_FORMS,
-             "k7": cuda_score.K7_FORMS, "k8": cuda_score.K8_FORMS}
+    forms = {"k1": cuda_score.K1_FORMS, "k2": cuda_score.K2_FORMS, "k4": cuda_score.K4_FORMS,
+             "k6": cuda_score.K6_FORMS, "k7": cuda_score.K7_FORMS, "k8": cuda_score.K8_FORMS}
 
     def leg(name, fn):
         cuda_score.reset_launches()

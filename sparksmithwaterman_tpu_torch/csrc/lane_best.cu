@@ -182,7 +182,7 @@ lane_best_s16x2_kernel(const int32_t* __restrict__ packed, int rows, int m,
   // on the second of each pair, one 3-input max of best, the first's
   // value and the second's.
   sweep_s16x2<L>(rd2, keep2, nd, refs + offs[c], len, k_sub, mismatch2, gap2, ring,
-                 [&](int k, bool odd, uint32_t h, uint32_t h_prev) {
+                 [&](int k, bool odd, uint32_t h, uint32_t h_prev, int) {
                    if (odd) best2[k] = __vimax3_s16x2(best2[k], h_prev, h);
                  });
 

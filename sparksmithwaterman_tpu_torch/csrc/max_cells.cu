@@ -10,7 +10,11 @@
 // slots cells[r][0, capacity) in the order found; the wrapper sorts them
 // row-major and fills the rest with -1.  A slot is written only below
 // capacity, and the count always counts.  A read with best[r] <= 0 lists
-// nothing here (the wrapper fills it by arithmetic).
+// nothing here.  A second kernel finishes the listing on the card
+// (max_cells_finish_kernel, one block per read): it sorts each read's
+// filled slots row-major, fills the rest with -1, and gives a read of best
+// 0 every cell of its plane by arithmetic (count M x N), so that no torch
+// operation runs after the launch.
 //
 // The recurrence is K5's (csrc/score_row.cu), its row step shared through
 // csrc/row_scan.cuh: tiles of kRowTile columns, all M rows of a tile
@@ -50,9 +54,12 @@
 // codes included, as the plain version; a tile's columns past the end read
 // as REF_PAD and are never listed.
 //
-// Column segments.  A launch with few blocks (a few tied reads against a
-// long reference) cuts the reference into segments, one block each, as K5
-// (ops/cuda_score.py row_segments): segment k covers the columns [k S,
+// Column segments.  A launch with few blocks (a few tied reads) cuts the
+// reference into segments, one block each (ops/cuda_score.py
+// max_cells_segments: a warp is one chain of M dependent row steps a tile,
+// so each segment is a whole number of tiles, as few as the launch's
+// target of blocks allows, and the redundant columns cost nothing the card
+// lacks): segment k covers the columns [k S,
 // k S + len), len >= S + W - 1, W = m + floor(match m / |gap|), and starts
 // from H = 0 at its left edge.  Its first W - 1 columns can underestimate
 // H, and they also lie in segment k - 1, so each column is listed by one
@@ -301,6 +308,63 @@ max_cells_s16x2_kernel(const uint8_t* __restrict__ reads, int r, int m, int read
   }
 }
 
+// The finish: keys of at most kFinishKeys slots are sorted in shared
+// memory; more, in the wrapper's scratch (a power of two of keys a read).
+constexpr int kFinishThreads = 256;
+constexpr int kFinishKeys = 4096;
+
+// Bitonic sort, ascending, of keys[0, p) (p a power of two) by the block.
+template <class Key>
+__device__ void bitonic_sort(Key* keys, int p) {
+  for (int size = 2; size <= p; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = threadIdx.x; t < p / 2; t += blockDim.x) {
+        const int lo = 2 * t - (t & (stride - 1)), hi = lo + stride;
+        const Key a = keys[lo], b = keys[hi];
+        if ((a > b) == ((lo & size) == 0)) {
+          keys[lo] = b;
+          keys[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// One block per read: slots [0, min(count, capacity)) sorted by the
+// row-major key (i << 32) | j and the rest -1; a read of best 0 gets
+// count m n and the first cells of its plane, row-major, then -1.
+__global__ void __launch_bounds__(kFinishThreads)
+max_cells_finish_kernel(const int32_t* __restrict__ best, int m, int n,
+                        unsigned long long* __restrict__ count, int2* __restrict__ cells,
+                        long long capacity, unsigned long long* __restrict__ scratch, int scratch_keys) {
+  __shared__ unsigned long long keys_s[kFinishKeys];
+  const int read = blockIdx.x;
+  int2* slots = cells + read * capacity;
+  if (best[read] == 0) {
+    const long long plane = (long long)m * n;
+    for (long long p = threadIdx.x; p < capacity; p += blockDim.x)
+      slots[p] = p < plane ? make_int2((int)(p / n), (int)(p % n)) : make_int2(-1, -1);
+    if (threadIdx.x == 0) count[read] = (unsigned long long)plane;
+    return;
+  }
+  const unsigned long long got = count[read];
+  const int k = (int)(got < (unsigned long long)capacity ? got : capacity);
+  int p = 1;
+  while (p < k) p <<= 1;
+  unsigned long long* keys = p <= kFinishKeys ? keys_s : scratch + (long long)read * scratch_keys;
+  const unsigned long long* raw = reinterpret_cast<const unsigned long long*>(slots);
+  for (int t = threadIdx.x; t < p; t += blockDim.x) {
+    // An int2 (i, j) read as 64 bits holds j above i: swap the halves.
+    const unsigned long long v = t < k ? raw[t] : ~0ull;
+    keys[t] = t < k ? (v << 32 | v >> 32) : v;
+  }
+  __syncthreads();
+  bitonic_sort(keys, p);
+  for (long long t = threadIdx.x; t < capacity; t += blockDim.x)
+    slots[t] = t < k ? make_int2((int)(keys[t] >> 32), (int)(keys[t] & 0xFFFFFFFFu)) : make_int2(-1, -1);
+}
+
 // The wrapper's split of the reference (stride, length, skip), checked:
 // one segment when stride and length cover n; else segments of reads of
 // at most kMaxLanes under match > 0, mismatch <= 0 and gap < 0 that overlap
@@ -378,5 +442,27 @@ extern "C" int swt_max_cells_row_s16x2(const void* reads, int r, int m, const vo
       (const uint8_t*)reads, r, m, (int)read_blocks, (const uint8_t*)ref, n, sg,
       (const int32_t*)best, trim, (uint32_t)(match - mismatch), swt::pair16(mismatch),
       swt::pair16(gap), scan, out);
+  return (int)cudaGetLastError();
+}
+
+// The finish of K8's listing (see the top of this file), after
+// swt_max_cells_row or swt_max_cells_row_s16x2 on the same stream: best
+// (r,) int32, count (r,) int64 and cells (r, capacity, 2) int32 as the
+// listing left them; scratch: scratch_keys >= the power of two at or above
+// capacity 64-bit keys per read where that is above kFinishKeys (else
+// unused).
+extern "C" int swt_max_cells_finish(const void* best, int r, int m, int n, void* count, void* cells,
+                                    long long capacity, void* scratch, int scratch_keys, int device,
+                                    void* stream) {
+  long long p = 1;
+  while (p < capacity) p <<= 1;
+  if (r <= 0 || m < 0 || n < 0 || capacity <= 0 || capacity > (1LL << 30) ||
+      (p > kFinishKeys && (scratch == nullptr || scratch_keys < p)))
+    return (int)cudaErrorInvalidValue;
+  swt::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  max_cells_finish_kernel<<<(unsigned)r, kFinishThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)best, m, n, (unsigned long long*)count, (int2*)cells, capacity,
+      (unsigned long long*)scratch, scratch_keys);
   return (int)cudaGetLastError();
 }

@@ -167,7 +167,7 @@ score_grid_s16x2_kernel(const uint8_t* __restrict__ reads, int r, int m,
   // as in K1: on the second of each pair, one 3-input max of best, the
   // first's value and the second's.
   sweep_s16x2<L>(rd2, keep2, nd, ref, lu.x, k_sub, mismatch2, gap2, ring,
-                 [&](int k, bool odd, uint32_t h, uint32_t h_prev) {
+                 [&](int k, bool odd, uint32_t h, uint32_t h_prev, int) {
                    if (odd) best2[k] = __vimax3_s16x2(best2[k], h_prev, h);
                  });
 

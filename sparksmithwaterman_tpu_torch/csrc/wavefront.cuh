@@ -301,7 +301,7 @@ constexpr int kS16x2Tile = kTile - kTile % kS16x2Unroll<L>;
 constexpr int kS16x2RingPad = 16;  // >= every kS16x2Unroll<L>
 
 // Run the diagonals 0 .. nd-1 (nd rounded up to kS16x2Unroll<L>) for this
-// warp's two rows and call on_cell(k, odd, h2, h2_prev) for every
+// warp's two rows and call on_cell(k, odd, h2, h2_prev, d) for every
 // register k of this thread on every diagonal d, odd = (d & 1) known at
 // compile time, h2_prev the register's value on diagonal d - 1 (so a
 // caller can fold a pair of diagonals at once: see lane_best.cu).
@@ -310,13 +310,15 @@ constexpr int kS16x2RingPad = 16;  // >= every kS16x2Unroll<L>
 // = match - mismatch, mismatch2 and gap2 pair16 of the scheme.  `ring` is
 // kRing + kS16x2RingPad words of shared memory.  Every thread of the
 // block must call it with the same nd (it synchronises at tile edges).
-template <int L, class OnCell>
+// on_tile(base) runs before the diagonals base .. of each tile of
+// kS16x2Tile<L> diagonals.
+template <int L, class OnCell, class OnTile>
 __device__ __forceinline__ void sweep_s16x2(const uint32_t (&rd2)[L],
                                             const uint32_t (&keep2)[L], int nd,
                                             const uint8_t* ref, int len,
                                             uint32_t k_sub, uint32_t mismatch2,
                                             uint32_t gap2, uint32_t* ring,
-                                            OnCell&& on_cell) {
+                                            OnCell&& on_cell, OnTile&& on_tile) {
   constexpr int R = kS16x2Unroll<L>;
   constexpr int T = kS16x2Tile<L>;
   constexpr bool kBytes = L > 8;      // window as bytes, four a register
@@ -335,6 +337,7 @@ __device__ __forceinline__ void sweep_s16x2(const uint32_t (&rd2)[L],
   for (int t = T + threadIdx.x; t < kRing; t += blockDim.x) ring[t] = pad;
   nd = (nd + R - 1) / R * R;
   for (int base = 0; base < nd; base += T) {
+    on_tile(base);
     __syncthreads();  // everyone is done reading the slot being replaced
     for (int t = threadIdx.x; t < T; t += blockDim.x) {
       const int j = base + t, q = j & (kRing - 1);
@@ -367,13 +370,23 @@ __device__ __forceinline__ void sweep_s16x2(const uint32_t (&rd2)[L],
           const uint32_t up = (k > 0 ? H[k - 1] : up0) & keep2[k];
           const uint32_t v = eq_unit16x2(rd2[k], rw) * k_sub + U[k];
           const uint32_t h = __viaddmax_s16x2_relu(v, mismatch2, __vadd2(__vmaxs2(up, H[k]), gap2));
-          on_cell(k, (u & 1) != 0, h, H[k]);
+          on_cell(k, (u & 1) != 0, h, H[k], d + u);
           U[k] = up;
           H[k] = h;
         }
       }
     }
   }
+}
+
+template <int L, class OnCell>
+__device__ __forceinline__ void sweep_s16x2(const uint32_t (&rd2)[L],
+                                            const uint32_t (&keep2)[L], int nd,
+                                            const uint8_t* ref, int len,
+                                            uint32_t k_sub, uint32_t mismatch2,
+                                            uint32_t gap2, uint32_t* ring,
+                                            OnCell&& on_cell) {
+  sweep_s16x2<L>(rd2, keep2, nd, ref, len, k_sub, mismatch2, gap2, ring, on_cell, [](int) {});
 }
 
 // Segmented suffix max of one row's lanes, then the store: best[] over

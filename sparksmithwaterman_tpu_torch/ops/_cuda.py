@@ -133,6 +133,21 @@ def lib() -> ctypes.CDLL:
                 _VP, _VP, _VP, _VP, _I,  # best, bestd, count, carry, reads per launch
                 _I, _VP,  # device, stream
             ]
+            handle.swt_argmax_lane_s16x2.restype = _I
+            handle.swt_argmax_lane_s16x2.argtypes = [
+                _VP, _I, _I,  # reads, r, m
+                _VP, _LL, _I, _I,  # refs, ref_stride, c, n
+                _I, _I, _I,  # match, mismatch, gap
+                _VP, _VP, _VP,  # best, bestd, count (or the segments' partials)
+                _I, _I, _I, _I,  # segment stride, length, offset and count
+                _I, _VP,  # device, stream
+            ]
+            handle.swt_argmax_merge.restype = _I
+            handle.swt_argmax_merge.argtypes = [
+                _VP, _VP, _VP, _I, _LL,  # partial best, bestd, count, segments, lanes
+                _VP, _VP, _VP,  # best, bestd, count
+                _I, _VP,  # device, stream
+            ]
             handle.swt_band_lane_best.restype = _I
             handle.swt_band_lane_best.argtypes = [
                 _VP, _I, _I,  # packed, rows, m
@@ -164,6 +179,13 @@ def lib() -> ctypes.CDLL:
                     _I, _I, _I,  # segment stride, length and skip
                     _I, _VP,  # device, stream
                 ]
+            handle.swt_max_cells_finish.restype = _I
+            handle.swt_max_cells_finish.argtypes = [
+                _VP, _I, _I, _I,  # best, r, m, n
+                _VP, _VP, _LL,  # count, cells, capacity
+                _VP, _I,  # scratch, keys per read
+                _I, _VP,  # device, stream
+            ]
             handle.swt_fill_dirs.restype = _I
             handle.swt_fill_dirs.argtypes = [
                 _VP, _I, _I,  # reads, b, m

@@ -9,7 +9,9 @@ Ten kernels, each with its plain PyTorch version of the same function:
   ``_diag_kernel_packed``, ``_chunked_kernel_packed``,
   ``_stream_kernel_packed`` and ``_diag_kernel_packed_carry``;
 - K2 :func:`argmax_lane` (``csrc/argmax.cu``) replaces
-  ``pallas_score.py:_chunked_argmax_kernel``;
+  ``pallas_score.py:_chunked_argmax_kernel``; its s16x2 form's column
+  segments merge by a second kernel (plain version
+  :func:`argmax_merge_plain`);
 - K3 :func:`band_lane_best` (``csrc/band.cu``) replaces
   ``pallas_score.py:_diag_kernel_packed_band``;
 - K4 :func:`score_grid_diag` (``csrc/score_grid.cu``) replaces
@@ -26,7 +28,8 @@ Ten kernels, each with its plain PyTorch version of the same function:
 - K8 :func:`max_cells_row` (``csrc/max_cells.cu``) replaces lax code, not
   Pallas: ``sparksmithwaterman_tpu/ops/longseq.py:_max_cells_device_batch``,
   the traceback's listing of every cell equal to a tied read's best; its
-  plain version is that row loop and :func:`argwhere_rows`;
+  plain version is that row loop and :func:`argwhere_rows`, and a second
+  kernel finishes the listing (plain version :func:`max_cells_finish_plain`);
 - K9 :func:`fill_dirs` (``csrc/fill_dirs.cu``) replaces lax code:
   ``sparksmithwaterman_tpu/ops/recurrence.py:fill_pairs``, the traceback's
   fill with direction codes; its plain version is
@@ -40,18 +43,19 @@ tensors it launches the kernel or raises; it never falls back.  Each
 launch adds one to :data:`LAUNCHES`, so a run can show that its main path
 went through the kernels.
 
-K1, K4, K5 and K8 have two forms each, and the data alone picks one, by one
-rule (:func:`k1_form`): rows (reads) of at most ONE_PASS_LANES lanes
-whose scores provably fit int16 run two rows per warp in the 16-bit
+K1, K2, K4, K5 and K8 have two forms each, and the data alone picks one,
+by one rule (:func:`k1_form`): rows (reads) of at most ONE_PASS_LANES
+lanes whose scores provably fit int16 run two rows per warp in the 16-bit
 halves of each register, the recurrence in DPX instructions ("s16x2");
 every other row runs the int32 kernels, one pass or striped ("int32").
-:data:`K1_FORMS`, :data:`K4_FORMS`, :data:`K5_FORMS` and :data:`K8_FORMS`
-count the launches of each.  K6 and K7, whose circular shift lets a
+:data:`K1_FORMS`, :data:`K2_FORMS`, :data:`K4_FORMS`, :data:`K5_FORMS`
+and :data:`K8_FORMS` count the launches of each.  K6 and K7, whose circular shift lets a
 value grow past a row's lanes, take the same two forms by their own rule
-(:func:`step_form`; :data:`K6_FORMS`, :data:`K7_FORMS`).  A K5 or K8
-launch with too few blocks for the card cuts each reference into
+(:func:`step_form`; :data:`K6_FORMS`, :data:`K7_FORMS`).  A K2 (s16x2),
+K5 or K8 launch with too few blocks for the card cuts each reference into
 overlapping column segments, one block each (:func:`row_segments`; K8
-lists each column in one segment only, :func:`owned_columns`).
+lists each column in one segment only, :func:`owned_columns`; K2 counts
+each diagonal in one segment only, :func:`argmax_segments`).
 
 K1-K5 take rows (reads) of any width.  Up to :data:`ONE_PASS_LANES`
 lanes a warp sweeps a row in one pass; a wider row runs in stripes of
@@ -104,8 +108,9 @@ LAUNCHES = {
     "trace_walk": 0,
 }
 
-# K1's, K4's, K5's and K8's launches per form (k1_form) since the last reset_launches().
+# K1's, K2's, K4's, K5's and K8's launches per form (k1_form) since the last reset_launches().
 K1_FORMS = {"s16x2": 0, "int32": 0}
+K2_FORMS = {"s16x2": 0, "int32": 0}
 K4_FORMS = {"s16x2": 0, "int32": 0}
 K5_FORMS = {"s16x2": 0, "int32": 0}
 K8_FORMS = {"s16x2": 0, "int32": 0}
@@ -125,6 +130,9 @@ CARRY_BUDGET = 1 << 28
 _LANES_PER_THREAD = (1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 24, 32)
 # Rows (warps) per thread block of K1-K5 (csrc/wavefront.cuh kWarps).
 _BLOCK_ROWS = 4
+# Slots of one read that K8's finish sorts in shared memory
+# (csrc/max_cells.cu kFinishKeys); more go through a scratch of 64-bit keys.
+_FINISH_KEYS = 4096
 # Columns of one tile of K9 (csrc/fill_dirs.cu kTileCols): a fill of more
 # carries a column of M int32 per pair between tiles.
 _FILL_TILE = 512
@@ -133,7 +141,7 @@ _DONE_CHECK = 32
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, K1_FORMS, K4_FORMS, K5_FORMS, K8_FORMS, K6_FORMS, K7_FORMS):
+    for counts in (LAUNCHES, K1_FORMS, K2_FORMS, K4_FORMS, K5_FORMS, K8_FORMS, K6_FORMS, K7_FORMS):
         for key in counts:
             counts[key] = 0
 
@@ -437,6 +445,38 @@ def argmax_lane_plain(reads_u8, refs_u8, match, mismatch, gap):
     return best, bestd, count
 
 
+def argmax_merge_plain(best, bestd, count):
+    """Plain PyTorch version of K2's merge of its column segments (any
+    device): partials (S, R, C, M) int32 each, in segment order, give per
+    lane the max best, the bestd of the lowest segment reaching it and the
+    sum of those segments' counts (0 where the best is 0)."""
+    top = best.amax(dim=0)
+    hit = (best == top) & (top > 0)
+    first = hit.to(torch.uint8).argmax(dim=0, keepdim=True)
+    bestd = torch.where(top > 0, bestd.gather(0, first)[0], 0)
+    return top, bestd.to(torch.int32), torch.where(hit, count, 0).sum(dim=0, dtype=torch.int32)
+
+
+def argmax_segments(m: int, n: int, match: int, mismatch: int, gap: int, blocks: int, sms: int):
+    """(stride, length, offset, count) of K2's column segments for a
+    s16x2 launch of ``blocks`` blocks (blocks of eight reads x references)
+    on a card of ``sms`` SMs: segment s covers the columns [s stride, s
+    stride + length) and counts the cells of the global diagonals it owns,
+    segment 0 from 0, segment s >= 1 from s stride + offset, up to where
+    the next starts and the last to m + n - 1; (n, n, 0, 1) is one segment.
+
+    K5's split (:func:`row_segments`) at _K2_BLOCKS_PER_SM blocks per SM:
+    K2 is a chain of m + n - 1 dependent diagonals a warp, so more warps
+    hide more of it.  offset = W + m - 2 (W = m + match m // |gap|) puts
+    every owned cell of every lane at a local column >= W - 1, where a
+    segment's cells are exact (``csrc/argmax.cu``)."""
+    stride, _ = row_segments(m, n, match, mismatch, gap, blocks, sms, per_sm=_K2_BLOCKS_PER_SM)
+    if stride >= n:
+        return n, n, 0, 1
+    offset = m + match * m // -gap + m - 2
+    return stride, stride + offset, offset, max(1, -(-(m + n - 1 - offset) // stride))
+
+
 def argmax_lane(reads_u8, refs_u8, match, mismatch, gap):
     """Per-lane (best, first diagonal, tie count), three (R, C, M) int32.
 
@@ -448,17 +488,27 @@ def argmax_lane(reads_u8, refs_u8, match, mismatch, gap):
     Contract: exact on lanes whose best equals the read's max — the
     lanes from which ``longseq.find_max_cells_batched`` rebuilds cells
     as (lane, bestd - lane).  Other lanes are not part of the contract.
+
+    K2's form follows from M and the scheme alone (:func:`k1_form`, the
+    rule of K1, K4, K5 and K8); a s16x2 launch with too few blocks for the
+    card cuts each reference into column segments
+    (:func:`argmax_segments`), which gives the same lanes.
     """
-    device = _device_of(reads_u8, refs_u8)
-    if reads_u8.dim() != 2 or reads_u8.dtype != torch.uint8:
-        raise ValueError("reads_u8 must be an (R, M) uint8 tensor")
-    if refs_u8.dim() != 2 or refs_u8.dtype != torch.uint8:
-        raise ValueError("refs_u8 must be a (C, N) uint8 tensor")
+    return _argmax_lane(reads_u8, refs_u8, match, mismatch, gap)
+
+
+def _argmax_lane(reads_u8, refs_u8, match, mismatch, gap, *, form=None, split=True):
+    """:func:`argmax_lane` with K2's form given (``form=None``:
+    :func:`k1_form`'s), so that the two forms can be timed on the same
+    inputs; ``"s16x2"`` where k1_form says ``"int32"`` raises.
+    ``split=False`` runs each reference as one segment."""
+    device = _check_grid_inputs("argmax_lane", reads_u8, refs_u8)
     match, mismatch, gap = int(match), int(mismatch), int(gap)
-    if device.type == "cpu":
-        return argmax_lane_plain(reads_u8, refs_u8, match, mismatch, gap)
     r, m = reads_u8.shape
     c, n = refs_u8.shape
+    form = _check_form("K2", K2_FORMS, form, k1_form(m, match, mismatch, gap))
+    if device.type == "cpu":
+        return argmax_lane_plain(reads_u8, refs_u8, match, mismatch, gap)
     _check_stripes("argmax_lane", m, mismatch, gap)
     outs = tuple(
         torch.empty((r, c, m), dtype=torch.int32, device=device) for _ in range(3)
@@ -471,15 +521,34 @@ def argmax_lane(reads_u8, refs_u8, match, mismatch, gap):
         return outs
     reads_u8 = reads_u8.contiguous()
     refs_u8 = refs_u8.contiguous()
-    carry, part = _carry_grid(m, r, c, n, False, device)
-    rc = _cuda.lib().swt_argmax_lane(
-        reads_u8.data_ptr(), r, m,
-        refs_u8.data_ptr(), n, c, n,
-        match, mismatch, gap,
-        *(o.data_ptr() for o in outs), _ptr(carry), part, *_launch_target(device),
-    )
-    _cuda.check(rc, "argmax_lane")
+    lib = _cuda.lib()
+    if form == "s16x2":
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        plan = argmax_segments(m, n, match, mismatch, gap, -(-r // (2 * _BLOCK_ROWS)) * c, sms) if split else (
+            n, n, 0, 1)
+        segs = plan[3]
+        parts = outs if segs == 1 else tuple(
+            torch.empty((segs, r, c, m), dtype=torch.int32, device=device) for _ in range(3))
+        rc = lib.swt_argmax_lane_s16x2(
+            reads_u8.data_ptr(), r, m, refs_u8.data_ptr(), n, c, n, match, mismatch, gap,
+            *(o.data_ptr() for o in parts), *plan, *_launch_target(device),
+        )
+        _cuda.check(rc, "argmax_lane")
+        if segs > 1:
+            rc = lib.swt_argmax_merge(*(o.data_ptr() for o in parts), segs, r * c * m,
+                                      *(o.data_ptr() for o in outs), *_launch_target(device))
+            _cuda.check(rc, "argmax_lane (merge)")
+    else:
+        carry, part = _carry_grid(m, r, c, n, False, device)
+        rc = lib.swt_argmax_lane(
+            reads_u8.data_ptr(), r, m,
+            refs_u8.data_ptr(), n, c, n,
+            match, mismatch, gap,
+            *(o.data_ptr() for o in outs), _ptr(carry), part, *_launch_target(device),
+        )
+        _cuda.check(rc, "argmax_lane")
     LAUNCHES["argmax_lane"] += 1
+    K2_FORMS[form] += 1
     return outs
 
 
@@ -718,12 +787,19 @@ def _score_grid_diag(reads_u8, refs_u8, match, mismatch, gap, *, form=None):
 
 
 # A K5 launch that splits its references aims at this many blocks per SM,
-# with segments at least this many propagation windows apart.
+# with segments at least this many propagation windows apart.  K2 and K8
+# run one chain of dependent steps a warp (diagonals, rows), so they aim at
+# more blocks (K8 with segments of whole tiles, max_cells_segments).
 _SPLIT_BLOCKS_PER_SM = 2
 _SEGMENT_WINDOWS = 4
+_K2_BLOCKS_PER_SM = 8
+_K8_BLOCKS_PER_SM = 4
+# Columns of one tile of the row form, K5's and K8's (csrc/row_scan.cuh kRowTile).
+_ROW_TILE = 512
 
 
-def row_segments(m: int, n: int, match: int, mismatch: int, gap: int, blocks: int, sms: int):
+def row_segments(m: int, n: int, match: int, mismatch: int, gap: int, blocks: int, sms: int, *,
+                 per_sm: int = _SPLIT_BLOCKS_PER_SM):
     """(stride, length) of the column segments into which K5 cuts each
     reference of ``n`` columns, for a launch of ``blocks`` blocks (read
     blocks x references) on a card of ``sms`` SMs: segment k covers the
@@ -737,13 +813,13 @@ def row_segments(m: int, n: int, match: int, mismatch: int, gap: int, blocks: in
     columns, and the max of their bests is the pair's best
     (``pallas_score._propagation_window`` bounds the same reach).  Only
     reads of at most ONE_PASS_LANES positions under those signs split,
-    and only until the launch has _SPLIT_BLOCKS_PER_SM blocks per SM,
-    with a stride of at least _SEGMENT_WINDOWS x W; else one segment.
+    and only until the launch has ``per_sm`` blocks per SM, with a stride
+    of at least _SEGMENT_WINDOWS x W; else one segment.
     """
     if not (0 < m <= ONE_PASS_LANES and n > 0 and match > 0 and mismatch <= 0 and gap < 0 and blocks > 0):
         return n, n
     w = m + match * m // -gap
-    segs = min(-(-_SPLIT_BLOCKS_PER_SM * sms // blocks), n // (_SEGMENT_WINDOWS * w))
+    segs = min(-(-per_sm * sms // blocks), n // (_SEGMENT_WINDOWS * w))
     if segs <= 1:
         return n, n
     stride = -(-n // segs)
@@ -793,7 +869,7 @@ def owned_columns(n: int, stride: int, skip: int):
     that segment k lists, segment k covering [k stride, k stride + length)
     (:func:`row_segments`).  Segment 0 lists [0, stride + skip), segment k
     >= 1 [k stride + skip, (k + 1) stride + skip), clipped to n: each
-    column once.
+    column once (a last segment may list none).
 
     A segment starts from H = 0 at its left edge, so its first W - 1
     columns can underestimate H (W = m + match m // |gap|); they also lie
@@ -803,16 +879,32 @@ def owned_columns(n: int, stride: int, skip: int):
     segment (stride >= n) lists [0, n)."""
     if n <= 0:
         return []
-    return [(0 if k == 0 else k * stride + skip, min((k + 1) * stride + skip, n)) for k in range(-(-n // stride))]
+    return [(0 if k == 0 else min(k * stride + skip, n), min((k + 1) * stride + skip, n))
+            for k in range(-(-n // stride))]
 
 
 def max_cells_segments(m: int, n: int, match: int, mismatch: int, gap: int, blocks: int, sms: int):
     """(stride, length, skip) of K8's column segments for a launch of
-    ``blocks`` blocks: K5's split (:func:`row_segments`) with skip = W - 1,
-    the columns at the start of each segment after the first that it
-    does not list (:func:`owned_columns`); (n, n, 0) is one segment."""
-    stride, length = row_segments(m, n, match, mismatch, gap, blocks, sms)
-    return stride, length, (m + match * m // -gap - 1 if stride < n else 0)
+    ``blocks`` blocks (read blocks) on a card of ``sms`` SMs; (n, n, 0) is
+    one segment.
+
+    A K8 warp is a chain of M dependent row steps a tile of _ROW_TILE
+    columns, so where the launch has fewer than _K8_BLOCKS_PER_SM blocks
+    per SM the reference is cut into that many segments a read block, each
+    of whole tiles: length = stride + skip a multiple of _ROW_TILE, the
+    fewest tiles that the target's stride needs, skip = W - 1 (W = m +
+    match m // |gap|) the columns at the start of each segment after the
+    first that it does not list (:func:`owned_columns`).  The stride may be
+    below W: each column is listed by the one segment where it is exact.
+    Under the signs of :func:`row_segments` only."""
+    if not (0 < m <= ONE_PASS_LANES and n > 0 and match > 0 and mismatch <= 0 and gap < 0 and blocks > 0):
+        return n, n, 0
+    segs = -(-_K8_BLOCKS_PER_SM * sms // blocks)
+    if segs <= 1:
+        return n, n, 0
+    skip = m + match * m // -gap - 1
+    stride = -(-(-(-n // segs) + skip) // _ROW_TILE) * _ROW_TILE - skip
+    return (n, n, 0) if stride >= n else (stride, stride + skip, skip)
 
 
 def argwhere_rows(eq: torch.Tensor, capacity: int) -> torch.Tensor:
@@ -857,6 +949,30 @@ def max_cells_row_plain(reads_u8, ref_u8, best, match, mismatch, gap, capacity):
     return eq.sum(dim=(1, 2), dtype=torch.int64), argwhere_rows(eq, capacity)
 
 
+def max_cells_finish_plain(count, cells, best, m, n):
+    """Plain PyTorch version of K8's finish (any device): each read's slots
+    sorted row-major (empty slots, -1, last) and a read of best 0 given
+    count M x N and the first cells of its plane, row-major, -1 past it.
+    count (R,) int64 and cells (R, capacity, 2) int32 as the listing left
+    them, every slot past a read's count -1."""
+    capacity = cells.shape[1]
+    device = cells.device
+    # Row-major order: a sort of the key i n + j, empty slots last.
+    key = torch.where(cells[..., 0] >= 0, cells[..., 0].to(torch.int64) * n + cells[..., 1],
+                      torch.iinfo(torch.int64).max)
+    cells = cells.gather(1, key.argsort(dim=1)[..., None].expand(-1, -1, 2))
+    # best 0: every cell of the M x N plane; best < 0: none.  On the card
+    # longseq.find_max_cells passes K5's best, 0 for a read that scores 0
+    # (find_max_cells_batched takes such reads out before K8).
+    pos = torch.arange(capacity, device=device)
+    plane = torch.stack([torch.div(pos, max(n, 1), rounding_mode="floor"), torch.remainder(pos, max(n, 1))], dim=-1)
+    plane = torch.where((pos < m * n)[:, None], plane, -1).to(torch.int32)
+    zero = (best == 0)
+    count = torch.where(zero, m * n, count)
+    cells = torch.where(zero[:, None, None], plane[None], cells)
+    return count, cells
+
+
 def max_cells_row(reads_u8, ref_u8, best, match, mismatch, gap, capacity):
     """(count (R,) int64, cells (R, capacity, 2) int32): K8, every DP cell
     of each read against ONE reference whose score equals the read's best.
@@ -874,7 +990,9 @@ def max_cells_row(reads_u8, ref_u8, best, match, mismatch, gap, capacity):
     K8's form follows from M and the scheme alone (:func:`k1_form`); a
     launch with too few blocks for the card cuts the reference into column
     segments (:func:`max_cells_segments`), which gives the same listing.
-    On the card each read's slots are sorted row-major after the launch.
+    On the card a second kernel sorts each read's slots row-major, fills
+    the rest with -1 and lists the plane of a read of best 0
+    (:func:`max_cells_finish`).
     """
     return _max_cells_row(reads_u8, ref_u8, best, match, mismatch, gap, capacity)
 
@@ -900,11 +1018,11 @@ def _max_cells_row(reads_u8, ref_u8, best, match, mismatch, gap, capacity, *, fo
     if device.type == "cpu":
         return max_cells_row_plain(reads_u8, ref_u8, best, match, mismatch, gap, capacity)
     count = torch.zeros((r,), dtype=torch.int64, device=device)
-    cells = torch.full((r, capacity, 2), -1, dtype=torch.int32, device=device)
+    cells = torch.empty((r, capacity, 2), dtype=torch.int32, device=device)
     if r == 0:
         return count, cells
+    reads_u8, ref_u8, best = reads_u8.contiguous(), ref_u8.contiguous(), best.contiguous()
     if m > 0 and n > 0:
-        reads_u8, ref_u8, best = reads_u8.contiguous(), ref_u8.contiguous(), best.contiguous()
         reads_per_block = 2 * _BLOCK_ROWS if form == "s16x2" else _BLOCK_ROWS
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         segments = (max_cells_segments(m, n, match, mismatch, gap, -(-r // reads_per_block), sms)
@@ -921,19 +1039,34 @@ def _max_cells_row(reads_u8, ref_u8, best, match, mismatch, gap, capacity, *, fo
         _cuda.check(rc, "max_cells_row")
         LAUNCHES["max_cells_row"] += 1
         K8_FORMS[form] += 1
-        # Row-major order: a sort of the key i n + j, empty slots last.
-        key = torch.where(cells[..., 0] >= 0, cells[..., 0].to(torch.int64) * n + cells[..., 1],
-                          torch.iinfo(torch.int64).max)
-        cells = cells.gather(1, key.argsort(dim=1)[..., None].expand(-1, -1, 2))
-    # best 0: every cell of the M x N plane; best < 0: none.  On the card
-    # longseq.find_max_cells passes K5's best, 0 for a read that scores 0
-    # (find_max_cells_batched takes such reads out before K8).
-    pos = torch.arange(capacity, device=device)
-    plane = torch.stack([torch.div(pos, max(n, 1), rounding_mode="floor"), torch.remainder(pos, max(n, 1))], dim=-1)
-    plane = torch.where((pos < m * n)[:, None], plane, -1).to(torch.int32)
-    zero = (best == 0)
-    count = torch.where(zero, m * n, count)
-    cells = torch.where(zero[:, None, None], plane[None], cells)
+    return max_cells_finish(count, cells, best, m, n)
+
+
+def max_cells_finish(count, cells, best, m, n):
+    """(count, cells) of K8's listing finished: each read's filled slots
+    (the first min(count, capacity)) in row-major order, -1 past them, and
+    a read of best 0 given count M x N and the cells of its plane, as
+    :func:`max_cells_finish_plain` (its plain version, taken for CPU
+    tensors; there the slots past a read's count must hold -1).  On the
+    card one kernel (``csrc/max_cells.cu``) updates count and cells in
+    place."""
+    device = _device_of(count, cells, best)
+    r = best.shape[0]
+    if (cells.dim() != 3 or cells.shape[0] != r or cells.shape[2] != 2 or cells.dtype != torch.int32
+            or count.shape != (r,) or count.dtype != torch.int64 or best.shape != (r,) or best.dtype != torch.int32):
+        raise ValueError("max_cells_finish: count (R,) int64, cells (R, capacity, 2) int32 and best (R,) int32")
+    if device.type == "cpu":
+        return max_cells_finish_plain(count, cells, best, m, n)
+    if not (count.is_contiguous() and cells.is_contiguous() and best.is_contiguous()):
+        raise ValueError("max_cells_finish: the card updates count and cells in place: contiguous tensors only")
+    capacity = cells.shape[1]
+    if r == 0:
+        return count, cells
+    keys = 1 << (capacity - 1).bit_length()
+    scratch = torch.empty(r * keys, dtype=torch.int64, device=device) if keys > _FINISH_KEYS else None
+    rc = _cuda.lib().swt_max_cells_finish(best.data_ptr(), r, m, n, count.data_ptr(), cells.data_ptr(), capacity,
+                                          _ptr(scratch), keys, *_launch_target(device))
+    _cuda.check(rc, "max_cells_finish")
     return count, cells
 
 

@@ -7,16 +7,20 @@ ROOT (default: this checkout) is a directory that holds
 ``sparksmithwaterman_tpu_torch/``; each ROOT runs in a process of its
 own, in the order given, so an A/B of two trees on one card is one call
 (``ROOT_A ROOT_B ROOT_B ROOT_A``).  Inputs come from a fixed numpy seed,
-the same for every ROOT.  K1, K4 and K5 are timed through their public
+the same for every ROOT.  K1, K2, K4 and K5 are timed through their public
 wrappers (the form the rule picks) and, where the tree has the private
-entry that takes a form, in their int32 form too; K4 and K5 also with
+entry that takes a form, in their int32 form too; K2 on 2,000 reads of
+80-150 bp x one 2 kb ref (``K2``) and on 64 x one 131,072 bp ref
+(``K2_131k``: 8 blocks of its s16x2 form, which it splits into column
+segments; the int32 form runs one); K4 and K5 also with
 the same reads at the width of their longest read (``K4_150``,
 ``K5_150``), as the batch backend passes a read group, and K5 with 16 of
 them against one 131,072 bp ref (``K5_131k``: a launch of two blocks,
 which K5 splits into column segments).  K8 (where the tree has it) lists
 the cells at the bests of the 512 reads (at the width of their longest)
 against one 2 kb ref (``K8``) and of 16 against the 131,072 bp ref (``K8_131k``, split into
-column segments), the bests from K5.  ``fill_walk`` is one dispatch of
+column segments), the bests from K5, and on the reads K2 finds tied among
+its 2,000 (``K8_tied``, as the traceback calls it).  ``fill_walk`` is one dispatch of
 the windowed traceback (``longseq._fill_walk_known``: 64 reads of 80-150
 bp in windows of 512 columns), which K9 and K10 run where the tree has
 them (``K9``, ``K10``: each alone on those inputs); ``longref_traceback``
@@ -156,6 +160,20 @@ def _times(root: str) -> dict:
         out["K9"] = ms(lambda: cuda_score.fill_dirs(*args_w[:2], *PARAMS, tie_semantics="serial", want_h=False))
         dirs_w = cuda_score.fill_dirs(*args_w[:2], *PARAMS, tie_semantics="serial", want_h=False)[1]
         out["K10"] = ms(lambda: cuda_score.trace_walk(dirs_w, args_w[2][:, None, :], m_w + 512))
+    # Drawn last, so that the inputs above stay those of earlier trees' runs.
+    reads_2l = up(encode_batch(seqs(rng.integers(80, 151, 64)), 152, READ_PAD))
+    ref_2l = up(encode_batch(seqs([131_072]), 131_072, REF_PAD))
+    out["K2_131k"] = ms(lambda: cuda_score.argmax_lane(reads_2l, ref_2l, *PARAMS), 3)
+    if hasattr(cuda_score, "_argmax_lane"):
+        out["K2_int32"] = ms(lambda: cuda_score._argmax_lane(reads_2, ref_2, *PARAMS, form="int32"))
+        out["K2_131k_int32"] = ms(lambda: cuda_score._argmax_lane(reads_2l, ref_2l, *PARAMS, form="int32"), 3)
+    # K8 on the reads K2 finds tied inside a DP row there, as the traceback
+    # calls it, at each read's best.
+    best_t, _, count_t = (t[:, 0] for t in cuda_score.argmax_lane(reads_2, ref_2, *PARAMS))
+    top = best_t.amax(dim=1)
+    tied = (((best_t == top[:, None]) & (count_t != 1)).any(dim=1) & (top > 0)).nonzero()[:, 0]
+    reads_t, top_t = reads_2[tied].contiguous(), top[tied].to(torch.int32).contiguous()
+    out["K8_tied"] = ms(lambda: cuda_score.max_cells_row(reads_t, ref_2[0], top_t, *PARAMS, 1024))
     out["longref_traceback"] = bench.bench_longref(device=dev)[0]["traceback_ms"][0]
     return out, _registers(_cuda.build_info["log"])
 

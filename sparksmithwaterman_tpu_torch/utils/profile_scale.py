@@ -27,7 +27,8 @@ RefSeq-shaped reference of a few kb, which takes the full-fill traceback
   ``L2.stage_grid`` its uploads and ``L2c.K4`` its K4 (or K5) calls;
 - ``L3.traceback``: one winner's traceback; ``L3a.max_cells`` (K2 and the
   in-lane-tie listing), ``L3b.window_fill_walk`` and ``L3c.full_fill``
-  its parts; ``L3a.K8`` the listing's K8 calls (``max_cells_row``);
+  its parts; ``L3a.K2`` its K2 call (``argmax_lane``) and ``L3a.K8`` the
+  listing's K8 calls (``max_cells_row``);
   ``L3b.K9`` and ``L3b.K10`` the window fills' K9 calls (``fill_dirs``)
   and walks' K10 calls (``trace_walk``); ``L3c.K9`` and ``L3c.K10`` the
   full fills' and their walks'.
@@ -77,6 +78,7 @@ SPANS = {
     "L2c.K4": ("batch_backend", "_score_grid"),
     "L3.traceback": ("backend", "sites_for_ref"),
     "L3a.max_cells": ("batch_backend", "find_max_cells_batched"),
+    "L3a.K2": ("longseq", "argmax_lane"),
     "L3a.K8": ("longseq", "max_cells_row"),
     "L3b.window_fill_walk": ("batch_backend", "sites_for_ref_long_batched"),
     "L3b.K9": ("longseq", "fill_dirs"),
