@@ -14,8 +14,9 @@ port's main path (``swtorch align --strategy batch``) end to end:
    the ALU instructions per cell of both forms' inner loops at every L
    (K1, K4) and of K5's s16x2 row loop; K2's s16x2 kernel (every L) and
    K8's run that instruction too, and neither spills, nor K2's merge, K8's
-   other two kernels and its finish, K9's two (one per tie order) or
-   K10's; the ALU instructions per cell of K2's s16x2 loop at every L;
+   other two kernels and its finish, K9's two (one per tie order), K10's,
+   or the twelve of K9 and K10 in one launch (``fill_walk_kernel``); the ALU
+   instructions per cell of K2's s16x2 loop at every L;
    K6's and K7's s16x2 kernels (every L,
    K6 masked or not, K7's A, B, D, E) run it and spill nothing, and K6's
    inner loop takes no more ALU instructions per cell than sweep_s16x2's
@@ -59,7 +60,19 @@ port's main path (``swtorch align --strategy batch``) end to end:
    bp reads, each kernel timed against its bound; reads with 99-300 max
    cells x a 2 kb tandem repeat through the full-fill branch (past its
    first listing of 64, listed and walked again on the card) equal the
-   oracle;
+   oracle; K9 and K10 in one launch, each exact against its plain version
+   in both tie orders: ``fill_walk`` (the windowed branch) on the 64
+   windows (the main path's cell, a random one and none; shared-memory and
+   scratch routes) and the 4
+   long windows (scratch), ``fill_list`` (the full-fill branch, every
+   output) on the 2 kb chunk and 512 reads x a 4 kb ref (a pair past
+   capacity 64 and one of best 0 in each; the reference broadcast and per
+   pair; both routes), each call's peak memory under the size of an H;
+   each timed by events and by the profiler against the plain version,
+   K9 then K10 as two launches (as the traceback ran them before) and
+   the bound, the public wrapper and its route given in turns (one
+   launch: the run fails if its four profiler readings spread by more
+   than 5%);
 3. correctness leg: ``cli.main(["align", ...])`` on a ~1 Mbp RefSeq-shaped
    corpus with a 512-read input (full-fill traceback) and a 2,000-read
    input (windowed traceback through K2); each report's max score and
@@ -153,13 +166,15 @@ phases 9, 10 and 13, every K5 launch of phase 9 and every K6 launch of
 the bench's roofline leg must take the s16x2 form, every one at rows
 (reads) of more than 1,024 lanes in 14 the int32 form; K6 and K7 must launch in both forms over the legs.  The legs:
 phases 3-4 (batch; K1
-and K2 must launch, and the traceback's K9 and K10), 6 (shard_seq and
-batch; K3 and K8, and K9 and K10 in each),
+and K2 must launch, and the traceback through ``fill_list`` or
+``fill_walk``, never through K9's and K10's separate launches), 6
+(shard_seq and batch; K3 and K8, and the traceback as in 3-4, in each),
 7 (shard_refs and shard_reads; K1), 9 (unpacked and row paths; K4 and
 K5), 10 (scaling; K4), each bench leg of 13 (K4 on the kernel leg, K1 on
 the path legs, K2 in s16x2 on the long-ref leg, K6 on the roofline leg), each
-experiment (K6, K7) and the long-read paths of 14 (K1-K5, K9, K10).  A kernel's
-``launches`` in the summary is its sum over those legs.
+experiment (K6, K7) and the long-read paths of 14 (K1-K5, the traceback as
+in 3-4); over all legs both ``fill_list`` and ``fill_walk`` must launch.
+A kernel's ``launches`` in the summary is its sum over those legs.
 
 Each kernel's ``bound_ms`` is the larger of two times.  One is its DP
 cells x INSTR_PER_CELL over the SMs' instruction rate (4 schedulers x 32
@@ -170,9 +185,12 @@ is its bytes (inputs read once, outputs written once) over 3.35 TB/s.
 The script fails if a kernel runs faster than its bound (``wide_*``
 keys: the same at 4,096 lanes).  K9's cells are every cell of its
 planes and its bytes the codes (and H) it writes; K10 does no DP cell,
-its bytes the cells, a byte per step and its outputs.  No single
-PyTorch call computes any of the ten functions, so ``library_ms`` is
-null.  Any failure raises and exits non-zero.  The second-to-last line
+its bytes the cells, a byte per step and its outputs.  ``fill_list``
+counts every cell of its planes and its inputs and five outputs;
+``fill_walk`` each window's cells down to its cell's row and its inputs,
+begins and codes; their ``ms`` is the kernel alone (the profiler), their
+``wrapper_ms`` the wrapper's by events.  No single PyTorch call computes
+any of the twelve functions, so ``library_ms`` is null.  Any failure raises and exits non-zero.  The second-to-last line
 is the kernels' JSON summary; the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -182,6 +200,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -511,10 +530,13 @@ def main() -> int:
           + ", ".join(f"{l}: {k2_cell[l]:.3f}" for l in _LANES)
           + f"; the int32 kernels (as in earlier trees): {k2_regs.get('argmax_kernel')}, "
             f"{k2_regs.get('argmax_wide_kernel')}", flush=True)
-    # K9's two kernels (one per tie order) and K10's: none spills.
+    # K9's two kernels (one per tie order) and K10's, and the kernels of
+    # both in one launch (fill_walk_kernel: two tie orders x three tile
+    # widths x two modes): none spills.
     k910_regs = {k: w for k, w in register_summary(_cuda.build_info["log"]).items()
-                 if k in ("fill_dirs_kernel", "trace_walk_kernel")}
-    fail_unless(len(k910_regs.get("fill_dirs_kernel", [])) == 2 and len(k910_regs.get("trace_walk_kernel", [])) == 1
+                 if k in ("fill_dirs_kernel", "trace_walk_kernel", "fill_walk_kernel")}
+    fail_unless([len(k910_regs.get(k, [])) for k in ("fill_dirs_kernel", "trace_walk_kernel", "fill_walk_kernel")]
+                == [2, 1, 12]
                 and not any("s" in w for ws in k910_regs.values() for w in ws), f"K9's and K10's kernels: {k910_regs}")
     print(f"[0] K9 and K10 ptxas: registers {k910_regs} (no spill)", flush=True)
     # K6's and K7's s16x2 kernels (every L, K6 masked or not, K7's variants
@@ -552,11 +574,13 @@ def main() -> int:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
 
     def traced(counts, leg):
-        """Fails unless a leg that traced a winner launched K9 and K10;
-        their launches, for its line."""
-        fail_unless(counts["fill_dirs"] > 0 and counts["trace_walk"] > 0,
-                    f"K9 or K10 never launched on {leg}: {counts}")
-        return f"K9 {counts['fill_dirs']}, K10 {counts['trace_walk']}"
+        """Fails unless a leg that traced a winner filled and walked it
+        through K9 and K10 in one launch (fill_list, fill_walk), and never
+        through their separate launches (fill_dirs, trace_walk); the
+        launches, for its line."""
+        fail_unless(counts["fill_list"] + counts["fill_walk"] > 0 and counts["fill_dirs"] == counts["trace_walk"] == 0,
+                    f"K9 and K10 did not trace {leg} in one launch: {counts}")
+        return f"fill_list {counts['fill_list']}, fill_walk {counts['fill_walk']}"
 
     def k1_args(reads, refs, m_pack, padded=False, row_multiple=8):
         """K1's inputs on the card, the start lanes and the order of the
@@ -1142,6 +1166,167 @@ def main() -> int:
     fail_unless(min(map(len, per_read_t[:3])) > 64, f"a many-tie read has {min(map(len, per_read_t[:3]))} sites")
     print(f"[2] full-fill branch past its first 64 cells: reads with {[len(p) for p in per_read_t]} max cells x a "
           "2 kb tandem repeat, listed and walked again on the card, equal the oracle", flush=True)
+
+    # -- 2. K9 and K10 in one launch against their plain versions: fill_walk
+    # (the windowed branch) and fill_list (the full-fill branch) ----------
+    def nbytes(*tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    def device_ms(fns, iters):
+        """Device ms of each of fns' one fill_walk kernel: the median over
+        iters calls each, made in turns (fns[0], fns[1], ..., fns[0], ...)
+        in one profiler pass after 100 ms of such turns that warm the
+        clocks, so a change of the card's clock during the pass falls on
+        every fn alike (the wrapper's event time also holds its
+        allocations, its zeroing and the host's launch).  A pass in which
+        the profiler did not see one such kernel a call is taken again, at
+        most twice."""
+        t = time.perf_counter()
+        while time.perf_counter() - t < 0.1:
+            for fn in fns:
+                fn()
+        torch.cuda.synchronize()
+        seen = []
+        for _ in range(3):
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    for fn in fns:
+                        fn()
+                torch.cuda.synchronize()
+            us = [e.time_range for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and "fill_walk" in e.name]
+            if len(us) == iters * len(fns):
+                us = [r.elapsed_us() for r in sorted(us, key=lambda r: r.start)]
+                return [float(np.median(us[i::len(fns)])) / 1e3 for i in range(len(fns))]
+            seen.append(len(us))
+        fail_unless(False, f"the profiler saw {seen} fill_walk kernels in three passes of {iters} x {len(fns)} calls")
+
+    def launch_turns(calls, same, iters):
+        """({key: (wrapper ms by events, kernel ms by the profiler)} of each
+        of calls; the spread of ``same``'s).  The two keys of ``same`` make
+        one launch (the public wrapper, and its route given): their kernels
+        are timed in turns in one profiler pass (:func:`device_ms`), and
+        the script fails if their two medians differ (max / min - 1) by
+        more than 5%."""
+        kernel = dict(zip(same, device_ms([calls[key] for key in same], iters)))
+        for key in calls:
+            if key not in kernel:
+                kernel[key] = device_ms([calls[key]], iters)[0]
+        spread = max(kernel[key] for key in same) / min(kernel[key] for key in same) - 1
+        fail_unless(spread <= 0.05, f"one launch read {[round(kernel[key], 4) for key in same]} ms by the profiler "
+                                    f"({same})")
+        return {key: (cuda_ms(calls[key], iters), kernel[key]) for key in calls}, spread
+
+    def walk_known(what, win, routes, iters):
+        """fill_walk exact against its plain version (K9's and K10's) in
+        both tie orders on each route, from the main path's cell (the
+        read's last row in the window's last column), a random cell and
+        none (-1, -1); then the main path's cell timed
+        (:func:`launch_turns`): {route or "public" (the public wrapper, its
+        route by fill_route): (wrapper ms, kernel ms)}, the plain version's
+        ms, K9 then K10 as two launches (as _fill_walk_known ran them
+        before) in ms, and the bound of the function: each window filled
+        down to its cell's row, its inputs read and begins and codes
+        written once."""
+        reads, wins, cells3, cap = win
+        for tie in ("serial", "distributed"):
+            for c in range(cells3.shape[1]):
+                cells = cells3[:, c].contiguous()
+                want = cuda_score.fill_walk_plain(reads, wins, cells, *PARAMS, cap=cap, tie_semantics=tie)
+                for route in routes:
+                    got = cuda_score._fill_walk(reads, wins, cells, *PARAMS, cap=cap, tie_semantics=tie, route=route)
+                    fail_unless(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                                f"fill_walk ({route}) differs from plain ({what}, cell {c}, {tie})")
+        cells = cells3[:, 0].contiguous()
+        calls = {"public": lambda: cuda_score.fill_walk(reads, wins, cells, *PARAMS, cap=cap, tie_semantics="serial")}
+        for route in routes:
+            calls[route] = functools.partial(cuda_score._fill_walk, reads, wins, cells, *PARAMS, cap=cap,
+                                             tie_semantics="serial", route=route)
+        times, spread = launch_turns(calls, ("public", cuda_score._fill_route_of(reads, wins, "serial")), iters)
+        plain_ms = host_timed(lambda: cuda_score.fill_walk_plain(reads, wins, cells, *PARAMS, cap=cap,
+                                                                 tie_semantics="serial"))
+
+        def two_launches():
+            _, dirs = cuda_score.fill_dirs(reads, wins, *PARAMS, tie_semantics="serial", want_h=False)
+            return cuda_score.trace_walk(dirs, cells[:, None, :], cap)
+
+        two_ms = cuda_ms(two_launches, iters)
+        want = cuda_score.fill_walk_plain(reads, wins, cells, *PARAMS, cap=cap, tie_semantics="serial")
+        dp = int((cells[:, 0].to(torch.int64) + 1).sum()) * wins.shape[1]
+        return times, plain_ms, two_ms, bound(dp, nbytes(reads, wins, cells, *want), sms, clock_mhz), spread
+
+    def fill_list_check(what, reads, ref, iters):
+        """fill_list exact against its plain version (K9's with H,
+        argwhere_rows, K10's) in every output, both tie orders, the
+        reference broadcast and per pair, on both routes, at capacity 64
+        and the branch's cap; the peak memory of one call (it must hold no
+        (B, M, N) int32 H); then timed (:func:`launch_turns`): {route or
+        "public" (the public wrapper, its route by fill_route): (wrapper
+        ms, kernel ms)}, plain ms, fill_and_trace as it ran before (K9 with
+        H, the torch listing, K10) in ms, and the bound: every cell of the
+        planes, the inputs read and the five outputs written once."""
+        b, m = reads.shape
+        n = ref.shape[1]
+        cap = path_cap(m, PARAMS[0], PARAMS[2])
+        for tie in ("serial", "distributed"):
+            for refs in (ref, ref.expand(b, -1).contiguous()):
+                want = cuda_score.fill_list_plain(reads, refs, *PARAMS, capacity=64, cap=cap, tie_semantics=tie)
+                for route in ("shared", "scratch"):
+                    got = cuda_score._fill_list(reads, refs, *PARAMS, capacity=64, cap=cap, tie_semantics=tie,
+                                                route=route)
+                    fail_unless(all(torch.equal(g, w) for g, w in zip(got, want)),
+                                f"fill_list ({route}) differs from plain ({what}, {tie}, refs {tuple(refs.shape)})")
+        over, flat = int((want[1] > 64).sum()), int((want[0] == 0).sum())
+        fail_unless(over > 0 and flat > 0, f"{what}: {over} pairs past capacity, {flat} of best 0")
+        del want, got
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        outs = cuda_score.fill_list(reads, ref, *PARAMS, capacity=64, cap=cap, tie_semantics="serial")
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        fail_unless(peak < b * m * n * 4, f"fill_list took {peak} bytes, an H of {b * m * n * 4}")
+        calls = {"public": lambda: cuda_score.fill_list(reads, ref, *PARAMS, capacity=64, cap=cap,
+                                                        tie_semantics="serial")}
+        for route in ("shared", "scratch"):
+            calls[route] = functools.partial(cuda_score._fill_list, reads, ref, *PARAMS, capacity=64, cap=cap,
+                                             tie_semantics="serial", route=route)
+        times, spread = launch_turns(calls, ("public", cuda_score._fill_route_of(reads, ref, "serial", 64)), iters)
+        plain_ms = host_timed(lambda: cuda_score.fill_list_plain(reads, ref, *PARAMS, capacity=64, cap=cap,
+                                                                 tie_semantics="serial"))
+
+        def parent():
+            h, dirs = cuda_score.fill_dirs(reads, ref, *PARAMS, tie_semantics="serial", want_h=True)
+            eq = h == h.amax(dim=(1, 2))[:, None, None]
+            eq.sum(dim=(1, 2), dtype=torch.int32)
+            return cuda_score.trace_walk(dirs, cuda_score.argwhere_rows(eq, 64), cap)
+
+        parent_ms = cuda_ms(parent, iters)
+        return (times, plain_ms, parent_ms, bound(b * m * n, nbytes(reads, ref, *outs), sms, clock_mhz), peak, over,
+                spread)
+
+    fw = {"64": walk_known("64 windows of 80-150 bp x 512", win_9, ("shared", "scratch"), 20),
+          "long": walk_known("4 windows of 1,025-2,048 bp", win_l, ("scratch",), 10)}
+    for key, (times, plain_ms, two_ms, (b_ms, b_by), spread) in fw.items():
+        print(f"[2] fill_walk, {key} windows: equal plain in both tie orders, routes "
+              f"{sorted(k for k in times if k != 'public')}; wrapper/kernel ms: "
+              + ", ".join(f"{k} {t[0]:.4f}/{t[1]:.4f}" for k, t in times.items())
+              + f" (public and its route in turns, spread {100 * spread:.2f}%)"
+              + f"; K9 then K10 {two_ms:.4f} ms; plain {plain_ms:.1f} ms; bound {b_ms:.5f} ms by {b_by}", flush=True)
+    reads_fl = reads_f.clone()  # the full-fill chunk: "CA" (past capacity), "" (best 0), a copy of the ref
+    reads_fl[:3] = up(encode_batch(["CA", "", ref_2[100:250]], reads_fl.shape[1], READ_PAD))
+    ref_4 = rand_seqs(rng_9, [4096])[0]
+    reads_4 = args_2[0][:512].clone()
+    reads_4[:3] = up(encode_batch(["CA", "", ref_4[1000:1150]], reads_4.shape[1], READ_PAD))
+    fl = {"2k": fill_list_check(f"{reads_fl.shape[0]} reads x 2 kb", reads_fl, ref_f, 20),
+          "4k": fill_list_check("512 reads x 4 kb", reads_4, up(encode_batch([ref_4], 4096, REF_PAD)), 10)}
+    for key, (times, plain_ms, parent_ms, (b_ms, b_by), peak, over, spread) in fl.items():
+        print(f"[2] fill_list, {key}: every output equal plain in both tie orders, broadcast and per-pair refs, "
+              f"both routes ({over} pairs past capacity 64); peak {peak / 1e6:.2f} MB; wrapper/kernel ms: "
+              + ", ".join(f"{r} {t[0]:.4f}/{t[1]:.4f}" for r, t in times.items())
+              + f" (public and its route in turns, spread {100 * spread:.2f}%)"
+              + f"; K9 with H, the torch listing and K10 {parent_ms:.3f} ms; plain {plain_ms:.1f} ms; bound "
+                f"{b_ms:.5f} ms by {b_by}", flush=True)
 
     with tempfile.TemporaryDirectory(prefix="swtorch_smoke_") as work:
         # -- 3/4: the main path; launch counts cover exactly these runs ----
@@ -2201,6 +2386,8 @@ def main() -> int:
     legs = (launches, seq_launches, seq_batch_launches, shard_launches, unpacked_launches, scaling_launches,
             *bench_launches.values(), *probe_launches.values(), lr_launches)
     main_launches = {name: sum(leg[name] for leg in legs) for name in cuda_score.LAUNCHES}
+    fail_unless(main_launches["fill_list"] > 0 and main_launches["fill_walk"] > 0,
+                f"the main-path legs did not run both branches of the traceback: {main_launches}")
 
     kernels = [
         {
@@ -2414,6 +2601,59 @@ def main() -> int:
             "full_bound_ms": k10f_bound_ms,
             "long_ms": k10l_ms,
             "long_bound_ms": k10l_bound_ms,
+        },
+    ]
+    fl_2k, fl_4k = fl["2k"], fl["4k"]
+    fw_64, fw_long = fw["64"], fw["long"]
+    kernels += [
+        {
+            "name": "fill_list",
+            "route": "cuda",
+            "source": "sparksmithwaterman_tpu_torch/csrc/fill_walk.cu",
+            "replaces": "sparksmithwaterman_tpu/ops/device_traceback.py:73",
+            "launches": main_launches["fill_list"],
+            "max_abs_err": 0,
+            # 215 reads x a 2 kb ref broadcast, capacity 64: the kernel alone (profiler)
+            "ms": fl_2k[0]["public"][1],
+            "plain_ms": fl_2k[1],
+            "bound_ms": fl_2k[3][0],
+            "bound_by": fl_2k[3][1],
+            "library_ms": None,
+            "wrapper_ms": fl_2k[0]["public"][0],
+            "shared_ms": fl_2k[0]["shared"][1],
+            "scratch_ms": fl_2k[0]["scratch"][1],
+            "parent_ms": fl_2k[2],
+            "peak_mb": fl_2k[4] / 1e6,
+            "4k_ms": fl_4k[0]["public"][1],
+            "4k_wrapper_ms": fl_4k[0]["public"][0],
+            "4k_shared_ms": fl_4k[0]["shared"][1],
+            "4k_scratch_ms": fl_4k[0]["scratch"][1],
+            "4k_plain_ms": fl_4k[1],
+            "4k_parent_ms": fl_4k[2],
+            "4k_bound_ms": fl_4k[3][0],
+        },
+        {
+            "name": "fill_walk",
+            "route": "cuda",
+            "source": "sparksmithwaterman_tpu_torch/csrc/fill_walk.cu",
+            "replaces": "sparksmithwaterman_tpu/ops/longseq.py:364",
+            "launches": main_launches["fill_walk"],
+            "max_abs_err": 0,
+            # 64 windows of 80-150 bp x 512, a cell each: the kernel alone (profiler)
+            "ms": fw_64[0]["public"][1],
+            "plain_ms": fw_64[1],
+            "bound_ms": fw_64[3][0],
+            "bound_by": fw_64[3][1],
+            "library_ms": None,
+            "wrapper_ms": fw_64[0]["public"][0],
+            "shared_ms": fw_64[0]["shared"][1],
+            "scratch_ms": fw_64[0]["scratch"][1],
+            "parent_ms": fw_64[2],
+            "long_ms": fw_long[0]["public"][1],
+            "long_wrapper_ms": fw_long[0]["public"][0],
+            "long_plain_ms": fw_long[1],
+            "long_parent_ms": fw_long[2],
+            "long_bound_ms": fw_long[3][0],
         },
     ]
     for entry, k in zip(kernels, ("K1", "K2", "K3", "K4", "K5")):  # rows of 4,096 lanes, in stripes

@@ -69,6 +69,7 @@
 // spans at most W columns, so the best one ending at column j >= k S + W -
 // 1 starts inside the segment.  The entry points refuse a plan that is
 // not exact.
+#include "bitonic.cuh"
 #include "row_scan.cuh"
 
 namespace {
@@ -312,24 +313,6 @@ max_cells_s16x2_kernel(const uint8_t* __restrict__ reads, int r, int m, int read
 // memory; more, in the wrapper's scratch (a power of two of keys a read).
 constexpr int kFinishThreads = 256;
 constexpr int kFinishKeys = 4096;
-
-// Bitonic sort, ascending, of keys[0, p) (p a power of two) by the block.
-template <class Key>
-__device__ void bitonic_sort(Key* keys, int p) {
-  for (int size = 2; size <= p; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = threadIdx.x; t < p / 2; t += blockDim.x) {
-        const int lo = 2 * t - (t & (stride - 1)), hi = lo + stride;
-        const Key a = keys[lo], b = keys[hi];
-        if ((a > b) == ((lo & size) == 0)) {
-          keys[lo] = b;
-          keys[hi] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
 
 // One block per read: slots [0, min(count, capacity)) sorted by the
 // row-major key (i << 32) | j and the rest -1; a read of best 0 gets

@@ -201,6 +201,33 @@ def lib() -> ctypes.CDLL:
                 _VP, _VP,  # begins, codes
                 _I, _VP,  # device, stream
             ]
+            handle.swt_fill_list.restype = _I
+            handle.swt_fill_list.argtypes = [
+                _VP, _I, _I,  # reads, b, m
+                _VP, _LL, _I,  # refs, ref_stride, n
+                _I, _I, _I, _I,  # match, mismatch, gap, serial
+                _I, _I, _VP, _LL,  # columns a lane, warps a pair, code scratch (or null), stride
+                _I, _I,  # capacity, cap
+                _VP, _VP, _VP, _VP, _VP,  # best, counts, cells, begins, codes
+                _VP, _VP, _VP, _LL,  # lists, meta, sort scratch (or null), its keys a pair
+                _I, _VP,  # device, stream
+            ]
+            handle.swt_fill_walk.restype = _I
+            handle.swt_fill_walk.argtypes = [
+                _VP, _I, _I,  # reads, b, m
+                _VP, _LL, _I,  # refs, ref_stride, n
+                _I, _I, _I, _I,  # match, mismatch, gap, serial
+                _I, _I, _VP, _LL,  # columns a lane, warps a pair, code scratch (or null), stride
+                _VP, _I,  # cells, cap
+                _VP, _VP,  # begins, codes
+                _I, _VP,  # device, stream
+            ]
+            handle.swt_fill_blocks_per_sm.restype = _I
+            handle.swt_fill_blocks_per_sm.argtypes = [
+                _I, _I, _I, _I,  # list, serial, m, n
+                _I, _I, _I,  # columns a lane, warps a pair, capacity
+                _I, ctypes.POINTER(_I),  # device, blocks (out)
+            ]
             for chain in (handle.swt_step_chain_best, handle.swt_step_chain_best_s16x2):
                 chain.restype = _I
                 chain.argtypes = [

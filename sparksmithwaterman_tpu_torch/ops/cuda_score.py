@@ -1,6 +1,6 @@
 """The kernels: CUDA for tensors on the card, plain PyTorch on CPU.
 
-Ten kernels, each with its plain PyTorch version of the same function:
+Twelve kernels, each with its plain PyTorch version of the same function:
 
 - K1 :func:`lane_best_packed_varlen` (``csrc/lane_best.cu``) replaces
   ``pallas_score.py:_diag_kernel_packed_varlen`` and
@@ -36,7 +36,17 @@ Ten kernels, each with its plain PyTorch version of the same function:
   :func:`..ops.recurrence.fill_pairs`;
 - K10 :func:`trace_walk` (``csrc/trace_walk.cu``) replaces lax code:
   ``sparksmithwaterman_tpu/ops/device_traceback.py:_trace_one``, the walk
-  from each max cell; its plain version is :func:`trace_walk_plain`.
+  from each max cell; its plain version is :func:`trace_walk_plain`;
+- K9 and K10 in one launch (``csrc/fill_walk.cu``), on the traceback's
+  main path: :func:`fill_list` fills each pair, lists its max cells and
+  walks from them (the full-fill branch; plain version
+  :func:`fill_list_plain`: K9's, :func:`argwhere_rows` and K10's), and
+  :func:`fill_walk` fills each window and walks from its one known max
+  cell (the windowed branch; plain version :func:`fill_walk_plain`).
+  Neither writes H or a plane of codes: a pair's 2-bit codes stay in
+  shared memory where the launch's blocks all find room, else in a
+  scratch the same block walks (:func:`fill_route`), and a pair's columns
+  spread over the warps of its block (:func:`fill_plan`).
 
 A wrapper takes the plain version only for tensors on the CPU.  For CUDA
 tensors it launches the kernel or raises; it never falls back.  Each
@@ -85,6 +95,8 @@ nothing.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from sparksmithwaterman_tpu_torch.io.fasta import REF_PAD
@@ -106,6 +118,8 @@ LAUNCHES = {
     "max_cells_row": 0,
     "fill_dirs": 0,
     "trace_walk": 0,
+    "fill_list": 0,
+    "fill_walk": 0,
 }
 
 # K1's, K2's, K4's, K5's and K8's launches per form (k1_form) since the last reset_launches().
@@ -138,6 +152,20 @@ _FINISH_KEYS = 4096
 _FILL_TILE = 512
 # The plain walk checks for completion every this many steps (one host sync).
 _DONE_CHECK = 32
+# Columns per lane of the fill's tiles in fill_list and fill_walk
+# (csrc/fill_walk.cu kCols), narrowest first; warps a pair at most
+# (kMaxFillWarps); the warps a launch puts on each SM at most, and the
+# fewest at which the plan takes its widest tiles (fill_plan).
+_FILL_COLS = (4, 8, 16)
+_FILL_MAX_WARPS = 16
+_FILL_WARPS_PER_SM = 8
+_FILL_MIN_WARPS_PER_SM = 2
+# Bytes of 2-bit codes a pair keeps in shared memory at most (route
+# "shared", fill_route).
+_FILL_SMEM_CODES = 160 * 1024
+# Listed keys of one pair that fill_list sorts in shared memory
+# (csrc/fill_walk.cu kSortKeys); more go through a scratch.
+_FILL_SORT_KEYS = 4096
 
 
 def reset_launches() -> None:
@@ -1180,6 +1208,239 @@ def trace_walk(dirs: torch.Tensor, cells: torch.Tensor, cap: int):
     )
     _cuda.check(rc, "trace_walk")
     LAUNCHES["trace_walk"] += 1
+    return begins, codes
+
+
+# -- K9 and K10 in one launch: fill, list and walk on the card ------------------
+
+
+def fill_plan(b: int, n: int, sms: int):
+    """(columns per lane, warps per pair) of a fill_list or fill_walk
+    launch of ``b`` pairs of ``n`` columns on a card of ``sms`` SMs.
+
+    A pair is one block whose warps take its tiles of 32 x cols columns in
+    rounds, one tile a warp a round, a row step apart: a chain of about
+    rounds x M + warps row steps (``csrc/fill_walk.cu``).  A pair may take
+    up to _FILL_WARPS_PER_SM x sms // b warps (1 to _FILL_MAX_WARPS).  The
+    plan takes the tile width of fewest rounds; of equal rounds, the widest
+    whose launch still puts _FILL_MIN_WARPS_PER_SM warps an SM on the card
+    (a wide tile costs fewer instructions a cell: the card is busy), else
+    the narrowest (a narrow tile is a shorter row step: the card is idle
+    and each pair's chain is the time); then the fewest warps that keep
+    those rounds.  A pair's rows do not enter: every tile runs every row."""
+    limit = max(1, min(_FILL_MAX_WARPS, _FILL_WARPS_PER_SM * sms // max(1, b)))
+    plan = None
+    for cols in _FILL_COLS:
+        tiles = max(1, -(-n // (32 * cols)))
+        rounds = -(-tiles // min(limit, tiles))
+        warps = -(-tiles // rounds)
+        fills = b * warps >= _FILL_MIN_WARPS_PER_SM * sms
+        key = (rounds, not fills, -cols if fills else cols)
+        if plan is None or key < plan[0]:
+            plan = (key, cols, warps)
+    return plan[1], plan[2]
+
+
+def fill_route(b: int, codes: int, per_sm: int, sms: int) -> str:
+    """Where a fill_list or fill_walk launch of ``b`` pairs keeps each
+    pair's ``codes`` bytes of 2-bit codes: "shared" (shared memory) where
+    they are at most _FILL_SMEM_CODES and every block of the launch finds
+    room on the card at once, ``per_sm`` blocks an SM, else "scratch"
+    (device memory, walked by the same block): a block that holds its
+    codes may take an SM for itself, so a launch of more such blocks than
+    fit would run in waves (512 reads x a 4 kb ref: 155.6 KB a pair, one
+    block an SM, four waves; ``chip_smoke.py`` [2] times both routes).
+    ``per_sm`` is the card's count of the blocks of that launch, with
+    their codes in shared memory, that one SM holds at once
+    (``swt_fill_blocks_per_sm``: their shared memory as the kernel lays it
+    out, the read, the column between rounds, the codes and the listing's
+    keys, with their registers and threads; 0 where they pass an SM)."""
+    return "shared" if codes <= _FILL_SMEM_CODES and per_sm * sms >= b else "scratch"
+
+
+def _fill_inputs(what, reads_u8, refs_u8, tie_semantics):
+    device = _device_of(reads_u8, refs_u8)
+    if reads_u8.dim() != 2 or reads_u8.dtype != torch.uint8:
+        raise ValueError(f"{what}: reads_u8 must be a (B, M) uint8 tensor")
+    b, m = reads_u8.shape
+    if refs_u8.dim() != 2 or refs_u8.dtype != torch.uint8 or refs_u8.shape[0] not in (1, b):
+        raise ValueError(f"{what}: refs_u8 must be a ({b}, N) or (1, N) uint8 tensor")
+    if m == 0 or refs_u8.shape[1] == 0 or m * refs_u8.shape[1] >= 1 << 31:
+        raise ValueError(f"{what}: a pair's plane must hold 1 to 2^31 - 1 cells, got {m} x {refs_u8.shape[1]}")
+    if tie_semantics not in ("serial", "distributed"):
+        raise ValueError(f"{what}: tie_semantics must be 'serial' or 'distributed', got {tie_semantics!r}")
+    return device
+
+
+def _fill_route_of(reads_u8, refs_u8, tie_semantics, capacity=0):
+    """The route :func:`fill_route` picks for a launch of these inputs on
+    their card (``capacity`` 0: fill_walk's launch)."""
+    b, m = reads_u8.shape
+    n = refs_u8.shape[1]
+    device = reads_u8.device
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    cols, warps = fill_plan(b, n, sms)
+    codes = m * -(-n // (32 * cols)) * 8 * cols
+    per_sm = ctypes.c_int(0)
+    if codes <= _FILL_SMEM_CODES:
+        rc = _cuda.lib().swt_fill_blocks_per_sm(int(capacity > 0), int(tie_semantics == "serial"), m, n, cols, warps,
+                                                capacity, _launch_target(device)[0], ctypes.byref(per_sm))
+        _cuda.check(rc, "fill_blocks_per_sm")
+    return fill_route(b, codes, per_sm.value, sms)
+
+
+def _fill_launch(reads_u8, refs_u8, route, tie_semantics, capacity=0):
+    """The arguments that both C entries share, from the plan: (cols,
+    warps, code scratch or None, stride, tiles); ``capacity`` 0 for
+    fill_walk's launch."""
+    b, m = reads_u8.shape
+    n = refs_u8.shape[1]
+    sms = torch.cuda.get_device_properties(reads_u8.device).multi_processor_count
+    cols, warps = fill_plan(b, n, sms)
+    tiles = -(-n // (32 * cols))
+    stride = tiles * 8 * cols  # bytes of 2-bit codes a row
+    route = route or _fill_route_of(reads_u8, refs_u8, tie_semantics, capacity)
+    scratch = torch.empty(b * m * stride, dtype=torch.uint8, device=reads_u8.device) if route == "scratch" else None
+    return cols, warps, scratch, stride, tiles
+
+
+def fill_list_plain(reads_u8, refs_u8, match, mismatch, gap, *, capacity, cap, tie_semantics):
+    """Plain PyTorch version of :func:`fill_list` (any device): K9's plain
+    version with H, the best and the cells equal to it
+    (:func:`argwhere_rows`), then K10's plain walk."""
+    h, dirs = fill_dirs_plain(reads_u8, refs_u8, match, mismatch, gap, tie_semantics=tie_semantics, want_h=True)
+    best = h.amax(dim=(1, 2))
+    eq = h == best[:, None, None]
+    counts = eq.sum(dim=(1, 2), dtype=torch.int32)
+    cells = argwhere_rows(eq, capacity)
+    begins, codes = trace_walk_plain(dirs, cells, cap)
+    return best, counts, cells, begins, codes
+
+
+def fill_list(reads_u8, refs_u8, match, mismatch, gap, *, capacity, cap, tie_semantics):
+    """(best (B,) int32, counts (B,) int32, cells (B, capacity, 2) int32,
+    begins (B, capacity) int32, codes (B, capacity, cap) int8): the
+    full-fill branch's fill, listing and walks, the JAX package's
+    ``device_traceback.fill_and_trace``.
+
+    reads_u8: (B, M) uint8, READ_PAD-padded; refs_u8: (B, N) uint8, or (1,
+    N) for one reference of all B reads.  ``best`` is each pair's max over
+    its (M, N) plane, pad rows and REF_PAD columns included; ``counts`` the
+    number of cells equal to it there; ``cells`` the first ``capacity`` of
+    them in row-major order, -1-filled (also where the count passes
+    ``capacity``); ``begins`` and ``codes`` the walk from each cell, as
+    :func:`trace_walk` gives them over :func:`fill_dirs`'s codes.
+
+    On the card one launch (``csrc/fill_walk.cu``) does it all; no H and no
+    plane of codes reaches device memory."""
+    return _fill_list(reads_u8, refs_u8, match, mismatch, gap, capacity=capacity, cap=cap,
+                      tie_semantics=tie_semantics)
+
+
+def _fill_list(reads_u8, refs_u8, match, mismatch, gap, *, capacity, cap, tie_semantics, route=None):
+    """:func:`fill_list` with the codes' route given ("shared" or
+    "scratch"; None: :func:`fill_route`'s), so that both routes can be held
+    to the plain version and timed."""
+    device = _fill_inputs("fill_list", reads_u8, refs_u8, tie_semantics)
+    if route not in (None, "shared", "scratch"):
+        raise ValueError(f"fill_list: no route {route!r}")
+    capacity, cap = int(capacity), int(cap)
+    if capacity < 1 or cap < 0:
+        raise ValueError(f"fill_list: capacity must be >= 1 and cap >= 0, got {capacity} and {cap}")
+    match, mismatch, gap = int(match), int(mismatch), int(gap)
+    if device.type == "cpu":
+        return fill_list_plain(reads_u8, refs_u8, match, mismatch, gap, capacity=capacity, cap=cap,
+                               tie_semantics=tie_semantics)
+    b, m = reads_u8.shape
+    n = refs_u8.shape[1]
+    i32 = dict(dtype=torch.int32, device=device)
+    best, counts = torch.empty(b, **i32), torch.empty(b, **i32)
+    cells, begins = torch.empty((b, capacity, 2), **i32), torch.empty((b, capacity), **i32)
+    codes = torch.zeros((b, capacity, cap), dtype=torch.int8, device=device)
+    if b == 0:
+        return best, counts, cells, begins, codes
+    reads_u8, refs_u8 = reads_u8.contiguous(), refs_u8.contiguous()
+    cols, warps, scratch, stride, tiles = _fill_launch(reads_u8, refs_u8, route, tie_semantics, capacity)
+    lists = torch.empty(b * tiles * capacity, dtype=torch.int64, device=device)
+    meta = torch.empty((b, tiles, 2), **i32)
+    keys = 1 << (tiles * capacity - 1).bit_length()
+    sort = torch.empty(b * keys, dtype=torch.int64, device=device) if keys > _FILL_SORT_KEYS else None
+    rc = _cuda.lib().swt_fill_list(
+        reads_u8.data_ptr(), b, m, refs_u8.data_ptr(), 0 if refs_u8.shape[0] == 1 else n, n,
+        match, mismatch, gap, int(tie_semantics == "serial"), cols, warps, _ptr(scratch), stride,
+        capacity, cap, best.data_ptr(), counts.data_ptr(), cells.data_ptr(), begins.data_ptr(), codes.data_ptr(),
+        lists.data_ptr(), meta.data_ptr(), _ptr(sort), keys, *_launch_target(device),
+    )
+    _cuda.check(rc, "fill_list")
+    LAUNCHES["fill_list"] += 1
+    return best, counts, cells, begins, codes
+
+
+def _check_known_cells(cells, m, n):
+    """Raises ValueError unless every cell is inside the (m, n) plane or
+    (-1, -1), none (one host sync on the card)."""
+    inside = (cells >= 0).all(dim=1) & (cells[:, 0] < m) & (cells[:, 1] < n)
+    if not bool((inside | (cells == -1).all(dim=1)).all()):
+        raise ValueError(f"fill_walk: every cell must lie inside the ({m}, {n}) plane or be (-1, -1)")
+
+
+def fill_walk_plain(reads_u8, refs_u8, cells, match, mismatch, gap, *, cap, tie_semantics):
+    """Plain PyTorch version of :func:`fill_walk` (any device): K9's plain
+    version (the codes) and K10's plain walk of one cell a pair."""
+    _check_known_cells(cells, reads_u8.shape[1], refs_u8.shape[1])
+    _, dirs = fill_dirs_plain(reads_u8, refs_u8, match, mismatch, gap, tie_semantics=tie_semantics, want_h=False)
+    begins, codes = trace_walk_plain(dirs, cells[:, None, :], cap)
+    return begins[:, 0], codes[:, 0]
+
+
+def fill_walk(reads_u8, refs_u8, cells, match, mismatch, gap, *, cap, tie_semantics):
+    """(begins (B,) int32, codes (B, cap) int8): the windowed branch's fill
+    of each window and walk from its one known max cell, the JAX
+    package's ``longseq._fill_walk_known``.
+
+    reads_u8: (B, M) uint8; refs_u8: (B, W) uint8 windows (or (1, W));
+    cells: (B, 2) int32, each pair's 0-based (i, j) inside the (M, W)
+    plane, or (-1, -1) for a walk of no step; any other cell raises
+    ValueError.  begins and codes as :func:`trace_walk`
+    gives them over :func:`fill_dirs`'s codes.
+
+    On the card one launch (``csrc/fill_walk.cu``) fills each window down
+    to its cell's row and walks it; no plane of codes reaches device memory
+    on route "shared"."""
+    return _fill_walk(reads_u8, refs_u8, cells, match, mismatch, gap, cap=cap, tie_semantics=tie_semantics)
+
+
+def _fill_walk(reads_u8, refs_u8, cells, match, mismatch, gap, *, cap, tie_semantics, route=None):
+    """:func:`fill_walk` with the codes' route given (see :func:`_fill_list`)."""
+    device = _fill_inputs("fill_walk", reads_u8, refs_u8, tie_semantics)
+    if route not in (None, "shared", "scratch"):
+        raise ValueError(f"fill_walk: no route {route!r}")
+    b, m = reads_u8.shape
+    n = refs_u8.shape[1]
+    if cells.device != device or cells.shape != (b, 2) or cells.dtype != torch.int32:
+        raise ValueError(f"fill_walk: cells must be a ({b}, 2) int32 tensor on {device}")
+    cap = int(cap)
+    if cap < 0:
+        raise ValueError(f"fill_walk: cap must be >= 0, got {cap}")
+    match, mismatch, gap = int(match), int(mismatch), int(gap)
+    if device.type == "cpu":
+        return fill_walk_plain(reads_u8, refs_u8, cells, match, mismatch, gap, cap=cap, tie_semantics=tie_semantics)
+    _check_known_cells(cells, m, n)
+    begins = torch.empty(b, dtype=torch.int32, device=device)
+    codes = torch.zeros((b, cap), dtype=torch.int8, device=device)
+    if b == 0:
+        return begins, codes
+    reads_u8, refs_u8, cells = reads_u8.contiguous(), refs_u8.contiguous(), cells.contiguous()
+    if cells.data_ptr() % 8:  # the kernel reads each cell as one int2
+        cells = cells.clone()
+    cols, warps, scratch, stride, _ = _fill_launch(reads_u8, refs_u8, route, tie_semantics)
+    rc = _cuda.lib().swt_fill_walk(
+        reads_u8.data_ptr(), b, m, refs_u8.data_ptr(), 0 if refs_u8.shape[0] == 1 else n, n,
+        match, mismatch, gap, int(tie_semantics == "serial"), cols, warps, _ptr(scratch), stride,
+        cells.data_ptr(), cap, begins.data_ptr(), codes.data_ptr(), *_launch_target(device),
+    )
+    _cuda.check(rc, "fill_walk")
+    LAUNCHES["fill_walk"] += 1
     return begins, codes
 
 

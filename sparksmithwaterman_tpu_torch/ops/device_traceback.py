@@ -1,12 +1,10 @@
 """On-device traceback: batched fill, max-cell extraction and walks.
 
-Port of :mod:`sparksmithwaterman_tpu.ops.device_traceback`.  The fill's
-direction codes stay on the device (K9, ``cuda_score.fill_dirs``); each
-pair's max cells are extracted row-major up to a fixed capacity (a
-cumulative-sum rank and a scatter, ``cuda_score.argwhere_rows``); every
-(pair, cell) walk runs on the device (K10, ``cuda_score.trace_walk``);
-only (cells, beginnings, walk codes) go to the host, where the strings are
-assembled.
+Port of :mod:`sparksmithwaterman_tpu.ops.device_traceback`.  Each pair's
+fill, its max cells (row-major up to a fixed capacity) and the walk from
+each run in one launch on the card (``cuda_score.fill_list``: K9 and K10,
+the codes kept on chip, no H); only (cells, beginnings, walk codes) go to
+the host, where the strings are assembled.
 """
 
 from __future__ import annotations
@@ -14,10 +12,9 @@ from __future__ import annotations
 from typing import List
 
 import numpy as np
-import torch
 
 from sparksmithwaterman_tpu_torch.io.report import Site
-from sparksmithwaterman_tpu_torch.ops.cuda_score import argwhere_rows, fill_dirs, trace_walk
+from sparksmithwaterman_tpu_torch.ops.cuda_score import fill_list
 from sparksmithwaterman_tpu_torch.ops.traceback import degenerate_sites
 
 
@@ -56,13 +53,7 @@ def fill_and_trace(
       begins: (B, capacity) int32 1-based start columns
       codes:  (B, capacity, cap) int8 walk codes (end-to-start)
     """
-    h, dirs = fill_dirs(reads, refs, match, mismatch, gap, tie_semantics=tie_semantics, want_h=True)
-    best = h.amax(dim=(1, 2))
-    eq = h == best[:, None, None]
-    counts = eq.sum(dim=(1, 2), dtype=torch.int32)
-    cells = argwhere_rows(eq, capacity)
-    begins, codes = trace_walk(dirs, cells, cap)
-    return best, counts, cells, begins, codes
+    return fill_list(reads, refs, match, mismatch, gap, capacity=capacity, cap=cap, tie_semantics=tie_semantics)
 
 
 def assemble_site(

@@ -9,8 +9,9 @@ for long references and large read sets:
    (``ops.cuda_score.max_cells_row``: the row recurrence of each read,
    every cell equal to its best appended on the device);
 2. :func:`sites_for_ref_long_batched` re-fills only a window of reference
-   columns ending at each max cell (K9, ``ops.cuda_score.fill_dirs``) and
-   walks it on the device (K10, ``ops.cuda_score.trace_walk``).
+   columns ending at each max cell and walks it, one launch per dispatch
+   (K9 and K10, ``ops.cuda_score.fill_walk``: each window's codes stay on
+   chip, or in a scratch its block walks).
 
 Window soundness, for any scoring scheme: a path with score >= 1 has
 (mismatches + deletions) * min(|mismatch|, |gap|) < match * m, so its
@@ -29,7 +30,7 @@ import torch
 from sparksmithwaterman_tpu_torch.io.fasta import READ_PAD, REF_PAD, encode_batch, encode_seq
 from sparksmithwaterman_tpu_torch.io.report import Site
 from sparksmithwaterman_tpu_torch.ops.cuda_score import (
-    argmax_lane, fill_dirs, max_cells_row, score_grid_row, trace_walk,
+    argmax_lane, fill_walk, max_cells_row, score_grid_row,
 )
 from sparksmithwaterman_tpu_torch.ops.device_traceback import assemble_site
 from sparksmithwaterman_tpu_torch.ops.traceback import degenerate_sites
@@ -229,13 +230,11 @@ def window_width(m: int, n: int, match: int, mismatch: int, gap: int) -> int:
 
 
 def _fill_walk_known(read_win, windows, cells, match, mismatch, gap, *, cap: int, tie_semantics: str):
-    """Window fill (K9, the codes alone) + walk (K10) of one known max cell
-    per pair.
+    """Window fill + walk of one known max cell per pair (K9 and K10 in
+    one launch, ``cuda_score.fill_walk``).
 
     Returns (begins (B,), codes (B, cap)) in window coordinates."""
-    _, dirs = fill_dirs(read_win, windows, match, mismatch, gap, tie_semantics=tie_semantics, want_h=False)
-    begins, codes = trace_walk(dirs, cells[:, None, :], cap)
-    return begins[:, 0], codes[:, 0]
+    return fill_walk(read_win, windows, cells, match, mismatch, gap, cap=cap, tie_semantics=tie_semantics)
 
 
 def sites_for_ref_long_batched(

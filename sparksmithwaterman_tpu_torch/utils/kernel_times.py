@@ -24,7 +24,13 @@ its 2,000 (``K8_tied``, as the traceback calls it).  ``fill_walk`` is one dispat
 the windowed traceback (``longseq._fill_walk_known``: 64 reads of 80-150
 bp in windows of 512 columns), which K9 and K10 run where the tree has
 them (``K9``, ``K10``: each alone on those inputs); ``longref_traceback``
-is the bench's ``longref_traceback_ms`` (median of 3).  K6 runs on the
+is the bench's ``longref_traceback_ms`` (median of 3).  ``full_fill``
+and ``full_fill_4k`` time the full-fill branch's
+``device_traceback.fill_and_trace`` on 215 of K2's reads x its 2 kb ref
+and on 512 of them x a 4 kb ref, and ``fill_walk_long`` the windowed
+branch's ``_fill_walk_known`` on 4 windows of 1,025-2,048 bp reads (K9
+and K10 in one launch where the tree has ``fill_list`` and ``fill_walk``,
+K9, the torch listing and K10 before).  K6 runs on the
 JAX microbench's 512 x 128 rows (``K6``) and at the bench's roofline
 shape (``K6_bench``: rows restarting at lane 0, the 16-bit form where the
 tree has it), and K7 in variant A; each also in its int32 form where the
@@ -96,7 +102,8 @@ def _times(root: str) -> dict:
     offs_w = offs_t[:64]
     out["K1_wide"] = ms(lambda: cuda_score.lane_best_packed_varlen(wide, k1[1], k1[2][:64], *PARAMS, offsets=offs_w), 3)
     reads_2 = up(encode_batch(seqs(rng.integers(80, 151, 2000)), 152, READ_PAD))
-    ref_2 = up(encode_batch(seqs([2000]), 2000, REF_PAD))
+    ref_2_seq = seqs([2000])[0]
+    ref_2 = up(encode_batch([ref_2_seq], 2000, REF_PAD))
     out["K2"] = ms(lambda: cuda_score.argmax_lane(reads_2, ref_2, *PARAMS))
     refs_3 = refs[:32]
     flat_3, lens_3 = encode_concat(refs_3)
@@ -174,6 +181,34 @@ def _times(root: str) -> dict:
     tied = (((best_t == top[:, None]) & (count_t != 1)).any(dim=1) & (top > 0)).nonzero()[:, 0]
     reads_t, top_t = reads_2[tied].contiguous(), top[tied].to(torch.int32).contiguous()
     out["K8_tied"] = ms(lambda: cuda_score.max_cells_row(reads_t, ref_2[0], top_t, *PARAMS, 1024))
+    # The full-fill branch's fill_and_trace (capacity 64, the branch's cap)
+    # on 215 of the 2,000 reads x the 2 kb ref padded to 2,048 and on 512
+    # reads x a 4 kb ref, and the windowed branch's _fill_walk_known on 4
+    # windows of 1,025-2,048 bp reads (window_width(2,048) columns, REF_PAD
+    # on the left, each walked from its read's last row): both names stand in
+    # the trees that have K9 and K10.
+    from sparksmithwaterman_tpu_torch.ops import device_traceback
+
+    cap_f = device_traceback.path_cap(152, 5, -4)
+    ref_f = up(encode_batch([ref_2_seq], 2048, REF_PAD))
+    out["full_fill"] = ms(lambda: device_traceback.fill_and_trace(reads_2[:215], ref_f, *PARAMS, capacity=64, cap=cap_f,
+                                                                   tie_semantics="serial"), 5)
+    ref_4 = up(encode_batch(seqs([4096]), 4096, REF_PAD))
+    out["full_fill_4k"] = ms(lambda: device_traceback.fill_and_trace(reads_2[:512], ref_4, *PARAMS, capacity=64,
+                                                                      cap=cap_f, tie_semantics="serial"), 3)
+    ref_l = seqs([8000])[0]
+    lens_l = np.array([1025, 1300, 1777, 2048])
+    ends_l = rng.integers(lens_l, 8001)
+    w_l = longseq.window_width(2048, 8000, *PARAMS)
+    w_pad = -(-w_l // 256) * 256
+    wins_l = np.full((4, w_pad), REF_PAD, np.uint8)
+    for t, e in enumerate(ends_l):
+        piece = ref_l[max(0, e - w_l) : e]
+        wins_l[t, w_pad - len(piece) :] = encode_batch([piece], len(piece), REF_PAD)[0]
+    args_l = (up(encode_batch([ref_l[e - n : e] for e, n in zip(ends_l, lens_l)], 2048, READ_PAD)), up(wins_l),
+              up(np.stack([lens_l - 1, np.full(4, w_pad - 1)], 1).astype(np.int32)))
+    out["fill_walk_long"] = ms(lambda: longseq._fill_walk_known(*args_l, *PARAMS, cap=2048 + w_pad,
+                                                                tie_semantics="serial"), 3)
     out["longref_traceback"] = bench.bench_longref(device=dev)[0]["traceback_ms"][0]
     return out, _registers(_cuda.build_info["log"])
 

@@ -29,9 +29,11 @@ RefSeq-shaped reference of a few kb, which takes the full-fill traceback
   in-lane-tie listing), ``L3b.window_fill_walk`` and ``L3c.full_fill``
   its parts; ``L3a.K2`` its K2 call (``argmax_lane``) and ``L3a.K8`` the
   listing's K8 calls (``max_cells_row``);
-  ``L3b.K9`` and ``L3b.K10`` the window fills' K9 calls (``fill_dirs``)
-  and walks' K10 calls (``trace_walk``); ``L3c.K9`` and ``L3c.K10`` the
-  full fills' and their walks'.
+  ``L3b.fill_walk`` the window dispatches' calls of K9 and K10 in one
+  launch (``fill_walk``) and ``L3c.fill_list`` the full fills' (``fill_list``);
+  in a tree before those (PRs 12-14), ``L3b.K9`` and ``L3b.K10`` the window
+  fills' K9 calls (``fill_dirs``) and walks' K10 calls (``trace_walk``),
+  ``L3c.K9`` and ``L3c.K10`` the full fills' and their walks'.
 
 A span's time is its wall time on the host (nested spans count inside
 their parents).  Device time is summed per kernel or copy, over device
@@ -81,9 +83,11 @@ SPANS = {
     "L3a.K2": ("longseq", "argmax_lane"),
     "L3a.K8": ("longseq", "max_cells_row"),
     "L3b.window_fill_walk": ("batch_backend", "sites_for_ref_long_batched"),
+    "L3b.fill_walk": ("longseq", "fill_walk"),
     "L3b.K9": ("longseq", "fill_dirs"),
     "L3b.K10": ("longseq", "trace_walk"),
     "L3c.full_fill": ("backend", "_sites_full_fill"),
+    "L3c.fill_list": ("device_traceback", "fill_list"),
     "L3c.K9": ("device_traceback", "fill_dirs"),
     "L3c.K10": ("device_traceback", "trace_walk"),
 }

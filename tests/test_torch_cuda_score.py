@@ -150,9 +150,14 @@ def test_wrappers_take_plain_path_on_cpu_only():
         tie_semantics="serial", want_h=False,
     )
     cuda_score.trace_walk(dirs, torch.tensor([[[3, 3]]], dtype=torch.int32), 8)
+    cuda_score.fill_list(torch.from_numpy(encode_batch(["ACGT"], 8, READ_PAD)), torch.from_numpy(refs), *PARAMS,
+                         capacity=4, cap=8, tie_semantics="serial")
+    cuda_score.fill_walk(torch.from_numpy(encode_batch(["ACGT"], 8, READ_PAD)), torch.from_numpy(refs),
+                         torch.tensor([[3, 3]], dtype=torch.int32), *PARAMS, cap=8, tie_semantics="serial")
     assert cuda_score.LAUNCHES == {
         "lane_best_packed_varlen": 0, "argmax_lane": 0, "band_lane_best": 0, "score_grid_diag": 0, "score_grid_row": 0,
         "step_chain_best": 0, "step_variant_best": 0, "max_cells_row": 0, "fill_dirs": 0, "trace_walk": 0,
+        "fill_list": 0, "fill_walk": 0,
     }
     with pytest.raises(ValueError):
         cuda_score.lane_best_packed_varlen(

@@ -190,8 +190,7 @@ def _spy(monkeypatch, module, name, calls):
     fn = getattr(module, name)
 
     def spy(*args, **kwargs):
-        cells = args[1].shape[1] if name == "trace_walk" else None
-        calls.append((module.__name__.rsplit(".", 1)[1], name, kwargs.get("want_h"), cells))
+        calls.append((module.__name__.rsplit(".", 1)[1], name, kwargs.get("capacity")))
         return fn(*args, **kwargs)
 
     monkeypatch.setattr(module, name, spy)
@@ -199,14 +198,14 @@ def _spy(monkeypatch, module, name, calls):
 
 @pytest.mark.parametrize("windowed", [False, True], ids=["full_fill", "windowed"])
 def test_sites_for_ref_goes_through_the_wrappers(monkeypatch, windowed):
-    """Both branches fill through fill_dirs and walk through trace_walk, and
-    give the serial oracle's sites.  "CA" has more max cells than the
-    full-fill branch's first listing holds (64): that branch fills, lists
-    and walks it again at its own count through the same wrappers, and
-    never reaches the host walk (sites_from_fill)."""
+    """The full-fill branch fills, lists and walks through fill_list, the
+    windowed branch through fill_walk, and both give the serial oracle's
+    sites.  "CA" has more max cells than the full-fill branch's first
+    listing holds (64): that branch fills, lists and walks it again at its
+    own count through the same wrapper, and never reaches the host walk
+    (sites_from_fill)."""
     calls = []
-    for module, name in ((device_traceback, "fill_dirs"), (device_traceback, "trace_walk"),
-                         (longseq, "fill_dirs"), (longseq, "trace_walk")):
+    for module, name in ((device_traceback, "fill_list"), (longseq, "fill_walk")):
         _spy(monkeypatch, module, name, calls)
 
     def host_walk(*args, **kwargs):
@@ -224,13 +223,13 @@ def test_sites_for_ref_goes_through_the_wrappers(monkeypatch, windowed):
     got = backend.sites_for_ref(ref, reads)
     assert got == SerialBackend().sites_for_ref(ref, reads)
     assert sum(1 for s in got if s[1] == ("CA", "CA")) > batch_backend._TRACE_CAPACITY
-    kinds = {c[:3] for c in calls}
+    kinds = {c[:2] for c in calls}
     if windowed:
-        assert {("longseq", "fill_dirs", False), ("longseq", "trace_walk", None)} == kinds
+        assert {("longseq", "fill_walk")} == kinds
     else:
-        assert {("device_traceback", "fill_dirs", True), ("device_traceback", "trace_walk", None)} == kinds
-        walked = [c[3] for c in calls if c[1] == "trace_walk"]
-        assert walked[0] == batch_backend._TRACE_CAPACITY and max(walked) > batch_backend._TRACE_CAPACITY
+        assert {("device_traceback", "fill_list")} == kinds
+        listed = [c[2] for c in calls]
+        assert listed[0] == batch_backend._TRACE_CAPACITY and max(listed) > batch_backend._TRACE_CAPACITY
 
 
 def test_wrappers_refuse_malformed_inputs():
