@@ -16,7 +16,9 @@ port's main path (``swtorch align --strategy batch``) end to end:
    K8's run that instruction too, and neither spills, nor K2's merge, K8's
    other two kernels and its finish, K9's two (one per tie order), K10's,
    or the twelve of K9 and K10 in one launch (``fill_walk_kernel``); the ALU
-   instructions per cell of K2's s16x2 loop at every L;
+   instructions per cell of K2's s16x2 loop at every L; K3's s16x2
+   kernel (every L) runs it and spills nothing, its diagonal loop's ALU
+   instructions (a plain and an edge step) beside K1's (a plain step);
    K6's and K7's s16x2 kernels (every L,
    K6 masked or not, K7's A, B, D, E) run it and spill nothing, and K6's
    inner loop takes no more ALU instructions per cell than sweep_s16x2's
@@ -82,15 +84,28 @@ port's main path (``swtorch align --strategy batch``) end to end:
    8 refs of 131,072 bp, 512 reads; wall time, real GCUPS, parse time;
 5. K3 (band lane best) against its plain version: 512 reads x 32 refs of
    500-4,000 bp cut into 1, 2 and 4 segments with random left columns,
-   every start lane and every bnd_out lane; the same at the shard_seq
-   leg's read shape (256 reads) on 8-16 kb segments; edge cases; four chained K3
-   segments equal to K1 at 64 reads x 8 refs of 131,072 bp;
+   every start lane and every bnd_out lane, through the public wrapper
+   (``cuda_score.k3_form``'s form, column pieces where
+   ``band_segments`` cuts), and at one segment the int32 form and the
+   16-bit form as one piece too; the same at the shard_seq leg's read
+   shape (256 reads) on 8-16 kb segments, cut into pieces and as one;
+   edge cases (both forms); both forms at the contract's edges (left
+   column 0 and match x m, a scheme just inside and one just outside
+   k3_form's rule); four chained K3 segments equal to K1 at 64 reads x 8
+   refs of 131,072 bp, the second segment in pieces (both forms) equal to
+   the int32 kernel as one piece; one 1 Mb segment among 8 kb ones (256 reads) equal to
+   the int32 kernel; at one segment, 131 kb and the mixed launch the
+   public wrapper, the 16-bit form as one piece and the int32 form timed
+   in turns in one profiler pass;
 6. ``swtorch align --strategy shard_seq`` on a 16 Mbp corpus of 8 kb-1 Mb
    refs with 256 reads, on the default mesh (every card): its report
    equals ``--strategy batch``'s apart from the time line, its winners'
-   totals equal the row-form recurrence, and ``SeqParallelBackend`` on a
-   4-entry mesh of this card gives batch's totals; K8 must launch in
-   the two runs (the 1 Mb winner's tied reads);
+   totals equal the row-form recurrence, every K3 launch takes the
+   16-bit form, and ``SeqParallelBackend`` on a 4-entry mesh of this card
+   gives batch's totals; K8 must launch in the two runs (the 1 Mb
+   winner's tied reads); one ``_band_ring`` call, every upload before
+   it, runs under ``torch.cuda.set_sync_debug_mode("error")`` and gives
+   batch's totals;
 7. ``--strategy shard_refs`` and ``shard_reads`` on the phase-3 corpus:
    reports equal to batch's apart from the time line; a (2, 2) mesh of
    this card gives batch's totals;
@@ -159,8 +174,9 @@ port's main path (``swtorch align --strategy batch``) end to end:
     recomputation.
 
 Launch counts are reset just before each main-path leg and read just
-after it, K1's, K2's, K4's, K5's, K6's, K7's and K8's per form too
-(``cuda_score.K1_FORMS`` .. ``K8_FORMS``): every K1 launch of phases
+after it, K1's, K2's, K3's, K4's, K5's, K6's, K7's and K8's per form too
+(``cuda_score.K1_FORMS`` .. ``K8_FORMS``): every K3 launch of phase 6
+takes the s16x2 form, every K1 launch of phases
 3-4, 7 and 13, every K2 launch of phases 3-4 and 13, every K4 launch of
 phases 9, 10 and 13, every K5 launch of phase 9 and every K6 launch of
 the bench's roofline leg must take the s16x2 form, every one at rows
@@ -434,6 +450,7 @@ def main() -> int:
     from sparksmithwaterman_tpu_torch.ops.packing import START_BIT, pack_reads, read_best
     from sparksmithwaterman_tpu_torch.ops.recurrence import score_grid
     from sparksmithwaterman_tpu_torch.parallel import SeqParallelBackend, ShardedBackend, build_mesh, sharded_totals
+    from sparksmithwaterman_tpu_torch.parallel.seqparallel import _band_ring, _segment_tables, _upload_refs
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
@@ -530,6 +547,26 @@ def main() -> int:
           + ", ".join(f"{l}: {k2_cell[l]:.3f}" for l in _LANES)
           + f"; the int32 kernels (as in earlier trees): {k2_regs.get('argmax_kernel')}, "
             f"{k2_regs.get('argmax_wide_kernel')}", flush=True)
+    # K3's s16x2 kernel at every L runs the DPX instruction and spills
+    # nothing.  Its diagonal loop holds two unrolled steps, the plain one
+    # (K1's) and the edge one (the boundary columns' hooks, run only on
+    # the first m and the last diagonals): its ALU instructions beside
+    # K1's loop's, the difference being the edge step's.
+    k3_loop, k1_loop = {}, {}
+    for fname, instrs in lib_sass.items():
+        hit = re.search(r"\d(band|lane_best)_s16x2_kernelILi(\d+)E", fname)
+        if hit:
+            fail_unless(relu_ops[0] in {op for _, op, _ in instrs}, f"{hit.group(1)}_s16x2_kernel at L={hit.group(2)} "
+                                                                    f"lacks {relu_ops[0]}")
+            (k3_loop if hit.group(1) == "band" else k1_loop)[int(hit.group(2))] = len(inner_loop_alu(instrs))
+    k3_regs = {k: w for k, w in register_summary(_cuda.build_info["log"]).items() if k.startswith("band")}
+    fail_unless(sorted(k3_loop) == list(_LANES) and len(k3_regs.get("band_s16x2_kernel", [])) == len(_LANES)
+                and not any("s" in w.split(":")[-1] for w in k3_regs["band_s16x2_kernel"]),
+                f"K3's s16x2 kernels: {sorted(k3_loop)}, {k3_regs}")
+    print(f"[0] K3 SASS: every band_s16x2_kernel runs {relu_ops[0]} and spills nothing ({k3_regs['band_s16x2_kernel']}); "
+          f"ALU instructions of its diagonal loop (a plain and an edge step) | K1's (a plain step), L: "
+          + ", ".join(f"{l}: {k3_loop[l]} | {k1_loop[l]}" for l in _LANES)
+          + f"; the int32 kernels: {k3_regs.get('band_kernel')}, {k3_regs.get('band_wide_kernel')}", flush=True)
     # K9's two kernels (one per tie order) and K10's, and the kernels of
     # both in one launch (fill_walk_kernel: two tie orders x three tile
     # widths x two modes): none spills.
@@ -1172,34 +1209,44 @@ def main() -> int:
     def nbytes(*tensors):
         return sum(t.numel() * t.element_size() for t in tensors)
 
-    def device_ms(fns, iters):
-        """Device ms of each of fns' one fill_walk kernel: the median over
+    def device_ms(fns, iters, kernel="fill_walk"):
+        """Device ms of each of fns' one ``kernel`` launch: the median over
         iters calls each, made in turns (fns[0], fns[1], ..., fns[0], ...)
         in one profiler pass after 100 ms of such turns that warm the
-        clocks, so a change of the card's clock during the pass falls on
-        every fn alike (the wrapper's event time also holds its
-        allocations, its zeroing and the host's launch).  A pass in which
-        the profiler did not see one such kernel a call is taken again, at
-        most twice."""
+        clocks (a round at a time, so that the host does not queue more
+        rounds than the card runs in that time), so a change of the
+        card's clock during the pass falls on every fn alike (the
+        wrapper's event time also holds its allocations, its zeroing and
+        the host's launch).  In the pass a
+        lead-in round comes first, then a marker kernel (``spin_kernel``,
+        ``torch.cuda._sleep``), then the timed rounds: the kernels are
+        read in stream order after the marker, and a pass that does not
+        hold the marker and exactly one such kernel a timed call after it
+        is taken again, at most twice."""
         t = time.perf_counter()
         while time.perf_counter() - t < 0.1:
             for fn in fns:
                 fn()
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
         seen = []
         for _ in range(3):
             with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for fn in fns:  # the lead-in round: a kernel the profiler misses as it starts falls here
+                    fn()
+                torch.cuda._sleep(1000)
                 for _ in range(iters):
                     for fn in fns:
                         fn()
                 torch.cuda.synchronize()
-            us = [e.time_range for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA and "fill_walk" in e.name]
+            ev = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+            marks = [i for i, e in enumerate(ev) if "spin_kernel" in e.name]
+            us = [e.time_range.elapsed_us() for e in ev[marks[-1] + 1:] if kernel in e.name] if marks else []
             if len(us) == iters * len(fns):
-                us = [r.elapsed_us() for r in sorted(us, key=lambda r: r.start)]
                 return [float(np.median(us[i::len(fns)])) / 1e3 for i in range(len(fns))]
-            seen.append(len(us))
-        fail_unless(False, f"the profiler saw {seen} fill_walk kernels in three passes of {iters} x {len(fns)} calls")
+            seen.append((len(marks), len(us)))
+        fail_unless(False, f"the profiler saw (markers, {kernel} kernels after the last) {seen} in three passes of "
+                           f"{iters} x {len(fns)} timed calls")
 
     def launch_turns(calls, same, iters):
         """({key: (wrapper ms by events, kernel ms by the profiler)} of each
@@ -1434,11 +1481,18 @@ def main() -> int:
               f"(lengths {[len(scale_seqs[w]) for w in winners]}), totals equal the row-form recurrence", flush=True)
 
         # -- 5. K3 against its plain version ---------------------------------
-        def k3_case(reads, refs, m_pack, segs, row_multiple=8, plain=True):
+        t5 = time.perf_counter()
+        def k3_err(got, want, start_t, c):
+            """Max abs error of K3's (lane_best, bnd_out) at every start lane and every bnd_out lane."""
+            lane = (got[0].reshape(c, -1)[:, start_t] - want[0].reshape(c, -1)[:, start_t]).abs().max()
+            return max(int(lane), int((got[1] - want[1]).abs().max()))
+
+        def k3_case(reads, refs, m_pack, segs, row_multiple=8, plain=True, given=()):
             """K3's inputs for each of ``segs`` segments of every ref (one
             flat buffer read by offset, random left columns), the start
             lanes, and the max abs error against the plain version over
-            every start lane and every bnd_out lane."""
+            every start lane and every bnd_out lane of the public wrapper
+            and of each (form, split) in ``given``."""
             packed, start = pack_reads(reads, m_pack, row_multiple)
             flat, lens = encode_concat(refs)
             offsets = np.concatenate(([0], np.cumsum(lens)[:-1])).astype(np.int64)
@@ -1453,44 +1507,117 @@ def main() -> int:
                 args = (packed_t, flat_t, up(seg_offs), up(seg_lens), ns_t, bnd, *PARAMS)
                 calls.append(args)
                 if plain:
-                    (kl, kb), (pl, pb) = cuda_score.band_lane_best(*args), cuda_score.band_lane_best_plain(*args)
-                    lane_err = (kl.reshape(len(refs), -1)[:, start_t] - pl.reshape(len(refs), -1)[:, start_t]).abs().max()
-                    err = max(err, int(lane_err), int((kb - pb).abs().max()))
+                    want = cuda_score.band_lane_best_plain(*args)
+                    outs = [cuda_score.band_lane_best(*args)]
+                    outs += [cuda_score._band_lane_best(*args, form=f, split=sp) for f, sp in given]
+                    err = max([err] + [k3_err(o, want, start_t, len(refs)) for o in outs])
             return calls, start_t, err
+
+        def k3_plan(args):
+            """(stride, look-back) of the public wrapper's column pieces for K3's args."""
+            rows, m = args[0].shape
+            per_block = 8 if cuda_score.k3_form(m, *PARAMS) == "s16x2" else 4
+            return cuda_score.band_segments(m, int(args[4].clamp_min(1).sum()), args[4].shape[0],
+                                            -(-rows // per_block), *PARAMS, sms)
 
         reads_5 = rand_seqs(rng, rng.integers(80, 151, size=512))
         refs_5 = rand_seqs(rng, rng.integers(500, 4000, size=32))
         k3_max_err = 0
+        cuda_score.reset_launches()
         for segs in (1, 2, 4):
-            calls_5, _, err = k3_case(reads_5, refs_5, 256, segs)
+            # one segment: the int32 form too, and the 16-bit form as one piece
+            calls_5, start_5, err = k3_case(reads_5, refs_5, 256, segs,
+                                            given=(("int32", False), ("s16x2", False)) if segs == 1 else ())
             k3_max_err = max(k3_max_err, err)
             if segs == 1:
                 args_5 = calls_5[0]
         fail_unless(k3_max_err == 0, f"K3 differs from plain (max abs err {k3_max_err})")
+        k3_forms_5 = dict(cuda_score.K3_FORMS)
+        fail_unless(k3_forms_5 == {"s16x2": 8, "int32": 1},
+                    f"K3's public wrapper did not take the s16x2 form at 256 lanes: {k3_forms_5}")
         # The shard_seq leg's read shape (256 reads, m_pack 256) on segments
-        # of 8-16 kb, as phase 6 gives K3.
+        # of 8-16 kb, as phase 6 gives K3: the public wrapper cuts them into
+        # pieces; the 16-bit form as one piece too.
         reads_5m = rand_seqs(rng, rng.integers(80, 151, size=256))
         refs_5m = rand_seqs(rng, rng.integers(16_000, 32_001, size=4))
-        _, _, err = k3_case(reads_5m, refs_5m, 256, 2)
-        fail_unless(err == 0, f"K3 at 8-16 kb segments differs from plain ({err})")
+        calls_5m, _, err = k3_case(reads_5m, refs_5m, 256, 2, given=(("s16x2", False),))
+        plan_5m = k3_plan(calls_5m[0])
+        fail_unless(err == 0 and plan_5m[0] < int(calls_5m[0][4].sum()),
+                    f"K3 at 8-16 kb segments differs from plain ({err}) or was not cut (plan {plan_5m})")
         k3_max_err = max(k3_max_err, err)
         for m_pack in (128, 512):
-            _, _, err = k3_case(edge_reads, edge_refs, m_pack, 3, row_multiple=32)
+            _, _, err = k3_case(edge_reads, edge_refs, m_pack, 3, row_multiple=32, given=(("int32", True),))
             fail_unless(err == 0, f"K3 edge cases differ at m_pack={m_pack} ({err})")
-        k3_ms = cuda_ms(lambda: cuda_score.band_lane_best(*args_5), 10)
+        # The 16-bit form against the int32 form at the contract's edges: the
+        # left column 0 and match x m at every lane, reads copied from the
+        # segment's start (so a lane reaches bnd + match x 255), under a
+        # scheme just inside k3_form's rule (match 64 at 256 lanes: 64 x 511
+        # = 32,704 <= 32,767), at mismatch = gap = -32,768 too, and one just
+        # outside (match 65): there the public wrapper takes int32 and the
+        # s16x2 form given raises.
+        ref_e5 = rand_seqs(rng, [6000])[0]
+        reads_e5 = [ref_e5[j : j + 256] for j in (0, 3, 100, 1000)] + rand_seqs(rng, rng.integers(80, 257, size=60))
+        packed_e5, start_e5 = pack_reads(reads_e5, 256)
+        flat_e5, lens_e5 = encode_concat([ref_e5, ref_e5[:3000]])
+        start_e5 = up(start_e5.astype(np.int64))
+        edge_top = {}
+        for params in ((64, -3, -4), (64, -32768, -32768), (65, -3, -4)):
+            inside = cuda_score.k3_form(256, *params) == "s16x2"
+            for fill in (0, params[0] * 256):
+                args = (up(packed_e5), up(flat_e5), up(np.array([0, 6000], np.int64)), up(lens_e5.astype(np.int32)),
+                        up(lens_e5.astype(np.int32)),
+                        torch.full((2,) + packed_e5.shape, fill, dtype=torch.int32, device=dev))
+                want = cuda_score._band_lane_best(*args, *params, form="int32", split=False)
+                cuda_score.reset_launches()
+                got = [cuda_score.band_lane_best(*args, *params)]
+                fail_unless(cuda_score.K3_FORMS["s16x2" if inside else "int32"] == 1,
+                            f"K3 took {cuda_score.K3_FORMS} under {params}")
+                if inside:
+                    got.append(cuda_score._band_lane_best(*args, *params, form="s16x2", split=False))
+                else:
+                    try:
+                        cuda_score._band_lane_best(*args, *params, form="s16x2")
+                        fail_unless(False, f"K3's s16x2 form was given under {params}, outside its rule")
+                    except ValueError:
+                        pass
+                err = max(k3_err(g, want, start_e5, 2) for g in got)
+                fail_unless(err == 0, f"K3's forms differ at the contract's edge {params}, bnd {fill} ({err})")
+                edge_top[params, fill] = int(want[0].max())
+        fail_unless(edge_top[(64, -3, -4), 64 * 256] >= 32_000,
+                    f"the edge case does not reach the rule's edge: {edge_top}")
         torch.cuda.synchronize()
-        t = time.perf_counter()
+        k3_plain_t = time.perf_counter()
         cuda_score.band_lane_best_plain(*args_5)
         torch.cuda.synchronize()
-        k3_plain_ms = (time.perf_counter() - t) * 1e3
-        cells_5 = sum(map(len, reads_5)) * sum(map(len, refs_5))
-        k3_bytes = sum(t.numel() * t.element_size() for t in args_5[:6]) + 2 * args_5[5].numel() * 4
-        k3_bound_ms, k3_bound_by = bound(cells_5, k3_bytes, sms, clock_mhz)
+        k3_plain_ms = (time.perf_counter() - k3_plain_t) * 1e3
+
+        def k3_turns(args, iters):
+            """Kernel ms of the public wrapper (as the ring calls it, the
+            columns given), the 16-bit form as one piece and the int32 form
+            as one piece, in turns in one profiler pass (device_ms)."""
+            cols = int(args[4].clamp_min(1).sum())
+            return dict(zip(("public", "unsplit", "int32"), device_ms([
+                lambda: cuda_score.band_lane_best(*args, carry_cols=cols),
+                lambda: cuda_score._band_lane_best(*args, form="s16x2", split=False),
+                lambda: cuda_score._band_lane_best(*args, form="int32", split=False),
+            ], iters, kernel="band_")))
+
+        def k3_bound(reads, args):
+            nbytes = sum(t.numel() * t.element_size() for t in args[:6]) + 2 * args[5].numel() * 4
+            return bound(sum(map(len, reads)) * int(args[3].sum()), nbytes, sms, clock_mhz)
+
+        k3_t = k3_turns(args_5, 10)
+        k3_ms = k3_t["public"]
+        k3_bound_ms, k3_bound_by = k3_bound(reads_5, args_5)
         print(f"[5] K3 512 reads x 32 refs (500-4000 bp) in 1, 2 and 4 segments, random left columns: max abs err 0 "
-              f"at every start lane and bnd_out lane; 256 reads x 4 refs of 16-32 kb in 2 segments (8-16 kb) equal; "
-              f"edge cases (m_pack 128 and 512, 3 segments) equal; one segment: "
-              f"kernel {k3_ms:.3f} ms, plain {k3_plain_ms:.1f} ms; bound {k3_bound_ms:.3f} ms by {k3_bound_by} "
-              f"({cells_5:.3e} cells, {k3_bytes} bytes) = {100 * k3_bound_ms / k3_ms:.1f}% of the kernel's time", flush=True)
+              f"at every start lane and bnd_out lane (one segment: public, int32 and s16x2 as one piece; forms "
+              f"{k3_forms_5}); 256 reads x 4 refs of 16-32 kb in 2 segments (8-16 kb, plan "
+              f"{plan_5m}) equal, s16x2 as one piece too; edge cases (m_pack 128 and 512, 3 segments; int32 too) "
+              f"equal; the contract's edges (bnd 0 and match x 256; largest lane {edge_top}) s16x2 equal to int32, "
+              f"match 65 int32 only; one segment, kernel ms in turns: public {k3_ms:.3f}, s16x2 as one piece "
+              f"{k3_t['unsplit']:.3f}, int32 {k3_t['int32']:.3f}; plain {k3_plain_ms:.1f} ms; bound "
+              f"{k3_bound_ms:.3f} ms by {k3_bound_by} = {100 * k3_bound_ms / k3_ms:.1f}% of the public kernel's "
+              f"time", flush=True)
 
         calls_l, start_l_t, _ = k3_case(reads_l, refs_l, 256, 4, plain=False)
 
@@ -1505,17 +1632,42 @@ def main() -> int:
         k1_l = read_best(k1(cuda_score.lane_best_packed_varlen, args_l), start_l).T
         fail_unless(torch.equal(chain(), k1_l), "4 chained K3 segments differ from K1 at 131 kb")
         args_5l = calls_l[1]  # the second segment, with a random left column
-        k3l_ms = cuda_ms(lambda: cuda_score.band_lane_best(*args_5l), 5)
+        want_5l = cuda_score._band_lane_best(*args_5l, form="int32", split=False)
+        for form in ("s16x2", "int32"):  # each form cut into pieces; the 16-bit one piece is held above
+            err = k3_err(cuda_score._band_lane_best(*args_5l, form=form), want_5l, start_l_t, len(refs_l))
+            fail_unless(err == 0, f"K3 {form} in pieces differs from the int32 kernel at 131 kb ({err})")
+        plan_5l = k3_plan(args_5l)
+        fail_unless(plan_5l[0] < int(args_5l[4].sum()), f"K3 did not cut the 131 kb quarter: {plan_5l}")
+        k3l_t = k3_turns(args_5l, 5)
+        k3l_ms = k3l_t["public"]
         chain_ms = cuda_ms(chain, 3)
-        cells_5l = sum(map(len, reads_l)) * int(calls_l[1][3].sum())
-        k3l_bytes = sum(t.numel() * t.element_size() for t in args_5l[:6]) + 2 * args_5l[5].numel() * 4
-        k3l_bound_ms, k3l_bound_by = bound(cells_5l, k3l_bytes, sms, clock_mhz)
+        k3l_bound_ms, k3l_bound_by = k3_bound(reads_l, args_5l)
         print(f"[5] K3 64 reads x 8 refs of {LONG_N} bp in 4 segments: chained equal to K1 at every start lane; "
-              f"one segment {k3l_ms:.3f} ms (bound {k3l_bound_ms:.3f} ms by {k3l_bound_by}, "
-              f"{100 * k3l_bound_ms / k3l_ms:.1f}%), the chain of 4 with its start-lane max {chain_ms:.3f} ms "
-              f"(K1 on the whole refs {kl_ms:.3f} ms)", flush=True)
+              f"the second segment (random left column) cut into pieces (stride {plan_5l[0]}, look-back "
+              f"{plan_5l[1]}) in both forms equal to the int32 kernel as one piece; kernel ms in turns: "
+              f"public {k3l_ms:.3f}, s16x2 as one piece {k3l_t['unsplit']:.3f}, int32 {k3l_t['int32']:.3f} (bound "
+              f"{k3l_bound_ms:.3f} ms by {k3l_bound_by}, {100 * k3l_bound_ms / k3l_ms:.1f}% of the public kernel's); "
+              f"the chain of 4 with its start-lane max {chain_ms:.3f} ms (K1 on the whole refs {kl_ms:.3f} ms)",
+              flush=True)
+        # A launch of mixed lengths: one 1 Mb segment among 8 kb ones, the
+        # shard_seq leg's 256 reads; held to the int32 kernel as one piece.
+        refs_5x = rand_seqs(rng, [1_000_000] + [8_000] * 15)
+        (args_5x,), start_5x, _ = k3_case(reads_5m, refs_5x, 256, 1, plain=False)
+        want_5x = cuda_score._band_lane_best(*args_5x, form="int32", split=False)
+        err = k3_err(cuda_score.band_lane_best(*args_5x), want_5x, start_5x, len(refs_5x))
+        fail_unless(err == 0, f"K3 on the mixed-length launch differs from the int32 kernel ({err})")
+        k3_max_err = max(k3_max_err, err)
+        plan_5x = k3_plan(args_5x)
+        k3x_t = k3_turns(args_5x, 2)
+        k3x_bound_ms, _ = k3_bound(reads_5m, args_5x)
+        print(f"[5] K3 256 reads x one 1 Mb segment and 15 of 8 kb: the public wrapper (stride {plan_5x[0]}, "
+              f"{len(cuda_score.band_pieces(1_000_000, *plan_5x))} pieces of the 1 Mb) equal to the int32 kernel as "
+              f"one piece; kernel ms in turns: public {k3x_t['public']:.3f}, s16x2 as one piece "
+              f"{k3x_t['unsplit']:.3f}, int32 {k3x_t['int32']:.3f} (bound {k3x_bound_ms:.3f} ms); phase 5 took "
+              f"{time.perf_counter() - t5:.1f} s", flush=True)
 
         # -- 6. shard_seq at real size ---------------------------------------
+        t6 = time.perf_counter()
         seq_root = os.path.join(work, "seq")
         seq_corpus = long_ref_corpus(seq_root, 16_000_000, 256, seed=SEED + 7)
         seq_cells = seq_corpus["read_bp"] * seq_corpus["ref_bp"]
@@ -1534,7 +1686,10 @@ def main() -> int:
         cuda_score.reset_launches()
         seq_s = align(seq_root, "shard_seq", "out_seq")
         seq_launches = dict(cuda_score.LAUNCHES)
-        fail_unless(seq_launches["band_lane_best"] > 0, f"K3 never launched on the shard_seq path: {seq_launches}")
+        k3_main_forms = dict(cuda_score.K3_FORMS)
+        fail_unless(seq_launches["band_lane_best"] > 0 and k3_main_forms["s16x2"] == seq_launches["band_lane_best"],
+                    f"K3 never launched, or not in the s16x2 form, on the shard_seq path: {seq_launches}, "
+                    f"{k3_main_forms}")
         k8_main_forms.update(cuda_score.K8_FORMS)
         k2_main_forms.update(cuda_score.K2_FORMS)
         cuda_score.reset_launches()
@@ -1551,8 +1706,8 @@ def main() -> int:
         print(f"[6] swtorch align on {seq_corpus['n_refs']} refs of 8 kb-1 Mb ({seq_corpus['ref_bp']} bp) x 256 reads "
               f"({seq_corpus['read_bp']} bp): shard_seq {seq_s:.3f} s ({seq_cells / seq_s / 1e9:.1f} real GCUPS), "
               f"batch {batch_s:.3f} s ({seq_cells / batch_s / 1e9:.1f} real GCUPS); reports equal apart from the time "
-              f"line; launches of shard_seq {seq_launches}, of batch {seq_batch_launches}; the traceback's: shard_seq "
-              f"{traced_6[0]}, batch {traced_6[1]}", flush=True)
+              f"line; launches of shard_seq {seq_launches} (K3 forms {k3_main_forms}), of batch {seq_batch_launches}; "
+              f"the traceback's: shard_seq {traced_6[0]}, batch {traced_6[1]}", flush=True)
 
         seq_reads = get_reads(os.path.join(seq_root, "inputs", "input1.fa"), ">gi")
         seq_refs = [rec for path in iter_files(os.path.join(seq_root, "refs")) for rec in get_ref_seqs(path, ">gi")]
@@ -1582,6 +1737,35 @@ def main() -> int:
         print(f"[6] totals only: batch {batch_tot_s:.3f} s, shard_seq {one_tot_s:.3f} s, shard_seq on 4 entries of "
               f"{dev} {four_tot_s:.3f} s: all equal; winners {sorted(winners)} (lengths "
               f"{[len(seq_by_meta[w]) for w in winners]}) total {max_score}, equal to the row-form recurrence", flush=True)
+        # The band ring enqueues its rounds without a host sync or an upload:
+        # every upload first (as SeqParallelBackend._totals_dev makes them),
+        # then one _band_ring call under sync debug mode "error", so that a
+        # sync that creeps into it (or into K3's wrapper) fails the run.
+        one = SeqParallelBackend(seq_config, device=dev)
+        pp = one._prepack(seq_reads)
+        flat_6, lens_6 = encode_concat(seq_seqs)
+        offs_6 = np.concatenate(([0], np.cumsum(lens_6)[:-1])).astype(np.int64)
+        chunks_6 = one._chunks(lens_6, pp)
+        order_6 = np.concatenate(chunks_6)
+        tables_6 = _segment_tables(lens_6[order_6], offs_6[order_6], 1)
+        refs_on, tables_on = _upload_refs(flat_6, tables_6, one._devices)
+        ends_6 = np.cumsum([len(chunk) for chunk in chunks_6])
+        bounds_6 = [(int(end - len(chunk)), int(end)) for end, chunk in zip(ends_6, chunks_6)]
+        torch.cuda.synchronize()
+        cuda_score.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ring_bests = _band_ring(pp, refs_on, tables_on, tables_6[2], bounds_6, one._params, one._devices)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        ring_totals = np.zeros(len(seq_seqs), np.int64)
+        for (lo, hi), best in zip(bounds_6, ring_bests):
+            ring_totals[order_6[lo:hi]] = best.sum(dim=1, dtype=torch.int64).cpu().numpy()
+        fail_unless(np.array_equal(ring_totals, want_seq) and cuda_score.K3_FORMS["s16x2"] > 0,
+                    f"the band ring under sync debug mode differs from batch's totals ({cuda_score.K3_FORMS})")
+        print(f"[6] _band_ring under torch.cuda.set_sync_debug_mode('error'): {len(bounds_6)} chunk(s), "
+              f"{cuda_score.K3_FORMS['s16x2']} K3 launch(es) in s16x2, no sync; totals equal batch's; phase 6 took "
+              f"{time.perf_counter() - t6:.1f} s", flush=True)
 
         # -- 7. shard_refs and shard_reads -------------------------------------
         cuda_score.reset_launches()
@@ -2341,6 +2525,10 @@ def main() -> int:
         fail_unless(min(lr_k4_forms.values()) > 0 and sum(lr_k4_forms.values()) == lr_launches["score_grid_diag"],
                     f"K4's forms on the long-read paths: {lr_k4_forms} of {lr_launches['score_grid_diag']}")
         k4_main_forms.update(lr_k4_forms)
+        lr_k3_forms = dict(cuda_score.K3_FORMS)
+        fail_unless(sum(lr_k3_forms.values()) == lr_launches["band_lane_best"],
+                    f"K3's forms on the long-read paths: {lr_k3_forms} of {lr_launches['band_lane_best']}")
+        k3_main_forms = {form: k3_main_forms[form] + lr_k3_forms[form] for form in k3_main_forms}
         lr_k5_forms = dict(cuda_score.K5_FORMS)
         fail_unless(min(lr_k5_forms.values()) > 0 and sum(lr_k5_forms.values()) == lr_launches["score_grid_row"],
                     f"K5's forms on the long-read paths: {lr_k5_forms} of {lr_launches['score_grid_row']}")
@@ -2379,7 +2567,8 @@ def main() -> int:
               f"per-read recomputation ({'/'.join(sorted(branches))} branch); {time.perf_counter() - t14e:.1f} s "
               f"with the checks", flush=True)
         print(f"[14] the traceback's launches over the long-read paths: {traced(lr_launches, 'phase 14')}", flush=True)
-        print(f"[14] LAUNCHES over the long-read paths: {lr_launches}, K1 forms {lr_forms}, K4 forms {lr_k4_forms}, "
+        print(f"[14] LAUNCHES over the long-read paths: {lr_launches}, K1 forms {lr_forms}, K3 forms {lr_k3_forms}, "
+              f"K4 forms {lr_k4_forms}, "
               f"K5 forms {lr_k5_forms}; "
               f"phase 14 took {time.perf_counter() - t14:.1f} s", flush=True)
 
@@ -2447,8 +2636,19 @@ def main() -> int:
             "bound_ms": k3_bound_ms,
             "bound_by": k3_bound_by,
             "library_ms": None,
+            "forms": k3_main_forms,
+            "unsplit_ms": k3_t["unsplit"],
+            "int32_ms": k3_t["int32"],
             "long_ms": k3l_ms,
             "long_bound_ms": k3l_bound_ms,
+            "long_pieces": {"stride": plan_5l[0], "look_back": plan_5l[1]},
+            "long_unsplit_ms": k3l_t["unsplit"],
+            "long_int32_ms": k3l_t["int32"],
+            "mixed_ms": k3x_t["public"],
+            "mixed_bound_ms": k3x_bound_ms,
+            "mixed_pieces": {"stride": plan_5x[0], "look_back": plan_5x[1]},
+            "mixed_unsplit_ms": k3x_t["unsplit"],
+            "mixed_int32_ms": k3x_t["int32"],
         },
         {
             "name": "score_grid_diag",

@@ -34,40 +34,145 @@
 // past M and rows past ROWS are isolated all-pad segments, as in K1, and
 // take no boundary value.
 //
-// What bounds it on the H100: the same register-resident integer sweep as
-// K1 (wavefront.cuh), plus a compare and a select per cell for the right
-// column; bnd is read once and the two outputs are written once, so it
-// is bound by integer operations, not bytes.  The design keeps K1's
-// shape: one warp per packed row, L lanes per thread, one shuffle per
-// diagonal, the segment streamed through the 4 KB shared ring; the
-// boundary injection runs only on the first M diagonals.  A row of more
-// than 1,024 lanes runs in stripes of 512 (band_wide_kernel): in stripe
-// s, lane sW + k takes its left column before local diagonal k and gives
-// its right column on local diagonal k + ns - 1, and lane sW's NW term on
-// its first diagonal is bnd[sW - 1].
+// The left column's contract: bnd is a column of the same DP, so 0 <=
+// bnd[c, r, i] <= match x m (every bnd_out of K3 and the zeros of a
+// reference's first segment meet it).
+//
+// What bounds it on the H100: the register-resident integer sweep of K1
+// (wavefront.cuh); bnd is read once and the two outputs are written
+// once, so it is bound by integer operations, not bytes.  Two forms,
+// chosen by the wrapper from the data alone (ops/cuda_score.py k3_form):
+//
+// - s16x2 (band_s16x2_kernel), rows of at most 1,024 lanes where no value
+//   leaves int16: K1's s16x2 design, two packed rows a warp, one in each
+//   16-bit half of every register, sweep_s16x2's recurrence in
+//   __viaddmax_s16x2_relu.  A cell is at most bnd's bound plus match x
+//   (m - 1), so the rule is match x (2m - 1) <= 32,767 (k1_form's with
+//   the left column's match x m added): then U <= match x (2m - 2) <=
+//   32,767 - match and the IMAD carries nothing across halves.  The
+//   boundary columns cost only the first and the last diagonals: the
+//   sweep runs its unrolled steps below m (the left column enters) and
+//   from ns - 1 on (the right column leaves) as edge steps, and every
+//   other step as K1's loop, with no compare a cell.  Both rows' left
+//   columns are staged once in shared memory as one word a lane (low
+//   row | high row << 16); before diagonal i the thread owning lane i
+//   takes bnd[i] into that register (for L <= 8 the register is known at
+//   compile time, as the unroll is a multiple of L), the lane to its
+//   right reads it as its N term and keeps it, through keep2, as its NW
+//   term (zero where that lane starts a read; both halves inject on the
+//   same diagonal, lane i being lane i of both rows).  An edge step
+//   folds every diagonal into best alone, so an injected value never
+//   counts as a cell.  On diagonal i + ns - 1 the thread owning lane i
+//   stores both rows' H there to bnd_out.
+// - int32 (band_kernel, one warp per row): every other row of at most
+//   1,024 lanes; the injection is a compare a lane on the first m
+//   diagonals and the capture a compare a cell.
+//
+// Column pieces, in both forms, where the scheme has match > 0, mismatch
+// <= 0 and gap < 0 (ops/cuda_score.py band_segments plans them, these
+// entries refuse a plan that is not exact): one segment of a long
+// reference on one card is a long chain of diagonals for few blocks, so
+// a launch may cut each segment at multiples of a stride S into pieces,
+// one block (of rows) each.  Piece k >= 1 starts W - 1 columns before k
+// S from zero state, W = m + match m // |gap|: a positive cell is reached
+// by an alignment spanning at most W columns, so the piece computes
+// every cell of its own columns [k S, (k + 1) S) exactly, and no path
+// from the left column reaches them (from bnd <= match x m a path stays
+// positive for fewer than 2W - 1 columns, and S >= 2W).  Piece 0 takes
+// bnd; the last piece, which computes column ns - 1 exactly, writes
+// bnd_out; every piece of a segment cut in several takes the max of its
+// suffix-maxed lane bests into out (zeroed by the wrapper) with
+// atomicMax, which gives each start lane its read's best, as the suffix
+// max distributes over max (a segment left whole stores its own).  cum
+// (on the card) is the inclusive prefix sum of each reference's piece
+// count, so a block finds its reference by a binary search and the
+// launch needs no table from the host.  Read blocks vary fastest, so the blocks of one
+// piece run together and share its bytes in L2.
+//
+// A row of more than 1,024 lanes runs in int32, in stripes of 512, one
+// piece a segment (band_wide_kernel): in stripe s, lane sW + k takes its
+// left column before local diagonal k and gives its right column on
+// local diagonal k + ns - 1, and lane sW's NW term on its first diagonal
+// is bnd[sW - 1].
 #include "wavefront.cuh"
 
 namespace {
 
 using namespace swt;
 
+// A launch's column pieces (see the top of this file): reference c's
+// columns cut at multiples of stride, piece k >= 1 beginning back columns
+// before k * stride; cum the inclusive prefix sum of the pieces of each
+// reference, or null for one piece a reference.
+struct Pieces {
+  int stride, back;
+  const int32_t* cum;
+};
+
+// A block's row block, reference, first column and columns, and whether
+// it is its reference's first piece (takes bnd) and last (gives bnd_out);
+// c < 0 for a block past the launch's pieces (the grid is sized by an
+// upper bound of their count).
+struct Piece {
+  int rb, c, j0, width;
+  bool first, last;
+};
+
+__device__ __forceinline__ Piece place(int block, int row_blocks, int refs, const int32_t* ns, Pieces pc) {
+  Piece p;
+  p.rb = block % row_blocks;
+  const int g = block / row_blocks;
+  int k = 0, count = 1;
+  if (pc.cum == nullptr) {
+    p.c = g;
+  } else {
+    if (g >= pc.cum[refs - 1]) {
+      p.c = -1;
+      return p;
+    }
+    int lo = 0, hi = refs - 1;  // the first reference whose cum passes g
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (pc.cum[mid] > g)
+        hi = mid;
+      else
+        lo = mid + 1;
+    }
+    const int before = lo ? pc.cum[lo - 1] : 0;
+    p.c = lo;
+    k = g - before;
+    count = pc.cum[lo] - before;
+  }
+  p.j0 = k ? k * pc.stride - pc.back : 0;
+  p.width = (k + 1 < count ? (k + 1) * pc.stride : max(ns[p.c], 1)) - p.j0;
+  p.first = k == 0;
+  p.last = k + 1 == count;
+  return p;
+}
+
+// The bytes of piece p's columns that lie in its segment.
+__device__ __forceinline__ int piece_len(const int32_t* seg_lens, const Piece& p) {
+  return min(max(seg_lens[p.c] - p.j0, 0), p.width);
+}
+
 template <int L>
 __global__ void __launch_bounds__(kThreads)
 band_kernel(const int32_t* __restrict__ packed, int rows, int m,
-            int row_blocks, const uint8_t* __restrict__ segs,
+            int row_blocks, int refs, const uint8_t* __restrict__ segs,
             const long long* __restrict__ offs,
             const int32_t* __restrict__ seg_lens,
             const int32_t* __restrict__ ns,
-            const int32_t* __restrict__ bnd, int match, int mismatch, int gap,
+            const int32_t* __restrict__ bnd, Pieces pc, int match, int mismatch, int gap,
             int32_t* __restrict__ out, int32_t* __restrict__ bnd_out) {
   __shared__ uint8_t ring[kRing];
-  const int c = blockIdx.x / row_blocks;
-  const int row = (blockIdx.x % row_blocks) * kWarps + (threadIdx.x >> 5);
+  const Piece p = place(blockIdx.x, row_blocks, refs, ns, pc);
+  if (p.c < 0) return;
+  const int row = p.rb * kWarps + (threadIdx.x >> 5);
   const int first = (threadIdx.x & 31) * L;
   const bool live = row < rows;
-  const int width = max(ns[c], 1);
-  const int nd = m + width - 1;
-  const long long base = ((long long)c * rows + row) * m;
+  const int nd = m + p.width - 1;
+  const int head = p.first ? m : 0;
+  const long long base = ((long long)p.c * rows + row) * m;
 
   int rd[L], bv[L], bo[L], best[L];
   uint32_t start = 0;  // bit k: lane first+k starts a segment
@@ -78,30 +183,140 @@ band_kernel(const int32_t* __restrict__ packed, int rows, int m,
     const int raw = real ? packed[(long long)row * m + i] : kStartBit;
     rd[k] = raw & 255;
     if (raw >= kStartBit || i == 0) start |= 1u << k;
-    bv[k] = real ? bnd[base + i] : 0;
+    bv[k] = real && p.first ? bnd[base + i] : 0;
     bo[k] = 0;
     best[k] = 0;
   }
-  const int last = first + width - 1;  // diagonal of lane `first` in column ns-1
+  // Diagonal of lane `first` in column ns - 1 (none but in the last piece).
+  const int last = p.last ? first + p.width - 1 : -(1 << 30);
   sweep<L>(
-      rd, start, nd, segs + offs[c], seg_lens[c], match, mismatch, gap, ring,
+      rd, start, nd, segs + offs[p.c] + p.j0, piece_len(seg_lens, p), match, mismatch, gap, ring,
       [&](int k, int d, int h) {
         best[k] = max(best[k], h);
         if (d == last + k) bo[k] = h;
       },
       [&](int d, int(&H)[L]) {
-        if (d < m) {
+        if (d < head) {
 #pragma unroll
           for (int k = 0; k < L; ++k)
             if (first + k == d) H[k] = bv[k];
         }
       });
-  store_suffix_max<L>(best, start, m, live, out + base);
-  if (!live) return;
+  if (!(p.first && p.last))  // pieces of one segment meet in out
+    store_suffix_max<L, true>(best, start, m, live, out + base);
+  else
+    store_suffix_max<L>(best, start, m, live, out + base);
+  if (!live || !p.last) return;
 #pragma unroll
   for (int k = 0; k < L; ++k) {
     if (first + k < m) bnd_out[base + first + k] = bo[k];
   }
+}
+
+// The s16x2 form (see the top of this file): piece p's row block b takes
+// packed rows 8b .. 8b + 7, warp w the pair 2w, 2w + 1.  k_sub = match -
+// mismatch, mismatch2 and gap2 pair16 of the scheme.
+template <int L>
+__global__ void __launch_bounds__(kThreads)
+band_s16x2_kernel(const int32_t* __restrict__ packed, int rows, int m,
+                  int row_blocks, int refs, const uint8_t* __restrict__ segs,
+                  const long long* __restrict__ offs,
+                  const int32_t* __restrict__ seg_lens,
+                  const int32_t* __restrict__ ns,
+                  const int32_t* __restrict__ bnd, Pieces pc, uint32_t k_sub,
+                  uint32_t mismatch2, uint32_t gap2,
+                  int32_t* __restrict__ out, int32_t* __restrict__ bnd_out) {
+  __shared__ uint32_t ring[kRing + kS16x2RingPad];
+  __shared__ uint32_t left[kWarps][32 * L];  // both rows' bnd, low | high << 16
+  const Piece p = place(blockIdx.x, row_blocks, refs, ns, pc);
+  if (p.c < 0) return;
+  const int warp = threadIdx.x >> 5;
+  const int row = p.rb * (2 * kWarps) + 2 * warp;
+  const int first = (threadIdx.x & 31) * L;
+  const int nd = m + p.width - 1;
+  const long long base = ((long long)p.c * rows + row) * m;
+
+  uint32_t rd2[L], keep2[L], best2[L];
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    const int i = first + k;
+    // Lanes past m (and rows past ROWS) form isolated all-pad segments.
+    const int lo = (row < rows && i < m) ? packed[(long long)row * m + i] : kStartBit;
+    const int hi = (row + 1 < rows && i < m) ? packed[(long long)(row + 1) * m + i] : kStartBit;
+    rd2[k] = code_half(lo) | code_half(hi) << 16;
+    keep2[k] = (lo >= kStartBit || i == 0 ? 0u : 0x0000FFFFu) | (hi >= kStartBit || i == 0 ? 0u : 0xFFFF0000u);
+    best2[k] = 0;
+  }
+  if (p.first) {  // the sweep's first barrier orders these stores before the reads
+    for (int i = threadIdx.x & 31; i < m; i += 32) {
+      const uint32_t lo = row < rows ? (uint32_t)bnd[base + i] : 0u;
+      const uint32_t hi = row + 1 < rows ? (uint32_t)bnd[base + m + i] : 0u;
+      left[warp][i] = (lo & 0xFFFFu) | hi << 16;
+    }
+  }
+  const int tail = p.last ? p.width - 1 : 0x7fffffff;  // lane i's H leaves on diagonal i + tail
+  int32_t* right = bnd_out + base;
+  sweep_s16x2<L>(
+      rd2, keep2, nd, segs + offs[p.c] + p.j0, piece_len(seg_lens, p), k_sub, mismatch2, gap2, ring,
+      [&](int k, bool odd, uint32_t h, uint32_t h_prev, int) {
+        if (odd) best2[k] = __vimax3_s16x2(best2[k], h_prev, h);
+      },
+      [](int) {},
+      make_edges(
+          p.first ? m : 0, tail,
+          [&](int d, int u, uint32_t(&H)[L]) {
+            const uint32_t v = left[warp][d];
+            if constexpr (L <= 8) {
+              // The unroll is a multiple of L: lane d is register u % L of
+              // the thread whose first lane is d - u % L.
+              if (first == d - u % L) H[u % L] = v;
+            } else {
+#pragma unroll
+              for (int k = 0; k < L; ++k)
+                if (first + k == d) H[k] = v;
+            }
+          },
+          [&](int d, uint32_t(&H)[L]) {
+            const int k = d - tail - first;  // lane d - tail is register k of this thread
+            if (k >= 0 && k < L && first + k < m) {
+              uint32_t v = 0;
+#pragma unroll
+              for (int q = 0; q < L; ++q)
+                if (q == k) v = H[q];
+              if (row < rows) right[first + k] = (int)(v & 0xFFFFu);
+              if (row + 1 < rows) right[m + first + k] = (int)(v >> 16);
+            }
+          }));
+
+  // The piece, the row and the segment starts again, from the block index
+  // and keep2, so that the output's address and the starts hold no
+  // register across the sweep (as in K1's s16x2 kernel).
+  int block;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(block));
+  const Piece q = place(block, row_blocks, refs, ns, pc);
+  const int row2 = q.rb * (2 * kWarps) + 2 * (threadIdx.x >> 5);
+  uint32_t start_lo = 0, start_hi = 0;
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    asm volatile("" : "+r"(keep2[k]));  // not derived again from the loads
+    start_lo |= (uint32_t)((keep2[k] & 0xFFFFu) == 0) << k;
+    start_hi |= (uint32_t)((keep2[k] >> 16) == 0) << k;
+  }
+  int32_t* o = out + ((long long)q.c * rows + row2) * m;
+  int best[L];
+#pragma unroll
+  for (int k = 0; k < L; ++k) best[k] = (int)(best2[k] & 0xFFFFu);
+  const bool shared = !(q.first && q.last);  // pieces of one segment meet in out
+  if (shared)
+    store_suffix_max<L, true>(best, start_lo, m, row2 < rows, o);
+  else
+    store_suffix_max<L>(best, start_lo, m, row2 < rows, o);
+#pragma unroll
+  for (int k = 0; k < L; ++k) best[k] = (int)(best2[k] >> 16);
+  if (shared)
+    store_suffix_max<L, true>(best, start_hi, m, row2 + 1 < rows, o + m);
+  else
+    store_suffix_max<L>(best, start_hi, m, row2 + 1 < rows, o + m);
 }
 
 // K3 on a row wider than kMaxLanes, in stripes of 32 * L lanes (see the
@@ -176,19 +391,36 @@ band_wide_kernel(const int32_t* __restrict__ packed, int rows, int m,
   if (live) stripe_suffix_max<L>(prow, m, out + base);
 }
 
+// A plan of column pieces is exact (see the top of this file) under
+// match > 0, mismatch <= 0 and gap < 0, for rows of one pass, with a
+// look-back of at least W - 1 columns and a stride of at least 2W.
+bool exact_plan(int m, int match, int mismatch, int gap, Pieces pc) {
+  if (pc.cum == nullptr) return true;
+  if (m > swt::kMaxLanes || match <= 0 || mismatch > 0 || gap >= 0) return false;
+  const long long w = m + (long long)match * m / -(long long)gap;
+  return pc.back >= w - 1 && pc.stride >= 2 * w;
+}
+
 }  // namespace
 
+// pieces: the launch's count of column pieces, or an upper bound of it
+// (the count of references when cum is null).
 extern "C" int swt_band_lane_best(const void* packed, int rows, int m,
                                   const void* segs, const void* offs,
                                   const void* seg_lens, const void* ns, int c,
                                   const void* bnd, int match, int mismatch,
                                   int gap, void* out, void* bnd_out,
                                   void* carry, const void* carry_offs,
-                                  int part_rows, int device, void* stream) {
+                                  int part_rows, int stride, int back,
+                                  const void* cum, int pieces, int device,
+                                  void* stream) {
   const int L = swt::pick_lanes(m);
-  if (rows <= 0 || c <= 0 || (L == 0 && carry == nullptr)) return (int)cudaErrorInvalidValue;
+  const Pieces pc{stride, back, (const int32_t*)cum};
+  if (rows <= 0 || c <= 0 || pieces < c || (L == 0 && (carry == nullptr || cum != nullptr)) ||
+      !exact_plan(m, match, mismatch, gap, pc))
+    return (int)cudaErrorInvalidValue;
   const long long row_blocks = (rows + swt::kWarps - 1) / swt::kWarps;
-  const long long blocks = row_blocks * c;
+  const long long blocks = row_blocks * pieces;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   swt::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
@@ -206,11 +438,51 @@ extern "C" int swt_band_lane_best(const void* packed, int rows, int m,
 #define SWT_LAUNCH(l)                                                       \
   case l:                                                                   \
     band_kernel<l><<<(unsigned)blocks, swt::kThreads, 0, s>>>(              \
-        (const int32_t*)packed, rows, m, (int)row_blocks,                   \
+        (const int32_t*)packed, rows, m, (int)row_blocks, c,                \
         (const uint8_t*)segs, (const long long*)offs,                       \
         (const int32_t*)seg_lens, (const int32_t*)ns,                       \
-        (const int32_t*)bnd, match, mismatch, gap, (int32_t*)out,           \
+        (const int32_t*)bnd, pc, match, mismatch, gap, (int32_t*)out,       \
         (int32_t*)bnd_out);                                                 \
+    break;
+    SWT_FOR_EACH_L(SWT_LAUNCH)
+#undef SWT_LAUNCH
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// The s16x2 form; the wrapper takes it only where ops/cuda_score.py
+// k3_form says so, and this entry refuses a scheme under which a value
+// could leave int16 (match x (2m - 1) > 32,767) or a row wider than
+// kMaxLanes.
+extern "C" int swt_band_lane_best_s16x2(const void* packed, int rows, int m,
+                                        const void* segs, const void* offs,
+                                        const void* seg_lens, const void* ns, int c,
+                                        const void* bnd, int match, int mismatch,
+                                        int gap, void* out, void* bnd_out, int stride,
+                                        int back, const void* cum, int pieces,
+                                        int device, void* stream) {
+  const int L = swt::pick_lanes(m);
+  const Pieces pc{stride, back, (const int32_t*)cum};
+  const bool fits = match >= 0 && (long long)match * (2LL * m - 1) <= 32767 && mismatch >= -32768 &&
+                    mismatch <= 0 && gap >= -32768 && gap <= 0;
+  if (rows <= 0 || c <= 0 || pieces < c || L == 0 || !fits || !exact_plan(m, match, mismatch, gap, pc))
+    return (int)cudaErrorInvalidValue;
+  const long long row_blocks = (rows + 2 * swt::kWarps - 1) / (2 * swt::kWarps);
+  const long long blocks = row_blocks * pieces;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  swt::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (L) {
+#define SWT_LAUNCH(l)                                                                  \
+  case l:                                                                              \
+    band_s16x2_kernel<l><<<(unsigned)blocks, swt::kThreads, 0, s>>>(                   \
+        (const int32_t*)packed, rows, m, (int)row_blocks, c, (const uint8_t*)segs,     \
+        (const long long*)offs, (const int32_t*)seg_lens, (const int32_t*)ns,          \
+        (const int32_t*)bnd, pc, (uint32_t)(match - mismatch), pair16(mismatch),       \
+        pair16(gap), (int32_t*)out, (int32_t*)bnd_out);                                \
     break;
     SWT_FOR_EACH_L(SWT_LAUNCH)
 #undef SWT_LAUNCH

@@ -44,6 +44,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace swt {
 
 constexpr int kWarps = 4;              // row blocks (warps) per thread block
@@ -312,13 +314,41 @@ constexpr int kS16x2RingPad = 16;  // >= every kS16x2Unroll<L>
 // block must call it with the same nd (it synchronises at tile edges).
 // on_tile(base) runs before the diagonals base .. of each tile of
 // kS16x2Tile<L> diagonals.
-template <int L, class OnCell, class OnTile>
+//
+// `edges` (K3's boundary columns; NoEdges elsewhere, which compiles to
+// the plain loop): an unrolled step whose diagonals reach below
+// edges.head or up to edges.tail runs as an edge step, every other step
+// as the plain one.  An edge step calls edges.enter(d, u, H) before each
+// diagonal d < head (u = d's slot in the step, known at compile time), so
+// that it may overwrite this thread's D_{d-1} values H[0..L-1] before the
+// lane to the right reads them, and edges.leave(d, H) after each diagonal
+// d >= tail with this thread's D_d values; and, since enter may have
+// replaced a register's previous value, it calls on_cell(k, true, h, h,
+// d) on every diagonal (each diagonal folded alone) instead of passing
+// h_prev.
+struct NoEdges {};
+
+template <class Enter, class Leave>
+struct Edges {
+  int head, tail;
+  Enter enter;
+  Leave leave;
+};
+
+template <class Enter, class Leave>
+__device__ __forceinline__ Edges<Enter, Leave> make_edges(int head, int tail, Enter enter, Leave leave) {
+  return {head, tail, enter, leave};
+}
+
+template <int L, class OnCell, class OnTile, class Ed = NoEdges>
 __device__ __forceinline__ void sweep_s16x2(const uint32_t (&rd2)[L],
                                             const uint32_t (&keep2)[L], int nd,
                                             const uint8_t* ref, int len,
                                             uint32_t k_sub, uint32_t mismatch2,
                                             uint32_t gap2, uint32_t* ring,
-                                            OnCell&& on_cell, OnTile&& on_tile) {
+                                            OnCell&& on_cell, OnTile&& on_tile,
+                                            Ed edges = Ed{}) {
+  constexpr bool kEdges = !std::is_same<Ed, NoEdges>::value;
   constexpr int R = kS16x2Unroll<L>;
   constexpr int T = kS16x2Tile<L>;
   constexpr bool kBytes = L > 8;      // window as bytes, four a register
@@ -349,6 +379,43 @@ __device__ __forceinline__ void sweep_s16x2(const uint32_t (&rd2)[L],
     const int dend = min(nd, base + T);
     for (int d = base; d < dend; d += R) {
       const uint32_t* at = ring + ((d - first) & (kRing - 1));
+      if constexpr (kEdges) {
+        // An edge step: the plain step below with the hooks, written out
+        // apart so that the plain step compiles as it does with NoEdges
+        // (K1's, K2's and K4's SASS is the same with or without K3; one
+        // step function shared by both, instantiated with and without
+        // the hooks, changes argmax_s16x2_kernel<1>'s SASS).  It repeats
+        // the plain step's recurrence: a change to one must be made in
+        // both, and chip_smoke.py [5] holds K3 to the int32 kernel.
+        if (d < edges.head || d + R > edges.tail) {
+#pragma unroll
+          for (int u = 0; u < R; ++u) {
+            if (d + u < edges.head) edges.enter(d + u, u, H);
+            const uint32_t col = at[u];
+            if (!kBytes) {
+              w[u % L] = col;
+            } else {
+#pragma unroll
+              for (int q = NW - 1; q > 0; --q) w[q] = __funnelshift_l(w[q - 1], w[q], 8);
+              w[0] = __byte_perm(w[0], col, 0x2104);
+            }
+            const uint32_t up0 = __shfl_up_sync(0xffffffffu, H[L - 1], 1);
+#pragma unroll
+            for (int k = L - 1; k >= 0; --k) {
+              const uint32_t rw = kBytes ? __byte_perm(w[k / 4], 0x3C3C3C3Cu, 0x4040 + 0x0101 * (k % 4))
+                                         : w[((u - k) % L + L) % L];
+              const uint32_t up = (k > 0 ? H[k - 1] : up0) & keep2[k];
+              const uint32_t v = eq_unit16x2(rd2[k], rw) * k_sub + U[k];
+              const uint32_t h = __viaddmax_s16x2_relu(v, mismatch2, __vadd2(__vmaxs2(up, H[k]), gap2));
+              on_cell(k, true, h, h, d + u);
+              U[k] = up;
+              H[k] = h;
+            }
+            if (d + u >= edges.tail) edges.leave(d + u, H);
+          }
+          continue;
+        }
+      }
 #pragma unroll
       for (int u = 0; u < R; ++u) {
         // Lane first + k reads column d + u - first - k: unrolled by a
@@ -394,7 +461,10 @@ __device__ __forceinline__ void sweep_s16x2(const uint32_t (&rd2)[L],
 // (lane-local), the lanes < m stored to o when `live`.  Every lane of the
 // warp must call it.  (K1's one-pass kernel keeps its own copy: through
 // this function ptxas spills registers there at L = 8.)
-template <int L>
+//
+// kAtomic: take the max with what o holds (atomicMax), for a launch whose
+// column pieces each store their own best into one zeroed output (K3).
+template <int L, bool kAtomic = false>
 __device__ __forceinline__ void store_suffix_max(int (&best)[L],
                                                  uint32_t start, int m,
                                                  bool live, int32_t* o) {
@@ -439,7 +509,13 @@ __device__ __forceinline__ void store_suffix_max(int (&best)[L],
   if (!live) return;
 #pragma unroll
   for (int k = 0; k < L; ++k) {
-    if (first + k < m) o[first + k] = ((open >> k) & 1u) ? max(best[k], carry) : best[k];
+    if (first + k < m) {
+      const int v = ((open >> k) & 1u) ? max(best[k], carry) : best[k];
+      if (kAtomic)
+        atomicMax(o + first + k, v);
+      else
+        o[first + k] = v;
+    }
   }
 }
 

@@ -154,6 +154,16 @@ def lib() -> ctypes.CDLL:
                 _VP, _VP, _VP, _VP, _I,  # segs, offsets, seg_lens, ns, c
                 _VP, _I, _I, _I,  # bnd, match, mismatch, gap
                 _VP, _VP, _VP, _VP, _I,  # out, bnd_out, carry, carry offsets, rows per launch
+                _I, _I, _VP, _I,  # piece stride, look-back, pieces' prefix sum (or null), pieces
+                _I, _VP,  # device, stream
+            ]
+            handle.swt_band_lane_best_s16x2.restype = _I
+            handle.swt_band_lane_best_s16x2.argtypes = [
+                _VP, _I, _I,  # packed, rows, m
+                _VP, _VP, _VP, _VP, _I,  # segs, offsets, seg_lens, ns, c
+                _VP, _I, _I, _I,  # bnd, match, mismatch, gap
+                _VP, _VP,  # out, bnd_out
+                _I, _I, _VP, _I,  # piece stride, look-back, pieces' prefix sum (or null), pieces
                 _I, _VP,  # device, stream
             ]
             for grid, segments in ((handle.swt_score_grid_diag, []), (handle.swt_score_grid_diag_s16x2, []),

@@ -13,7 +13,9 @@ Twelve kernels, each with its plain PyTorch version of the same function:
   segments merge by a second kernel (plain version
   :func:`argmax_merge_plain`);
 - K3 :func:`band_lane_best` (``csrc/band.cu``) replaces
-  ``pallas_score.py:_diag_kernel_packed_band``;
+  ``pallas_score.py:_diag_kernel_packed_band``; its two forms by its own
+  rule (:func:`k3_form`), its segments cut into column pieces
+  (:func:`band_segments`);
 - K4 :func:`score_grid_diag` (``csrc/score_grid.cu``) replaces
   ``pallas_score.py:_diag_kernel``, ``_chunked_kernel`` and
   ``_diag_kernel_carry``;
@@ -59,13 +61,16 @@ lanes whose scores provably fit int16 run two rows per warp in the 16-bit
 halves of each register, the recurrence in DPX instructions ("s16x2");
 every other row runs the int32 kernels, one pass or striped ("int32").
 :data:`K1_FORMS`, :data:`K2_FORMS`, :data:`K4_FORMS`, :data:`K5_FORMS`
-and :data:`K8_FORMS` count the launches of each.  K6 and K7, whose circular shift lets a
-value grow past a row's lanes, take the same two forms by their own rule
-(:func:`step_form`; :data:`K6_FORMS`, :data:`K7_FORMS`).  A K2 (s16x2),
-K5 or K8 launch with too few blocks for the card cuts each reference into
-overlapping column segments, one block each (:func:`row_segments`; K8
-lists each column in one segment only, :func:`owned_columns`; K2 counts
-each diagonal in one segment only, :func:`argmax_segments`).
+and :data:`K8_FORMS` count the launches of each.  K3, whose left column
+adds to every cell, and K6 and K7, whose circular shift lets a value grow
+past a row's lanes, take the same two forms by their own rules
+(:func:`k3_form`, :func:`step_form`; :data:`K3_FORMS`, :data:`K6_FORMS`,
+:data:`K7_FORMS`).  A K2 (s16x2), K3, K5 or K8 launch with too few blocks
+for the card cuts each reference (K3: each segment) into overlapping
+column segments, one block each (:func:`row_segments`; K8 lists each
+column in one segment only, :func:`owned_columns`; K2 counts each
+diagonal in one segment only, :func:`argmax_segments`; K3's pieces look
+back W - 1 columns, :func:`band_segments`).
 
 K1-K5 take rows (reads) of any width.  Up to :data:`ONE_PASS_LANES`
 lanes a warp sweeps a row in one pass; a wider row runs in stripes of
@@ -128,6 +133,8 @@ K2_FORMS = {"s16x2": 0, "int32": 0}
 K4_FORMS = {"s16x2": 0, "int32": 0}
 K5_FORMS = {"s16x2": 0, "int32": 0}
 K8_FORMS = {"s16x2": 0, "int32": 0}
+# K3's launches per form (k3_form) since the last reset_launches().
+K3_FORMS = {"s16x2": 0, "int32": 0}
 # K6's and K7's launches per form (step_form) since the last reset_launches().
 K6_FORMS = {"s16x2": 0, "int32": 0}
 K7_FORMS = {"s16x2": 0, "int32": 0}
@@ -169,7 +176,7 @@ _FILL_SORT_KEYS = 4096
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, K1_FORMS, K2_FORMS, K4_FORMS, K5_FORMS, K8_FORMS, K6_FORMS, K7_FORMS):
+    for counts in (LAUNCHES, K1_FORMS, K2_FORMS, K3_FORMS, K4_FORMS, K5_FORMS, K8_FORMS, K6_FORMS, K7_FORMS):
         for key in counts:
             counts[key] = 0
 
@@ -623,6 +630,82 @@ def band_lane_best_plain(packed, seg_u8, offsets, seg_lens, ns, bnd, match, mism
     return segmented_suffix_max(best, start), bnd_out
 
 
+def k3_form(m: int, match: int, mismatch: int, gap: int) -> str:
+    """The form K3 takes for packed rows of ``m`` lanes under a scheme:
+    ``"s16x2"`` (K1's 16-bit design, two rows a warp in the halves of
+    each register) when every value of the sweep provably fits int16 for
+    every left column within :func:`band_lane_best`'s contract, else
+    ``"int32"``.
+
+    The contract bounds the left column: 0 <= bnd <= match * m.  With
+    mismatch <= 0 and gap <= 0 a path gains at most ``match`` per lane it
+    moves down, and within a read at most m - 1 lanes lie below a lane
+    whose left value it starts from, so every cell is at most match * m +
+    match * (m - 1) = match * (2m - 1) (a path from zero gains at most
+    match * m).  The NW term U of a lane is a value of the lane above, at
+    most match * (2m - 2), so U + (match - mismatch) <= match * (2m - 1) -
+    mismatch <= 65,535 and the IMAD carries nothing across halves exactly
+    when match * (2m - 1) <= 32,767; every negative intermediate is at
+    least min(mismatch, gap).  So the rule is k1_form's with 2m - 1 in
+    place of m: match * (2m - 1) <= 32767, -32768 <= mismatch, gap <= 0
+    <= match, and m <= ONE_PASS_LANES.  It is exact: at match * (2m - 1)
+    = 32,768 or more, bnd = match * m on lane 0 and a read whose lanes 1
+    .. m - 1 match the segment's columns 0 .. m - 2 reach match * (2m - 1)
+    on lane m - 1.
+    """
+    fits = (0 <= match and match * (2 * m - 1) <= _INT16_MAX and _INT16_MIN <= min(mismatch, gap)
+            and max(mismatch, gap) <= 0)
+    return "s16x2" if fits and m <= ONE_PASS_LANES else "int32"
+
+
+# A K3 launch that cuts its segments into pieces aims at this many blocks
+# per SM (K3, as K2, is a chain of dependent diagonals a warp; 8 beat 2
+# and 4 on one H100, PERF.md PR 16).
+_K3_BLOCKS_PER_SM = 8
+
+
+def _band_splits(m: int, match: int, mismatch: int, gap: int) -> bool:
+    return 0 < m <= ONE_PASS_LANES and match > 0 and mismatch <= 0 and gap < 0
+
+
+def band_segments(m: int, cols: int, refs: int, row_blocks: int, match: int, mismatch: int, gap: int, sms: int):
+    """(stride, back) of the column pieces into which a K3 launch cuts its
+    segments: ``refs`` segments of ``cols`` columns in all (each counted
+    as at least one), ``row_blocks`` blocks of rows each, on a card of
+    ``sms`` SMs.  A segment of n columns becomes ceil(n / stride) pieces,
+    piece k >= 1 beginning ``back`` = W - 1 columns before k * stride
+    (:func:`band_pieces`); ``(cols, 0)`` is one piece a segment.
+
+    Exact under the signs of :func:`row_segments` for rows of at most
+    ONE_PASS_LANES lanes (``csrc/band.cu``): an alignment of positive
+    score spans at most W = m + match m // |gap| columns, and with stride
+    >= _SEGMENT_WINDOWS x W no path from the left column reaches a piece
+    after the first.  The stride is the launch's columns over the pieces
+    that _K3_BLOCKS_PER_SM blocks per SM need, so a long segment is cut into more
+    pieces than a short one and no block sweeps much more than the
+    launch's columns per block it keeps running at once; a segment
+    shorter than the stride stays whole, and a launch that already has
+    _K3_BLOCKS_PER_SM blocks per SM from its rows alone is not cut.
+    """
+    if not (_band_splits(m, match, mismatch, gap) and cols > 0 and refs > 0 and row_blocks > 0):
+        return cols, 0
+    w = m + match * m // -gap
+    pieces = -(-_K3_BLOCKS_PER_SM * sms // row_blocks)
+    stride = max(_SEGMENT_WINDOWS * w, -(-cols // pieces))
+    return (cols, 0) if stride >= cols else (stride, w - 1)
+
+
+def band_pieces(n: int, stride: int, back: int):
+    """[(j0, j1)] of the columns each piece of one K3 segment of ``n``
+    columns (at least 1) sweeps under the plan ``(stride, back)`` of
+    :func:`band_segments`, as ``csrc/band.cu`` places its blocks: piece k
+    covers [k stride - back, (k + 1) stride) (piece 0 from column 0, the
+    last up to n); it owns [k stride, (k + 1) stride)."""
+    n = max(int(n), 1)
+    count = -(-n // stride)
+    return [(k * stride - back if k else 0, (k + 1) * stride if k + 1 < count else n) for k in range(count)]
+
+
 def band_lane_best(packed, seg_u8, offsets, seg_lens, ns, bnd, match, mismatch, gap, *, carry_cols=None):
     """(lane_best, bnd_out), two (C, ROWS, M) int32: packed read rows
     against one segment of each of C references, the DP's left boundary
@@ -634,7 +717,9 @@ def band_lane_best(packed, seg_u8, offsets, seg_lens, ns, bnd, match, mismatch, 
     taken as at least 1), those past ``seg_lens[c]`` reading as REF_PAD,
     and runs exactly m + ns[c] - 1 diagonals.  bnd: (C, ROWS, M) int32,
     the column H[i, -1] left of the segment (zero for a reference's first
-    segment).
+    segment).  It is a column of the same DP, so 0 <= bnd <= match * M:
+    every ``bnd_out`` of this function and the zeros of a first segment
+    meet that contract, and the kernel's 16-bit form relies on it.
 
     Defined lanes: ``lane_best`` at each read's START lane (the read's
     best over this segment's cells, as K1's contract); ``bnd_out`` =
@@ -644,8 +729,25 @@ def band_lane_best(packed, seg_u8, offsets, seg_lens, ns, bnd, match, mismatch, 
     diagonals, so it agrees with this function at start lanes and at the
     bnd_out lanes of reads, not at the other lanes.
 
-    ``carry_cols``: at least the sum of max(ns, 1), as for K1.
+    ``carry_cols``: at least the sum of max(ns, 1), given when the caller
+    has it on the host; a launch that may cut its segments into column
+    pieces plans them from it, and rows wider than ONE_PASS_LANES size
+    their carry scratch from it (else the wrapper reads it: one host
+    sync).
+
+    K3's form follows from M and the scheme alone (:func:`k3_form`); a
+    launch with too few blocks for the card cuts each long segment into
+    column pieces (:func:`band_segments`), which gives the same lanes.
     """
+    return _band_lane_best(packed, seg_u8, offsets, seg_lens, ns, bnd, match, mismatch, gap, carry_cols=carry_cols)
+
+
+def _band_lane_best(packed, seg_u8, offsets, seg_lens, ns, bnd, match, mismatch, gap, *, carry_cols=None, form=None,
+                    split=True):
+    """:func:`band_lane_best` with K3's form given (``form=None``:
+    :func:`k3_form`'s), so that the two forms can be timed on the same
+    inputs; ``"s16x2"`` where k3_form says ``"int32"`` raises.
+    ``split=False`` runs each segment as one piece."""
     device = _device_of(packed, seg_u8, offsets, seg_lens, ns, bnd)
     if packed.dim() != 2 or packed.dtype != torch.int32:
         raise ValueError("packed must be a (ROWS, M) int32 tensor")
@@ -662,6 +764,7 @@ def band_lane_best(packed, seg_u8, offsets, seg_lens, ns, bnd, match, mismatch, 
     if bnd.shape != (c, rows, m) or bnd.dtype != torch.int32:
         raise ValueError(f"bnd must be a ({c}, {rows}, {m}) int32 tensor")
     match, mismatch, gap = int(match), int(mismatch), int(gap)
+    form = _check_form("K3", K3_FORMS, form, k3_form(m, match, mismatch, gap))
     if device.type == "cpu":
         return band_lane_best_plain(packed, seg_u8, offsets, seg_lens, ns, bnd, match, mismatch, gap)
     _check_stripes("band_lane_best", m, mismatch, gap)
@@ -672,15 +775,31 @@ def band_lane_best(packed, seg_u8, offsets, seg_lens, ns, bnd, match, mismatch, 
     packed, seg_u8, offsets, seg_lens, ns, bnd = (
         t.contiguous() for t in (packed, seg_u8, offsets, seg_lens, ns, bnd)
     )
-    carry, carry_offs, part = _carry_rows(m, rows, ns.clamp_min(1), carry_cols)
-    rc = _cuda.lib().swt_band_lane_best(
-        packed.data_ptr(), rows, m,
-        seg_u8.data_ptr(), offsets.data_ptr(), seg_lens.data_ptr(), ns.data_ptr(), c,
-        bnd.data_ptr(), match, mismatch, gap,
-        out.data_ptr(), bnd_out.data_ptr(), _ptr(carry), _ptr(carry_offs), part, *_launch_target(device),
-    )
+    cols = ns.clamp_min(1)
+    stride, back, cum, pieces = 0, 0, None, c
+    if split and _band_splits(m, match, mismatch, gap):
+        total = int(cols.sum()) if carry_cols is None else int(carry_cols)
+        per_block = 2 * _BLOCK_ROWS if form == "s16x2" else _BLOCK_ROWS
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        stride, back = band_segments(m, total, c, -(-rows // per_block), match, mismatch, gap, sms)
+        if stride < total:
+            cum = torch.cumsum((cols + (stride - 1)) // stride, 0, dtype=torch.int32)
+            pieces = c + total // stride
+            out.zero_()  # the pieces take their max into it
+        else:
+            stride, back = 0, 0
+    lib = _cuda.lib()
+    common = (packed.data_ptr(), rows, m, seg_u8.data_ptr(), offsets.data_ptr(), seg_lens.data_ptr(), ns.data_ptr(),
+              c, bnd.data_ptr(), match, mismatch, gap, out.data_ptr(), bnd_out.data_ptr())
+    plan = (stride, back, _ptr(cum), pieces)
+    if form == "s16x2":
+        rc = lib.swt_band_lane_best_s16x2(*common, *plan, *_launch_target(device))
+    else:
+        carry, carry_offs, part = _carry_rows(m, rows, cols, carry_cols)
+        rc = lib.swt_band_lane_best(*common, _ptr(carry), _ptr(carry_offs), part, *plan, *_launch_target(device))
     _cuda.check(rc, "band_lane_best")
     LAUNCHES["band_lane_best"] += 1
+    K3_FORMS[form] += 1
     return out, bnd_out
 
 

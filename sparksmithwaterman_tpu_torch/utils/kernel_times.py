@@ -16,7 +16,11 @@ segments; the int32 form runs one); K4 and K5 also with
 the same reads at the width of their longest read (``K4_150``,
 ``K5_150``), as the batch backend passes a read group, and K5 with 16 of
 them against one 131,072 bp ref (``K5_131k``: a launch of two blocks,
-which K5 splits into column segments).  K8 (where the tree has it) lists
+which K5 splits into column segments).  K3 runs 512 reads against one
+segment of each of 32 refs (``K3``; ``K3_int32`` its int32 form where the
+tree has the private entry) and 64 reads against the second quarter of
+eight 131,072 bp refs (``K3_131k``: few blocks, which a tree with column
+pieces cuts into them).  K8 (where the tree has it) lists
 the cells at the bests of the 512 reads (at the width of their longest)
 against one 2 kb ref (``K8``) and of 16 against the 131,072 bp ref (``K8_131k``, split into
 column segments), the bests from K5, and on the reads K2 finds tied among
@@ -110,7 +114,10 @@ def _times(root: str) -> dict:
     offs_3 = np.concatenate(([0], np.cumsum(lens_3)[:-1])).astype(np.int64)
     k3 = (up(packed), up(flat_3), up(offs_3), up(lens_3.astype(np.int32)), up(lens_3.astype(np.int32)),
           up(rng.integers(0, 120, size=(32,) + packed.shape).astype(np.int32)))
-    out["K3"] = ms(lambda: cuda_score.band_lane_best(*k3, *PARAMS))
+    cols_3 = int(lens_3.sum())  # given, as the shard_seq ring gives it
+    out["K3"] = ms(lambda: cuda_score.band_lane_best(*k3, *PARAMS, carry_cols=cols_3))
+    if hasattr(cuda_score, "_band_lane_best"):
+        out["K3_int32"] = ms(lambda: cuda_score._band_lane_best(*k3, *PARAMS, carry_cols=cols_3, form="int32"))
     grid = (up(encode_batch(reads, 256, READ_PAD)), up(encode_batch(refs[:64], 4000, REF_PAD)))
     out["K4"] = ms(lambda: cuda_score.score_grid_diag(*grid, *PARAMS))
     grid_150 = (up(encode_batch(reads, max(map(len, reads)), READ_PAD)), grid[1])
@@ -210,6 +217,17 @@ def _times(root: str) -> dict:
     out["fill_walk_long"] = ms(lambda: longseq._fill_walk_known(*args_l, *PARAMS, cap=2048 + w_pad,
                                                                 tie_semantics="serial"), 3)
     out["longref_traceback"] = bench.bench_longref(device=dev)[0]["traceback_ms"][0]
+    # K3 on a quarter of eight 131,072 bp refs (a segment of the shard_seq
+    # ring on four entries), 64 reads, a random left column: few blocks, so
+    # the tree that has column pieces cuts each segment into them; the
+    # columns given, as the ring gives them.
+    reads_3q = seqs(rng.integers(80, 151, 64))
+    packed_3q = pack_reads(reads_3q, 256)[0]
+    flat_3q = encode_concat(seqs([131_072] * 8))[0]
+    quarter = np.full(8, 32_768, np.int32)
+    k3q = (up(packed_3q), up(flat_3q), up(np.arange(8, dtype=np.int64) * 131_072 + 32_768), up(quarter), up(quarter),
+           up(rng.integers(0, 120, size=(8,) + packed_3q.shape).astype(np.int32)))
+    out["K3_131k"] = ms(lambda: cuda_score.band_lane_best(*k3q, *PARAMS, carry_cols=8 * 32_768), 5)
     return out, _registers(_cuda.build_info["log"])
 
 

@@ -172,7 +172,12 @@ def test_band_wrapper_takes_plain_path_on_cpu_only():
 
 
 @pytest.mark.gpu
-def test_band_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("params", [PARAMS, (5, -3, -20)], ids=["one_piece", "pieces"])
+def test_band_kernel_matches_plain_on_card(params):
+    """Both forms, each as one piece a segment and cut into column pieces
+    where the plan cuts (gap -20: W = 320, so the 4 kb ref's segment of
+    1,334 columns is cut), against the plain version at every start lane
+    and bnd_out lane."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     dev = torch.device("cuda")
@@ -186,8 +191,14 @@ def test_band_kernel_matches_plain_on_card():
     bnd = rng.integers(0, 200, size=(len(refs),) + packed.shape).astype(np.int32)
     seg_lens = np.clip(lens - ns, 0, ns).astype(np.int32)
     args = [_t(a).to(dev) for a in (packed, flat, np.where(seg_lens > 0, offsets + ns, 0), seg_lens, ns, bnd)]
-    k_lane, k_bout = cuda_score.band_lane_best(*args, *PARAMS)
-    p_lane, p_bout = cuda_score.band_lane_best_plain(*args, *PARAMS)
+    p_lane, p_bout = cuda_score.band_lane_best_plain(*args, *params)
     idx = torch.from_numpy(start.astype(np.int64)).to(dev)
+    assert cuda_score.k3_form(256, *params) == "s16x2"
+    for form in ("s16x2", "int32"):
+        for split in (True, False):
+            k_lane, k_bout = cuda_score._band_lane_best(*args, *params, form=form, split=split)
+            assert torch.equal(k_lane.reshape(len(refs), -1)[:, idx], p_lane.reshape(len(refs), -1)[:, idx])
+            assert torch.equal(k_bout, p_bout)
+    k_lane, k_bout = cuda_score.band_lane_best(*args, *params)
     assert torch.equal(k_lane.reshape(len(refs), -1)[:, idx], p_lane.reshape(len(refs), -1)[:, idx])
     assert torch.equal(k_bout, p_bout)
