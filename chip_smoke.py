@@ -171,9 +171,24 @@ port's main path (``swtorch align --strategy batch``) end to end:
     with ``pack_reads=False`` and ``kernel='row'``, on 128 reads (8 of
     1,025-8,000 bp) x 64 refs: reports equal, the winners' totals equal
     the row-form recurrence, every site equal to the per-read
-    recomputation.
+    recomputation;
+15. the rest of the CLI, multi-host runs and the dry run: ``swtorch gen``
+    writes the read_num, read_len and ref_len sweeps at ``--scale 1.0``
+    and ref_num cut to ``--scale`` ``REF_NUM_SCALE`` (9 of its 28 dirs);
+    ``swtorch info`` on the ref_len tree with ``--threads`` 1 and 8 writes
+    the same bytes; ``swtorch bench --strategy batch`` over the four
+    sweeps (every case a report and a time, the summary files, K1
+    launched); ``swtorch diff`` batch against shard_seq on the phase-3
+    corpus (identical, exit 0), serial against batch on a tiny corpus
+    (identical) and with batch's report edited (DIVERGED, exit 1);
+    ``run_multihost_pipeline`` in two processes on the card over gloo with
+    a ``file://`` rendezvous, the phase-3 corpus in two reference files
+    (process 0's reports equal phase 3's apart from the time line, K1
+    launched in both; resumed from the journals, neither scores); and
+    ``dryrun.dryrun_multichip(4)`` on a (2, 2) mesh of the card.
 
-Launch counts are reset just before each main-path leg and read just
+Each phase ends with a line of its wall seconds, and ``[end]`` lists
+them all.  Launch counts are reset just before each main-path leg and read just
 after it, K1's, K2's, K3's, K4's, K5's, K6's, K7's and K8's per form too
 (``cuda_score.K1_FORMS`` .. ``K8_FORMS``): every K3 launch of phase 6
 takes the s16x2 form, every K1 launch of phases
@@ -188,8 +203,10 @@ and K2 must launch, and the traceback through ``fill_list`` or
 7 (shard_refs and shard_reads; K1), 9 (unpacked and row paths; K4 and
 K5), 10 (scaling; K4), each bench leg of 13 (K4 on the kernel leg, K1 on
 the path legs, K2 in s16x2 on the long-ref leg, K6 on the roofline leg), each
-experiment (K6, K7) and the long-read paths of 14 (K1-K5, the traceback as
-in 3-4); over all legs both ``fill_list`` and ``fill_walk`` must launch.
+experiment (K6, K7), the long-read paths of 14 (K1-K5, the traceback as
+in 3-4), and in 15 ``swtorch bench`` (K1, the traceback as in 3-4), each
+``swtorch diff`` (K1; K3 against shard_seq), each process's two runs of
+the multi-host leg (read from its output) and the dry run (K4); over all legs both ``fill_list`` and ``fill_walk`` must launch.
 A kernel's ``launches`` in the summary is its sum over those legs.
 
 Each kernel's ``bound_ms`` is the larger of two times.  One is its DP
@@ -270,6 +287,34 @@ PROBE_SRC = "#include <cuda_runtime.h>\n" + "".join(
         ("dpx_relu", "__viaddmax_s16x2_relu(U, G, L)"),
     )
 )
+# One process of phase 15's two-process run: run_multihost_pipeline on the
+# card over a gloo group with a file:// rendezvous, then again resuming
+# from the journals; after each run one "LAUNCHES {...}" line of its
+# kernel launches and forms.
+_MULTIHOST_DRIVER = r"""
+import json, sys
+import torch
+import torch.distributed as dist
+from sparksmithwaterman_tpu_torch.config import AlignConfig
+from sparksmithwaterman_tpu_torch.ops import cuda_score
+from sparksmithwaterman_tpu_torch.parallel.multihost import HostConfig, run_multihost_pipeline
+pid, refs, inputs, out, rdv = int(sys.argv[1]), *sys.argv[2:6]
+host = HostConfig(num_processes=2, process_id=pid, init_method="file://" + rdv)
+host.initialize()
+config = AlignConfig(ref_dir=refs, in_dir=inputs, out_dir=out, strategy="batch")
+for resume in (False, True):
+    cuda_score.reset_launches()
+    paths = run_multihost_pipeline(config, host, resume=resume, device="cuda")
+    torch.cuda.synchronize()
+    forms = {k: dict(getattr(cuda_score, k + "_FORMS")) for k in ("K1", "K2", "K3", "K4", "K5", "K8")}
+    print("LAUNCHES " + json.dumps({"resume": resume, "paths": paths, "launches": dict(cuda_score.LAUNCHES),
+                                    "forms": forms}), flush=True)
+dist.destroy_process_group()
+"""
+# ref_num's sweep at scale 1.0 is 28 dirs of up to 40,000 refs (169 Mbp of
+# Python-drawn text); phase 15 writes its first 9 dirs (1-2,000 refs).
+REF_NUM_SCALE = 0.33
+
 _NOT_ALU = ("LDG", "STG", "LDC", "ULDC", "LDS", "STS", "EXIT", "BRA", "NOP", "S2R", "S2UR", "MOV", "IMAD.MOV")
 
 
@@ -407,6 +452,24 @@ def register_summary(ptxas_log: str):
     return dict(out)
 
 
+class PhaseClock:
+    """Wall seconds of each phase: ``lap(k)`` adds the seconds since the
+    last lap to phase k, ``done(k)`` also prints the phase's total."""
+
+    def __init__(self):
+        self.seconds = {}
+        self._t = time.perf_counter()
+
+    def lap(self, phase: int) -> None:
+        now = time.perf_counter()
+        self.seconds[phase] = self.seconds.get(phase, 0.0) + now - self._t
+        self._t = now
+
+    def done(self, phase: int) -> None:
+        self.lap(phase)
+        print(f"[{phase}] phase {phase} took {self.seconds[phase]:.1f} s", flush=True)
+
+
 def parse_report(path):
     """(max score, {winner metadata: [sites]}) of a report file."""
     lines = open(path).read().split("\n")
@@ -429,6 +492,7 @@ def main() -> int:
     import torch
 
     t_start = time.perf_counter()
+    clock = PhaseClock()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -436,8 +500,10 @@ def main() -> int:
     from sparksmithwaterman_tpu_torch import bench, cli
     from sparksmithwaterman_tpu_torch.config import AlignConfig
     from sparksmithwaterman_tpu_torch.core import oracle
+    from sparksmithwaterman_tpu_torch.dryrun import dryrun_multichip
     from sparksmithwaterman_tpu_torch.io import get_reads, get_ref_seqs, iter_files
     from sparksmithwaterman_tpu_torch.io.fasta import READ_PAD, REF_PAD, encode_batch, encode_concat
+    from sparksmithwaterman_tpu_torch.metrics import diff as diff_module
     from sparksmithwaterman_tpu_torch.metrics.engineer_data import long_ref_corpus, reads_file, refseq_like, scale_corpus
     from sparksmithwaterman_tpu_torch.metrics.scaling import workload
     from sparksmithwaterman_tpu_torch.models.batch_backend import TorchBatchBackend
@@ -450,6 +516,7 @@ def main() -> int:
     from sparksmithwaterman_tpu_torch.ops.packing import START_BIT, pack_reads, read_best
     from sparksmithwaterman_tpu_torch.ops.recurrence import score_grid
     from sparksmithwaterman_tpu_torch.parallel import SeqParallelBackend, ShardedBackend, build_mesh, sharded_totals
+    from sparksmithwaterman_tpu_torch.parallel.multihost import shard_manifest
     from sparksmithwaterman_tpu_torch.parallel.seqparallel import _band_ring, _segment_tables, _upload_refs
 
     dev = torch.device("cuda")
@@ -676,6 +743,8 @@ def main() -> int:
                 packed[r, o] |= START_BIT
         return up(packed), np.array(starts, np.int32)
 
+    clock.done(0)
+
     # -- 1. K1 against its plain version -----------------------------------
     reads_1 = rand_seqs(rng, rng.integers(80, 151, size=512))
     refs_1 = rand_seqs(rng, rng.integers(500, 4000, size=256))
@@ -775,6 +844,8 @@ def main() -> int:
           f"(1-256 lanes) in pairs, gap -32768 (and mismatch -32768) equal to plain at every start lane; a 1,024 bp "
           f"read equal to its ref scores {boundary[31]} at match 31 (s16x2) and {boundary[32]} at match 32 (int32), "
           f"equal to plain", flush=True)
+
+    clock.done(1)
 
     # -- 2. K2 against its plain version -----------------------------------
     def consumed_err(k, p, what):
@@ -1375,14 +1446,14 @@ def main() -> int:
               + f"; K9 with H, the torch listing and K10 {parent_ms:.3f} ms; plain {plain_ms:.1f} ms; bound "
                 f"{b_ms:.5f} ms by {b_by}", flush=True)
 
+    clock.done(2)
+
     with tempfile.TemporaryDirectory(prefix="swtorch_smoke_") as work:
         # -- 3/4: the main path; launch counts cover exactly these runs ----
         slice_root = os.path.join(work, "slice")
         refseq_like(os.path.join(slice_root, "refs"), 1_000_000, seed=SEED + 3)
         reads_file(os.path.join(slice_root, "inputs", "input1.fa"), 512, seed=SEED + 4)
         reads_file(os.path.join(slice_root, "inputs", "input2.fa"), 2000, seed=SEED + 5)
-        scale_root = os.path.join(work, "scale")
-        corpus = scale_corpus(scale_root, long_len=LONG_N, seed=SEED + 6)
 
         cuda_score.reset_launches()
         t = time.perf_counter()
@@ -1395,6 +1466,9 @@ def main() -> int:
         fail_unless(rc == 0, f"swtorch align exited {rc}")
         slice_launches = dict(cuda_score.LAUNCHES)
         print(f"[3] swtorch align: 2 inputs (512, 2000 reads) x 1 Mbp in {slice_s:.2f} s; launches {slice_launches}", flush=True)
+        clock.lap(3)
+        scale_root = os.path.join(work, "scale")
+        corpus = scale_corpus(scale_root, long_len=LONG_N, seed=SEED + 6)
 
         config = AlignConfig(
             ref_dir=os.path.join(scale_root, "refs"),
@@ -1428,6 +1502,8 @@ def main() -> int:
               f"scoring dispatch window {backend.gcups.report()}; host parse {parse_s:.3f} s", flush=True)
         print(f"[4] launches over phases 3-4: {launches}; K1 forms {dict(k1_main_forms)}; the traceback's "
               f"{traced(launches, 'phases 3-4')}", flush=True)
+
+        clock.lap(4)
 
         # -- checks of what the main path wrote ------------------------------
         slice_refs = [rec for path in iter_files(os.path.join(slice_root, "refs")) for rec in get_ref_seqs(path, ">gi")]
@@ -1468,6 +1544,7 @@ def main() -> int:
                   f"recurrence; all {n_sites} report sites equal the per-read recomputation "
                   f"({'windowed' if windowed else 'full-fill'} branch), whose first 16 reads equal the oracle", flush=True)
 
+        clock.done(3)
         max_score, winners = parse_report(scale_report)
         scale_seqs = dict(scale_refs)
         scale_reads = up(encode_batch(get_reads(os.path.join(config.in_dir, "input1.fa"), ">gi"), 152, READ_PAD))
@@ -1480,8 +1557,9 @@ def main() -> int:
         print(f"[4] {os.path.basename(scale_report)}: max score {max_score}, winners {sorted(winners)} "
               f"(lengths {[len(scale_seqs[w]) for w in winners]}), totals equal the row-form recurrence", flush=True)
 
+        clock.done(4)
+
         # -- 5. K3 against its plain version ---------------------------------
-        t5 = time.perf_counter()
         def k3_err(got, want, start_t, c):
             """Max abs error of K3's (lane_best, bnd_out) at every start lane and every bnd_out lane."""
             lane = (got[0].reshape(c, -1)[:, start_t] - want[0].reshape(c, -1)[:, start_t]).abs().max()
@@ -1663,11 +1741,10 @@ def main() -> int:
         print(f"[5] K3 256 reads x one 1 Mb segment and 15 of 8 kb: the public wrapper (stride {plan_5x[0]}, "
               f"{len(cuda_score.band_pieces(1_000_000, *plan_5x))} pieces of the 1 Mb) equal to the int32 kernel as "
               f"one piece; kernel ms in turns: public {k3x_t['public']:.3f}, s16x2 as one piece "
-              f"{k3x_t['unsplit']:.3f}, int32 {k3x_t['int32']:.3f} (bound {k3x_bound_ms:.3f} ms); phase 5 took "
-              f"{time.perf_counter() - t5:.1f} s", flush=True)
+              f"{k3x_t['unsplit']:.3f}, int32 {k3x_t['int32']:.3f} (bound {k3x_bound_ms:.3f} ms)", flush=True)
+        clock.done(5)
 
         # -- 6. shard_seq at real size ---------------------------------------
-        t6 = time.perf_counter()
         seq_root = os.path.join(work, "seq")
         seq_corpus = long_ref_corpus(seq_root, 16_000_000, 256, seed=SEED + 7)
         seq_cells = seq_corpus["read_bp"] * seq_corpus["ref_bp"]
@@ -1764,8 +1841,8 @@ def main() -> int:
         fail_unless(np.array_equal(ring_totals, want_seq) and cuda_score.K3_FORMS["s16x2"] > 0,
                     f"the band ring under sync debug mode differs from batch's totals ({cuda_score.K3_FORMS})")
         print(f"[6] _band_ring under torch.cuda.set_sync_debug_mode('error'): {len(bounds_6)} chunk(s), "
-              f"{cuda_score.K3_FORMS['s16x2']} K3 launch(es) in s16x2, no sync; totals equal batch's; phase 6 took "
-              f"{time.perf_counter() - t6:.1f} s", flush=True)
+              f"{cuda_score.K3_FORMS['s16x2']} K3 launch(es) in s16x2, no sync; totals equal batch's", flush=True)
+        clock.done(6)
 
         # -- 7. shard_refs and shard_reads -------------------------------------
         cuda_score.reset_launches()
@@ -1795,6 +1872,8 @@ def main() -> int:
             fail_unless(np.array_equal(mesh22.totals(reads, slice_seqs), want), f"(2, 2) mesh totals differ for input{k}")
         print(f"[7] ShardedBackend on a (2, 2) mesh of {dev}: totals equal batch's for both inputs; "
               f"sharded launches {shard_launches}", flush=True)
+
+        clock.done(7)
 
         # -- 8. K4 and K5 against their plain versions; K1's TPU modes -----
         def grid_args(reads, refs, m_pad):
@@ -1961,6 +2040,8 @@ def main() -> int:
         print(f"[8] lane_best_packed, modes {', '.join(cuda_score.LANE_BEST_MODES)}, 512 reads x 64 refs padded to "
               f"{args_8[1].shape[1]}: equal to K1 at every start lane", flush=True)
 
+        clock.done(8)
+
         # -- 9. the unpacked and row paths end to end ----------------------------
         slice_reads = {k: get_reads(os.path.join(slice_root, "inputs", f"input{k}.fa"), ">gi") for k in (1, 2)}
         slice_want = {k: TorchBatchBackend(config, dev).totals(slice_reads[k], slice_seqs) for k in (1, 2)}
@@ -2014,6 +2095,8 @@ def main() -> int:
               f"batch's for both inputs; launches over phase 9 {unpacked_launches}, K5 forms {cuda_score.K5_FORMS}",
               flush=True)
 
+        clock.done(9)
+
         # -- 10. swtorch scaling ---------------------------------------------------
         counts = "1,2,4" if torch.cuda.device_count() >= 4 else "1"
         cuda_score.reset_launches()
@@ -2040,6 +2123,8 @@ def main() -> int:
                     "scaling totals differ from the row-form recurrence")
         print(f"[10] refs totals of 16 of the 512 refs equal the row-form recurrence; launches over phase 10 "
               f"{scaling_launches}", flush=True)
+
+        clock.done(10)
 
         # -- 11. K6 against its plain version ----------------------------------------
         def chain_reads(rb, m, starts, seed):
@@ -2166,6 +2251,8 @@ def main() -> int:
               f"or not) and at the steps bound's edge (7/-3/-4, 9,362 steps, row 0 at 32,767; 9,364 steps in int32 "
               f"only, 32,774): max abs err 0", flush=True)
 
+        clock.done(11)
+
         # -- 12. K7 against its plain version ----------------------------------------
         packed_12 = np.random.default_rng(0).integers(65, 85, size=(248, 256)).astype(np.int32)
         packed_12[:, 0] |= 256  # the JAX script's inputs
@@ -2231,6 +2318,8 @@ def main() -> int:
         print(f"[12] K7 against plain in {n_small} small cases (7-13 packed rows of 32-1024 lanes, refs of 1-300 bp, "
               f"unroll 5, 7 and 16; A, B, D, E in both forms, C in int32): max abs err 0", flush=True)
 
+        clock.done(12)
+
         # -- 13. the port's bench, and the two probes of experiments/ -------------------
         # Full sizes but two cuts: the e2e leg's oracle parity check is pure
         # Python (512 reads take about 3 minutes), and readscale takes 5,000
@@ -2290,6 +2379,8 @@ def main() -> int:
         k7_probe = probe_forms["packed_step_variants"]["k7"]
         fail_unless(k7_probe["s16x2"] == 4 * k7_probe["int32"] > 0, f"K7's forms in the probe: {k7_probe}")
         print(f"[13] K6's and K7's forms in the probes: {json.dumps(probe_forms)}", flush=True)
+
+        clock.done(13)
 
         # -- 14. long reads: K1-K5 on rows wider than 1,024 lanes (stripes) ---------
         t14 = time.perf_counter()
@@ -2569,11 +2660,218 @@ def main() -> int:
         print(f"[14] the traceback's launches over the long-read paths: {traced(lr_launches, 'phase 14')}", flush=True)
         print(f"[14] LAUNCHES over the long-read paths: {lr_launches}, K1 forms {lr_forms}, K3 forms {lr_k3_forms}, "
               f"K4 forms {lr_k4_forms}, "
-              f"K5 forms {lr_k5_forms}; "
-              f"phase 14 took {time.perf_counter() - t14:.1f} s", flush=True)
+              f"K5 forms {lr_k5_forms}", flush=True)
+        clock.done(14)
+
+        # -- 15. swtorch gen, info, bench and diff; two processes; the dry run --
+        legs_15 = []  # (launches, forms) of each main-path leg of phase 15
+
+        def read_leg(what):
+            """Append the launches and forms since the last reset as a leg;
+            return the launches."""
+            forms = {k: dict(getattr(cuda_score, f"{k}_FORMS")) for k in ("K1", "K2", "K3", "K4", "K5", "K8")}
+            legs_15.append((dict(cuda_score.LAUNCHES), forms))
+            return legs_15[-1][0]
+
+        def swtorch(argv):
+            """(exit code, standard output) of ``swtorch`` in this process."""
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(argv)
+            return rc, buf.getvalue()
+
+        sweeps_root = os.path.join(work, "sweeps")
+        t = time.perf_counter()
+        for sweeps, scale in ((["read_num", "read_len", "ref_len"], "1.0"), (["ref_num"], str(REF_NUM_SCALE))):
+            rc, out = swtorch(["gen", "--out-dir", sweeps_root, "--sweeps", *sweeps, "--scale", scale])
+            fail_unless(rc == 0 and out.strip() == sweeps_root, f"swtorch gen {sweeps} exited {rc}: {out[-300:]}")
+        gen_s = time.perf_counter() - t
+        tree = {sub: sorted(os.listdir(os.path.join(sweeps_root, *sub.split("/"))))
+                for sub in ("input/readNum", "input/readLen", "testRef/refNum", "testRef/refLen")}
+        fail_unless([len(v) for v in tree.values()] == [33, 25, 9, 36], f"swtorch gen wrote {tree}")
+        gen_bp = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(sweeps_root) for f in fs)
+        print(f"[15] swtorch gen: read_num (33 files of 20-1,600 reads x 80 bp), read_len (25 files of 5 reads x "
+              f"20-500 bp), ref_len (36 refs of 80 bp-128 kb) at --scale 1.0; ref_num cut to --scale {REF_NUM_SCALE} "
+              f"(9 dirs of 1-2,000 refs of 400 bp, not 28 dirs up to 40,000); {gen_bp} bytes in {gen_s:.2f} s",
+              flush=True)
+
+        ref_len_dir = os.path.join(sweeps_root, "testRef", "refLen")
+        info_text, info_s = {}, {}
+        for threads in ("1", "8"):
+            out_file = os.path.join(work, f"info_threads{threads}.txt")
+            t = time.perf_counter()
+            rc, out = swtorch(["info", "--ref-dir", ref_len_dir, "--out-file", out_file, "--threads", threads])
+            info_s[threads] = time.perf_counter() - t
+            fail_unless(rc == 0 and out.strip() == out_file, f"swtorch info --threads {threads} exited {rc}")
+            info_text[threads] = open(out_file, "rb").read()
+        fail_unless(info_text["1"] == info_text["8"], "swtorch info --threads 1 and 8 wrote different files")
+        fail_unless(b"# files  =  36\n" in info_text["1"] and b"max     =  128,000" in info_text["1"],
+                    f"swtorch info on the ref_len tree: {info_text['1'][:400]!r}")
+        print(f"[15] swtorch info on the ref_len tree: --threads 1 ({info_s['1']:.3f} s) and --threads 8 "
+              f"({info_s['8']:.3f} s) wrote the same {len(info_text['1'])} bytes", flush=True)
+
+        bench_out = os.path.join(work, "sweeps_out")
+        cuda_score.reset_launches()
+        t = time.perf_counter()
+        rc, out = swtorch(["bench", "--data-dir", sweeps_root, "--out-dir", bench_out, "--strategy", "batch",
+                           "--device", "cuda"])
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t
+        sweep_launches = read_leg("bench")
+        fail_unless(rc == 0, f"swtorch bench exited {rc}")
+        sweep_rows = json.loads(out)
+        fail_unless({k: len(v) for k, v in sweep_rows.items()} == {"read_num": 33, "read_len": 25, "ref_num": 9,
+                                                                    "ref_len": 36}, f"swtorch bench cases: {out[:300]}")
+        for sweep, sub in (("read_num", "readNum"), ("read_len", "readLen"), ("ref_num", "refNum"),
+                           ("ref_len", "refLen")):
+            rows = sweep_rows[sweep]
+            fail_unless(all(r["ms"] >= 0 for r in rows), f"swtorch bench {sweep}: a case without its time: {rows}")
+            for r in rows:
+                report = os.path.join(bench_out, "batch", sub, os.path.basename(r["case"]))
+                fail_unless(os.path.exists(report) and "Maximum alignment score = " in open(report).read(),
+                            f"swtorch bench {sweep}: no report for {r['case']}")
+            with open(os.path.join(bench_out, "batch", f"{sweep}_summary.json")) as f:
+                fail_unless(json.load(f) == rows, f"swtorch bench {sweep}: its summary file differs from its rows")
+        fail_unless(sweep_launches["lane_best_packed_varlen"] > 0, f"swtorch bench never launched K1: {sweep_launches}")
+        sweep_ms = {sweep: sum(r["ms"] for r in rows) for sweep, rows in sweep_rows.items()}
+        print(f"[15] swtorch bench --strategy batch, all four sweeps: {sum(len(v) for v in sweep_rows.values())} "
+              f"cases, each a report; total {sum(sweep_ms.values())} ms by the reports {sweep_ms}, {sweep_s:.2f} s "
+              f"wall; launches {sweep_launches}; the traceback's {traced(sweep_launches, 'swtorch bench')}",
+              flush=True)
+
+        diff_args = ["diff", "--ref-dir", os.path.join(slice_root, "refs"), "--in-dir",
+                     os.path.join(slice_root, "inputs"), "--device", "cuda"]
+        cuda_score.reset_launches()
+        t = time.perf_counter()
+        rc, out = swtorch(diff_args + ["--out-dir", os.path.join(work, "diff_seq"), "--strategy-a", "batch",
+                                       "--strategy-b", "shard_seq"])
+        diff_s = time.perf_counter() - t
+        diff_launches = read_leg("diff batch shard_seq")
+        fail_unless(rc == 0 and out.splitlines()[-1] == "identical: batch vs shard_seq (2 report(s), timing line "
+                    "ignored)", f"swtorch diff batch shard_seq exited {rc}: {out[-500:]}")
+        fail_unless(diff_launches["lane_best_packed_varlen"] > 0 and diff_launches["band_lane_best"] > 0,
+                    f"swtorch diff batch shard_seq did not launch K1 and K3: {diff_launches}")
+        print(f"[15] swtorch diff --strategy-a batch --strategy-b shard_seq on the phase-3 corpus: identical, "
+              f"{diff_s:.2f} s; launches {diff_launches}", flush=True)
+
+        tiny_root = os.path.join(work, "tiny")
+        os.makedirs(os.path.join(tiny_root, "refs"))
+        os.makedirs(os.path.join(tiny_root, "inputs"))
+        for fi in (1, 2):
+            with open(os.path.join(tiny_root, "refs", f"ref{fi}.rna.fna"), "w") as f:
+                f.write("\n".join(f">gi|{fi}{j}|tiny\n{seq}" for j, seq in enumerate(
+                    rand_seqs(rng, rng.integers(60, 200, size=3)))))
+        with open(os.path.join(tiny_root, "inputs", "input1.fa"), "w") as f:
+            f.write("\n".join(rand_seqs(rng, rng.integers(10, 40, size=6))))
+        tiny_args = ["diff", "--ref-dir", os.path.join(tiny_root, "refs"), "--in-dir",
+                     os.path.join(tiny_root, "inputs"), "--device", "cuda"]
+        cuda_score.reset_launches()
+        rc, out = swtorch(tiny_args + ["--out-dir", os.path.join(tiny_root, "d1")])
+        serial_launches = read_leg("diff serial batch")
+        fail_unless(rc == 0 and out.splitlines() == ["OK  result1.txt", "identical: serial vs batch (1 report(s), "
+                    "timing line ignored)"], f"swtorch diff serial batch exited {rc}: {out[-500:]}")
+        real_run = diff_module.run_pipeline
+
+        def doctored(cfg, **kw):
+            """The pipeline, then batch's report edited: a report made to diverge."""
+            paths = real_run(cfg, **kw)
+            if cfg.strategy == "batch":
+                with open(paths[0]) as f:
+                    text = f.read()
+                with open(paths[0], "w") as f:
+                    f.write(text.replace("Maximum alignment score = ", "Maximum alignment score = 1", 1))
+            return paths
+
+        diff_module.run_pipeline = doctored
+        try:
+            cuda_score.reset_launches()
+            rc, out = swtorch(tiny_args + ["--out-dir", os.path.join(tiny_root, "d2")])
+            read_leg("diff serial batch, diverged")
+        finally:
+            diff_module.run_pipeline = real_run
+        fail_unless(rc == 1 and out.splitlines()[0] == "DIFF result1.txt" and "+Maximum alignment score = 1" in out
+                    and out.splitlines()[-1] == "DIVERGED: serial vs batch (1 report(s), timing line ignored)",
+                    f"a diverged report: swtorch diff exited {rc}: {out[-500:]}")
+        print(f"[15] swtorch diff --strategy-a serial --strategy-b batch on 6 reads x 6 refs: identical (launches "
+              f"{serial_launches}); with batch's report edited: DIVERGED, exit 1", flush=True)
+
+        # Two processes on this card over gloo, the phase-3 corpus with its
+        # references in two files, so that each process's shard holds one.
+        mh_root = os.path.join(work, "multihost")
+        half = len(slice_refs) // 2
+        for fi, recs in ((1, slice_refs[:half]), (2, slice_refs[half:])):
+            os.makedirs(os.path.join(mh_root, "refs"), exist_ok=True)
+            with open(os.path.join(mh_root, "refs", f"ref{fi}.rna.fna"), "w") as f:
+                f.write("\n".join(f"{meta}\n{seq}" for meta, seq in recs))
+        mh_files = list(iter_files(os.path.join(mh_root, "refs")))
+        fail_unless(all(shard_manifest(mh_files, 2, h) for h in (0, 1)), f"a process's shard is empty: {mh_files}")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (os.path.dirname(os.path.abspath(__file__)), os.environ.get("PYTHONPATH")) if p))
+        env.setdefault("GLOO_SOCKET_IFNAME", "lo")  # both processes on this host: gloo over the loopback
+        t = time.perf_counter()
+        procs = [
+            subprocess.Popen(
+                [sys.executable, "-c", _MULTIHOST_DRIVER, str(pid), os.path.join(mh_root, "refs"),
+                 os.path.join(slice_root, "inputs"), os.path.join(mh_root, "out"), os.path.join(mh_root, "rdv")],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )
+            for pid in (0, 1)
+        ]
+        try:
+            outs = [p.communicate(timeout=120) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        mh_s = time.perf_counter() - t
+        runs = {}
+        for pid, (p, (out, err)) in enumerate(zip(procs, outs)):
+            fail_unless(p.returncode == 0, f"multi-host process {pid} exited {p.returncode}: {err[-2000:]}")
+            runs[pid] = [json.loads(l[len("LAUNCHES "):]) for l in out.splitlines() if l.startswith("LAUNCHES ")]
+            fail_unless([r["resume"] for r in runs[pid]] == [False, True], f"process {pid} printed {out[-500:]}")
+        for pid in (0, 1):
+            first, again = runs[pid]
+            fail_unless(first["launches"]["lane_best_packed_varlen"] > 0,
+                        f"process {pid} scored its shard without K1: {first['launches']}")
+            fail_unless(sum(again["launches"][k] for k in ("lane_best_packed_varlen", "band_lane_best",
+                                                           "score_grid_diag", "score_grid_row")) == 0,
+                        f"process {pid} scored again while resuming from its journal: {again['launches']}")
+            for run in (first, again):
+                legs_15.append((run["launches"], run["forms"]))
+        for k in (1, 2):
+            fail_unless(stripped(os.path.join(mh_root, "out", f"result{k}.txt"))
+                        == stripped(os.path.join(slice_root, "out", f"result{k}.txt")),
+                        f"the two-process report result{k}.txt differs from phase 3's")
+        print(f"[15] run_multihost_pipeline, 2 processes on {dev} over gloo (file:// rendezvous), the phase-3 "
+              f"corpus in 2 ref files: process 0's reports equal phase 3's apart from the time line; K1 launches "
+              f"{[runs[pid][0]['launches']['lane_best_packed_varlen'] for pid in (0, 1)]}, resumed from the "
+              f"journals {[runs[pid][1]['launches']['lane_best_packed_varlen'] for pid in (0, 1)]}; {mh_s:.2f} s "
+              f"for both runs with the processes' start", flush=True)
+        print(f"[15] LAUNCHES of process 0, then process 1, run then resume: "
+              f"{[r['launches'] for pid in (0, 1) for r in runs[pid]]}", flush=True)
+
+        cuda_score.reset_launches()
+        dry = dryrun_multichip(4)
+        torch.cuda.synchronize()
+        dry_launches = read_leg("dry run")
+        fail_unless(dry["mesh"] == {"refs": 2, "reads": 2} and dry_launches["score_grid_diag"] > 0,
+                    f"the dry run: {dry}, launches {dry_launches}")
+        print(f"[15] dryrun_multichip(4): a (2, 2) mesh of {sorted(set(dry['devices']))}, sharded_totals and "
+              f"sharded_score_grid equal the unsharded plain grid; launches {dry_launches}", flush=True)
+
+        for _, forms in legs_15:
+            k1_main_forms.update(forms["K1"])
+            k2_main_forms.update(forms["K2"])
+            k4_main_forms.update(forms["K4"])
+            k5_main_forms.update(forms["K5"])
+            k8_main_forms.update(forms["K8"])
+            k3_main_forms = {form: k3_main_forms[form] + forms["K3"][form] for form in k3_main_forms}
+        launches_15 = [leg for leg, _ in legs_15]
+        clock.done(15)
 
     legs = (launches, seq_launches, seq_batch_launches, shard_launches, unpacked_launches, scaling_launches,
-            *bench_launches.values(), *probe_launches.values(), lr_launches)
+            *bench_launches.values(), *probe_launches.values(), lr_launches, *launches_15)
     main_launches = {name: sum(leg[name] for leg in legs) for name in cuda_score.LAUNCHES}
     fail_unless(main_launches["fill_list"] > 0 and main_launches["fill_walk"] > 0,
                 f"the main-path legs did not run both branches of the traceback: {main_launches}")
@@ -2875,6 +3173,8 @@ def main() -> int:
           flush=True)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sparksmithwaterman_tpu"))
     fail_unless(not leaked, f"the run loaded JAX or the JAX package: {leaked[:5]}")
+    print("[end] seconds by phase: " + ", ".join(f"[{k}] {v:.1f}" for k, v in sorted(clock.seconds.items())),
+          flush=True)
     print(f"[end] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

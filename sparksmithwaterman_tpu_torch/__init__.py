@@ -11,7 +11,13 @@ counterpart is easy to find:
   :mod:`.ops.longseq` — read packing and the two traceback branches;
 - :mod:`.models.batch_backend` — ``TorchBatchBackend``, the single-device
   ``batch`` strategy;
-- :mod:`.models.pipeline` and :mod:`.cli` — the ``swtorch align`` entry point.
+- :mod:`.models.pipeline` and :mod:`.cli` — the ``swtorch`` entry points
+  (``align``, ``info``, ``gen``, ``bench``, ``diff``, ``scaling``);
+- :mod:`.parallel` — the mesh strategies, and :mod:`.parallel.multihost`,
+  the reference files sharded over processes of a gloo group;
+- :mod:`.metrics` — dataset statistics, the sweep corpora, the
+  execution-time sweeps, the strategy diff and the scaling sweep;
+- :mod:`.dryrun` — one sharded step on an n-entry mesh.
 
 Configuration, parsing, report formatting, directory crawling, the serial
 oracle and the synthetic corpora are the port's own copies of the JAX

@@ -2,7 +2,8 @@
 the C sources it builds (no JAX package), every module imports and a tiny
 CPU pipeline runs (batch packed and unpacked, and shard_seq and
 shard_refs on a mesh of two CPU entries), and so do ``swtorch
-scaling``, the step-chain roofline, both experiments and ``python -m
+scaling``, ``gen``, ``info``, ``bench`` and ``diff``, the multi-chip dry
+run, the step-chain roofline, both experiments and ``python -m
 sparksmithwaterman_tpu_torch.bench --help``, with neither ``jax`` nor
 ``sparksmithwaterman_tpu`` loaded.  No source of the port imports them,
 nor the JAX package's root ``bench.py`` or ``experiments/``."""
@@ -50,6 +51,14 @@ _SCRIPT = textwrap.dedent(
     assert report("batch", pack_reads=False) == batch
     assert cli.main(["scaling", "--device", "cpu", "--num-reads", "4", "--read-len", "16", "--num-refs", "4",
                      "--ref-len", "64"]) == 0
+    sweeps = root + "/sweeps"
+    assert cli.main(["gen", "--out-dir", sweeps, "--scale", "0.05"]) == 0
+    assert cli.main(["info", "--ref-dir", sweeps + "/testRef", "--out-file", root + "/info.txt"]) == 0
+    assert cli.main(["bench", "--data-dir", sweeps, "--out-dir", root + "/bench", "--device", "cpu"]) == 0
+    assert cli.main(["diff", "--ref-dir", root + "/refs", "--in-dir", root + "/inputs", "--out-dir", root + "/diff",
+                     "--device", "cpu"]) == 0
+    from sparksmithwaterman_tpu_torch.dryrun import dryrun_multichip
+    assert dryrun_multichip(4, device="cpu")["mesh"] == {"refs": 2, "reads": 2}
     from sparksmithwaterman_tpu_torch import bench
     from sparksmithwaterman_tpu_torch.experiments import packed_step_variants, triangle_timepack
     from sparksmithwaterman_tpu_torch.ops.microbench import step_roofline
