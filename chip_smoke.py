@@ -22,7 +22,12 @@ port's main path (``swtorch align --strategy batch``) end to end:
    K6's and K7's s16x2 kernels (every L,
    K6 masked or not, K7's A, B, D, E) run it and spill nothing, and K6's
    inner loop takes no more ALU instructions per cell than sweep_s16x2's
-   (K4's) at L = 4, the bench's width;
+   (K4's) at L = 4, the bench's width; K1's and K4's striped s16x2 kernels
+   (``lane_best_wide_s16x2_kernel``, ``score_grid_wide_s16x2_kernel``) run
+   it and spill nothing, their stripe step's ALU instructions a cell beside
+   the int32 striped kernels'; and the one-pass s16x2 kernels that share
+   ``sweep_s16x2`` (K1, K2, K3, K4) have the parent tree's SASS
+   (``ONE_PASS_SASS``, compared where the toolkit is the one named there);
 1. K1 (packed lane best) against its plain version, in both forms
    (``cuda_score.k1_form``): 512 reads x 256 RefSeq-shaped refs, every
    start lane, and the two forms timed on them in turns (int32, s16x2,
@@ -160,18 +165,27 @@ port's main path (``swtorch align --strategy batch``) end to end:
     lanes, swept in stripes of 512, against their plain versions (reads
     over every stripe, starting on stripe boundaries and crossing them;
     K3 with random left columns, and chained over 2 and 4 segments equal
-    to K1); at 2,048 lanes each again with a carry budget of 1, every
-    launch then run in parts of one block of four rows, equal to the one
-    launch on every lane; K1 at 2,048 lanes against one 131,072 bp ref and
-    the row-form recurrence; K8 (int32 wide form) against its plain
-    version on reads of 1,025-8,000 bp and a repeat; each kernel's time at
-    4,096 lanes; then
-    ``swtorch align`` with batch,
-    wavefront, shard_refs, shard_reads and shard_seq, and ``run_pipeline``
-    with ``pack_reads=False`` and ``kernel='row'``, on 128 reads (8 of
+    to K1); every K1 and K4 call in ``cuda_score.k1k4_form``'s form, the
+    s16x2 striped form equal to the int32 one at 1,025-4,096 lanes and at
+    16,384 (K1 on reads of at most 6,553 bp, its longest given; K1 and K4
+    at match 1); at 2,048 lanes each again with a carry budget of 1, every
+    launch then run in parts of one block (four rows, eight in the s16x2
+    forms' pairs), equal to the one launch on every lane; K1 at 2,048
+    lanes against one 131,072 bp ref and the row-form recurrence; K8
+    (int32 wide form) against its plain version on reads of 1,025-8,000 bp
+    and a repeat; each kernel's time at 4,096 lanes, K1's and K4's two
+    striped forms in turns by events (the s16x2 one must be the
+    faster); then ``swtorch align`` with batch, wavefront, shard_refs,
+    shard_reads and shard_seq, and ``run_pipeline`` with
+    ``pack_reads=False`` and ``kernel='row'``, on 128 reads (8 of
     1,025-8,000 bp) x 64 refs: reports equal, the winners' totals equal
     the row-form recurrence, every site equal to the per-read
-    recomputation;
+    recomputation, every K1 and K4 launch in k1k4_form's form (K1 int32:
+    the 8,000 bp read's 8,192-lane rows); and ``swtorch align --strategy
+    batch`` and ``wavefront`` with ``pack_reads=False`` on the same reads
+    without the 8,000 bp one: K1's and K4's wide launches in s16x2, the
+    reports equal to the same runs with the rule giving int32 past 1,024
+    lanes;
 15. the rest of the CLI, multi-host runs and the dry run: ``swtorch gen``
     writes the read_num, read_len and ref_len sweeps at ``--scale 1.0``
     and ref_num cut to ``--scale`` ``REF_NUM_SCALE`` (9 of its 28 dirs);
@@ -194,8 +208,10 @@ after it, K1's, K2's, K3's, K4's, K5's, K6's, K7's and K8's per form too
 takes the s16x2 form, every K1 launch of phases
 3-4, 7 and 13, every K2 launch of phases 3-4 and 13, every K4 launch of
 phases 9, 10 and 13, every K5 launch of phase 9 and every K6 launch of
-the bench's roofline leg must take the s16x2 form, every one at rows
-(reads) of more than 1,024 lanes in 14 the int32 form; K6 and K7 must launch in both forms over the legs.  The legs:
+the bench's roofline leg must take the s16x2 form; in 14 every K1 and K4
+launch takes ``k1k4_form``'s form (the wide ones of the 6,000 bp corpus
+s16x2) and every K5 one at reads of more than 1,024 positions int32; K6
+and K7 must launch in both forms over the legs.  The legs:
 phases 3-4 (batch; K1
 and K2 must launch, and the traceback through ``fill_list`` or
 ``fill_walk``, never through K9's and K10's separate launches), 6
@@ -204,7 +220,7 @@ and K2 must launch, and the traceback through ``fill_list`` or
 K5), 10 (scaling; K4), each bench leg of 13 (K4 on the kernel leg, K1 on
 the path legs, K2 in s16x2 on the long-ref leg, K6 on the roofline leg), each
 experiment (K6, K7), the long-read paths of 14 (K1-K5, the traceback as
-in 3-4), and in 15 ``swtorch bench`` (K1, the traceback as in 3-4), each
+in 3-4) and its two runs on the 6,000 bp corpus (K1, K4), and in 15 ``swtorch bench`` (K1, the traceback as in 3-4), each
 ``swtorch diff`` (K1; K3 against shard_seq), each process's two runs of
 the multi-host leg (read from its output) and the dry run (K4); over all legs both ``fill_list`` and ``fill_walk`` must launch.
 A kernel's ``launches`` in the summary is its sum over those legs.
@@ -234,10 +250,12 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import hashlib
 import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -315,13 +333,36 @@ dist.destroy_process_group()
 # Python-drawn text); phase 15 writes its first 9 dirs (1-2,000 refs).
 REF_NUM_SCALE = 0.33
 
+# K1's and K4's striped kernels, int32 and s16x2 (one instantiation each,
+# L = kStripeL).
+WIDE_KERNELS = ("lane_best_wide_kernel", "lane_best_wide_s16x2_kernel", "score_grid_wide_kernel",
+                "score_grid_wide_s16x2_kernel")
+# The one-pass s16x2 kernels that share sweep_s16x2, as the parent tree
+# (the commit before the striped s16x2 forms) builds them: sass_digests'
+# {kernel: (functions, digest)} and the toolkit that built them.
+ONE_PASS_SASS = {
+    "nvcc": "Build cuda_12.9.r12.9/compiler.36037853_0",
+    "kernels": {
+        "argmax_s16x2_kernel": (12, "ea1d0a0c79ea822e"),
+        "band_s16x2_kernel": (12, "83f84d8dcd7ef9cc"),
+        "lane_best_s16x2_kernel": (12, "55a50e233ea8841a"),
+        "score_grid_s16x2_kernel": (12, "7c63227b398f92a7"),
+    },
+}
+
 _NOT_ALU = ("LDG", "STG", "LDC", "ULDC", "LDS", "STS", "EXIT", "BRA", "NOP", "S2R", "S2UR", "MOV", "IMAD.MOV")
+
+
+@functools.lru_cache(maxsize=None)
+def sass_text(cuobjdump: str, path: str) -> str:
+    """``cuobjdump -sass`` of a cubin or shared library (read once)."""
+    return subprocess.run([cuobjdump, "-sass", path], check=True, capture_output=True, text=True).stdout
 
 
 def sass_functions(cuobjdump: str, path: str):
     """{function: [(address, opcode, branch target or None), ...]} of a
     cubin or shared library, read back with ``cuobjdump -sass``."""
-    text = subprocess.run([cuobjdump, "-sass", path], check=True, capture_output=True, text=True).stdout
+    text = sass_text(cuobjdump, path)
     out = {}
     for name, body in re.findall(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", text, re.S):
         instrs, labels = [], {}
@@ -339,6 +380,34 @@ def sass_functions(cuobjdump: str, path: str):
                 ins[2] = instrs[labels[ins[2]]][0] if labels.get(ins[2], len(instrs)) < len(instrs) else None
         out[name] = [tuple(ins) for ins in instrs]
     return out
+
+
+def kernel_identifier(mangled: str):
+    """The kernel's identifier in a mangled name (the shortest tail of the
+    name up to ``_kernel`` that its length in digits precedes), or None."""
+    m = re.match(r"(.*?_kernel)(?=[IE])", mangled)
+    if not m:
+        return None
+    head = m.group(1)
+    return next((head[-n:] for n in range(len("_kernel"), len(head) + 1) if head[:-n].endswith(str(n))), None)
+
+
+def sass_digests(cuobjdump: str, path: str, pattern: str = r".*"):
+    """{kernel: (functions, digest)} of the kernels of a library whose
+    identifier (:func:`kernel_identifier`) matches ``pattern``: a SHA-256
+    over the SASS text of each kernel's functions (its instantiations) in
+    name order, addresses and encodings left out, so that two builds of
+    the same kernels compare equal exactly when their instructions are the
+    same."""
+    text = sass_text(cuobjdump, path)
+    bodies = collections.defaultdict(dict)
+    for name, body in re.findall(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", text, re.S):
+        kernel = kernel_identifier(name)
+        if kernel and re.fullmatch(pattern, kernel):
+            lines = [m.group(1).strip() for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+([^;]*;)", body)]
+            bodies[kernel][name] = "\n".join(lines)
+    return {kernel: (len(fns), hashlib.sha256("\n\n".join(fns[k] for k in sorted(fns)).encode()).hexdigest()[:16])
+            for kernel, fns in bodies.items()}
 
 
 def inner_loop_alu(instrs):
@@ -571,6 +640,42 @@ def main() -> int:
         regs = register_summary(_cuda.build_info["log"])[f"{name}_s16x2_kernel"]
         fail_unless(len(regs) == len(_LANES) and not any("s" in w.split(":")[-1] for w in regs),
                     f"{k}'s s16x2 kernel spills: {regs}")
+    # K1's and K4's striped kernels (rows of more than 1,024 lanes, L =
+    # kStripeL): the s16x2 ones run the DPX instruction and spill nothing;
+    # the ALU instructions a cell of each one's inner loop (the stripe
+    # step) beside the int32 striped kernel's.
+    wide_cell = {}
+    for fname, instrs in lib_sass.items():
+        kernel = kernel_identifier(fname)
+        if kernel in WIDE_KERNELS:
+            fail_unless("s16x2" not in kernel or relu_ops[0] in {op for _, op, _ in instrs},
+                        f"{kernel} lacks {relu_ops[0]}")
+            wide_cell[kernel] = inner_loop_per_cell(instrs, 2 if "s16x2" in kernel else 1)
+    wide_regs = {k: register_summary(_cuda.build_info["log"]).get(k, []) for k in WIDE_KERNELS}
+    fail_unless(sorted(wide_cell) == sorted(WIDE_KERNELS)
+                and all(len(wide_regs[k]) == 1 for k in WIDE_KERNELS)
+                and not any("s" in wide_regs[k][0].split(":")[-1] for k in WIDE_KERNELS if "s16x2" in k),
+                f"K1's and K4's striped kernels: {sorted(wide_cell)}, {wide_regs}")
+    print(f"[0] K1 and K4 striped SASS: lane_best_wide_s16x2_kernel and score_grid_wide_s16x2_kernel run "
+          f"{relu_ops[0]} and spill nothing; registers and ALU instructions per cell of the stripe step: "
+          + ", ".join(f"{k} {wide_regs[k][0]} {wide_cell[k]:.3f}" for k in WIDE_KERNELS), flush=True)
+    # The one-pass s16x2 kernels that share sweep_s16x2 (K1, K2, K3, K4):
+    # their SASS against the parent tree's (ONE_PASS_SASS, built by the
+    # toolkit it names), so the stripe step added to sweep_s16x2 is shown
+    # to leave their code, and so their instructions per cell, as it was.
+    nvcc_version = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
+                                  check=True).stdout.strip().splitlines()[-1]
+    one_pass = sass_digests(os.path.join(os.path.dirname(nvcc), "cuobjdump"), _cuda.build_info["path"],
+                            r"(lane_best|argmax|band|score_grid)_s16x2_kernel")
+    if nvcc_version == ONE_PASS_SASS["nvcc"]:
+        fail_unless(one_pass == ONE_PASS_SASS["kernels"],
+                    f"the one-pass s16x2 kernels' SASS changed: {one_pass} against {ONE_PASS_SASS['kernels']}")
+        print(f"[0] one-pass s16x2 SASS unchanged from the parent tree ({nvcc_version}): "
+              + ", ".join(f"{k} {n} functions {d}" for k, (n, d) in sorted(one_pass.items())), flush=True)
+    else:
+        print(f"[0] one-pass s16x2 SASS not compared: {nvcc_version}, the parent's digests are of "
+              f"{ONE_PASS_SASS['nvcc']}; now " + ", ".join(f"{k} {d}" for k, (_, d) in sorted(one_pass.items())),
+              flush=True)
     # K5's s16x2 form, one kernel: its row loop holds a row of 16 registers
     # of two cells a thread, and each row takes seven shuffles (the NW
     # term, five scan steps, the value handed to the next lane).
@@ -2420,8 +2525,9 @@ def main() -> int:
 
         def wide_rows(m):
             """Rows of m lanes: one read over every stripe; reads starting on
-            the stripe boundaries 512 and 1,024; a 2 bp read across 512;
-            reads of 1-1,500 bp across boundaries at random; a pad row."""
+            the stripe boundaries 512 and 1,024; a 2 bp read across 512 and
+            one across 256 (the s16x2 form's stripes); reads of 1-1,500 bp
+            across boundaries at random; a pad row."""
             def filled(reads):
                 o = sum(map(len, reads))
                 while o < m - 40:
@@ -2429,7 +2535,7 @@ def main() -> int:
                     o += len(reads[-1])
                 return reads
             return [[piece(m)], filled([piece(512), piece(512), piece(1)]), filled([piece(511), piece(2)]),
-                    filled([]), filled([]), filled([piece(1)]), []]
+                    filled([piece(255), piece(2)]), filled([]), filled([piece(1)]), []]
 
         def chain_k3(packed_t, start_t, refs, segs, bnd_rng=None):
             """K3 over ``segs`` segments of every ref, each bnd_out into the
@@ -2460,16 +2566,45 @@ def main() -> int:
 
         widths = (1025, 2048, 4096, 16384)
         wide_err = dict.fromkeys(("K1", "K2", "K3", "K4", "K5"), 0)
+        # K1's and K4's s16x2 striped form against the int32 one: max abs
+        # err, and the widths at which it was held to it.
+        s16_vs_int32 = {"K1": [0, []], "K4": [0, []]}
+
+        def formed(k, fn, want_form):
+            """fn()'s result, failing unless its K1 or K4 launches all took
+            want_form (k1k4_form's)."""
+            counts = cuda_score.K1_FORMS if k == "K1" else cuda_score.K4_FORMS
+            before = dict(counts)
+            out = fn()
+            took = {form: n - before[form] for form, n in counts.items() if n != before[form]}
+            fail_unless(list(took) == [want_form], f"{k} took {took} where k1k4_form says {want_form}")
+            return out
+
+        def held_to_int32(k, m, got, int32_fn):
+            s16_vs_int32[k][0] = max(s16_vs_int32[k][0], max_err(got, int32_fn()))
+            s16_vs_int32[k][1].append(m)
+            fail_unless(s16_vs_int32[k][0] == 0, f"{k}'s s16x2 striped form differs from its int32 form at {m} lanes")
+
         refs_w = [piece(1500), piece(600), piece(1)]
         flat_w, lens_w = encode_concat(refs_w)
         offs_w = up(np.concatenate(([0], np.cumsum(lens_w)[:-1])).astype(np.int64))
         flat_w, lens_w_t = up(flat_w), up(lens_w.astype(np.int32))
+
+        def k1_w_args(p_t):
+            return p_t, flat_w, lens_w_t
+
         for m in widths:
-            packed, order, start = lay(wide_rows(m), m)
+            rows_m = wide_rows(m)
+            packed, order, start = lay(rows_m, m)
             packed_t, start_t = up(packed), up(start)
-            k1_w = read_best(cuda_score.lane_best_packed_varlen(packed_t, flat_w, lens_w_t, *PARAMS, offsets=offs_w), start)
+            k1_form_m = cuda_score.k1k4_form(m, *PARAMS)
+            k1_w = formed("K1", lambda: read_best(cuda_score.lane_best_packed_varlen(*k1_w_args(packed_t), *PARAMS,
+                                                                                     offsets=offs_w), start), k1_form_m)
             p1_w = read_best(cuda_score.lane_best_packed_varlen_plain(packed_t, flat_w, lens_w_t, *PARAMS, offs_w), start)
             wide_err["K1"] = max(wide_err["K1"], max_err(k1_w, p1_w))
+            if k1_form_m == "s16x2":
+                held_to_int32("K1", m, k1_w, lambda: read_best(cuda_score._lane_best_packed_varlen(
+                    *k1_w_args(packed_t), *PARAMS, offsets=offs_w, form="int32"), start))
             _, err = chain_k3(packed_t, start_t, refs_w, 1, bnd_rng=rng)
             wide_err["K3"] = max(wide_err["K3"], err)
             for segs in (2, 4):
@@ -2482,7 +2617,34 @@ def main() -> int:
             wide_err["K2"] = max(wide_err["K2"], err)
             args_g = grid_args(reads_g, refs_w, m)
             want_g = cuda_score.score_grid_diag_plain(*args_g, *PARAMS)
-            wide_err["K4"] = max(wide_err["K4"], max_err(cuda_score.score_grid_diag(*args_g, *PARAMS), want_g))
+            k4_form_m = cuda_score.k1k4_form(m, *PARAMS)
+            got_g = formed("K4", lambda: cuda_score.score_grid_diag(*args_g, *PARAMS), k4_form_m)
+            wide_err["K4"] = max(wide_err["K4"], max_err(got_g, want_g))
+            if k4_form_m == "s16x2":
+                held_to_int32("K4", m, got_g, lambda: cuda_score._score_grid_diag(*args_g, *PARAMS, form="int32"))
+            if m == 16384:
+                # 16,384 lanes in s16x2: K1 on rows of reads of at most 6,553
+                # bp (its longest given) against plain and the int32 form; K1
+                # and K4 at match 1 (1 x 16,384 fits int16), K4 against plain
+                # and K1 against the int32 form (its plain version at this
+                # width is the slow part of the phase).
+                packed_16, _, start_16 = lay([[piece(6553), piece(6553), piece(3278)], [piece(5000), piece(511)],
+                                              [piece(1), piece(6000)]], m)
+                p16_t = up(packed_16)
+                got = formed("K1", lambda: read_best(cuda_score.lane_best_packed_varlen(
+                    *k1_w_args(p16_t), *PARAMS, offsets=offs_w, longest=6553), start_16), "s16x2")
+                wide_err["K1"] = max(wide_err["K1"], max_err(got, read_best(
+                    cuda_score.lane_best_packed_varlen_plain(*k1_w_args(p16_t), *PARAMS, offs_w), start_16)))
+                held_to_int32("K1", m, got, lambda: read_best(cuda_score._lane_best_packed_varlen(
+                    *k1_w_args(p16_t), *PARAMS, offsets=offs_w, form="int32"), start_16))
+                params_1 = (1, -3, -4)
+                got = formed("K1", lambda: read_best(cuda_score.lane_best_packed_varlen(
+                    *k1_w_args(packed_t), *params_1, offsets=offs_w), start), "s16x2")
+                held_to_int32("K1", m, got, lambda: read_best(cuda_score._lane_best_packed_varlen(
+                    *k1_w_args(packed_t), *params_1, offsets=offs_w, form="int32"), start))
+                got = formed("K4", lambda: cuda_score.score_grid_diag(*args_g, *params_1), "s16x2")
+                wide_err["K4"] = max(wide_err["K4"], max_err(got, cuda_score.score_grid_diag_plain(*args_g, *params_1)))
+                held_to_int32("K4", m, got, lambda: cuda_score._score_grid_diag(*args_g, *params_1, form="int32"))
             wide_err["K5"] = max(wide_err["K5"], max_err(cuda_score.score_grid_row(*args_g, *PARAMS), score_grid(*args_g, *PARAMS)))
             fail_unless(not any(wide_err.values()), f"a striped kernel differs from its plain version at {m} lanes: {wide_err}")
             if m <= 4096 or m == 16384:  # K8's wide form on the same reads (to 8,000 bp) and a repeat
@@ -2496,8 +2658,18 @@ def main() -> int:
                 # Its own generator leaves the later phases' inputs as they were.
                 split_rng = np.random.default_rng(SEED + 14)
                 bnd_w = up(split_rng.integers(0, 120, size=(len(refs_w),) + packed.shape).astype(np.int32))
+                # Three times the rows (reads), so that the s16x2 forms' blocks
+                # of eight rows (four pairs) also split.
+                packed_3 = up(lay(rows_m * 3, m)[0])
+                args_g3 = grid_args(reads_g * 3, refs_w, m)
                 calls = {
                     "K1": lambda: cuda_score.lane_best_packed_varlen(packed_t, flat_w, lens_w_t, *PARAMS, offsets=offs_w),
+                    "K1 (24 rows)": lambda: cuda_score.lane_best_packed_varlen(*k1_w_args(packed_3), *PARAMS,
+                                                                               offsets=offs_w),
+                    "K1 int32 (24 rows)": lambda: cuda_score._lane_best_packed_varlen(*k1_w_args(packed_3), *PARAMS,
+                                                                                      offsets=offs_w, form="int32"),
+                    "K4 (24 reads)": lambda: cuda_score.score_grid_diag(*args_g3, *PARAMS),
+                    "K4 int32 (24 reads)": lambda: cuda_score._score_grid_diag(*args_g3, *PARAMS, form="int32"),
                     "K3": lambda: cuda_score.band_lane_best(packed_t, flat_w, offs_w, lens_w_t, lens_w_t.clamp_min(1),
                                                             bnd_w, *PARAMS),
                     "K2": lambda: cuda_score.argmax_lane(*args_2w, *PARAMS),
@@ -2514,15 +2686,21 @@ def main() -> int:
                     a, b = whole[k], split[k]
                     fail_unless(all(torch.equal(x, y) for x, y in zip(*((a, b) if isinstance(a, tuple) else ((a,), (b,))))),
                                 f"{k} with its rows split over launches differs from one launch at {m} lanes")
-                split_parts = (packed.shape[0] // 4, len(reads_g) // 4)
-        print(f"[14] K1-K5 at rows (reads) of {', '.join(map(str, widths))} lanes, stripes of {cuda_score.STRIPE_LANES}: "
+                split_parts = (packed.shape[0] // 4, len(reads_g) // 4, 3 * packed.shape[0] // 8, 3 * len(reads_g) // 8)
+        print(f"[14] K1-K5 at rows (reads) of {', '.join(map(str, widths))} lanes, stripes of {cuda_score.STRIPE_LANES} "
+              f"(s16x2: {cuda_score.STRIPE16_LANES}): "
               f"max abs err {wide_err} against the plain versions (K1, K3 at every start lane, K3 at every bnd_out lane "
               f"with a random left column; K2 on the traceback's lanes; K4, K5 every pair, K5 against the row-form "
-              f"recurrence); reads over every stripe, starting on stripe boundaries and crossing them; K3 chained "
-              f"over 2 and 4 segments equal to K1 at every width; K8 (int32 wide form) equal to plain at 1,025-8,000 "
-              f"lanes; at 2,048 lanes with a carry budget of 1 (K1, K3 "
-              f"in {split_parts[0]} launches of 4 rows, K2, K4, K5 in {split_parts[1]} of 4 reads) equal to one "
-              f"launch on every lane ({time.perf_counter() - t14:.1f} s)", flush=True)
+              f"recurrence); every K1 and K4 call in k1k4_form's form, the s16x2 striped form equal to the int32 one "
+              f"(max abs err K1 {s16_vs_int32['K1'][0]} at {s16_vs_int32['K1'][1]} lanes, K4 "
+              f"{s16_vs_int32['K4'][0]} at {s16_vs_int32['K4'][1]}; at 16,384 K1 on reads of at most 6,553 bp and "
+              f"K1 and K4 at match 1); reads over every stripe, starting on stripe boundaries and crossing them; K3 "
+              f"chained over 2 and 4 segments equal to K1 at every width; K8 (int32 wide form) equal to plain at "
+              f"1,025-8,000 lanes; at 2,048 lanes with a carry budget of 1 (K1 s16x2 and int32 on 24 rows in "
+              f"{split_parts[2]} launches of 8 and {2 * split_parts[2]} of 4, K4 on 24 reads likewise in "
+              f"{split_parts[3]} and {2 * split_parts[3]}, K3 in {split_parts[0]} launches of 4 rows, K2, K5 in "
+              f"{split_parts[1]} of 4 reads) equal to one launch on every lane ({time.perf_counter() - t14:.1f} s)",
+              flush=True)
 
         long_ref = genome + rand_seqs(rng, [LONG_N - len(genome)])[0]
         packed, order, start = lay([[piece(2048)], [piece(1000), piece(1048)], [piece(700), piece(900), piece(300)]], 2048)
@@ -2552,28 +2730,65 @@ def main() -> int:
             print(f"[14] {name} at 4,096 lanes: {ms:.3f} ms ({cells / ms / 1e6:.1f} GCUPS real cells); bound "
                   f"{wide_t[name][1]:.3f} ms by {wide_t[name][2]} = {100 * wide_t[name][1] / ms:.1f}%", flush=True)
 
+        wide_int32_ms = {}  # K1's and K4's int32 striped form at 4,096 lanes, beside wide_t's s16x2
+
+        def turns_wide(name, fn, rows, cells, nbytes, lanes=lambda out: out):
+            """K1's or K4's two striped forms at 4,096 lanes, fn(form), in
+            turns by events (in_turns: int32, s16x2, s16x2, int32, 3 calls
+            each, as [1] and [8] time the one-pass forms; the profiler's
+            device_ms has recorded no kernel at this point of a run, ROADMAP
+            F10): each form's mean ms, the bound and the blocks per SM; the
+            lanes a caller reads (``lanes``) equal in both forms, and the
+            s16x2 form must be the faster."""
+            turns, outs = in_turns(fn, 3)
+            fail_unless(torch.equal(lanes(outs["s16x2"]), lanes(outs["int32"])),
+                        f"{name}'s two striped forms differ at 4,096 lanes")
+            ms = {form: float(np.mean(turns[form])) for form in turns}
+            wide_t[name] = (ms["s16x2"], *bound(cells, nbytes, sms, clock_mhz))
+            wide_int32_ms[name] = ms["int32"]
+            blocks = {form: -(-rows // (per * 4)) * 64 / sms for form, per in (("s16x2", 2), ("int32", 1))}
+            print(f"[14] {name} at 4,096 lanes, both striped forms in turns (events): int32, s16x2, s16x2, int32 "
+                  + ", ".join(f"{t:.3f}" for t in (turns["int32"][0], *turns["s16x2"], turns["int32"][1]))
+                  + f" ms ({blocks['s16x2']:.2f} and {blocks['int32']:.2f} blocks an SM), "
+                  f"{ms['int32'] / ms['s16x2']:.2f}x; bound {wide_t[name][1]:.3f} ms by {wide_t[name][2]} = "
+                  f"{100 * wide_t[name][1] / ms['s16x2']:.1f}% (int32 {100 * wide_t[name][1] / ms['int32']:.1f}%); "
+                  f"{cells / ms['s16x2'] / 1e6:.1f} GCUPS real cells", flush=True)
+            fail_unless(max(turns["s16x2"]) < min(turns["int32"]),
+                        f"{name}'s s16x2 striped form ({turns['s16x2']} ms) is not faster than its int32 form "
+                        f"({turns['int32']} ms) at 4,096 lanes")
+
         out_bytes = 64 * packed_t4.numel() * 4
-        time_wide("K1", lambda: cuda_score.lane_best_packed_varlen(packed_t4, k1_t[0], k1_t[1], *PARAMS, offsets=k1_t[2]),
-                  sum(map(len, reads_t)) * ref_bp, packed_t4.numel() * 4 + ref_bp + 64 * 12 + out_bytes)
+        turns_wide("K1", lambda form: cuda_score._lane_best_packed_varlen(packed_t4, k1_t[0], k1_t[1], *PARAMS,
+                                                                          offsets=k1_t[2], form=form),
+                   packed_t4.shape[0], sum(map(len, reads_t)) * ref_bp,
+                   packed_t4.numel() * 4 + ref_bp + 64 * 12 + out_bytes, lambda out: read_best(out, start_t4))
         zero_bnd = torch.zeros((64,) + tuple(packed_t4.shape), dtype=torch.int32, device=dev)
         ns_t = k1_t[1]
         time_wide("K3", lambda: cuda_score.band_lane_best(packed_t4, k1_t[0], k1_t[2], k1_t[1], ns_t, zero_bnd, *PARAMS),
                   sum(map(len, reads_t)) * ref_bp, packed_t4.numel() * 4 + ref_bp + 64 * 16 + 3 * out_bytes)
         args_t = grid_args(reads_t, refs_t, 4096)
         grid_bytes = sum(t.numel() for t in args_t) + 4 * 64 * 64
-        time_wide("K4", lambda: cuda_score.score_grid_diag(*args_t, *PARAMS), sum(map(len, reads_t)) * ref_bp, grid_bytes)
+        turns_wide("K4", lambda form: cuda_score._score_grid_diag(*args_t, *PARAMS, form=form),
+                   args_t[0].shape[0], sum(map(len, reads_t)) * ref_bp, grid_bytes)
         time_wide("K5", lambda: cuda_score.score_grid_row(*args_t, *PARAMS), sum(map(len, reads_t)) * ref_bp, grid_bytes)
         reads_2t = reads_t + [piece(n) for n in rng.integers(500, 4097, 64)]
         args_2t = (up(encode_batch(reads_2t, 4096, READ_PAD)), up(encode_batch([refs_t[0]], len(refs_t[0]), REF_PAD)))
         time_wide("K2", lambda: cuda_score.argmax_lane(*args_2t, *PARAMS), sum(map(len, reads_2t)) * len(refs_t[0]),
                   args_2t[0].numel() + args_2t[1].numel() + 3 * 4 * args_2t[0].numel())
+        # K8's int32 wide form on the same reads, at their bests (the
+        # row-form recurrence), capacity 64: inputs, the count and the slots.
+        best_8t = score_grid(*args_2t, *PARAMS)[:, 0].to(torch.int32).contiguous()
+        time_wide("K8", lambda: cuda_score.max_cells_row(args_2t[0], args_2t[1][0], best_8t, *PARAMS, 64),
+                  sum(map(len, reads_2t)) * len(refs_t[0]),
+                  args_2t[0].numel() + args_2t[1].numel() + 4 * 128 + 128 * (8 + 64 * 2 * 4))
 
+        # Every public K1 and K4 call above took k1k4_form's form (formed);
+        # the int32 launches are the forms given for the comparisons and the
+        # widths outside the rule.
         wide_forms = {form: n - forms_14[form] for form, n in cuda_score.K1_FORMS.items()}
-        fail_unless(wide_forms["s16x2"] == 0 and wide_forms["int32"] > 0,
-                    f"K1 at rows of more than 1,024 lanes took {wide_forms}, not the int32 form alone")
+        fail_unless(min(wide_forms.values()) > 0, f"K1 at rows of more than 1,024 lanes took {wide_forms}")
         wide_k4_forms = {form: n - k4_forms_14[form] for form, n in cuda_score.K4_FORMS.items()}
-        fail_unless(wide_k4_forms["s16x2"] == 0 and wide_k4_forms["int32"] > 0,
-                    f"K4 at reads of more than 1,024 positions took {wide_k4_forms}, not the int32 form alone")
+        fail_unless(min(wide_k4_forms.values()) > 0, f"K4 at reads of more than 1,024 positions took {wide_k4_forms}")
         wide_k5_forms = {form: n - k5_forms_14[form] for form, n in cuda_score.K5_FORMS.items()}
         fail_unless(wide_k5_forms["s16x2"] == 0 and wide_k5_forms["int32"] > 0,
                     f"K5 at reads of more than 1,024 positions took {wide_k5_forms}, not the int32 form alone")
@@ -2597,16 +2812,68 @@ def main() -> int:
             f.write("\n".join(lr_reads))
         lr_config = AlignConfig(ref_dir=os.path.join(lr_root, "refs"), in_dir=os.path.join(lr_root, "inputs"),
                                 out_dir=os.path.join(lr_root, "out_batch"))
+        @contextlib.contextmanager
+        def launch_log():
+            """[(kernel, m, longest, forms)] of every K1 and K4 launch the
+            backends make inside the block: their references to the two
+            public wrappers wrapped for it, each launch's form read from
+            K1_FORMS or K4_FORMS."""
+            from sparksmithwaterman_tpu_torch.models import batch_backend
+            from sparksmithwaterman_tpu_torch.parallel import engine
+
+            log = []
+
+            def spy(kernel, fn, counts):
+                def call(*args, **kw):
+                    before = dict(counts)
+                    out = fn(*args, **kw)
+                    log.append((kernel, args[0].shape[1], kw.get("longest"),
+                                [form for form in counts if counts[form] != before[form]]))
+                    return out
+                return call
+
+            saved = [(batch_backend, "lane_best_packed_varlen"), (engine, "lane_best_packed_varlen"),
+                     (batch_backend, "score_grid_diag")]
+            saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
+            for mod, name, fn in saved:
+                k1 = name == "lane_best_packed_varlen"
+                setattr(mod, name, spy("K1" if k1 else "K4", fn, cuda_score.K1_FORMS if k1 else cuda_score.K4_FORMS))
+            try:
+                yield log
+            finally:
+                for mod, name, fn in saved:
+                    setattr(mod, name, fn)
+
+        def check_log(log, what, rule=None):
+            """Every launch of the log in the form k1k4_form gives it (``rule``:
+            another rule's), each launch one form; the wide launches by kernel
+            and form."""
+            rule = rule or (lambda m, longest: cuda_score.k1k4_form(m, *PARAMS, longest=longest))
+            wide = collections.Counter()
+            for kernel, m, longest, forms in log:
+                fail_unless(forms == [rule(m, longest)], f"{what}: {kernel} at {m} lanes (longest {longest}) took {forms}")
+                if m > cuda_score.ONE_PASS_LANES:
+                    wide[kernel, forms[0]] += 1
+            return wide
+
         cuda_score.reset_launches()
         lr_s = {}
-        for strategy in ("batch", "wavefront", "shard_refs", "shard_reads", "shard_seq"):
-            lr_s[strategy] = align(lr_root, strategy, f"out_{strategy}")
-        for name, kw in (("unpacked", dict(pack_reads=False)), ("row", dict(kernel="row"))):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            run_pipeline(dataclasses.replace(lr_config, out_dir=os.path.join(lr_root, f"out_{name}"), **kw), device=dev)
-            torch.cuda.synchronize()
-            lr_s[name] = time.perf_counter() - t
+        with launch_log() as lr_log:
+            for strategy in ("batch", "wavefront", "shard_refs", "shard_reads", "shard_seq"):
+                lr_s[strategy] = align(lr_root, strategy, f"out_{strategy}")
+            for name, kw in (("unpacked", dict(pack_reads=False)), ("row", dict(kernel="row"))):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                run_pipeline(dataclasses.replace(lr_config, out_dir=os.path.join(lr_root, f"out_{name}"), **kw),
+                             device=dev)
+                torch.cuda.synchronize()
+                lr_s[name] = time.perf_counter() - t
+        # The 8,000 bp read puts every read in 8,192-lane rows, outside the
+        # rule: K1 stays int32 there; K4's read groups of 1,025-6,000 bp take
+        # s16x2, the 8,000 bp one int32; K5 keeps k1_form (int32 past 1,024).
+        lr_wide = check_log(lr_log, "the long-read paths")
+        fail_unless(lr_wide["K1", "int32"] > 0 and not lr_wide["K1", "s16x2"] and lr_wide["K4", "s16x2"] > 0
+                    and lr_wide["K4", "int32"] > 0, f"the long-read paths' wide launches by form: {dict(lr_wide)}")
         lr_launches = dict(cuda_score.LAUNCHES)
         lr_forms = dict(cuda_score.K1_FORMS)
         fail_unless(lr_forms["int32"] > 0 and sum(lr_forms.values()) == lr_launches["lane_best_packed_varlen"],
@@ -2660,7 +2927,64 @@ def main() -> int:
         print(f"[14] the traceback's launches over the long-read paths: {traced(lr_launches, 'phase 14')}", flush=True)
         print(f"[14] LAUNCHES over the long-read paths: {lr_launches}, K1 forms {lr_forms}, K3 forms {lr_k3_forms}, "
               f"K4 forms {lr_k4_forms}, "
-              f"K5 forms {lr_k5_forms}", flush=True)
+              f"K5 forms {lr_k5_forms}; K1's and K4's launches at rows (reads) of more than 1,024 lanes by form "
+              f"{dict(lr_wide)}", flush=True)
+
+        # The main path on long reads of 1,025-6,000 bp, inside the rule:
+        # swtorch align --strategy batch (K1 at 8,192 lanes, its longest read
+        # 6,000 bp) and wavefront with pack_reads=False (K4 a read group at a
+        # time), each against the same run with the rule giving int32 past
+        # one pass.
+        t14s = time.perf_counter()
+        lr6_root = os.path.join(work, "long_reads_6k")
+        shutil.copytree(os.path.join(lr_root, "refs"), os.path.join(lr6_root, "refs"))
+        os.makedirs(os.path.join(lr6_root, "inputs"))
+        lr6_reads = [read for read in lr_reads if len(read) != 8000]
+        with open(os.path.join(lr6_root, "inputs", "input1.fa"), "w") as f:
+            f.write("\n".join(lr6_reads))
+        lr6_config = dataclasses.replace(lr_config, in_dir=os.path.join(lr6_root, "inputs"), strategy="wavefront",
+                                         pack_reads=False)
+
+        def lr6_runs(form):
+            """The two reports of the 6,000 bp corpus (time line left out)."""
+            align(lr6_root, "batch", f"out_batch_{form}")
+            run_pipeline(dataclasses.replace(lr6_config, out_dir=os.path.join(lr6_root, f"out_wavefront_{form}")),
+                         device=dev)
+            torch.cuda.synchronize()
+            return [stripped(os.path.join(lr6_root, f"out_{name}_{form}", "result1.txt")) for name in ("batch", "wavefront")]
+
+        cuda_score.reset_launches()
+        with launch_log() as lr6_log:
+            lr6 = lr6_runs("s16x2")
+        lr6_launches = dict(cuda_score.LAUNCHES)
+        lr6_forms = {k: dict(getattr(cuda_score, f"{k}_FORMS")) for k in ("K1", "K2", "K4", "K8")}
+        lr6_wide = check_log(lr6_log, "the 6,000 bp corpus")
+        fail_unless(lr6_wide["K1", "s16x2"] > 0 and lr6_wide["K4", "s16x2"] > 0
+                    and not lr6_wide["K1", "int32"] and not lr6_wide["K4", "int32"],
+                    f"the 6,000 bp corpus's wide launches by form: {dict(lr6_wide)}")
+        k1_main_forms.update(lr6_forms["K1"])
+        k2_main_forms.update(lr6_forms["K2"])
+        k4_main_forms.update(lr6_forms["K4"])
+        k8_main_forms.update(lr6_forms["K8"])
+        rule = cuda_score.k1k4_form
+        cuda_score.k1k4_form = lambda m, *a, **kw: "int32" if m > cuda_score.ONE_PASS_LANES else rule(m, *a, **kw)
+        try:
+            with launch_log() as lr6_int32_log:
+                lr6_int32 = lr6_runs("int32")
+        finally:
+            cuda_score.k1k4_form = rule
+        lr6_int32_wide = check_log(lr6_int32_log, "the 6,000 bp corpus in int32",
+                                   lambda m, longest: "int32" if m > cuda_score.ONE_PASS_LANES else
+                                   cuda_score.k1_form(m, *PARAMS))
+        fail_unless(lr6 == lr6_int32 and lr6[0] == lr6[1],
+                    "the 6,000 bp corpus's reports differ between the s16x2 and the int32 striped forms, or between "
+                    "batch and wavefront")
+        print(f"[14] {len(lr6_reads)} reads (7 of 1,025-6,000 bp) x {len(lr_refs)} refs: swtorch align --strategy "
+              f"batch and wavefront with pack_reads=False, reports equal to the same runs in the int32 striped form "
+              f"and to each other; wide launches by form {dict(lr6_wide)} (int32 runs {dict(lr6_int32_wide)}); "
+              f"LAUNCHES {lr6_launches}; {time.perf_counter() - t14s:.1f} s", flush=True)
+        wide_main_forms = {k: {form: lr_wide[k, form] + lr6_wide[k, form] for form in ("s16x2", "int32")}
+                           for k in ("K1", "K4")}
         clock.done(14)
 
         # -- 15. swtorch gen, info, bench and diff; two processes; the dry run --
@@ -2871,7 +3195,7 @@ def main() -> int:
         clock.done(15)
 
     legs = (launches, seq_launches, seq_batch_launches, shard_launches, unpacked_launches, scaling_launches,
-            *bench_launches.values(), *probe_launches.values(), lr_launches, *launches_15)
+            *bench_launches.values(), *probe_launches.values(), lr_launches, lr6_launches, *launches_15)
     main_launches = {name: sum(leg[name] for leg in legs) for name in cuda_score.LAUNCHES}
     fail_unless(main_launches["fill_list"] > 0 and main_launches["fill_walk"] > 0,
                 f"the main-path legs did not run both branches of the traceback: {main_launches}")
@@ -3154,8 +3478,11 @@ def main() -> int:
             "long_bound_ms": fw_long[3][0],
         },
     ]
+    kernels[7].update(wide_ms=wide_t["K8"][0], wide_bound_ms=wide_t["K8"][1])  # K8 (max_cells_row) at 4,096 lanes
     for entry, k in zip(kernels, ("K1", "K2", "K3", "K4", "K5")):  # rows of 4,096 lanes, in stripes
         entry.update(wide_max_abs_err=wide_err[k], wide_ms=wide_t[k][0], wide_bound_ms=wide_t[k][1])
+        if k in wide_int32_ms:  # K1's and K4's two striped forms, and their wide launches over the legs
+            entry.update(wide_forms=wide_main_forms[k], wide_int32_ms=wide_int32_ms[k], wide_int32_bound_ms=wide_t[k][1])
     for entry in kernels:  # every share of a bound is at most 100%
         for key in [k for k in entry if k.endswith("bound_ms")]:
             ms = entry[key[: -len("bound_ms")] + "ms"]

@@ -26,10 +26,10 @@
 // TPU's multi-ref fold unnecessary here.
 //
 // Two forms, chosen by the wrapper from the data alone (ops/cuda_score.py
-// k1_form):
+// k1k4_form):
 //
 // - s16x2 (lane_best_s16x2_kernel), rows of at most 1,024 lanes whose
-//   scores fit int16: warp w of a block takes packed rows 2w and 2w + 1,
+//   scores fit int16 (k1_form): warp w of a block takes packed rows 2w and 2w + 1,
 //   one in each 16-bit half of every register, two cells per
 //   instruction (wavefront.cuh sweep_s16x2).  What it does about the
 //   bound: the int32 form spends about ten instructions a cell, all on
@@ -48,11 +48,20 @@
 //   saturating form is needed.  An odd last row pairs with an all-pad row: every lane starts
 //   a segment of READ_PAD, stays 0 and is not stored.  The segmented
 //   suffix max runs once per row after the sweep, on each half unpacked
-//   to int32.
+//   to int32.  A row of more than 1,024 lanes takes this form where
+//   match x (its longest segment) <= 32,767 and mismatch and gap < 0
+//   (lane_best_wide_s16x2_kernel): the pair is swept in stripes of 256
+//   lanes (wavefront.cuh kStripe16L), top to bottom, its carry rows
+//   (StripeEdge16x2) one uint32_t a column holding both rows' halves.
+//   What bounds it is what bounds the one-pass form, plus a shuffle and a
+//   select a diagonal for lane 0's carried N term.  The bound above
+//   holds a segment at a time, so the row's width does not enter it: a
+//   read of 6,553 bp in an 8,192-lane row fits at match 5.
 // - int32 (lane_best_kernel, one warp per row, one cell per
-//   instruction): every other row of at most 1,024 lanes; a row of more
-//   than 1,024 lanes runs in stripes of 512 (lane_best_wide_kernel,
-//   wavefront.cuh), its carry rows in a scratch buffer the wrapper
+//   instruction): every other row of at most 1,024 lanes; every other row
+//   of more than 1,024 lanes runs in stripes of 512
+//   (lane_best_wide_kernel, wavefront.cuh StripeEdge).  Both striped
+//   forms keep their carry rows in a scratch buffer the wrapper
 //   allocates.
 //
 // Lanes a caller may read: the start lane of every segment.  Other lanes
@@ -262,6 +271,98 @@ lane_best_wide_kernel(const int32_t* __restrict__ packed, int rows, int m,
   if (live) stripe_suffix_max<L>(prow, m, o);
 }
 
+// The pair of rows and the reference of this warp in a launch of the
+// striped s16x2 form, from the block index read anew (asm volatile), so
+// that none of them holds a register across a sweep (ptxas spilled the
+// kernel below at L = 8 with them live).
+struct WidePair {
+  int c, part_pair, row;
+};
+
+__device__ __forceinline__ WidePair wide_pair(int row0, int row_blocks) {
+  int block;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(block));
+  const int part_pair = (block % row_blocks) * kWarps + (threadIdx.x >> 5);
+  return {block / row_blocks, part_pair, row0 + 2 * part_pair};
+}
+
+// The s16x2 form of a row wider than kMaxLanes: warp w of a block takes
+// the pair of packed rows row0 + 8 (b % row_blocks) + 2w, + 1, one in each
+// 16-bit half, and sweeps it in stripes of 32 * L lanes through
+// sweep_s16x2 with a StripeEdge16x2, whose carry rows hold both rows'
+// halves.  A stripe's lane starts a segment only where its packed lane
+// has START_BIT (or is the row's lane 0): lane 0 of a later stripe
+// continues the read above it.  Each stripe stores each row's own
+// segmented suffix max, unpacked to int32, then stripe_suffix_max carries
+// each read's max back over the stripe boundaries it crosses, as in
+// lane_best_wide_kernel.  carry + carry_offs[c] holds two carry rows of
+// len uint32_t for each pair of the launch.
+template <int L>
+__global__ void __launch_bounds__(kThreads)
+lane_best_wide_s16x2_kernel(const int32_t* __restrict__ packed, int rows, int m,
+                            int row0, int row_blocks,
+                            const uint8_t* __restrict__ refs,
+                            const long long* __restrict__ offs,
+                            const int32_t* __restrict__ lens, uint32_t k_sub,
+                            uint32_t mismatch2, uint32_t gap2,
+                            int32_t* __restrict__ out,
+                            uint32_t* __restrict__ carry,
+                            const long long* __restrict__ carry_offs) {
+  constexpr int W = 32 * L;
+  __shared__ uint32_t ring[kRing + kS16x2RingPad];
+  const int first = (threadIdx.x & 31) * L;
+
+  for (int s = 0; s * W < m; ++s) {
+    const int base = s * W;
+    const int lanes = min(W, m - base);
+    const WidePair p = wide_pair(row0, row_blocks);
+    const int len = lens[p.c];
+    const int32_t* prow = packed + (long long)p.row * m;
+    uint32_t rd2[L], keep2[L], best2[L];
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      const int i = base + first + k;
+      // Lanes past m (and rows past ROWS) form isolated all-pad segments.
+      const int lo = (p.row < rows && i < m) ? prow[i] : kStartBit;
+      const int hi = (p.row + 1 < rows && i < m) ? prow[m + i] : kStartBit;
+      rd2[k] = code_half(lo) | code_half(hi) << 16;
+      keep2[k] = (lo >= kStartBit || i == 0 ? 0u : 0x0000FFFFu) | (hi >= kStartBit || i == 0 ? 0u : 0xFFFF0000u);
+      best2[k] = 0;
+    }
+    // Every warp is done with the ring of the stripe above (sweep_s16x2
+    // writes its top before its first barrier), and this pair's carry row
+    // from that stripe is visible.
+    __syncthreads();
+    uint32_t* buf = carry + carry_offs[p.c] + 2LL * p.part_pair * len;
+    StripeEdge16x2<L> edge(buf + ((s + 1) & 1) * len, s > 0 ? len : 0, buf + (s & 1) * len, len);
+    sweep_s16x2<L>(rd2, keep2, len > 0 ? lanes + len - 1 : 0, refs + offs[p.c], len, k_sub, mismatch2, gap2, ring,
+                   [&](int k, bool odd, uint32_t h, uint32_t h_prev, int) {
+                     if (odd) best2[k] = __vimax3_s16x2(best2[k], h_prev, h);
+                   },
+                   [](int) {}, edge);
+    const WidePair q = wide_pair(row0, row_blocks);
+    int32_t* o = out + ((long long)q.c * rows + q.row) * m + base;
+    uint32_t start_lo = 0, start_hi = 0;
+    int best[L];
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      asm volatile("" : "+r"(keep2[k]));  // not derived again from the loads
+      start_lo |= (uint32_t)((keep2[k] & 0xFFFFu) == 0) << k;
+      start_hi |= (uint32_t)((keep2[k] >> 16) == 0) << k;
+      best[k] = (int)(best2[k] & 0xFFFFu);
+    }
+    store_suffix_max<L>(best, start_lo, lanes, q.row < rows, o);
+#pragma unroll
+    for (int k = 0; k < L; ++k) best[k] = (int)(best2[k] >> 16);
+    store_suffix_max<L>(best, start_hi, lanes, q.row + 1 < rows, o + m);
+  }
+  const WidePair q = wide_pair(row0, row_blocks);
+  const int32_t* prow = packed + (long long)q.row * m;
+  int32_t* o = out + ((long long)q.c * rows + q.row) * m;
+  if (q.row < rows) stripe_suffix_max<L>(prow, m, o);
+  if (q.row + 1 < rows) stripe_suffix_max<L>(prow + m, m, o + m);
+}
+
 }  // namespace
 
 extern "C" int swt_lane_best_varlen(const void* packed, int rows, int m,
@@ -305,29 +406,48 @@ extern "C" int swt_lane_best_varlen(const void* packed, int rows, int m,
 }
 
 // The s16x2 form; the wrapper takes it only where ops/cuda_score.py
-// k1_form says so, and this entry refuses a scheme under which a value
-// could leave int16 or a row wider than kMaxLanes.
+// k1k4_form says so, and this entry refuses a scheme under which a value
+// could leave int16: rows of at most kMaxLanes where match x m <= 32767,
+// wider rows (in stripes, lane_best_wide_s16x2_kernel, carry rows in
+// `carry` as for the int32 entry but per pair: part_rows a multiple of
+// 2 * kWarps) where match x seg <= 32767, seg (1 <= seg <= m) the caller's
+// bound on the lanes of a segment (its longest read), and mismatch < 0
+// and gap < 0 (the stripes' rule).
 extern "C" int swt_lane_best_varlen_s16x2(const void* packed, int rows, int m,
                                           const void* refs, const void* offs,
                                           const void* lens, int c, int match,
                                           int mismatch, int gap, void* out,
-                                          int device, void* stream) {
+                                          void* carry, const void* carry_offs,
+                                          int part_rows, int seg, int device,
+                                          void* stream) {
   const int L = swt::pick_lanes(m);
-  const bool fits = match >= 0 && (long long)match * m <= 32767 && mismatch >= -32768 &&
-                    mismatch <= 0 && gap >= -32768 && gap <= 0;
-  if (rows <= 0 || c <= 0 || L == 0 || !fits) return (int)cudaErrorInvalidValue;
+  const bool wide = L == 0;
+  const int lanes = wide ? seg : m;
+  const bool fits = match >= 0 && (long long)match * lanes <= 32767 && mismatch >= -32768 &&
+                    mismatch <= 0 && gap >= -32768 && gap <= 0 &&
+                    (!wide || (seg >= 1 && seg <= m && mismatch < 0 && gap < 0 && carry != nullptr));
+  if (rows <= 0 || c <= 0 || !fits) return (int)cudaErrorInvalidValue;
   const long long row_blocks = (rows + 2 * swt::kWarps - 1) / (2 * swt::kWarps);
   const long long blocks = row_blocks * c;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   swt::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   cudaStream_t s = (cudaStream_t)stream;
+  const uint32_t k_sub = (uint32_t)(match - mismatch);
+  if (wide) {
+    return swt::launch_parts(rows, part_rows, [&](int row0, int part_blocks) {
+      lane_best_wide_s16x2_kernel<swt::kStripe16L><<<(unsigned)(part_blocks * c), swt::kThreads, 0, s>>>(
+          (const int32_t*)packed, rows, m, row0, part_blocks, (const uint8_t*)refs,
+          (const long long*)offs, (const int32_t*)lens, k_sub, pair16(mismatch), pair16(gap),
+          (int32_t*)out, (uint32_t*)carry, (const long long*)carry_offs);
+    }, 2 * swt::kWarps);
+  }
   switch (L) {
 #define SWT_LAUNCH(l)                                                           \
   case l:                                                                       \
     lane_best_s16x2_kernel<l><<<(unsigned)blocks, swt::kThreads, 0, s>>>(      \
         (const int32_t*)packed, rows, m, (int)row_blocks, (const uint8_t*)refs, \
-        (const long long*)offs, (const int32_t*)lens, (uint32_t)(match - mismatch), \
+        (const long long*)offs, (const int32_t*)lens, k_sub,                    \
         pair16(mismatch), pair16(gap), (int32_t*)out);                          \
     break;
     SWT_FOR_EACH_L(SWT_LAUNCH)

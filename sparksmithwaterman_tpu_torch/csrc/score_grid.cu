@@ -19,7 +19,7 @@
 // block's reads share one reference.
 //
 // Two forms, chosen by the wrapper from the data alone (ops/cuda_score.py
-// k1_form, the rule K1 uses, with m the width of the reads tensor):
+// k1k4_form, the rule K1 uses, with m the width of the reads tensor):
 //
 // - s16x2 (score_grid_s16x2_kernel), reads of at most 1,024 positions
 //   whose scores fit int16: warp w of a block takes reads 2w and 2w + 1,
@@ -32,11 +32,15 @@
 //   substitution on the FP16 and FMA pipes (see wavefront.cuh).  An
 //   unpacked read is one segment, so only lane 0 drops its shifted terms.
 //   An odd last read pairs with an all-pad read, which scores 0 and is
-//   not stored.
+//   not stored.  Reads wider than 1,024 positions take this form where
+//   match x m <= 32,767 and mismatch and gap < 0
+//   (score_grid_wide_s16x2_kernel, below): the pair in stripes of 256
+//   lanes (wavefront.cuh kStripe16L), its carry rows one uint32_t a
+//   column holding both reads' halves.
 // - int32 (score_grid_kernel, one warp per read, one cell per
 //   instruction): every other read of at most 1,024 positions, and any
-//   scheme with a positive mismatch or gap; wider reads run in stripes
-//   (score_grid_wide_kernel, below).
+//   scheme with a positive mismatch or gap; every other wider read runs
+//   in stripes (score_grid_wide_kernel, below).
 //
 // Trailing pad is not swept when mismatch <= 0 and gap <= 0 (`trim`,
 // always so in the s16x2 form): the block then runs m' + n' - 1
@@ -242,6 +246,77 @@ score_grid_wide_kernel(const uint8_t* __restrict__ reads, int r, int m,
   if (live && first == 0) out[(long long)read * c_total + c] = b;
 }
 
+// The s16x2 form on reads wider than kMaxLanes: warp w of a block takes
+// the pair of reads read0 + 8 (b % read_blocks) + 2w, + 1, one in each
+// 16-bit half, in stripes of 32 * L lanes through sweep_s16x2 with a
+// StripeEdge16x2, only as far as the block's longest read (trimmed).
+// An unpacked read is one segment, so only the first stripe's lane 0
+// starts one.  carry + 2 * n * (((read - read0) / 2) * c_total + c) holds
+// the pair's two carry rows of uint32_t.  The max over stripes of each
+// half is its read's best.
+template <int L>
+__global__ void __launch_bounds__(kThreads)
+score_grid_wide_s16x2_kernel(const uint8_t* __restrict__ reads, int r, int m,
+                             int read0, int read_blocks,
+                             const uint8_t* __restrict__ refs, int c_total,
+                             int n, uint32_t k_sub, uint32_t mismatch2,
+                             uint32_t gap2, int32_t* __restrict__ out,
+                             uint32_t* __restrict__ carry) {
+  constexpr int W = 32 * L;
+  __shared__ uint32_t ring[kRing + kS16x2RingPad];
+  __shared__ int scratch[kWarps];
+  const int c = blockIdx.x / read_blocks;
+  const int part_pair = (blockIdx.x % read_blocks) * kWarps + (threadIdx.x >> 5);
+  const int read = read0 + 2 * part_pair;
+  const int first = (threadIdx.x & 31) * L;
+  const uint8_t* ref = refs + (long long)c * n;
+  const uint8_t* rp = reads + (long long)read * m;
+  uint32_t* buf = carry + 2LL * n * ((long long)part_pair * c_total + c);
+
+  int used = 0;  // 1 + this warp's last position of its two reads that is not pad
+  for (int i = threadIdx.x & 31; i < m; i += 32) {
+    const int lo = read < r ? rp[i] : kReadPad;
+    const int hi = read + 1 < r ? rp[m + i] : kReadPad;
+    if (lo != kReadPad || hi != kReadPad) used = i + 1;
+  }
+  const int2 lu = trimmed(ref, n, m, used, 1, scratch);
+  const int len = lu.x;
+  used = lu.y;
+
+  uint32_t b2 = 0;
+  for (int s = 0; len > 0 && s * W < used; ++s) {
+    const int i0 = s * W;
+    uint32_t rd2[L], keep2[L], best2[L];
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      const int i = i0 + first + k;
+      const int lo = (read < r && i < m) ? rp[i] : kReadPad;
+      const int hi = (read + 1 < r && i < m) ? rp[m + i] : kReadPad;
+      rd2[k] = code_half(lo) | code_half(hi) << 16;
+      keep2[k] = i == 0 ? 0u : 0xFFFFFFFFu;
+      best2[k] = 0;
+    }
+    // Every warp is done with the ring of the stripe above (sweep_s16x2
+    // writes its top before its first barrier), and this pair's carry row
+    // from that stripe is visible.
+    __syncthreads();
+    StripeEdge16x2<L> edge(buf + ((s + 1) & 1) * n, s > 0 ? len : 0, buf + (s & 1) * n, len);
+    sweep_s16x2<L>(rd2, keep2, min(W, used - i0) + len - 1, ref, len, k_sub, mismatch2, gap2, ring,
+                   [&](int k, bool odd, uint32_t h, uint32_t h_prev, int) {
+                     if (odd) best2[k] = __vimax3_s16x2(best2[k], h_prev, h);
+                   },
+                   [](int) {}, edge);
+#pragma unroll
+    for (int k = 0; k < L; ++k) b2 = __vmaxs2(b2, best2[k]);
+  }
+  const int b_lo = __reduce_max_sync(0xffffffffu, b2 & 0xFFFFu);
+  const int b_hi = __reduce_max_sync(0xffffffffu, b2 >> 16);
+  if ((threadIdx.x & 31) == 0) {
+    if (read < r) out[(long long)read * c_total + c] = b_lo;
+    if (read + 1 < r) out[(long long)(read + 1) * c_total + c] = b_hi;
+  }
+}
+
 }  // namespace
 
 extern "C" int swt_score_grid_diag(const void* reads, int r, int m,
@@ -283,25 +358,36 @@ extern "C" int swt_score_grid_diag(const void* reads, int r, int m,
 }
 
 // The s16x2 form; the wrapper takes it only where ops/cuda_score.py
-// k1_form says so, and this entry refuses a scheme under which a value
-// could leave int16 or reads wider than kMaxLanes.  Its arguments are
-// swt_score_grid_diag's; carry and part_reads are unused (the form has
-// no stripes).
+// k1k4_form says so, and this entry refuses a scheme under which a value
+// could leave int16 (match x m <= 32767, m the reads' width), and reads
+// wider than kMaxLanes (in stripes, score_grid_wide_s16x2_kernel) unless
+// mismatch < 0 and gap < 0 (the stripes' rule) and `carry` holds the
+// pairs' carry rows, part_reads a multiple of 2 * kWarps.  Its arguments
+// are swt_score_grid_diag's.
 extern "C" int swt_score_grid_diag_s16x2(const void* reads, int r, int m,
                                          const void* refs, int c, int n,
                                          int match, int mismatch, int gap,
-                                         void* out, void*, int, int device,
-                                         void* stream) {
+                                         void* out, void* carry, int part_reads,
+                                         int device, void* stream) {
   const int L = swt::pick_lanes(m);
   const bool fits = match >= 0 && (long long)match * m <= 32767 && mismatch >= -32768 &&
-                    mismatch <= 0 && gap >= -32768 && gap <= 0;
-  if (r <= 0 || c <= 0 || m <= 0 || n <= 0 || L == 0 || !fits) return (int)cudaErrorInvalidValue;
+                    mismatch <= 0 && gap >= -32768 && gap <= 0 &&
+                    (L > 0 || (mismatch < 0 && gap < 0 && carry != nullptr));
+  if (r <= 0 || c <= 0 || m <= 0 || n <= 0 || !fits) return (int)cudaErrorInvalidValue;
   const long long read_blocks = (r + 2 * swt::kWarps - 1) / (2 * swt::kWarps);
   const long long blocks = read_blocks * c;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   swt::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   cudaStream_t s = (cudaStream_t)stream;
+  if (L == 0) {
+    return swt::launch_parts(r, part_reads, [&](int read0, int part_blocks) {
+      score_grid_wide_s16x2_kernel<swt::kStripe16L><<<(unsigned)(part_blocks * c), swt::kThreads, 0, s>>>(
+          (const uint8_t*)reads, r, m, read0, part_blocks, (const uint8_t*)refs, c, n,
+          (uint32_t)(match - mismatch), swt::pair16(mismatch), swt::pair16(gap), (int32_t*)out,
+          (uint32_t*)carry);
+    }, 2 * swt::kWarps);
+  }
   switch (L) {
 #define SWT_LAUNCH(l)                                                            \
   case l:                                                                        \

@@ -39,6 +39,10 @@
 // in a scratch buffer the wrapper sizes for part_rows rows; a launch of
 // more rows runs as several launches of part_rows rows (launch_parts),
 // each kernel indexing the scratch by its row less the part's first.
+// The 16-bit form (sweep_s16x2 with a StripeEdge16x2) sweeps a pair of
+// rows in stripes of 32 * kStripe16L lanes the same way, its carry rows
+// one uint32_t a column holding both rows' halves, so a pair's scratch is
+// one int32 row's.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -58,6 +62,11 @@ constexpr int kStartBit = 256;         // ops/packing.START_BIT
 constexpr int kMaxLanes = 32 * 32;     // widest row swept in one pass (L = 32)
 constexpr int kStripeL = 16;           // lanes per thread of a stripe
 constexpr int kStripe = 32 * kStripeL; // lanes per stripe of a wider row
+// Lanes per thread of a stripe in the s16x2 form (stripes of 256 lanes):
+// at L <= 8 sweep_s16x2 rotates its window by name, at L = 16 it shifts
+// bytes, and K1's and K4's striped kernels ran about 1.3x slower at 16
+// (one H100, utils/kernel_times.py; PERF.md, the striped kernels).
+constexpr int kStripe16L = 8;
 
 // Lanes per thread: the smallest instantiated L with 32 * L >= m, 0 if
 // none (the row is then swept in stripes).
@@ -84,16 +93,17 @@ struct DeviceGuard {
 };
 
 // Launches a striped kernel over rows [0, rows) in parts of part_rows rows
-// (a multiple of kWarps) one after another on one stream, so that the
-// parts reuse one carry scratch sized for part_rows rows:
-// launch(row0, part_blocks) for each part, part_blocks = its blocks of
-// kWarps rows.  Returns the first launch error, or cudaSuccess.
+// (a multiple of block_rows, the rows of one block: kWarps in the int32
+// form, 2 * kWarps in the s16x2 form's pairs) one after another on one
+// stream, so that the parts reuse one carry scratch sized for part_rows
+// rows: launch(row0, part_blocks) for each part, part_blocks = its blocks
+// of block_rows rows.  Returns the first launch error, or cudaSuccess.
 template <class Launch>
-inline int launch_parts(int rows, int part_rows, Launch&& launch) {
-  if (part_rows <= 0 || part_rows % kWarps) return (int)cudaErrorInvalidValue;
+inline int launch_parts(int rows, int part_rows, Launch&& launch, int block_rows = kWarps) {
+  if (part_rows <= 0 || part_rows % block_rows) return (int)cudaErrorInvalidValue;
   for (int row0 = 0; row0 < rows; row0 += part_rows) {
     const int part = rows - row0 < part_rows ? rows - row0 : part_rows;
-    launch(row0, (part + kWarps - 1) / kWarps);
+    launch(row0, (part + block_rows - 1) / block_rows);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -254,11 +264,12 @@ __device__ __forceinline__ void sweep(const int (&rd)[L], uint32_t zmask,
 // mantissa of a normal f16 (1.0 <= x < 1.25), so two halves are equal
 // exactly when their code bytes are.  The arithmetic wraps at 16 bits and
 // does not saturate; the caller takes this sweep only where no value
-// leaves int16 (ops/cuda_score.py k1_form: 0 <= match, match x lanes of
-// a row <= 32767, -32768 <= mismatch, gap <= 0).  Then the 32-bit IMAD
-// carries nothing from the low half into the high one: U <= match x
-// (m - 1) <= 32767 - match, so U + e (match - mismatch) <= 32767 -
-// mismatch <= 65535, and V + mismatch wraps back to U + sub.
+// leaves int16 (ops/cuda_score.py k1_form, and k1k4_form for a striped
+// row: 0 <= match, match x the lanes of a row's longest segment <= 32767,
+// -32768 <= mismatch, gap <= 0).  Then the 32-bit IMAD carries nothing
+// from the low half into the high one: U <= match x (lanes - 1) <= 32767
+// - match, so U + e (match - mismatch) <= 32767 - mismatch <= 65535, and
+// V + mismatch wraps back to U + sub.
 //
 // The reference streams through a ring of kRing 32-bit words, each a
 // code_half in both halves: one shared load per diagonal and no bounds
@@ -325,7 +336,10 @@ constexpr int kS16x2RingPad = 16;  // >= every kS16x2Unroll<L>
 // d >= tail with this thread's D_d values; and, since enter may have
 // replaced a register's previous value, it calls on_cell(k, true, h, h,
 // d) on every diagonal (each diagonal folded alone) instead of passing
-// h_prev.
+// h_prev.  `edges` may also be a StripeEdge16x2 (a stripe of a wide pair
+// of rows, below): every step is then a stripe step, the plain one with
+// lane 0's N term from the stripe above and the last lane's value stored
+// for the stripe below.
 struct NoEdges {};
 
 template <class Enter, class Leave>
@@ -340,6 +354,76 @@ __device__ __forceinline__ Edges<Enter, Leave> make_edges(int head, int tail, En
   return {head, tail, enter, leave};
 }
 
+// The carry between two stripes of a wide pair of rows (StripeEdge's
+// 16-bit form), given to sweep_s16x2 as its `edges`: every step of the
+// sweep is then a stripe step.  One uint32_t a column holds both rows'
+// halves, so a pair's carry rows cost what one row's int32 rows cost.
+// `in` holds H of the stripe above's last lane at columns [0, cols_in)
+// (cols_in = 0 for the first stripe), and thread 0 takes in[d] as lane
+// 0's N term on diagonal d in place of its own shuffle value, before the
+// lane's keep2 mask (a lane 0 that starts a segment drops it); its NW term
+// is the previous diagonal's N term, which the sweep keeps in U, and
+// starts at 0, the left boundary.  Each thread prefetches one column of
+// the next 32, which a shuffle hands to thread 0.  Thread 31 keeps the
+// last lane's values of a step (R diagonals) in registers and writes them
+// after it, column j on diagonal j + W - 1 to out[j], for j < cols_out
+// only: the sweep rounds its diagonals up to its unroll, and the carry
+// row holds cols_out columns.  The hooks run a step at a time (begin, up
+// and put on each diagonal, end), so that the per-diagonal cost is a
+// shuffle and a select: with the prefetch test and the bounded store on
+// every diagonal, K1's striped kernel ran about 1.1x slower (one H100,
+// utils/kernel_times.py).  The caller synchronises between stripes and alternates two
+// carry rows, so a stripe never reads the row it writes.
+template <int L>
+struct StripeEdge16x2 {
+  static constexpr int kW = 32 * L;
+  static constexpr int R = kS16x2Unroll<L>;
+  static_assert(32 % R == 0, "a step's diagonals share one prefetch of 32");
+  const uint32_t* in;
+  int cols_in;
+  uint32_t* out;
+  int cols_out;
+  uint32_t pf = 0, next;
+  uint32_t q[R];  // thread 31: this step's last-lane values
+  __device__ __forceinline__ StripeEdge16x2(const uint32_t* in_, int cols_in_, uint32_t* out_, int cols_out_)
+      : in(in_), cols_in(cols_in_), out(out_), cols_out(cols_out_) {
+    const int lane = threadIdx.x & 31;
+    next = lane < cols_in ? in[lane] : 0u;
+  }
+  // Before the step of diagonals d .. d + R - 1 (d a multiple of R).
+  __device__ __forceinline__ void begin(int d) {
+    if ((d & 31) == 0) {
+      pf = next;
+      const int j = d + 32 + (threadIdx.x & 31);
+      next = j < cols_in ? in[j] : 0u;
+    }
+  }
+  __device__ __forceinline__ uint32_t up(int d, int u, uint32_t up0) {
+    const uint32_t v = __shfl_sync(0xffffffffu, pf, (d & 31) + u);
+    return (threadIdx.x & 31) == 0 ? v : up0;
+  }
+  __device__ __forceinline__ void put(int u, uint32_t h) { q[u] = h; }
+  // After the step: thread 31 stores its columns below cols_out.
+  __device__ __forceinline__ void end(int d) {
+    const int j = d - (kW - 1);
+    if ((threadIdx.x & 31) == 31) {
+      if (j >= 0 && j + R <= cols_out) {
+#pragma unroll
+        for (int u = 0; u < R; ++u) out[j + u] = q[u];
+      } else {
+#pragma unroll
+        for (int u = 0; u < R; ++u)
+          if (j + u >= 0 && j + u < cols_out) out[j + u] = q[u];
+      }
+    }
+  }
+};
+
+template <class Ed>
+struct IsStripeEdge16x2 : std::false_type {};
+template <int L>
+struct IsStripeEdge16x2<StripeEdge16x2<L>> : std::true_type {};
+
 template <int L, class OnCell, class OnTile, class Ed = NoEdges>
 __device__ __forceinline__ void sweep_s16x2(const uint32_t (&rd2)[L],
                                             const uint32_t (&keep2)[L], int nd,
@@ -348,7 +432,8 @@ __device__ __forceinline__ void sweep_s16x2(const uint32_t (&rd2)[L],
                                             uint32_t gap2, uint32_t* ring,
                                             OnCell&& on_cell, OnTile&& on_tile,
                                             Ed edges = Ed{}) {
-  constexpr bool kEdges = !std::is_same<Ed, NoEdges>::value;
+  constexpr bool kStripeEdge = IsStripeEdge16x2<Ed>::value;
+  constexpr bool kEdges = !std::is_same<Ed, NoEdges>::value && !kStripeEdge;
   constexpr int R = kS16x2Unroll<L>;
   constexpr int T = kS16x2Tile<L>;
   constexpr bool kBytes = L > 8;      // window as bytes, four a register
@@ -415,6 +500,41 @@ __device__ __forceinline__ void sweep_s16x2(const uint32_t (&rd2)[L],
           }
           continue;
         }
+      }
+      if constexpr (kStripeEdge) {
+        // A stripe step (StripeEdge16x2): the plain step below with lane
+        // 0's N term from the stripe above and the last lane handed to
+        // the stripe below, written out apart for the reason the edge
+        // step is.  It repeats the plain step's recurrence: a change to
+        // one must be made in both, and chip_smoke.py [14] holds the
+        // striped kernels to the int32 ones.
+        edges.begin(d);
+#pragma unroll
+        for (int u = 0; u < R; ++u) {
+          const uint32_t col = at[u];
+          if (!kBytes) {
+            w[u % L] = col;
+          } else {
+#pragma unroll
+            for (int q = NW - 1; q > 0; --q) w[q] = __funnelshift_l(w[q - 1], w[q], 8);
+            w[0] = __byte_perm(w[0], col, 0x2104);
+          }
+          const uint32_t up0 = edges.up(d, u, __shfl_up_sync(0xffffffffu, H[L - 1], 1));
+#pragma unroll
+          for (int k = L - 1; k >= 0; --k) {
+            const uint32_t rw = kBytes ? __byte_perm(w[k / 4], 0x3C3C3C3Cu, 0x4040 + 0x0101 * (k % 4))
+                                       : w[((u - k) % L + L) % L];
+            const uint32_t up = (k > 0 ? H[k - 1] : up0) & keep2[k];
+            const uint32_t v = eq_unit16x2(rd2[k], rw) * k_sub + U[k];
+            const uint32_t h = __viaddmax_s16x2_relu(v, mismatch2, __vadd2(__vmaxs2(up, H[k]), gap2));
+            on_cell(k, (u & 1) != 0, h, H[k], d + u);
+            U[k] = up;
+            H[k] = h;
+          }
+          edges.put(u, H[L - 1]);
+        }
+        edges.end(d);
+        continue;
       }
 #pragma unroll
       for (int u = 0; u < R; ++u) {

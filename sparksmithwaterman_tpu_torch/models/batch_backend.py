@@ -261,11 +261,12 @@ class TorchBatchBackend:
         events: list = []
         cells = 0
         for pack in packs:
+            # The int32 form's carry sizes: an upper bound of the s16x2 form's.
             carry = carry_elems(pack["m_pack"], pack["rows"], 1) * lens_o
             for part in ref_chunks(pack["rows"] * pack["m_pack"], carry, _OUT_BUDGET):
                 lane = lane_best_packed_varlen(
                     pack["packed"], flat_t, lens_t[part], *self._params, offsets=offsets_t[part],
-                    carry_cols=int(lens_o[part].sum()),
+                    carry_cols=int(lens_o[part].sum()), longest=pack["longest"],
                 )
                 pending.append((order_t[part], packed_col_sums(lane, pack["start_idx"])))
                 self._mark(events)
@@ -300,6 +301,7 @@ class TorchBatchBackend:
             refs_enc = encode_batch([ref_seqs[i] for i in ref_idx], n_pad, REF_PAD)
             ref_bp = sum(len(ref_seqs[i]) for i in ref_idx)
             for m_pad, read_idx in read_groups:
+                # The int32 form's carry sizes: an upper bound of the s16x2 form's.
                 carry = carry_elems(reads_enc[m_pad].shape[1], len(read_idx), n_pad, row_form=self.kernel == "row")
                 for part in ref_chunks(len(read_idx), [carry] * len(ref_idx), _OUT_BUDGET):
                     idx_t = self._upload(np.asarray(ref_idx[part], np.int64))
@@ -356,6 +358,8 @@ class TorchBatchBackend:
             start_idx=self._upload(start_idx.astype(np.int64)),
             read_idx=list(idx),
             read_bp=sum(len(reads[i]) for i in idx),
+            # K1's bound on a segment's lanes (cuda_score.k1k4_form), on the host.
+            longest=max(1, max(len(reads[i]) for i in idx)),
         )
 
     # -- traceback ------------------------------------------------------------

@@ -123,7 +123,8 @@ def lib() -> ctypes.CDLL:
                 _VP, _I, _I,  # packed, rows, m
                 _VP, _VP, _VP, _I,  # refs, offsets, lens, c
                 _I, _I, _I,  # match, mismatch, gap
-                _VP, _I, _VP,  # out, device, stream
+                _VP, _VP, _VP, _I,  # out, carry, carry offsets, rows per launch
+                _I, _I, _VP,  # longest segment, device, stream
             ]
             handle.swt_argmax_lane.restype = _I
             handle.swt_argmax_lane.argtypes = [

@@ -60,6 +60,10 @@ by one rule (:func:`k1_form`): rows (reads) of at most ONE_PASS_LANES
 lanes whose scores provably fit int16 run two rows per warp in the 16-bit
 halves of each register, the recurrence in DPX instructions ("s16x2");
 every other row runs the int32 kernels, one pass or striped ("int32").
+K1 and K4 widen it to rows past ONE_PASS_LANES (:func:`k1k4_form`): a
+striped row whose longest segment scores fit int16 runs its pair of rows
+in stripes, the carry between stripes in 16-bit halves; K2, K5 and K8
+keep :func:`k1_form`, their striped rows int32.
 :data:`K1_FORMS`, :data:`K2_FORMS`, :data:`K4_FORMS`, :data:`K5_FORMS`
 and :data:`K8_FORMS` count the launches of each.  K3, whose left column
 adds to every cell, and K6 and K7, whose circular shift lets a value grow
@@ -74,7 +78,8 @@ back W - 1 columns, :func:`band_segments`).
 
 K1-K5 take rows (reads) of any width.  Up to :data:`ONE_PASS_LANES`
 lanes a warp sweeps a row in one pass; a wider row runs in stripes of
-:data:`STRIPE_LANES` lanes, top to bottom, each stripe's last lane handed
+:data:`STRIPE_LANES` lanes (:data:`STRIPE16_LANES` in K1's and K4's s16x2
+form), top to bottom, each stripe's last lane handed
 to the next through carry rows in a scratch buffer that the wrapper
 allocates (:func:`carry_elems`; K5 carries one column per read).  The
 scratch of one launch is held to :data:`CARRY_BUDGET`: a launch whose rows
@@ -140,10 +145,11 @@ K6_FORMS = {"s16x2": 0, "int32": 0}
 K7_FORMS = {"s16x2": 0, "int32": 0}
 
 # Widest row a warp sweeps in one pass (32 threads x 32 lanes); wider
-# rows run in stripes of STRIPE_LANES (csrc/wavefront.cuh kMaxLanes,
-# kStripe).
+# rows run in stripes of STRIPE_LANES, or STRIPE16_LANES in K1's and K4's
+# s16x2 form (csrc/wavefront.cuh kMaxLanes, kStripe, kStripe16L).
 ONE_PASS_LANES = 1024
 STRIPE_LANES = 512
+STRIPE16_LANES = 256
 # int32 elements of carry scratch one launch of K1-K5 allocates at most
 # (while a block of rows against one launch's references fits).
 CARRY_BUDGET = 1 << 28
@@ -197,28 +203,37 @@ def _launch_target(device: torch.device):
     return index, torch.cuda.current_stream(device).cuda_stream
 
 
-def carry_elems(m: int, rows: int, cols: int, *, row_form: bool = False) -> int:
+def carry_elems(m: int, rows: int, cols: int, *, row_form: bool = False, pair: bool = False) -> int:
     """int32 scratch that one reference of ``cols`` columns (or several of
     ``cols`` in all, in K1-K4) costs a launch of ``rows`` rows (reads) of
     ``m`` lanes, rows rounded up to the kernels' blocks of four: none up
     to ONE_PASS_LANES; two carry rows of ``cols`` per row in K1-K4; one
-    carried column of ``m`` per read in K5 (``row_form``)."""
+    carried column of ``m`` per read in K5 (``row_form``).  ``pair``: K1's
+    and K4's s16x2 form, two carry rows of ``cols`` 32-bit words (both
+    rows' 16-bit halves) per pair of rows, rows rounded up to its blocks
+    of eight; never more than the int32 form's, which the backends' chunk
+    plans keep as an upper bound."""
     if m <= ONE_PASS_LANES:
         return 0
-    rows = -(-rows // _BLOCK_ROWS) * _BLOCK_ROWS
-    return rows * m if row_form else 2 * rows * cols
+    block = 2 * _BLOCK_ROWS if pair else _BLOCK_ROWS
+    rows = -(-rows // block) * block
+    if row_form:
+        return rows * m
+    return rows * cols if pair else 2 * rows * cols
 
 
-def carry_rows(rows: int, elems: int) -> int:
+def carry_rows(rows: int, elems: int, *, pair: bool = False) -> int:
     """Rows (reads) per launch of a striped kernel whose carry scratch for
     all ``rows`` rows is ``elems`` int32 (:func:`carry_elems`): all of
-    them, rounded up to a block of four, when that fits CARRY_BUDGET;
-    else as many whole blocks as fit, and at least one block, so that a
-    launch takes more only when one block does (in K1-K4, references of
-    more than CARRY_BUDGET / 8 = 33.5 M columns in all)."""
-    blocks = -(-rows // _BLOCK_ROWS)
+    them, rounded up to a block of four (``pair``: eight), when that fits
+    CARRY_BUDGET; else as many whole blocks as fit, and at least one
+    block, so that a launch takes more only when one block does (in
+    K1-K4, references of more than CARRY_BUDGET / 8 = 33.5 M columns in
+    all)."""
+    block = 2 * _BLOCK_ROWS if pair else _BLOCK_ROWS
+    blocks = -(-rows // block)
     fit = CARRY_BUDGET // max(1, elems // max(1, blocks))
-    return _BLOCK_ROWS * max(1, min(blocks, fit))
+    return block * max(1, min(blocks, fit))
 
 
 def _check_form(what: str, forms: dict, form, rule: str) -> str:
@@ -239,18 +254,19 @@ def _check_stripes(what: str, m: int, mismatch: int, gap: int) -> None:
         )
 
 
-def _carry_rows(m: int, rows: int, cols: torch.Tensor, total):
+def _carry_rows(m: int, rows: int, cols: torch.Tensor, total, *, pair: bool = False):
     """(scratch, (C,) int64 offsets, rows per launch) of K1's or K3's
     carry rows for references of ``cols`` ((C,) tensor) columns, at most
     ``total`` of them in all (read from the card when None); (None, None,
-    0) for rows of at most ONE_PASS_LANES lanes."""
+    0) for rows of at most ONE_PASS_LANES lanes.  ``pair``: K1's s16x2
+    form (:func:`carry_elems`)."""
     if m <= ONE_PASS_LANES:
         return None, None, 0
     cols = cols.to(torch.int64)
     if total is None:
         total = int(cols.sum())
-    part = carry_rows(rows, carry_elems(m, rows, total))
-    per = carry_elems(m, part, 1)
+    part = carry_rows(rows, carry_elems(m, rows, total, pair=pair), pair=pair)
+    per = carry_elems(m, part, 1, pair=pair)
     offs = (torch.cumsum(cols, 0) - cols) * per
     return torch.empty(max(1, per * total), dtype=torch.int32, device=cols.device), offs, part
 
@@ -295,8 +311,34 @@ def k1_form(m: int, match: int, mismatch: int, gap: int) -> str:
     rows run in stripes, in int32).  ``ScoringScheme`` (match > 0,
     mismatch and gap < 0) meets the signs.
     """
-    fits = 0 <= match and match * m <= _INT16_MAX and _INT16_MIN <= min(mismatch, gap) and max(mismatch, gap) <= 0
-    return "s16x2" if fits and m <= ONE_PASS_LANES else "int32"
+    return "s16x2" if _fits_int16(m, match, mismatch, gap) and m <= ONE_PASS_LANES else "int32"
+
+
+def _fits_int16(lanes: int, match: int, mismatch: int, gap: int) -> bool:
+    return 0 <= match and match * lanes <= _INT16_MAX and _INT16_MIN <= min(mismatch, gap) and max(mismatch, gap) <= 0
+
+
+def k1k4_form(m: int, match: int, mismatch: int, gap: int, *, longest: int | None = None) -> str:
+    """The form K1 (packed rows of ``m`` lanes) and K4 (unpacked reads of
+    width ``m``) take: :func:`k1_form`'s up to ONE_PASS_LANES; a wider row,
+    which runs in stripes, takes ``"s16x2"`` (two rows a warp in 16-bit
+    halves, the stripe carry in both halves) where its scores fit int16
+    and mismatch < 0 and gap < 0 (the stripes' rule), else ``"int32"``.
+
+    The bound of :func:`k1_form` holds a segment at a time: a cell is at
+    most ``match`` x the lanes of its segment up to it.  So a wide row
+    fits where match x its longest segment <= 32767.  ``longest`` (K1: the
+    longest read of the pack, which the caller holds on the host) bounds
+    the segment; without it the row's width does.  Rows are power-of-two
+    wide, so a read of 4,097-6,553 bp sits in an 8,192-lane row that the
+    width alone would put in int32 at match 5.  For K4 ``m`` is the read
+    group's width, already its longest read.
+    """
+    if m <= ONE_PASS_LANES:
+        return k1_form(m, match, mismatch, gap)
+    lanes = m if longest is None else min(m, max(1, int(longest)))
+    fits = _fits_int16(lanes, match, mismatch, gap) and mismatch < 0 and gap < 0
+    return "s16x2" if fits else "int32"
 
 
 def segmented_suffix_max(x: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
@@ -362,7 +404,8 @@ def lane_best_packed_varlen_plain(packed, refs_u8, lens, match, mismatch, gap, o
     return segmented_suffix_max(best, start)
 
 
-def lane_best_packed_varlen(packed, refs_u8, lens, match, mismatch, gap, offsets=None, *, carry_cols=None):
+def lane_best_packed_varlen(packed, refs_u8, lens, match, mismatch, gap, offsets=None, *, carry_cols=None,
+                            longest=None):
     """(C, ROWS, M) int32 per-lane best of packed read rows against
     mixed-length references.
 
@@ -383,16 +426,24 @@ def lane_best_packed_varlen(packed, refs_u8, lens, match, mismatch, gap, offsets
     of rows wider than ONE_PASS_LANES sizes its carry scratch without a
     host sync.
 
-    K1's form follows from ``m`` and the scheme alone (:func:`k1_form`).
+    ``longest``: at least the lanes of the longest segment of ``packed``
+    (the longest read packed in it), given when the caller has it on the
+    host; a row wider than ONE_PASS_LANES then takes the 16-bit form
+    where match x longest fits int16, where its width alone may not.  A
+    value under the true longest segment is outside the contract.
+
+    K1's form follows from ``m``, ``longest`` and the scheme alone
+    (:func:`k1k4_form`).
     """
-    return _lane_best_packed_varlen(packed, refs_u8, lens, match, mismatch, gap, offsets, carry_cols=carry_cols)
+    return _lane_best_packed_varlen(packed, refs_u8, lens, match, mismatch, gap, offsets, carry_cols=carry_cols,
+                                    longest=longest)
 
 
 def _lane_best_packed_varlen(packed, refs_u8, lens, match, mismatch, gap, offsets=None, *, carry_cols=None,
-                             form=None):
+                             longest=None, form=None):
     """:func:`lane_best_packed_varlen` with K1's form given (``form=None``:
-    :func:`k1_form`'s), so that the two forms can be timed on the same
-    inputs; ``"s16x2"`` where k1_form says ``"int32"`` raises."""
+    :func:`k1k4_form`'s), so that the two forms can be timed on the same
+    inputs; ``"s16x2"`` where k1k4_form says ``"int32"`` raises."""
     device = _device_of(packed, refs_u8, lens, *(() if offsets is None else (offsets,)))
     if packed.dim() != 2 or packed.dtype != torch.int32:
         raise ValueError("packed must be a (ROWS, M) int32 tensor")
@@ -405,7 +456,8 @@ def _lane_best_packed_varlen(packed, refs_u8, lens, match, mismatch, gap, offset
         raise ValueError("lens must be a (C,) int32 tensor")
     match, mismatch, gap = int(match), int(mismatch), int(gap)
     rows, m = packed.shape
-    form = _check_form("K1", K1_FORMS, form, k1_form(m, match, mismatch, gap))
+    seg = m if longest is None else min(m, max(1, int(longest)))
+    form = _check_form("K1", K1_FORMS, form, k1k4_form(m, match, mismatch, gap, longest=seg))
     if device.type == "cpu":
         return lane_best_packed_varlen_plain(packed, refs_u8, lens, match, mismatch, gap, offsets)
     _check_stripes("lane_best_packed_varlen", m, mismatch, gap)
@@ -421,14 +473,17 @@ def _lane_best_packed_varlen(packed, refs_u8, lens, match, mismatch, gap, offset
     refs_u8 = refs_u8.contiguous()
     lens = lens.contiguous()
     offsets = offsets.contiguous()
+    carry, carry_offs, part = None, None, 0
+    if m > ONE_PASS_LANES:
+        carry, carry_offs, part = _carry_rows(m, rows, lens.clamp_min(0), carry_cols, pair=form == "s16x2")
     if form == "s16x2":
         rc = _cuda.lib().swt_lane_best_varlen_s16x2(
             packed.data_ptr(), rows, m,
             refs_u8.data_ptr(), offsets.data_ptr(), lens.data_ptr(), c,
-            match, mismatch, gap, out.data_ptr(), *_launch_target(device),
+            match, mismatch, gap, out.data_ptr(), _ptr(carry), _ptr(carry_offs), part, seg,
+            *_launch_target(device),
         )
     else:
-        carry, carry_offs, part = _carry_rows(m, rows, lens.clamp_min(0), carry_cols)
         rc = _cuda.lib().swt_lane_best_varlen(
             packed.data_ptr(), rows, m,
             refs_u8.data_ptr(), offsets.data_ptr(), lens.data_ptr(), c,
@@ -843,14 +898,16 @@ def _check_grid_inputs(what, reads_u8, refs_u8):
     return device
 
 
-def _carry_grid(m, r, c, n, row_form, device):
+def _carry_grid(m, r, c, n, row_form, device, pair=False):
     """(scratch or None, reads per launch) of an unpacked launch (K2, K4,
-    K5) of r reads of m positions against c references of n columns."""
-    elems = c * carry_elems(m, r, n, row_form=row_form)
+    K5; ``pair``: K4's s16x2 form) of r reads of m positions against c
+    references of n columns."""
+    elems = c * carry_elems(m, r, n, row_form=row_form, pair=pair)
     if not elems:
         return None, 0
-    part = carry_rows(r, elems)
-    return torch.empty(c * carry_elems(m, part, n, row_form=row_form), dtype=torch.int32, device=device), part
+    part = carry_rows(r, elems, pair=pair)
+    scratch = torch.empty(c * carry_elems(m, part, n, row_form=row_form, pair=pair), dtype=torch.int32, device=device)
+    return scratch, part
 
 
 def _launch_grid(entry, name, forms, form, reads_u8, refs_u8, match, mismatch, gap, segments=()):
@@ -868,7 +925,8 @@ def _launch_grid(entry, name, forms, form, reads_u8, refs_u8, match, mismatch, g
         return out.zero_()
     reads_u8 = reads_u8.contiguous()
     refs_u8 = refs_u8.contiguous()
-    carry, part = _carry_grid(m, r, c, n, name == "score_grid_row", reads_u8.device)
+    carry, part = _carry_grid(m, r, c, n, name == "score_grid_row", reads_u8.device,
+                              pair=name == "score_grid_diag" and form == "s16x2")
     rc = entry(
         reads_u8.data_ptr(), r, m, refs_u8.data_ptr(), c, n,
         match, mismatch, gap, out.data_ptr(), _ptr(carry), part, *segments, *_launch_target(reads_u8.device),
@@ -901,7 +959,7 @@ def score_grid_diag(reads_u8, refs_u8, match, mismatch, gap, *, state_dtype="aut
     REF_PAD-padded.  The contract of ``pallas_score_grid_diag`` and
     ``pallas_score_grid_diag_chunked``, with any R (no read block).
 
-    K4's form follows from M and the scheme alone (:func:`k1_form`, K1's
+    K4's form follows from M and the scheme alone (:func:`k1k4_form`, K1's
     rule): whenever every score provably fits int16 it keeps its DP state
     in 16-bit halves, two reads per warp ("s16x2"), which is what the JAX
     package meant ``state_dtype='int16'`` to be and could not run on its
@@ -920,11 +978,11 @@ def score_grid_diag(reads_u8, refs_u8, match, mismatch, gap, *, state_dtype="aut
 
 def _score_grid_diag(reads_u8, refs_u8, match, mismatch, gap, *, form=None):
     """:func:`score_grid_diag` with K4's form given (``form=None``:
-    :func:`k1_form`'s), so that the two forms can be timed on the same
-    inputs; ``"s16x2"`` where k1_form says ``"int32"`` raises."""
+    :func:`k1k4_form`'s), so that the two forms can be timed on the same
+    inputs; ``"s16x2"`` where k1k4_form says ``"int32"`` raises."""
     device = _check_grid_inputs("score_grid_diag", reads_u8, refs_u8)
     match, mismatch, gap = int(match), int(mismatch), int(gap)
-    form = _check_form("K4", K4_FORMS, form, k1_form(reads_u8.shape[1], match, mismatch, gap))
+    form = _check_form("K4", K4_FORMS, form, k1k4_form(reads_u8.shape[1], match, mismatch, gap))
     if device.type == "cpu":
         return score_grid_diag_plain(reads_u8, refs_u8, match, mismatch, gap)
     _check_stripes("score_grid_diag", reads_u8.shape[1], mismatch, gap)

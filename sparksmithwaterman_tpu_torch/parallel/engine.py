@@ -196,7 +196,8 @@ class ShardedBackend(TorchBatchBackend):
             np.cumsum(lens[:-1], out=offsets[1:])
             for i in range(self._dr):
                 dev = self.mesh.devices[j, i]
-                shares = [share for pack in packs if (share := self._row_share(pack, i, dev)) is not None]
+                shares = [(*share, pack["longest"]) for pack in packs
+                          if (share := self._row_share(pack, i, dev)) is not None]
                 jobs.append((
                     idx_t, lens, torch.from_numpy(flat).to(dev), torch.from_numpy(lens.astype(np.int32)).to(dev),
                     torch.from_numpy(offsets).to(dev), shares,
@@ -205,12 +206,12 @@ class ShardedBackend(TorchBatchBackend):
         events: list = []
         m_pack = packs[0]["m_pack"]
         for idx_t, lens, flat_t, lens_t, offsets_t, shares in jobs:
-            for packed, start in shares:
+            for packed, start, longest in shares:
                 rows = packed.shape[0]
-                carry = carry_elems(m_pack, rows, 1) * lens
+                carry = carry_elems(m_pack, rows, 1) * lens  # the int32 form's: an upper bound of the s16x2 form's
                 for sl in ref_chunks(rows * m_pack, carry, _OUT_BUDGET):
                     lane = lane_best_packed_varlen(packed, flat_t, lens_t[sl], *self._params, offsets=offsets_t[sl],
-                                                   carry_cols=int(lens[sl].sum()))
+                                                   carry_cols=int(lens[sl].sum()), longest=longest)
                     pending.append((idx_t[sl], packed_col_sums(lane, start)))
                     self._mark(events)
         cells = sum(pack["read_bp"] for pack in packs) * int(lens_all.sum())

@@ -40,6 +40,10 @@ shape (``K6_bench``: rows restarting at lane 0, the 16-bit form where the
 tree has it), and K7 in variant A; each also in its int32 form where the
 tree has the private entry that takes a form (``K6_int32``, which reads
 no lane 0 as the public wrapper does, ``K6_bench_int32``, ``K7_int32``).
+K1 and K4 at rows (reads) of 4,096 lanes, 64 reads of 500-4,096 bp x 64
+refs, run striped (``K1_wide``, ``K4_wide``: the form the rule picks;
+``K1_wide_int32``, ``K4_wide_int32`` where the tree has the striped
+16-bit form).
 """
 
 from __future__ import annotations
@@ -102,9 +106,13 @@ def _times(root: str) -> dict:
     if hasattr(cuda_score, "_lane_best_packed_varlen"):
         out["K1_int32"] = ms(lambda: cuda_score._lane_best_packed_varlen(*k1, *PARAMS, offsets=offs_t, form="int32"))
     # Rows of 4,096 lanes (64 reads of 500-4,096 bp) x 64 refs: striped.
-    wide = up(pack_reads(seqs(rng.integers(500, 4097, 64)), 4096)[0])
+    wide_reads = seqs(rng.integers(500, 4097, 64))
+    wide = up(pack_reads(wide_reads, 4096)[0])
     offs_w = offs_t[:64]
     out["K1_wide"] = ms(lambda: cuda_score.lane_best_packed_varlen(wide, k1[1], k1[2][:64], *PARAMS, offsets=offs_w), 3)
+    if hasattr(cuda_score, "k1k4_form"):  # a tree with K1's and K4's striped 16-bit form
+        out["K1_wide_int32"] = ms(lambda: cuda_score._lane_best_packed_varlen(wide, k1[1], k1[2][:64], *PARAMS,
+                                                                              offsets=offs_w, form="int32"), 3)
     reads_2 = up(encode_batch(seqs(rng.integers(80, 151, 2000)), 152, READ_PAD))
     ref_2_seq = seqs([2000])[0]
     ref_2 = up(encode_batch([ref_2_seq], 2000, REF_PAD))
@@ -125,6 +133,10 @@ def _times(root: str) -> dict:
     if hasattr(cuda_score, "_score_grid_diag"):
         out["K4_int32"] = ms(lambda: cuda_score._score_grid_diag(*grid, *PARAMS, form="int32"))
         out["K4_150_int32"] = ms(lambda: cuda_score._score_grid_diag(*grid_150, *PARAMS, form="int32"))
+    grid_wide = (up(encode_batch(wide_reads, 4096, READ_PAD)), grid[1])
+    out["K4_wide"] = ms(lambda: cuda_score.score_grid_diag(*grid_wide, *PARAMS), 3)
+    if hasattr(cuda_score, "k1k4_form"):
+        out["K4_wide_int32"] = ms(lambda: cuda_score._score_grid_diag(*grid_wide, *PARAMS, form="int32"), 3)
     out["K5"] = ms(lambda: cuda_score.score_grid_row(*grid, *PARAMS))
     out["K5_150"] = ms(lambda: cuda_score.score_grid_row(*grid_150, *PARAMS))
     grid_131k = (up(encode_batch(reads[:16], 152, READ_PAD)), up(encode_batch(seqs([131_072]), 131_072, REF_PAD)))

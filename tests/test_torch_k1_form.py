@@ -100,7 +100,7 @@ def test_no_public_function_takes_a_form():
         if fn.__module__ == cuda_score.__name__ and not name.startswith("_"):
             assert "form" not in inspect.signature(fn).parameters, name
     assert list(inspect.signature(cuda_score.lane_best_packed_varlen).parameters) == [
-        "packed", "refs_u8", "lens", "match", "mismatch", "gap", "offsets", "carry_cols",
+        "packed", "refs_u8", "lens", "match", "mismatch", "gap", "offsets", "carry_cols", "longest",
     ]
     assert "environ" not in inspect.getsource(cuda_score)
     # The private entry of the A/B refuses the s16x2 form where the rule does.

@@ -61,12 +61,15 @@ def _grid(reads, refs, m=None):
 )
 def test_k4_form_at_the_edges_of_its_rule(m, params, form):
     """The rule at K4's unpacked widths, and the private entry of the A/B
-    refusing the s16x2 form exactly where the rule says int32."""
+    refusing the s16x2 form exactly where K4's rule (k1k4_form: k1_form's,
+    widened to striped reads) says int32."""
     assert cuda_score.k1_form(m, *params) == form
+    k4_form = cuda_score.k1k4_form(m, *params)
+    assert k4_form == (form if m <= cuda_score.ONE_PASS_LANES else "s16x2")
     reads_t, refs_t = _grid(["ACGT"], ["ACGTT"], m)
     want = cuda_score.score_grid_diag_plain(reads_t, refs_t, *params)
     np.testing.assert_array_equal(cuda_score._score_grid_diag(reads_t, refs_t, *params, form="int32"), want)
-    if form == "s16x2":
+    if k4_form == "s16x2":
         np.testing.assert_array_equal(cuda_score._score_grid_diag(reads_t, refs_t, *params, form="s16x2"), want)
     else:
         with pytest.raises(ValueError):
