@@ -25,9 +25,10 @@ port's main path (``swtorch align --strategy batch``) end to end:
    (K4's) at L = 4, the bench's width; K1's and K4's striped s16x2 kernels
    (``lane_best_wide_s16x2_kernel``, ``score_grid_wide_s16x2_kernel``) run
    it and spill nothing, their stripe step's ALU instructions a cell beside
-   the int32 striped kernels'; and the one-pass s16x2 kernels that share
-   ``sweep_s16x2`` (K1, K2, K3, K4) have the parent tree's SASS
-   (``ONE_PASS_SASS``, compared where the toolkit is the one named there);
+   the int32 striped kernels'; and the s16x2 kernels that share
+   ``sweep_s16x2`` (K1, K2, K3, K4, and K1's and K4's striped ones) or the
+   row step (K5) have the parent trees' SASS (``KEPT_SASS``, compared where
+   the toolkit is the one named there);
 1. K1 (packed lane best) against its plain version, in both forms
    (``cuda_score.k1_form``): 512 reads x 256 RefSeq-shaped refs, every
    start lane, and the two forms timed on them in turns (int32, s16x2,
@@ -54,7 +55,7 @@ port's main path (``swtorch align --strategy batch``) end to end:
    131 kb split into column segments, as one segment and in the int32
    form, and at a capacity below the counts (the count exact, the slots
    distinct cells of the full listing); each form timed, and the listing
-   kernel and its finish alone from one profiler pass; the finish against
+   kernel and its finish alone by events (``entry_events``); the finish against
    its plain version on shuffled slots at capacity 1,024 and 5,000; ties
    planted around the borders of K8's column segments of a 131 kb ref,
    listed once in both forms; and
@@ -75,11 +76,11 @@ port's main path (``swtorch align --strategy batch``) end to end:
    output) on the 2 kb chunk and 512 reads x a 4 kb ref (a pair past
    capacity 64 and one of best 0 in each; the reference broadcast and per
    pair; both routes), each call's peak memory under the size of an H;
-   each timed by events and by the profiler against the plain version,
-   K9 then K10 as two launches (as the traceback ran them before) and
-   the bound, the public wrapper and its route given in turns (one
-   launch: the run fails if its four profiler readings spread by more
-   than 5%);
+   each timed by events around the wrapper and around its kernel's
+   launch alone (``entry_events``) against the plain version, K9 then K10
+   as two launches (as the traceback ran them before) and the bound, the
+   public wrapper and its route given in turns (one launch: the run fails
+   if their two medians differ by more than 5%);
 3. correctness leg: ``cli.main(["align", ...])`` on a ~1 Mbp RefSeq-shaped
    corpus with a 512-read input (full-fill traceback) and a 2,000-read
    input (windowed traceback through K2); each report's max score and
@@ -101,7 +102,7 @@ port's main path (``swtorch align --strategy batch``) end to end:
    the int32 kernel as one piece; one 1 Mb segment among 8 kb ones (256 reads) equal to
    the int32 kernel; at one segment, 131 kb and the mixed launch the
    public wrapper, the 16-bit form as one piece and the int32 form timed
-   in turns in one profiler pass;
+   in turns in one pass, each launch alone by events (``entry_events``);
 6. ``swtorch align --strategy shard_seq`` on a 16 Mbp corpus of 8 kb-1 Mb
    refs with 256 reads, on the default mesh (every card): its report
    equals ``--strategy batch``'s apart from the time line, its winners'
@@ -165,27 +166,36 @@ port's main path (``swtorch align --strategy batch``) end to end:
     lanes, swept in stripes of 512, against their plain versions (reads
     over every stripe, starting on stripe boundaries and crossing them;
     K3 with random left columns, and chained over 2 and 4 segments equal
-    to K1); every K1 and K4 call in ``cuda_score.k1k4_form``'s form, the
-    s16x2 striped form equal to the int32 one at 1,025-4,096 lanes and at
-    16,384 (K1 on reads of at most 6,553 bp, its longest given; K1 and K4
-    at match 1); at 2,048 lanes each again with a carry budget of 1, every
-    launch then run in parts of one block (four rows, eight in the s16x2
-    forms' pairs), equal to the one launch on every lane; K1 at 2,048
+    to K1; K5 against K4's plain version, its contract); every K1, K2 and
+    K4 call in ``cuda_score.k1k4_form``'s form and every K5 call in
+    ``cuda_score.k5_form``'s, the s16x2 wide form equal to the int32 one
+    at 1,025-4,096 lanes and at 16,384 (K1 on reads of at most 6,553 bp,
+    its longest given; K1, K2, K4 and K5 at match 1), K2's s16x2 form
+    equal to plain on every lane (its int32 form, and its equality with
+    it, on the traceback's lanes); at 2,048 lanes each again with a carry
+    budget of 1, every launch then run in parts of one block (four rows,
+    eight in the s16x2 forms' pairs, a pair in K2's), equal to the one
+    launch on every lane; K2's s16x2 form in column segments (reads of
+    1,025 and 2,048 positions against a 40 kb reference, which its plan
+    cuts) equal to plain on every lane and to the int32 form, at the
+    default carry budget and at 1; K1 at 2,048
     lanes against one 131,072 bp ref and the row-form recurrence; K8
     (int32 wide form) against its plain version on reads of 1,025-8,000 bp
-    and a repeat; each kernel's time at 4,096 lanes, K1's and K4's two
-    striped forms in turns by events (the s16x2 one must be the
+    and a repeat; each kernel's time at 4,096 lanes, K1's, K2's, K4's and
+    K5's two wide forms in turns by events (the s16x2 one must be the
     faster); then ``swtorch align`` with batch, wavefront, shard_refs,
     shard_reads and shard_seq, and ``run_pipeline`` with
     ``pack_reads=False`` and ``kernel='row'``, on 128 reads (8 of
     1,025-8,000 bp) x 64 refs: reports equal, the winners' totals equal
     the row-form recurrence, every site equal to the per-read
-    recomputation, every K1 and K4 launch in k1k4_form's form (K1 int32:
-    the 8,000 bp read's 8,192-lane rows); and ``swtorch align --strategy
-    batch`` and ``wavefront`` with ``pack_reads=False`` on the same reads
-    without the 8,000 bp one: K1's and K4's wide launches in s16x2, the
-    reports equal to the same runs with the rule giving int32 past 1,024
-    lanes;
+    recomputation, every K1, K2, K4 and K5 launch in its rule's form (K1
+    and K2 int32: the 8,000 bp read's 8,192-lane rows, every read padded
+    to it); and ``swtorch align --strategy batch``, ``wavefront`` with
+    ``pack_reads=False`` and ``kernel='row'`` on the same reads without
+    the 8,000 bp one (the batch run's winners through the windowed
+    traceback, so K2 pads every read to 6,000): K1's, K2's, K4's and K5's
+    wide launches in s16x2, the reports equal to the same runs with the
+    rules giving int32 past 1,024 lanes;
 15. the rest of the CLI, multi-host runs and the dry run: ``swtorch gen``
     writes the read_num, read_len and ref_len sweeps at ``--scale 1.0``
     and ref_num cut to ``--scale`` ``REF_NUM_SCALE`` (9 of its 28 dirs);
@@ -208,9 +218,9 @@ after it, K1's, K2's, K3's, K4's, K5's, K6's, K7's and K8's per form too
 takes the s16x2 form, every K1 launch of phases
 3-4, 7 and 13, every K2 launch of phases 3-4 and 13, every K4 launch of
 phases 9, 10 and 13, every K5 launch of phase 9 and every K6 launch of
-the bench's roofline leg must take the s16x2 form; in 14 every K1 and K4
-launch takes ``k1k4_form``'s form (the wide ones of the 6,000 bp corpus
-s16x2) and every K5 one at reads of more than 1,024 positions int32; K6
+the bench's roofline leg must take the s16x2 form; in 14 every K1, K2
+and K4 launch takes ``k1k4_form``'s form and every K5 launch
+``k5_form``'s (the wide ones of the 6,000 bp corpus s16x2); K6
 and K7 must launch in both forms over the legs.  The legs:
 phases 3-4 (batch; K1
 and K2 must launch, and the traceback through ``fill_list`` or
@@ -220,7 +230,7 @@ and K2 must launch, and the traceback through ``fill_list`` or
 K5), 10 (scaling; K4), each bench leg of 13 (K4 on the kernel leg, K1 on
 the path legs, K2 in s16x2 on the long-ref leg, K6 on the roofline leg), each
 experiment (K6, K7), the long-read paths of 14 (K1-K5, the traceback as
-in 3-4) and its two runs on the 6,000 bp corpus (K1, K4), and in 15 ``swtorch bench`` (K1, the traceback as in 3-4), each
+in 3-4) and its three runs on the 6,000 bp corpus (K1, K2, K4, K5), and in 15 ``swtorch bench`` (K1, the traceback as in 3-4), each
 ``swtorch diff`` (K1; K3 against shard_seq), each process's two runs of
 the multi-host leg (read from its output) and the dry run (K4); over all legs both ``fill_list`` and ``fill_walk`` must launch.
 A kernel's ``launches`` in the summary is its sum over those legs.
@@ -237,8 +247,10 @@ planes and its bytes the codes (and H) it writes; K10 does no DP cell,
 its bytes the cells, a byte per step and its outputs.  ``fill_list``
 counts every cell of its planes and its inputs and five outputs;
 ``fill_walk`` each window's cells down to its cell's row and its inputs,
-begins and codes; their ``ms`` is the kernel alone (the profiler), their
-``wrapper_ms`` the wrapper's by events.  No single PyTorch call computes
+begins and codes; their ``ms`` is the kernel alone (events around its C
+entry's launch, ``entry_events``), their ``wrapper_ms`` the wrapper's by
+events.  The script reads no ``torch.profiler`` record: a run can lose
+them at random (ROADMAP F10).  No single PyTorch call computes
 any of the twelve functions, so ``library_ms`` is null.  Any failure raises and exits non-zero.  The second-to-last line
 is the kernels' JSON summary; the last line is ``{"ok": true,
 "device": {...}}``.
@@ -246,6 +258,7 @@ is the kernels' JSON summary; the last line is ``{"ok": true,
 
 from __future__ import annotations
 
+import bisect
 import collections
 import contextlib
 import dataclasses
@@ -337,16 +350,24 @@ REF_NUM_SCALE = 0.33
 # L = kStripeL).
 WIDE_KERNELS = ("lane_best_wide_kernel", "lane_best_wide_s16x2_kernel", "score_grid_wide_kernel",
                 "score_grid_wide_s16x2_kernel")
-# The one-pass s16x2 kernels that share sweep_s16x2, as the parent tree
-# (the commit before the striped s16x2 forms) builds them: sass_digests'
-# {kernel: (functions, digest)} and the toolkit that built them.
-ONE_PASS_SASS = {
+# K5's and K2's 16-bit kernels for reads wider than one pass.
+WIDE16_ROW_ARGMAX = ("score_row_wide_s16x2_kernel", "argmax_wide_s16x2_kernel")
+# The s16x2 kernels that share sweep_s16x2 (K1-K4's one-pass kernels,
+# K1's and K4's striped ones) or the row step (K5's one-pass kernel), as
+# the commit before the striped s16x2 forms built the one-pass K1-K4
+# kernels and the commit before K2's and K5's wide forms built the rest:
+# sass_digests' {kernel: (functions, digest)} and the toolkit that built
+# them.
+KEPT_SASS = {
     "nvcc": "Build cuda_12.9.r12.9/compiler.36037853_0",
     "kernels": {
         "argmax_s16x2_kernel": (12, "ea1d0a0c79ea822e"),
         "band_s16x2_kernel": (12, "83f84d8dcd7ef9cc"),
         "lane_best_s16x2_kernel": (12, "55a50e233ea8841a"),
         "score_grid_s16x2_kernel": (12, "7c63227b398f92a7"),
+        "score_row_s16x2_kernel": (1, "fafdfdb02684b75d"),
+        "lane_best_wide_s16x2_kernel": (1, "4657a8262741f800"),
+        "score_grid_wide_s16x2_kernel": (1, "921cd39e73354478"),
     },
 }
 
@@ -414,9 +435,10 @@ def inner_loop_alu(instrs):
     """The ALU opcodes of a sweep's inner loop: the innermost backward
     branch whose body clamps at 0 (a ``.RELU`` instruction); memory,
     control and move instructions not counted."""
+    relu = [addr for addr, op, _ in instrs if op.endswith(".RELU")]  # in address order
     loops = [(target, addr) for addr, op, target in instrs
              if target is not None and target <= addr
-             and any(op2.endswith(".RELU") for a2, op2, _ in instrs if target <= a2 <= addr)]
+             and bisect.bisect_left(relu, target) < bisect.bisect_right(relu, addr)]
     fail_unless(loops, "no inner loop with a clamp at 0 in the SASS")
     lo, hi = min(loops, key=lambda loop: loop[1] - loop[0])
     return [op for a, op, _ in instrs if lo <= a <= hi and not op.startswith(_NOT_ALU)]
@@ -498,6 +520,44 @@ def in_turns(fn, iters: int):
     for form in ("int32", "s16x2", "s16x2", "int32"):
         turns[form].append(cuda_ms(lambda: fn(form), iters))
     return turns, outs
+
+
+# Clock cycles of the spin kernel that entry_events puts before each timed
+# launch (about 50 us on an H100, more than the host takes to launch).
+SPIN_CYCLES = 100_000
+
+
+@contextlib.contextmanager
+def entry_events(lib, names):
+    """Times every call of the kernel library's C entries ``names`` made
+    inside the block by CUDA events around the call, after a spin kernel
+    (``torch.cuda._sleep``) that keeps the card busy while the host makes
+    the launch, so that the two events hold the launch alone: not the
+    wrapper's allocations, zeroing or host syncs, and not the host's time.
+    Yields the list to which each call appends (entry, start, end)."""
+    import torch
+
+    log = []
+    saved = {name: getattr(lib, name) for name in names}
+
+    def bracketed(name, entry):
+        def call(*args):
+            torch.cuda._sleep(SPIN_CYCLES)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            rc = entry(*args)
+            end.record()
+            log.append((name, start, end))
+            return rc
+        return call
+
+    for name, entry in saved.items():
+        setattr(lib, name, bracketed(name, entry))
+    try:
+        yield log
+    finally:
+        for name, entry in saved.items():
+            setattr(lib, name, entry)
 
 
 def register_summary(ptxas_log: str):
@@ -659,22 +719,45 @@ def main() -> int:
     print(f"[0] K1 and K4 striped SASS: lane_best_wide_s16x2_kernel and score_grid_wide_s16x2_kernel run "
           f"{relu_ops[0]} and spill nothing; registers and ALU instructions per cell of the stripe step: "
           + ", ".join(f"{k} {wide_regs[k][0]} {wide_cell[k]:.3f}" for k in WIDE_KERNELS), flush=True)
-    # The one-pass s16x2 kernels that share sweep_s16x2 (K1, K2, K3, K4):
-    # their SASS against the parent tree's (ONE_PASS_SASS, built by the
-    # toolkit it names), so the stripe step added to sweep_s16x2 is shown
-    # to leave their code, and so their instructions per cell, as it was.
+    # K5's and K2's wide s16x2 kernels: the DPX instruction, no spill, and
+    # the ALU instructions a cell of their inner loops (K5's row loop as
+    # its one-pass kernel's below, with an eighth shuffle a row that hands
+    # the row's last column to lane 0; K2's stripe step, two cells a
+    # register).
+    wide16 = {}
+    for fname, instrs in lib_sass.items():
+        kernel = kernel_identifier(fname)
+        if kernel in WIDE16_ROW_ARGMAX:
+            fail_unless(relu_ops[0] in {op for _, op, _ in instrs}, f"{kernel} lacks {relu_ops[0]}")
+            loop = inner_loop_alu(instrs)
+            wide16[kernel] = (len(loop) / (32 * sum(op.startswith("SHFL") for op in loop) / 8) if "row" in kernel
+                              else len(loop) / (2 * max(1, sum(op.startswith("HSET2") for op in loop))))
+    wide16_regs = {k: register_summary(_cuda.build_info["log"]).get(k, []) for k in WIDE16_ROW_ARGMAX}
+    fail_unless(sorted(wide16) == sorted(WIDE16_ROW_ARGMAX)
+                and all(len(w) == 1 and "s" not in w[0].split(":")[-1] for w in wide16_regs.values()),
+                f"K5's and K2's wide s16x2 kernels: {sorted(wide16)}, {wide16_regs}")
+    print(f"[0] K5 and K2 wide s16x2 SASS: score_row_wide_s16x2_kernel and argmax_wide_s16x2_kernel run "
+          f"{relu_ops[0]} and spill nothing; registers and ALU instructions per cell of the inner loop: "
+          + ", ".join(f"{k} {wide16_regs[k][0]} {wide16[k]:.3f}" for k in WIDE16_ROW_ARGMAX), flush=True)
+    # The s16x2 kernels that share sweep_s16x2 (K1-K4's one-pass kernels,
+    # K1's and K4's striped ones) or the row step (K5's one-pass kernel):
+    # their SASS against the parent trees' (KEPT_SASS, built by the toolkit
+    # it names), so the wide forms added beside them, and the pipelined
+    # stripe step K2's striped kernel gave sweep_s16x2, are shown to leave
+    # their code, and so their instructions per cell, as it was.
     nvcc_version = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
                                   check=True).stdout.strip().splitlines()[-1]
-    one_pass = sass_digests(os.path.join(os.path.dirname(nvcc), "cuobjdump"), _cuda.build_info["path"],
-                            r"(lane_best|argmax|band|score_grid)_s16x2_kernel")
-    if nvcc_version == ONE_PASS_SASS["nvcc"]:
-        fail_unless(one_pass == ONE_PASS_SASS["kernels"],
-                    f"the one-pass s16x2 kernels' SASS changed: {one_pass} against {ONE_PASS_SASS['kernels']}")
-        print(f"[0] one-pass s16x2 SASS unchanged from the parent tree ({nvcc_version}): "
-              + ", ".join(f"{k} {n} functions {d}" for k, (n, d) in sorted(one_pass.items())), flush=True)
+    kept = sass_digests(os.path.join(os.path.dirname(nvcc), "cuobjdump"), _cuda.build_info["path"],
+                        r"(lane_best|argmax|band|score_grid|score_row)_s16x2_kernel"
+                        r"|(lane_best|score_grid)_wide_s16x2_kernel")
+    if nvcc_version == KEPT_SASS["nvcc"]:
+        fail_unless(kept == KEPT_SASS["kernels"],
+                    f"the s16x2 kernels' SASS changed: {kept} against {KEPT_SASS['kernels']}")
+        print(f"[0] s16x2 SASS unchanged from the parent trees ({nvcc_version}): "
+              + ", ".join(f"{k} {n} functions {d}" for k, (n, d) in sorted(kept.items())), flush=True)
     else:
-        print(f"[0] one-pass s16x2 SASS not compared: {nvcc_version}, the parent's digests are of "
-              f"{ONE_PASS_SASS['nvcc']}; now " + ", ".join(f"{k} {d}" for k, (_, d) in sorted(one_pass.items())),
+        print(f"[0] s16x2 SASS not compared: {nvcc_version}, the parents' digests are of "
+              f"{KEPT_SASS['nvcc']}; now " + ", ".join(f"{k} {d}" for k, (_, d) in sorted(kept.items())),
               flush=True)
     # K5's s16x2 form, one kernel: its row loop holds a row of 16 registers
     # of two cells a thread, and each row takes seven shuffles (the NW
@@ -1141,20 +1224,21 @@ def main() -> int:
     k8_ms = cuda_ms(lambda: cuda_score.max_cells_row(reads_8, ref_8, best_8, *PARAMS, 1024), 10)
     k8_int32_ms = cuda_ms(lambda: cuda_score._max_cells_row(reads_8, ref_8, best_8, *PARAMS, 1024, form="int32"), 10)
     k8_plan = cuda_score.max_cells_segments(reads_8.shape[1], ref_8.numel(), *PARAMS, -(-len(best_8) // 8), sms)
-    # The listing's kernel and its finish alone, from one profiler pass over
-    # the wrapper (the wrapper's time above also holds the count's zeroing
-    # and the host's launches).
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    # The listing's kernel and its finish alone, the medians of 10 calls of
+    # the wrapper, each launch timed by events around its C entry (the
+    # wrapper's time above also holds the count's zeroing and the host's
+    # launches).
+    with entry_events(_cuda.lib(), ("swt_max_cells_row_s16x2", "swt_max_cells_finish")) as log:
         for _ in range(10):
             cuda_score.max_cells_row(reads_8, ref_8, best_8, *PARAMS, 1024)
         torch.cuda.synchronize()
-    k8_device = collections.defaultdict(float)
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            k8_device[e.name] += e.time_range.elapsed_us() / 10 / 1e3
-    k8_kernel_ms = sum(v for k, v in k8_device.items() if "max_cells_s16x2_kernel" in k)
-    k8_finish_ms = sum(v for k, v in k8_device.items() if "max_cells_finish_kernel" in k)
-    fail_unless(k8_kernel_ms > 0 and k8_finish_ms > 0, f"the profiler saw no K8 kernel: {dict(k8_device)}")
+    k8_device = collections.defaultdict(list)
+    for name, start, end in log:
+        k8_device[name].append(start.elapsed_time(end))
+    fail_unless([len(k8_device[k]) for k in ("swt_max_cells_row_s16x2", "swt_max_cells_finish")] == [10, 10],
+                f"10 calls of K8's wrapper made { {k: len(v) for k, v in k8_device.items()} } launches")
+    k8_kernel_ms = float(np.median(k8_device["swt_max_cells_row_s16x2"]))
+    k8_finish_ms = float(np.median(k8_device["swt_max_cells_finish"]))
     # The finish against its plain version: each read's cells of the plain
     # listing shuffled into its slots (-1 past them), and at a capacity past
     # the finish's shared memory (4,500 random cells of a 150 x 131,072 plane
@@ -1186,7 +1270,7 @@ def main() -> int:
           f"2 ({k8_over} reads past it) the counts and distinct cells of the listing; in {k8_plan} segments "
           f"(stride, length, skip) and as one; the finish equal to its plain version at capacity 1,024 and 5,000; "
           f"s16x2 {k8_ms:.3f} ms (of it the listing kernel {k8_kernel_ms:.4f} ms and the finish {k8_finish_ms:.4f} "
-          f"ms, profiler), int32 {k8_int32_ms:.3f} ms, plain {k8_plain_ms:.1f} ms; bound {k8_bound_ms:.3f} ms by "
+          f"ms, events), int32 {k8_int32_ms:.3f} ms, plain {k8_plain_ms:.1f} ms; bound {k8_bound_ms:.3f} ms by "
           f"{k8_bound_by} = {100 * k8_bound_ms / k8_ms:.1f}% of the wrapper's time", flush=True)
     reads_8l, best_8l, bp_8l = tied(args_2l, reads_l)
     ref_8l = args_2l[1][0]
@@ -1385,50 +1469,39 @@ def main() -> int:
     def nbytes(*tensors):
         return sum(t.numel() * t.element_size() for t in tensors)
 
-    def device_ms(fns, iters, kernel="fill_walk"):
-        """Device ms of each of fns' one ``kernel`` launch: the median over
-        iters calls each, made in turns (fns[0], fns[1], ..., fns[0], ...)
-        in one profiler pass after 100 ms of such turns that warm the
-        clocks (a round at a time, so that the host does not queue more
-        rounds than the card runs in that time), so a change of the
-        card's clock during the pass falls on every fn alike (the
-        wrapper's event time also holds its allocations, its zeroing and
-        the host's launch).  In the pass a
-        lead-in round comes first, then a marker kernel (``spin_kernel``,
-        ``torch.cuda._sleep``), then the timed rounds: the kernels are
-        read in stream order after the marker, and a pass that does not
-        hold the marker and exactly one such kernel a timed call after it
-        is taken again, at most twice."""
+    def device_ms(fns, iters, entries=("swt_fill_walk", "swt_fill_list")):
+        """Device ms of each of fns' one launch of a C entry of
+        ``entries``: the median over iters calls each, made in turns
+        (fns[0], fns[1], ..., fns[0], ...) in one pass after 100 ms of
+        such turns that warm the clocks (a round at a time, so that the
+        host does not queue more rounds than the card runs in that time),
+        so a change of the card's clock during the pass falls on every fn
+        alike; each launch timed alone by events around its entry
+        (:func:`entry_events`; the wrapper's event time also holds its
+        allocations, its zeroing and the host's launch).  Fails unless
+        every timed call made exactly one such launch."""
         t = time.perf_counter()
         while time.perf_counter() - t < 0.1:
             for fn in fns:
                 fn()
             torch.cuda.synchronize()
-        seen = []
-        for _ in range(3):
-            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                for fn in fns:  # the lead-in round: a kernel the profiler misses as it starts falls here
+        timed = [[] for _ in fns]
+        with entry_events(_cuda.lib(), entries) as log:
+            for _ in range(iters):
+                for fn, ms in zip(fns, timed):
+                    before = len(log)
                     fn()
-                torch.cuda._sleep(1000)
-                for _ in range(iters):
-                    for fn in fns:
-                        fn()
+                    fail_unless(len(log) == before + 1, f"a timed call launched {entries} {len(log) - before} times")
+                    ms.append(log[-1])
                 torch.cuda.synchronize()
-            ev = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
-                        key=lambda e: e.time_range.start)
-            marks = [i for i, e in enumerate(ev) if "spin_kernel" in e.name]
-            us = [e.time_range.elapsed_us() for e in ev[marks[-1] + 1:] if kernel in e.name] if marks else []
-            if len(us) == iters * len(fns):
-                return [float(np.median(us[i::len(fns)])) / 1e3 for i in range(len(fns))]
-            seen.append((len(marks), len(us)))
-        fail_unless(False, f"the profiler saw (markers, {kernel} kernels after the last) {seen} in three passes of "
-                           f"{iters} x {len(fns)} timed calls")
+        return [float(np.median([start.elapsed_time(end) for _, start, end in ms])) for ms in timed]
 
     def launch_turns(calls, same, iters):
-        """({key: (wrapper ms by events, kernel ms by the profiler)} of each
-        of calls; the spread of ``same``'s).  The two keys of ``same`` make
-        one launch (the public wrapper, and its route given): their kernels
-        are timed in turns in one profiler pass (:func:`device_ms`), and
+        """({key: (wrapper ms by events, kernel ms by events around its
+        launch)} of each of calls; the spread of ``same``'s).  The two keys
+        of ``same`` make one launch (the public wrapper, and its route
+        given): their kernels are timed in turns in one pass
+        (:func:`device_ms`), and
         the script fails if their two medians differ (max / min - 1) by
         more than 5%."""
         kernel = dict(zip(same, device_ms([calls[key] for key in same], iters)))
@@ -1436,7 +1509,7 @@ def main() -> int:
             if key not in kernel:
                 kernel[key] = device_ms([calls[key]], iters)[0]
         spread = max(kernel[key] for key in same) / min(kernel[key] for key in same) - 1
-        fail_unless(spread <= 0.05, f"one launch read {[round(kernel[key], 4) for key in same]} ms by the profiler "
+        fail_unless(spread <= 0.05, f"one launch read {[round(kernel[key], 4) for key in same]} ms by events "
                                     f"({same})")
         return {key: (cuda_ms(calls[key], iters), kernel[key]) for key in calls}, spread
 
@@ -1777,13 +1850,13 @@ def main() -> int:
         def k3_turns(args, iters):
             """Kernel ms of the public wrapper (as the ring calls it, the
             columns given), the 16-bit form as one piece and the int32 form
-            as one piece, in turns in one profiler pass (device_ms)."""
+            as one piece, in turns in one pass (device_ms)."""
             cols = int(args[4].clamp_min(1).sum())
             return dict(zip(("public", "unsplit", "int32"), device_ms([
                 lambda: cuda_score.band_lane_best(*args, carry_cols=cols),
                 lambda: cuda_score._band_lane_best(*args, form="s16x2", split=False),
                 lambda: cuda_score._band_lane_best(*args, form="int32", split=False),
-            ], iters, kernel="band_")))
+            ], iters, entries=("swt_band_lane_best", "swt_band_lane_best_s16x2"))))
 
         def k3_bound(reads, args):
             nbytes = sum(t.numel() * t.element_size() for t in args[:6]) + 2 * args[5].numel() * 4
@@ -2489,18 +2562,18 @@ def main() -> int:
 
         # -- 14. long reads: K1-K5 on rows wider than 1,024 lanes (stripes) ---------
         t14 = time.perf_counter()
-        forms_14 = dict(cuda_score.K1_FORMS)
-        k4_forms_14 = dict(cuda_score.K4_FORMS)
-        k5_forms_14 = dict(cuda_score.K5_FORMS)
+        forms_14 = {k: dict(getattr(cuda_score, f"{k}_FORMS")) for k in ("K1", "K2", "K4", "K5")}
         genome = rand_seqs(rng, [40_000])[0]
 
-        def piece(n):
+        def piece(n, g=None):
             """A slice of n bp of the genome with about one base in 30
-            changed, so reads score high against refs cut from it."""
-            o = int(rng.integers(0, len(genome) - int(n) + 1))
+            changed, so reads score high against refs cut from it (drawn
+            from ``g``, by default the script's generator)."""
+            g = rng if g is None else g
+            o = int(g.integers(0, len(genome) - int(n) + 1))
             arr = np.frombuffer(genome[o : o + int(n)].encode(), np.uint8).copy()
-            hit = rng.random(arr.size) < 1 / 30
-            arr[hit] = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, int(hit.sum()))]
+            hit = g.random(arr.size) < 1 / 30
+            arr[hit] = np.frombuffer(b"ACGT", np.uint8)[g.integers(0, 4, int(hit.sum()))]
             return arr.tobytes().decode()
 
         def lay(rows, m):
@@ -2566,14 +2639,15 @@ def main() -> int:
 
         widths = (1025, 2048, 4096, 16384)
         wide_err = dict.fromkeys(("K1", "K2", "K3", "K4", "K5"), 0)
-        # K1's and K4's s16x2 striped form against the int32 one: max abs
-        # err, and the widths at which it was held to it.
-        s16_vs_int32 = {"K1": [0, []], "K4": [0, []]}
+        # K1's, K2's, K4's and K5's s16x2 wide form against the int32 one:
+        # max abs err (K2 on the traceback's lanes), and the widths at which
+        # it was held to it.
+        s16_vs_int32 = {k: [0, []] for k in ("K1", "K2", "K4", "K5")}
 
         def formed(k, fn, want_form):
-            """fn()'s result, failing unless its K1 or K4 launches all took
-            want_form (k1k4_form's)."""
-            counts = cuda_score.K1_FORMS if k == "K1" else cuda_score.K4_FORMS
+            """fn()'s result, failing unless its launches of kernel k (K1,
+            K2, K4 or K5) all took want_form (k1k4_form's or k5_form's)."""
+            counts = getattr(cuda_score, f"{k}_FORMS")
             before = dict(counts)
             out = fn()
             took = {form: n - before[form] for form, n in counts.items() if n != before[form]}
@@ -2581,7 +2655,9 @@ def main() -> int:
             return out
 
         def held_to_int32(k, m, got, int32_fn):
-            s16_vs_int32[k][0] = max(s16_vs_int32[k][0], max_err(got, int32_fn()))
+            want = int32_fn()
+            err = consumed_err(got, want, f"{m} lanes, int32") if k == "K2" else max_err(got, want)
+            s16_vs_int32[k][0] = max(s16_vs_int32[k][0], err)
             s16_vs_int32[k][1].append(m)
             fail_unless(s16_vs_int32[k][0] == 0, f"{k}'s s16x2 striped form differs from its int32 form at {m} lanes")
 
@@ -2612,8 +2688,14 @@ def main() -> int:
                             f"{segs} chained K3 segments differ from K1 at {m} lanes")
             reads_g = [piece(m), piece(m - 1), piece(600), piece(1), piece(513), piece(min(m, 1100)), piece(m - 512), ""]
             args_2w = k2_grid(reads_g, refs_w[0])
-            err = consumed_err(cuda_score.argmax_lane(*args_2w, *PARAMS),
-                               cuda_score.argmax_lane_plain(*args_2w, *PARAMS), f"{m} lanes")
+            k2_form_m = cuda_score.k1k4_form(args_2w[0].shape[1], *PARAMS)
+            got = formed("K2", lambda: cuda_score.argmax_lane(*args_2w, *PARAMS), k2_form_m)
+            want = cuda_score.argmax_lane_plain(*args_2w, *PARAMS)
+            if k2_form_m == "s16x2":  # every lane, pad rows and the columns right of the reference too
+                err = max(max_err(a, b) for a, b in zip(got, want))
+                held_to_int32("K2", m, got, lambda: cuda_score._argmax_lane(*args_2w, *PARAMS, form="int32"))
+            else:
+                err = consumed_err(got, want, f"{m} lanes")
             wide_err["K2"] = max(wide_err["K2"], err)
             args_g = grid_args(reads_g, refs_w, m)
             want_g = cuda_score.score_grid_diag_plain(*args_g, *PARAMS)
@@ -2643,9 +2725,21 @@ def main() -> int:
                 held_to_int32("K1", m, got, lambda: read_best(cuda_score._lane_best_packed_varlen(
                     *k1_w_args(packed_t), *params_1, offsets=offs_w, form="int32"), start))
                 got = formed("K4", lambda: cuda_score.score_grid_diag(*args_g, *params_1), "s16x2")
-                wide_err["K4"] = max(wide_err["K4"], max_err(got, cuda_score.score_grid_diag_plain(*args_g, *params_1)))
+                want_1 = cuda_score.score_grid_diag_plain(*args_g, *params_1)
+                wide_err["K4"] = max(wide_err["K4"], max_err(got, want_1))
                 held_to_int32("K4", m, got, lambda: cuda_score._score_grid_diag(*args_g, *params_1, form="int32"))
-            wide_err["K5"] = max(wide_err["K5"], max_err(cuda_score.score_grid_row(*args_g, *PARAMS), score_grid(*args_g, *PARAMS)))
+                # K5 at match 1 against K4's plain version (K5's contract is
+                # K4's) and its int32 form; K2 against its int32 form.
+                got = formed("K5", lambda: cuda_score.score_grid_row(*args_g, *params_1), "s16x2")
+                wide_err["K5"] = max(wide_err["K5"], max_err(got, want_1))
+                held_to_int32("K5", m, got, lambda: cuda_score._score_grid_row(*args_g, *params_1, form="int32"))
+                got = formed("K2", lambda: cuda_score.argmax_lane(*args_2w, *params_1), "s16x2")
+                held_to_int32("K2", m, got, lambda: cuda_score._argmax_lane(*args_2w, *params_1, form="int32"))
+            k5_form_m = cuda_score.k5_form(m, *PARAMS)
+            got = formed("K5", lambda: cuda_score.score_grid_row(*args_g, *PARAMS), k5_form_m)
+            wide_err["K5"] = max(wide_err["K5"], max_err(got, want_g))
+            if k5_form_m == "s16x2":
+                held_to_int32("K5", m, got, lambda: cuda_score._score_grid_row(*args_g, *PARAMS, form="int32"))
             fail_unless(not any(wide_err.values()), f"a striped kernel differs from its plain version at {m} lanes: {wide_err}")
             if m <= 4096 or m == 16384:  # K8's wide form on the same reads (to 8,000 bp) and a repeat
                 m8 = min(m, 8000)
@@ -2673,8 +2767,10 @@ def main() -> int:
                     "K3": lambda: cuda_score.band_lane_best(packed_t, flat_w, offs_w, lens_w_t, lens_w_t.clamp_min(1),
                                                             bnd_w, *PARAMS),
                     "K2": lambda: cuda_score.argmax_lane(*args_2w, *PARAMS),
+                    "K2 int32": lambda: cuda_score._argmax_lane(*args_2w, *PARAMS, form="int32"),
                     "K4": lambda: cuda_score.score_grid_diag(*args_g, *PARAMS),
-                    "K5": lambda: cuda_score.score_grid_row(*args_g, *PARAMS),
+                    "K5 (24 reads)": lambda: cuda_score.score_grid_row(*args_g3, *PARAMS),
+                    "K5 int32 (24 reads)": lambda: cuda_score._score_grid_row(*args_g3, *PARAMS, form="int32"),
                 }
                 whole = {k: fn() for k, fn in calls.items()}
                 budget, cuda_score.CARRY_BUDGET = cuda_score.CARRY_BUDGET, 1
@@ -2686,21 +2782,58 @@ def main() -> int:
                     a, b = whole[k], split[k]
                     fail_unless(all(torch.equal(x, y) for x, y in zip(*((a, b) if isinstance(a, tuple) else ((a,), (b,))))),
                                 f"{k} with its rows split over launches differs from one launch at {m} lanes")
-                split_parts = (packed.shape[0] // 4, len(reads_g) // 4, 3 * packed.shape[0] // 8, 3 * len(reads_g) // 8)
+                split_parts = (packed.shape[0] // 4, len(reads_g) // 4, 3 * packed.shape[0] // 8, 3 * len(reads_g) // 8,
+                               len(reads_g) // 2)
         print(f"[14] K1-K5 at rows (reads) of {', '.join(map(str, widths))} lanes, stripes of {cuda_score.STRIPE_LANES} "
               f"(s16x2: {cuda_score.STRIPE16_LANES}): "
               f"max abs err {wide_err} against the plain versions (K1, K3 at every start lane, K3 at every bnd_out lane "
-              f"with a random left column; K2 on the traceback's lanes; K4, K5 every pair, K5 against the row-form "
-              f"recurrence); every K1 and K4 call in k1k4_form's form, the s16x2 striped form equal to the int32 one "
-              f"(max abs err K1 {s16_vs_int32['K1'][0]} at {s16_vs_int32['K1'][1]} lanes, K4 "
-              f"{s16_vs_int32['K4'][0]} at {s16_vs_int32['K4'][1]}; at 16,384 K1 on reads of at most 6,553 bp and "
-              f"K1 and K4 at match 1); reads over every stripe, starting on stripe boundaries and crossing them; K3 "
+              f"with a random left column; K2 in s16x2 on every lane, in int32 on the traceback's lanes; K4, K5 every "
+              f"pair, K5 against K4's plain version, its contract); every K1, K2 and K4 "
+              f"call in k1k4_form's form and every K5 call in k5_form's, the s16x2 wide form equal to the int32 one "
+              f"(max abs err, K2 on the traceback's lanes: "
+              + ", ".join(f"{k} {e} at {w}" for k, (e, w) in s16_vs_int32.items())
+              + f"; at 16,384 K1 on reads of at most 6,553 bp and K1, K2, K4 and K5 at match 1); reads over every "
+              f"stripe, starting on stripe boundaries and crossing them; K3 "
               f"chained over 2 and 4 segments equal to K1 at every width; K8 (int32 wide form) equal to plain at "
               f"1,025-8,000 lanes; at 2,048 lanes with a carry budget of 1 (K1 s16x2 and int32 on 24 rows in "
-              f"{split_parts[2]} launches of 8 and {2 * split_parts[2]} of 4, K4 on 24 reads likewise in "
-              f"{split_parts[3]} and {2 * split_parts[3]}, K3 in {split_parts[0]} launches of 4 rows, K2, K5 in "
-              f"{split_parts[1]} of 4 reads) equal to one launch on every lane ({time.perf_counter() - t14:.1f} s)",
+              f"{split_parts[2]} launches of 8 and {2 * split_parts[2]} of 4, K4 and K5 on 24 reads likewise in "
+              f"{split_parts[3]} and {2 * split_parts[3]}, K3 in {split_parts[0]} launches of 4 rows, K2 in "
+              f"{split_parts[4]} launches of a pair and int32 in {split_parts[1]} of 4 reads) equal to one launch on "
+              f"every lane ({time.perf_counter() - t14:.1f} s)",
               flush=True)
+
+        # K2's striped s16x2 form in column segments: reads of 1,025 and
+        # 2,048 positions against the 40 kb genome, which argmax_segments
+        # cuts (the references above are too short to); every lane against
+        # plain and the traceback's lanes against the int32 form, at the
+        # default carry budget and at a budget of 1 (a pair a launch).
+        # Its own generator leaves the later phases' inputs as they were.
+        cut_rng = np.random.default_rng(SEED + 15)
+        k2_cut = {}
+        for m in (1025, 2048):
+            reads_s = [piece(m, cut_rng), piece(m - 1, cut_rng), genome[-(m - 3):], genome[:700], piece(600, cut_rng),
+                       piece(513, cut_rng), piece(1, cut_rng), ""]
+            args_s = k2_grid(reads_s, genome)
+            plan_s = cuda_score.argmax_segments(args_s[0].shape[1], len(genome), *PARAMS, -(-len(reads_s) // 2), sms)
+            fail_unless(plan_s[3] > 1, f"K2 at {m} positions against {len(genome)} bp does not split: {plan_s}")
+            want_s = cuda_score.argmax_lane_plain(*args_s, *PARAMS)
+            int32_s = cuda_score._argmax_lane(*args_s, *PARAMS, form="int32")
+            for budget in (cuda_score.CARRY_BUDGET, 1):
+                saved, cuda_score.CARRY_BUDGET = cuda_score.CARRY_BUDGET, budget
+                try:
+                    got = formed("K2", lambda: cuda_score.argmax_lane(*args_s, *PARAMS), "s16x2")
+                finally:
+                    cuda_score.CARRY_BUDGET = saved
+                err = max(max_err(a, b) for a, b in zip(got, want_s))
+                wide_err["K2"] = max(wide_err["K2"], err)
+                fail_unless(err == 0, f"K2 in segments at {m} positions (carry budget {budget}) differs from plain "
+                                      f"({err})")
+                held_to_int32("K2", m, got, lambda: int32_s)
+            k2_cut[m] = plan_s[3]
+        print(f"[14] K2 s16x2 striped in column segments against the {len(genome)} bp genome: "
+              + ", ".join(f"{m} positions in {k} segments" for m, k in k2_cut.items())
+              + f", 8 reads each (one of the genome's last bp), equal to plain on every lane and to the int32 form on "
+              f"the traceback's lanes, at the default carry budget and at 1", flush=True)
 
         long_ref = genome + rand_seqs(rng, [LONG_N - len(genome)])[0]
         packed, order, start = lay([[piece(2048)], [piece(1000), piece(1048)], [piece(700), piece(900), piece(300)]], 2048)
@@ -2732,21 +2865,21 @@ def main() -> int:
 
         wide_int32_ms = {}  # K1's and K4's int32 striped form at 4,096 lanes, beside wide_t's s16x2
 
-        def turns_wide(name, fn, rows, cells, nbytes, lanes=lambda out: out):
-            """K1's or K4's two striped forms at 4,096 lanes, fn(form), in
+        def turns_wide(name, fn, rows, cells, nbytes, lanes=lambda out: out, blocks=None):
+            """A kernel's two striped forms at 4,096 lanes, fn(form), in
             turns by events (in_turns: int32, s16x2, s16x2, int32, 3 calls
-            each, as [1] and [8] time the one-pass forms; the profiler's
-            device_ms has recorded no kernel at this point of a run, ROADMAP
-            F10): each form's mean ms, the bound and the blocks per SM; the
-            lanes a caller reads (``lanes``) equal in both forms, and the
-            s16x2 form must be the faster."""
+            each, as [1] and [8] time the one-pass forms): each form's mean
+            ms, the bound and the blocks per SM; the lanes a caller reads
+            (``lanes``) equal in both forms, and the s16x2 form must be the
+            faster."""
             turns, outs = in_turns(fn, 3)
             fail_unless(torch.equal(lanes(outs["s16x2"]), lanes(outs["int32"])),
                         f"{name}'s two striped forms differ at 4,096 lanes")
             ms = {form: float(np.mean(turns[form])) for form in turns}
             wide_t[name] = (ms["s16x2"], *bound(cells, nbytes, sms, clock_mhz))
             wide_int32_ms[name] = ms["int32"]
-            blocks = {form: -(-rows // (per * 4)) * 64 / sms for form, per in (("s16x2", 2), ("int32", 1))}
+            blocks = {form: n / sms for form, n in (blocks or {
+                form: -(-rows // (per * 4)) * 64 for form, per in (("s16x2", 2), ("int32", 1))}).items()}
             print(f"[14] {name} at 4,096 lanes, both striped forms in turns (events): int32, s16x2, s16x2, int32 "
                   + ", ".join(f"{t:.3f}" for t in (turns["int32"][0], *turns["s16x2"], turns["int32"][1]))
                   + f" ms ({blocks['s16x2']:.2f} and {blocks['int32']:.2f} blocks an SM), "
@@ -2770,11 +2903,22 @@ def main() -> int:
         grid_bytes = sum(t.numel() for t in args_t) + 4 * 64 * 64
         turns_wide("K4", lambda form: cuda_score._score_grid_diag(*args_t, *PARAMS, form=form),
                    args_t[0].shape[0], sum(map(len, reads_t)) * ref_bp, grid_bytes)
-        time_wide("K5", lambda: cuda_score.score_grid_row(*args_t, *PARAMS), sum(map(len, reads_t)) * ref_bp, grid_bytes)
+        turns_wide("K5", lambda form: cuda_score._score_grid_row(*args_t, *PARAMS, form=form),
+                   args_t[0].shape[0], sum(map(len, reads_t)) * ref_bp, grid_bytes)
         reads_2t = reads_t + [piece(n) for n in rng.integers(500, 4097, 64)]
         args_2t = (up(encode_batch(reads_2t, 4096, READ_PAD)), up(encode_batch([refs_t[0]], len(refs_t[0]), REF_PAD)))
-        time_wide("K2", lambda: cuda_score.argmax_lane(*args_2t, *PARAMS), sum(map(len, reads_2t)) * len(refs_t[0]),
-                  args_2t[0].numel() + args_2t[1].numel() + 3 * 4 * args_2t[0].numel())
+
+        def k2_lanes(out):
+            """The lanes the traceback reads (best = the read's max) and
+            K2's three values there."""
+            cons = out[0] == out[0].amax(dim=2, keepdim=True)
+            return torch.stack([cons.to(torch.int32), *(torch.where(cons, x, 0) for x in out)])
+
+        # K2's s16x2 wide blocks are a pair of reads each (its warps on four
+        # stripes at once), the int32 ones four reads.
+        turns_wide("K2", lambda form: cuda_score._argmax_lane(*args_2t, *PARAMS, form=form), len(reads_2t),
+                   sum(map(len, reads_2t)) * len(refs_t[0]), args_2t[0].numel() + args_2t[1].numel()
+                   + 3 * 4 * args_2t[0].numel(), k2_lanes, {"s16x2": len(reads_2t) // 2, "int32": len(reads_2t) // 4})
         # K8's int32 wide form on the same reads, at their bests (the
         # row-form recurrence), capacity 64: inputs, the count and the slots.
         best_8t = score_grid(*args_2t, *PARAMS)[:, 0].to(torch.int32).contiguous()
@@ -2782,18 +2926,15 @@ def main() -> int:
                   sum(map(len, reads_2t)) * len(refs_t[0]),
                   args_2t[0].numel() + args_2t[1].numel() + 4 * 128 + 128 * (8 + 64 * 2 * 4))
 
-        # Every public K1 and K4 call above took k1k4_form's form (formed);
-        # the int32 launches are the forms given for the comparisons and the
-        # widths outside the rule.
-        wide_forms = {form: n - forms_14[form] for form, n in cuda_score.K1_FORMS.items()}
-        fail_unless(min(wide_forms.values()) > 0, f"K1 at rows of more than 1,024 lanes took {wide_forms}")
-        wide_k4_forms = {form: n - k4_forms_14[form] for form, n in cuda_score.K4_FORMS.items()}
-        fail_unless(min(wide_k4_forms.values()) > 0, f"K4 at reads of more than 1,024 positions took {wide_k4_forms}")
-        wide_k5_forms = {form: n - k5_forms_14[form] for form, n in cuda_score.K5_FORMS.items()}
-        fail_unless(wide_k5_forms["s16x2"] == 0 and wide_k5_forms["int32"] > 0,
-                    f"K5 at reads of more than 1,024 positions took {wide_k5_forms}, not the int32 form alone")
-        print(f"[14] launches at rows (reads) of 1,025-16,384 lanes by form: K1 {wide_forms}, K4 {wide_k4_forms}, "
-              f"K5 {wide_k5_forms}", flush=True)
+        # Every public K1, K2 and K4 call above took k1k4_form's form and
+        # every K5 call k5_form's (formed); the int32 launches are the forms
+        # given for the comparisons and the widths outside the rules.
+        wide_forms = {k: {form: n - forms_14[k][form] for form, n in getattr(cuda_score, f"{k}_FORMS").items()}
+                      for k in forms_14}
+        fail_unless(all(min(f.values()) > 0 for f in wide_forms.values()),
+                    f"K1, K2, K4 and K5 at rows (reads) of more than 1,024 lanes took {wide_forms}")
+        print(f"[14] launches at rows (reads) of 1,025-16,384 lanes by form: "
+              + ", ".join(f"{k} {f}" for k, f in wide_forms.items()), flush=True)
 
         # The main path: every strategy on a corpus with reads of 1,025-8,000 bp.
         t14e = time.perf_counter()
@@ -2814,10 +2955,10 @@ def main() -> int:
                                 out_dir=os.path.join(lr_root, "out_batch"))
         @contextlib.contextmanager
         def launch_log():
-            """[(kernel, m, longest, forms)] of every K1 and K4 launch the
-            backends make inside the block: their references to the two
-            public wrappers wrapped for it, each launch's form read from
-            K1_FORMS or K4_FORMS."""
+            """[(kernel, m, longest, forms)] of every K1, K2, K4 and K5
+            launch the backends and the traceback make inside the block:
+            their references to the four public wrappers wrapped for it,
+            each launch's form read from K1_FORMS .. K5_FORMS."""
             from sparksmithwaterman_tpu_torch.models import batch_backend
             from sparksmithwaterman_tpu_torch.parallel import engine
 
@@ -2832,12 +2973,14 @@ def main() -> int:
                     return out
                 return call
 
+            kernel_of = {"lane_best_packed_varlen": "K1", "argmax_lane": "K2", "score_grid_diag": "K4",
+                         "score_grid_row": "K5"}
             saved = [(batch_backend, "lane_best_packed_varlen"), (engine, "lane_best_packed_varlen"),
-                     (batch_backend, "score_grid_diag")]
+                     (batch_backend, "score_grid_diag"), (batch_backend, "score_grid_row"), (longseq, "argmax_lane")]
             saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
             for mod, name, fn in saved:
-                k1 = name == "lane_best_packed_varlen"
-                setattr(mod, name, spy("K1" if k1 else "K4", fn, cuda_score.K1_FORMS if k1 else cuda_score.K4_FORMS))
+                k = kernel_of[name]
+                setattr(mod, name, spy(k, fn, getattr(cuda_score, f"{k}_FORMS")))
             try:
                 yield log
             finally:
@@ -2845,13 +2988,16 @@ def main() -> int:
                     setattr(mod, name, fn)
 
         def check_log(log, what, rule=None):
-            """Every launch of the log in the form k1k4_form gives it (``rule``:
-            another rule's), each launch one form; the wide launches by kernel
-            and form."""
-            rule = rule or (lambda m, longest: cuda_score.k1k4_form(m, *PARAMS, longest=longest))
+            """Every launch of the log in the form its rule gives it (K5
+            k5_form, the others k1k4_form; ``rule(kernel, m, longest)``:
+            another rule's), each launch one form; the wide launches by
+            kernel and form."""
+            rule = rule or (lambda kernel, m, longest: cuda_score.k5_form(m, *PARAMS) if kernel == "K5" else
+                            cuda_score.k1k4_form(m, *PARAMS, longest=longest))
             wide = collections.Counter()
             for kernel, m, longest, forms in log:
-                fail_unless(forms == [rule(m, longest)], f"{what}: {kernel} at {m} lanes (longest {longest}) took {forms}")
+                fail_unless(forms == [rule(kernel, m, longest)],
+                            f"{what}: {kernel} at {m} lanes (longest {longest}) took {forms}")
                 if m > cuda_score.ONE_PASS_LANES:
                     wide[kernel, forms[0]] += 1
             return wide
@@ -2869,11 +3015,13 @@ def main() -> int:
                 torch.cuda.synchronize()
                 lr_s[name] = time.perf_counter() - t
         # The 8,000 bp read puts every read in 8,192-lane rows, outside the
-        # rule: K1 stays int32 there; K4's read groups of 1,025-6,000 bp take
-        # s16x2, the 8,000 bp one int32; K5 keeps k1_form (int32 past 1,024).
+        # rule: K1 stays int32 there, and K2, whose call pads every read to
+        # the longest; K4's and K5's read groups of 1,025-6,000 bp take
+        # s16x2, the 8,000 bp one int32.
         lr_wide = check_log(lr_log, "the long-read paths")
-        fail_unless(lr_wide["K1", "int32"] > 0 and not lr_wide["K1", "s16x2"] and lr_wide["K4", "s16x2"] > 0
-                    and lr_wide["K4", "int32"] > 0, f"the long-read paths' wide launches by form: {dict(lr_wide)}")
+        fail_unless(lr_wide["K1", "int32"] > 0 and not lr_wide["K1", "s16x2"]
+                    and all(lr_wide[k, form] > 0 for k in ("K4", "K5") for form in ("s16x2", "int32")),
+                    f"the long-read paths' wide launches by form: {dict(lr_wide)}")
         lr_launches = dict(cuda_score.LAUNCHES)
         lr_forms = dict(cuda_score.K1_FORMS)
         fail_unless(lr_forms["int32"] > 0 and sum(lr_forms.values()) == lr_launches["lane_best_packed_varlen"],
@@ -2930,11 +3078,12 @@ def main() -> int:
               f"K5 forms {lr_k5_forms}; K1's and K4's launches at rows (reads) of more than 1,024 lanes by form "
               f"{dict(lr_wide)}", flush=True)
 
-        # The main path on long reads of 1,025-6,000 bp, inside the rule:
+        # The main path on long reads of 1,025-6,000 bp, inside the rules:
         # swtorch align --strategy batch (K1 at 8,192 lanes, its longest read
-        # 6,000 bp) and wavefront with pack_reads=False (K4 a read group at a
-        # time), each against the same run with the rule giving int32 past
-        # one pass.
+        # 6,000 bp; the windowed traceback's K2 on every read padded to
+        # 6,000), wavefront with pack_reads=False (K4 a read group at a time)
+        # and run_pipeline with kernel='row' (K5 likewise), each against the
+        # same run with the rules giving int32 past one pass.
         t14s = time.perf_counter()
         lr6_root = os.path.join(work, "long_reads_6k")
         shutil.copytree(os.path.join(lr_root, "refs"), os.path.join(lr6_root, "refs"))
@@ -2946,45 +3095,72 @@ def main() -> int:
                                          pack_reads=False)
 
         def lr6_runs(form):
-            """The two reports of the 6,000 bp corpus (time line left out)."""
+            """The three reports of the 6,000 bp corpus (time line left out)."""
             align(lr6_root, "batch", f"out_batch_{form}")
             run_pipeline(dataclasses.replace(lr6_config, out_dir=os.path.join(lr6_root, f"out_wavefront_{form}")),
                          device=dev)
+            run_pipeline(dataclasses.replace(lr6_config, strategy="batch", kernel="row",
+                                             out_dir=os.path.join(lr6_root, f"out_row_{form}")), device=dev)
             torch.cuda.synchronize()
-            return [stripped(os.path.join(lr6_root, f"out_{name}_{form}", "result1.txt")) for name in ("batch", "wavefront")]
+            return [stripped(os.path.join(lr6_root, f"out_{name}_{form}", "result1.txt"))
+                    for name in ("batch", "wavefront", "row")]
 
         cuda_score.reset_launches()
         with launch_log() as lr6_log:
             lr6 = lr6_runs("s16x2")
         lr6_launches = dict(cuda_score.LAUNCHES)
-        lr6_forms = {k: dict(getattr(cuda_score, f"{k}_FORMS")) for k in ("K1", "K2", "K4", "K8")}
+        lr6_forms = {k: dict(getattr(cuda_score, f"{k}_FORMS")) for k in ("K1", "K2", "K4", "K5", "K8")}
         lr6_wide = check_log(lr6_log, "the 6,000 bp corpus")
-        fail_unless(lr6_wide["K1", "s16x2"] > 0 and lr6_wide["K4", "s16x2"] > 0
-                    and not lr6_wide["K1", "int32"] and not lr6_wide["K4", "int32"],
+        fail_unless(all(lr6_wide[k, "s16x2"] > 0 and not lr6_wide[k, "int32"] for k in ("K1", "K2", "K4", "K5")),
                     f"the 6,000 bp corpus's wide launches by form: {dict(lr6_wide)}")
+        # Its batch run's winners took the windowed traceback, whose K2
+        # pads every read to the longest (the wide launch above).
+        lr6_backend = TorchBatchBackend(lr6_config, dev)
+        lr6_winners = parse_report(os.path.join(lr6_root, "out_batch_s16x2", "result1.txt"))[1]
+        fail_unless(all(lr6_backend._windowed(lr_seqs[meta], lr6_reads) for meta in lr6_winners),
+                    f"a winner of the 6,000 bp corpus took the full-fill branch: {sorted(lr6_winners)}")
         k1_main_forms.update(lr6_forms["K1"])
         k2_main_forms.update(lr6_forms["K2"])
         k4_main_forms.update(lr6_forms["K4"])
+        k5_main_forms.update(lr6_forms["K5"])
         k8_main_forms.update(lr6_forms["K8"])
-        rule = cuda_score.k1k4_form
-        cuda_score.k1k4_form = lambda m, *a, **kw: "int32" if m > cuda_score.ONE_PASS_LANES else rule(m, *a, **kw)
+        rules = cuda_score.k1k4_form, cuda_score.k5_form
+        cuda_score.k1k4_form = lambda m, *a, **kw: "int32" if m > cuda_score.ONE_PASS_LANES else rules[0](m, *a, **kw)
+        cuda_score.k5_form = lambda m, *a: "int32" if m > cuda_score.ONE_PASS_LANES else rules[1](m, *a)
         try:
             with launch_log() as lr6_int32_log:
                 lr6_int32 = lr6_runs("int32")
         finally:
-            cuda_score.k1k4_form = rule
+            cuda_score.k1k4_form, cuda_score.k5_form = rules
         lr6_int32_wide = check_log(lr6_int32_log, "the 6,000 bp corpus in int32",
-                                   lambda m, longest: "int32" if m > cuda_score.ONE_PASS_LANES else
+                                   lambda kernel, m, longest: "int32" if m > cuda_score.ONE_PASS_LANES else
                                    cuda_score.k1_form(m, *PARAMS))
-        fail_unless(lr6 == lr6_int32 and lr6[0] == lr6[1],
-                    "the 6,000 bp corpus's reports differ between the s16x2 and the int32 striped forms, or between "
-                    "batch and wavefront")
+        # The traceback's K2 call of the batch run's winner, as
+        # find_max_cells_batched makes it (every read padded to the longest,
+        # a multiple of 8), in both wide forms in turns by events; the
+        # s16x2 form's early stop on pad rows runs a short read's first
+        # stripes only, where the int32 form runs all of them.
+        lr6_winner = lr_seqs[sorted(lr6_winners)[0]]
+        args_2m = (up(encode_batch(lr6_reads, -(-max(map(len, lr6_reads)) // 8) * 8, READ_PAD)),
+                   up(encode_batch([lr6_winner], len(lr6_winner), REF_PAD)))
+        k2m_turns, k2m_outs = in_turns(lambda form: cuda_score._argmax_lane(*args_2m, *PARAMS, form=form), 3)
+        fail_unless(consumed_err(k2m_outs["s16x2"], k2m_outs["int32"], "the 6,000 bp corpus's winner") == 0,
+                    "K2's wide forms differ on the traceback's lanes of the 6,000 bp corpus's winner")
+        k2m_ms = {form: float(np.mean(t)) for form, t in k2m_turns.items()}
+        print(f"[14] K2 as the traceback calls it on the 6,000 bp corpus ({args_2m[0].shape[0]} reads padded to "
+              f"{args_2m[0].shape[1]} x the {len(lr6_winner)} bp winner), in turns (events): int32, s16x2, s16x2, "
+              f"int32 " + ", ".join(f"{t:.3f}" for t in (k2m_turns["int32"][0], *k2m_turns["s16x2"], k2m_turns["int32"][1]))
+              + f" ms ({k2m_ms['int32'] / k2m_ms['s16x2']:.2f}x), equal on the traceback's lanes", flush=True)
+        fail_unless(lr6 == lr6_int32 and lr6[0] == lr6[1] == lr6[2],
+                    "the 6,000 bp corpus's reports differ between the s16x2 and the int32 wide forms, or between "
+                    "batch, wavefront and the row form")
         print(f"[14] {len(lr6_reads)} reads (7 of 1,025-6,000 bp) x {len(lr_refs)} refs: swtorch align --strategy "
-              f"batch and wavefront with pack_reads=False, reports equal to the same runs in the int32 striped form "
-              f"and to each other; wide launches by form {dict(lr6_wide)} (int32 runs {dict(lr6_int32_wide)}); "
-              f"LAUNCHES {lr6_launches}; {time.perf_counter() - t14s:.1f} s", flush=True)
+              f"batch, wavefront with pack_reads=False and kernel='row', reports equal to the same runs in the int32 "
+              f"wide forms and to each other; winners {sorted(lr6_winners)} through the windowed traceback; wide "
+              f"launches by form {dict(lr6_wide)} (int32 runs {dict(lr6_int32_wide)}); LAUNCHES {lr6_launches}; "
+              f"{time.perf_counter() - t14s:.1f} s", flush=True)
         wide_main_forms = {k: {form: lr_wide[k, form] + lr6_wide[k, form] for form in ("s16x2", "int32")}
-                           for k in ("K1", "K4")}
+                           for k in ("K1", "K2", "K4", "K5")}
         clock.done(14)
 
         # -- 15. swtorch gen, info, bench and diff; two processes; the dry run --
@@ -3435,7 +3611,7 @@ def main() -> int:
             "replaces": "sparksmithwaterman_tpu/ops/device_traceback.py:73",
             "launches": main_launches["fill_list"],
             "max_abs_err": 0,
-            # 215 reads x a 2 kb ref broadcast, capacity 64: the kernel alone (profiler)
+            # 215 reads x a 2 kb ref broadcast, capacity 64: the kernel alone (entry_events)
             "ms": fl_2k[0]["public"][1],
             "plain_ms": fl_2k[1],
             "bound_ms": fl_2k[3][0],
@@ -3461,7 +3637,7 @@ def main() -> int:
             "replaces": "sparksmithwaterman_tpu/ops/longseq.py:364",
             "launches": main_launches["fill_walk"],
             "max_abs_err": 0,
-            # 64 windows of 80-150 bp x 512, a cell each: the kernel alone (profiler)
+            # 64 windows of 80-150 bp x 512, a cell each: the kernel alone (entry_events)
             "ms": fw_64[0]["public"][1],
             "plain_ms": fw_64[1],
             "bound_ms": fw_64[3][0],
@@ -3481,8 +3657,10 @@ def main() -> int:
     kernels[7].update(wide_ms=wide_t["K8"][0], wide_bound_ms=wide_t["K8"][1])  # K8 (max_cells_row) at 4,096 lanes
     for entry, k in zip(kernels, ("K1", "K2", "K3", "K4", "K5")):  # rows of 4,096 lanes, in stripes
         entry.update(wide_max_abs_err=wide_err[k], wide_ms=wide_t[k][0], wide_bound_ms=wide_t[k][1])
-        if k in wide_int32_ms:  # K1's and K4's two striped forms, and their wide launches over the legs
+        if k in wide_int32_ms:  # K1's, K2's, K4's and K5's two wide forms, and their wide launches over the legs
             entry.update(wide_forms=wide_main_forms[k], wide_int32_ms=wide_int32_ms[k], wide_int32_bound_ms=wide_t[k][1])
+    # K2 as the 6,000 bp corpus's traceback calls it, both wide forms
+    kernels[1].update(wide_traceback_ms=k2m_ms["s16x2"], wide_traceback_int32_ms=k2m_ms["int32"])
     for entry in kernels:  # every share of a bound is at most 100%
         for key in [k for k in entry if k.endswith("bound_ms")]:
             ms = entry[key[: -len("bound_ms")] + "ms"]

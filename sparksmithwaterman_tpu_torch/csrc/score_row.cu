@@ -27,7 +27,8 @@
 // warp's carried column and read codes live in its own shared memory.  The
 // row step of both forms is in csrc/row_scan.cuh, which K8 shares.
 // Two forms, chosen by the wrapper from the data alone (ops/cuda_score.py
-// k1_form, the rule of K1 and K4, with m the width of the reads tensor):
+// k5_form: k1_form's rule of K1 and K4 without its limit of 1,024
+// positions, m the width of the reads tensor):
 //
 // - s16x2 (score_row_s16x2_kernel), reads of at most 1,024 positions whose
 //   scores fit int16: warp w of a block takes reads 2w and 2w + 1, one in
@@ -52,10 +53,18 @@
 // - int32 (score_row_kernel, one warp per read, the prefix max of
 //   A[k] - gap*k): every other read of at most 1,024 positions, and any
 //   scheme with a positive mismatch or gap.  A read of more than 1,024
-//   positions (score_row_wide_kernel) reads its codes from global memory
+//   positions outside the rule (score_row_wide_kernel) reads its codes from global memory
 //   and carries its column in a scratch row of m int32 per (read,
 //   reference) pair, which the wrapper allocates: the loop is the same,
 //   so reads of any length run.
+// - s16x2 wide (score_row_wide_s16x2_kernel), reads of more than 1,024
+//   positions whose scores fit int16 (ops/cuda_score.py k5_form: the
+//   row form has no stripes, so the one-pass rule holds at any width):
+//   the s16x2 form's pairs and row step, the pair's code word of a row
+//   built from the reads and its carried column in a scratch of one
+//   uint32 a row holding both halves (half the int32 form's), each row's
+//   code and carried word loaded during the row before it, so that the
+//   loads are off the row step's dependency chain.
 //
 // Trailing pad rows and columns are skipped when mismatch <= 0 and gap <=
 // 0 (`trim`, as K4; always so in the s16x2 form), and in the int32 form
@@ -289,6 +298,74 @@ score_row_wide_kernel(const uint8_t* __restrict__ reads, int r, int m,
                  mismatch, gap, trim, false, out + (long long)read * c_total + c);
 }
 
+// The s16x2 form on reads wider than kMaxLanes, over the pairs of reads
+// read0 .. read0 + 8 read_blocks - 1: warp w of block b takes the pair
+// read0 + 8 (b % read_blocks) + 2w, + 1 against reference b / read_blocks,
+// row_step_s16x2 as score_row_s16x2_kernel runs it, to the longer read of
+// the pair.  Its carried column is carry + m ((read - read0) / 2 c_total +
+// c), one uint32 a row; a tile's first row reads none (H[i][-1] = 0).  Each
+// row's code word and carried word are loaded during the row before.  Lane
+// 0 alone reads and writes the carried column (the row's last column,
+// lane 31's, reaches it by a shuffle off the row step's chain), so one
+// thread's program order puts each load of a row's word before its store
+// of the same row, and no barrier is needed.
+__global__ void __launch_bounds__(kThreads)
+score_row_wide_s16x2_kernel(const uint8_t* __restrict__ reads, int r, int m, int read0,
+                            int read_blocks, const uint8_t* __restrict__ refs, int c_total, int n,
+                            uint32_t k_sub, uint32_t mismatch2, uint32_t gap2, ScanGaps scan,
+                            int32_t* __restrict__ out, uint32_t* __restrict__ carry) {
+  const int lane = threadIdx.x & 31;
+  const int c = blockIdx.x / read_blocks;
+  const int part_pair = (blockIdx.x % read_blocks) * kWarps + (threadIdx.x >> 5);
+  const int read = read0 + 2 * part_pair;
+  if (read >= r) return;  // the whole warp
+  const uint8_t* rd = reads + (long long)read * m;
+  const bool has_hi = read + 1 < r;
+  const uint8_t* rd_hi = has_hi ? rd + m : nullptr;  // (rd[m + i] left ptxas spilling rd + m)
+  const auto code2 = [&](int i) {
+    return code_half(rd[i]) | code_half(rd_hi != nullptr ? rd_hi[i] : kReadPad) << 16;
+  };
+  uint32_t* col = carry + (long long)m * ((long long)part_pair * c_total + c);
+  int used = 0;  // 1 + the last position of the pair that is not pad
+  for (int i = lane; i < m; i += 32)
+    if (rd[i] != kReadPad || (has_hi && rd[m + i] != kReadPad)) used = i + 1;
+  used = __reduce_max_sync(0xffffffffu, used);
+  const uint8_t* ref = refs + (long long)c * n;
+  const int len = ref_len(ref, n);
+
+  uint32_t best2 = 0;
+  for (int base = 0; used > 0 && base < len; base += kRowTile) {
+    const int j0 = base + lane * kRowCols;
+    uint32_t rf2[kRowCols], h[kRowCols];
+#pragma unroll
+    for (int k = 0; k < kRowCols; ++k) {
+      rf2[k] = code_half(j0 + k < len ? ref[j0 + k] : kRefPad) * 0x00010001u;
+      h[k] = 0;  // H[-1][j]
+    }
+    const bool carried = base > 0 && lane == 0;  // lane 0 reads the column (row_step_s16x2 uses its west only)
+    uint32_t above = 0;  // H[i-1][base-1]
+    uint32_t ch = code2(0), west = carried ? col[0] : 0u;  // row 0's
+    for (int i = 0; i < used; ++i) {
+      const int next = i + 1 < used ? i + 1 : i;
+      const uint32_t ch_next = code2(next), west_next = carried ? col[next] : 0u;
+      row_step_s16x2(h, rf2, ch, west, above, k_sub, mismatch2, gap2, scan);
+#pragma unroll
+      for (int k = 0; k < kRowCols; k += 2) best2 = __vimax3_s16x2(best2, h[k], h[k + 1]);
+      above = west;
+      const uint32_t last = __shfl_sync(0xffffffffu, h[kRowCols - 1], 31);
+      if (lane == 0) col[i] = last;
+      ch = ch_next;
+      west = west_next;
+    }
+  }
+  const int b_lo = __reduce_max_sync(0xffffffffu, best2 & 0xFFFFu);
+  const int b_hi = __reduce_max_sync(0xffffffffu, best2 >> 16);
+  if (lane == 0) {
+    out[(long long)read * c_total + c] = b_lo;
+    if (has_hi) out[(long long)(read + 1) * c_total + c] = b_hi;
+  }
+}
+
 // The wrapper's split of a launch's references (stride, length), checked:
 // one segment when both cover n; else segments of reads of at most
 // kMaxLanes under match > 0, mismatch <= 0 and gap < 0 that overlap by at
@@ -332,19 +409,21 @@ extern "C" int swt_score_grid_row(const void* reads, int r, int m,
 }
 
 // The s16x2 form; the wrapper takes it only where ops/cuda_score.py
-// k1_form says so, and this entry refuses a scheme under which a value
-// could leave int16 or reads wider than kMaxLanes.  Its arguments are
-// swt_score_grid_row's; carry and part_reads are unused (the form has no
-// wide kernel).
+// k5_form says so, and this entry refuses a scheme under which a value
+// could leave int16, and reads wider than kMaxLanes (score_row_wide_s16x2_kernel)
+// without `carry`, the pairs' carried columns for part_reads reads (a
+// multiple of 2 * kWarps) at a time.  Its arguments are
+// swt_score_grid_row's.
 extern "C" int swt_score_grid_row_s16x2(const void* reads, int r, int m,
                                         const void* refs, int c, int n,
                                         int match, int mismatch, int gap,
-                                        void* out, void*, int, int seg_stride,
+                                        void* out, void* carry, int part_reads, int seg_stride,
                                         int seg_length, int device, void* stream) {
+  const bool wide = m > swt::kMaxLanes;
   const bool fits = match >= 0 && (long long)match * m <= 32767 && mismatch >= -32768 &&
                     mismatch <= 0 && gap >= -32768 && gap <= 0;
   const Segments sg = plan(m, n, match, mismatch, gap, seg_stride, seg_length);
-  if (r <= 0 || c <= 0 || m <= 0 || n <= 0 || m > swt::kMaxLanes || !fits || sg.count == 0)
+  if (r <= 0 || c <= 0 || m <= 0 || n <= 0 || (wide && carry == nullptr) || !fits || sg.count == 0)
     return (int)cudaErrorInvalidValue;
   const long long read_blocks = (r + 2 * swt::kWarps - 1) / (2 * swt::kWarps);
   const long long blocks = read_blocks * c * sg.count;
@@ -353,6 +432,13 @@ extern "C" int swt_score_grid_row_s16x2(const void* reads, int r, int m,
   swt::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   cudaStream_t s = (cudaStream_t)stream;
+  if (wide)
+    return swt::launch_parts(r, part_reads, [&](int read0, int part_blocks) {
+      score_row_wide_s16x2_kernel<<<(unsigned)(part_blocks * c), swt::kThreads, 0, s>>>(
+          (const uint8_t*)reads, r, m, read0, part_blocks, (const uint8_t*)refs, c, n,
+          (uint32_t)(match - mismatch), swt::pair16(mismatch), swt::pair16(gap), scan, (int32_t*)out,
+          (uint32_t*)carry);
+    }, 2 * swt::kWarps);
   const size_t smem = sizeof(uint32_t) * 2 * m * swt::kWarps;
   score_row_s16x2_kernel<<<(unsigned)blocks, swt::kThreads, smem, s>>>(
       (const uint8_t*)reads, r, m, (int)read_blocks, (const uint8_t*)refs, c, n, sg,

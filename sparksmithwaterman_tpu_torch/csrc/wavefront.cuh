@@ -374,7 +374,16 @@ __device__ __forceinline__ Edges<Enter, Leave> make_edges(int head, int tail, En
 // every diagonal, K1's striped kernel ran about 1.1x slower (one H100,
 // utils/kernel_times.py).  The caller synchronises between stripes and alternates two
 // carry rows, so a stripe never reads the row it writes.
-template <int L>
+//
+// kPipe (K2's striped kernel, csrc/argmax.cu): the warps of a block sweep
+// consecutive stripes of one pair at once, warp w `lag` diagonals behind
+// the sweep (w x kPipeLag there), so that the stripe above has written a
+// column before this one reads it.  The stripe step then runs on the
+// local diagonal d - lag (columns left of 0 read REF_PAD from the ring's
+// top and 0 from the carry), and begin() puts a __syncthreads() before
+// each prefetch of 32 columns: every warp of the block calls it on the
+// same diagonals, and it orders the stripe above's stores before them.
+template <int L, bool kPipe = false>
 struct StripeEdge16x2 {
   static constexpr int kW = 32 * L;
   static constexpr int R = kS16x2Unroll<L>;
@@ -383,19 +392,24 @@ struct StripeEdge16x2 {
   int cols_in;
   uint32_t* out;
   int cols_out;
+  int lag;
   uint32_t pf = 0, next;
   uint32_t q[R];  // thread 31: this step's last-lane values
-  __device__ __forceinline__ StripeEdge16x2(const uint32_t* in_, int cols_in_, uint32_t* out_, int cols_out_)
-      : in(in_), cols_in(cols_in_), out(out_), cols_out(cols_out_) {
+  __device__ __forceinline__ StripeEdge16x2(const uint32_t* in_, int cols_in_, uint32_t* out_, int cols_out_,
+                                            int lag_ = 0)
+      : in(in_), cols_in(cols_in_), out(out_), cols_out(cols_out_), lag(lag_) {
     const int lane = threadIdx.x & 31;
-    next = lane < cols_in ? in[lane] : 0u;
+    next = (!kPipe || lag == 0) && lane < cols_in ? in[lane] : 0u;
   }
+  // The diagonals this warp's stripe runs behind the sweep's.
+  __device__ __forceinline__ int shift() const { return kPipe ? lag : 0; }
   // Before the step of diagonals d .. d + R - 1 (d a multiple of R).
   __device__ __forceinline__ void begin(int d) {
     if ((d & 31) == 0) {
+      if (kPipe) __syncthreads();
       pf = next;
       const int j = d + 32 + (threadIdx.x & 31);
-      next = j < cols_in ? in[j] : 0u;
+      next = (kPipe ? (unsigned)j < (unsigned)cols_in : j < cols_in) ? in[j] : 0u;
     }
   }
   __device__ __forceinline__ uint32_t up(int d, int u, uint32_t up0) {
@@ -421,8 +435,8 @@ struct StripeEdge16x2 {
 
 template <class Ed>
 struct IsStripeEdge16x2 : std::false_type {};
-template <int L>
-struct IsStripeEdge16x2<StripeEdge16x2<L>> : std::true_type {};
+template <int L, bool kPipe>
+struct IsStripeEdge16x2<StripeEdge16x2<L, kPipe>> : std::true_type {};
 
 template <int L, class OnCell, class OnTile, class Ed = NoEdges>
 __device__ __forceinline__ void sweep_s16x2(const uint32_t (&rd2)[L],
@@ -507,11 +521,14 @@ __device__ __forceinline__ void sweep_s16x2(const uint32_t (&rd2)[L],
         // the stripe below, written out apart for the reason the edge
         // step is.  It repeats the plain step's recurrence: a change to
         // one must be made in both, and chip_smoke.py [14] holds the
-        // striped kernels to the int32 ones.
-        edges.begin(d);
+        // striped kernels to the int32 ones.  It runs on the stripe's own
+        // diagonal dl (d less the edge's shift: 0 but in K2's pipeline).
+        const int dl = d - edges.shift();
+        const uint32_t* at_l = ring + ((dl - first) & (kRing - 1));
+        edges.begin(dl);
 #pragma unroll
         for (int u = 0; u < R; ++u) {
-          const uint32_t col = at[u];
+          const uint32_t col = at_l[u];
           if (!kBytes) {
             w[u % L] = col;
           } else {
@@ -519,7 +536,7 @@ __device__ __forceinline__ void sweep_s16x2(const uint32_t (&rd2)[L],
             for (int q = NW - 1; q > 0; --q) w[q] = __funnelshift_l(w[q - 1], w[q], 8);
             w[0] = __byte_perm(w[0], col, 0x2104);
           }
-          const uint32_t up0 = edges.up(d, u, __shfl_up_sync(0xffffffffu, H[L - 1], 1));
+          const uint32_t up0 = edges.up(dl, u, __shfl_up_sync(0xffffffffu, H[L - 1], 1));
 #pragma unroll
           for (int k = L - 1; k >= 0; --k) {
             const uint32_t rw = kBytes ? __byte_perm(w[k / 4], 0x3C3C3C3Cu, 0x4040 + 0x0101 * (k % 4))
@@ -527,13 +544,13 @@ __device__ __forceinline__ void sweep_s16x2(const uint32_t (&rd2)[L],
             const uint32_t up = (k > 0 ? H[k - 1] : up0) & keep2[k];
             const uint32_t v = eq_unit16x2(rd2[k], rw) * k_sub + U[k];
             const uint32_t h = __viaddmax_s16x2_relu(v, mismatch2, __vadd2(__vmaxs2(up, H[k]), gap2));
-            on_cell(k, (u & 1) != 0, h, H[k], d + u);
+            on_cell(k, (u & 1) != 0, h, H[k], dl + u);
             U[k] = up;
             H[k] = h;
           }
           edges.put(u, H[L - 1]);
         }
-        edges.end(d);
+        edges.end(dl);
         continue;
       }
 #pragma unroll

@@ -141,6 +141,7 @@ def lib() -> ctypes.CDLL:
                 _I, _I, _I,  # match, mismatch, gap
                 _VP, _VP, _VP,  # best, bestd, count (or the segments' partials)
                 _I, _I, _I, _I,  # segment stride, length, offset and count
+                _VP, _LL, _I, _I,  # carry (reads wider than one pass), its elements and row length, reads per launch
                 _I, _VP,  # device, stream
             ]
             handle.swt_argmax_merge.restype = _I

@@ -60,10 +60,11 @@ by one rule (:func:`k1_form`): rows (reads) of at most ONE_PASS_LANES
 lanes whose scores provably fit int16 run two rows per warp in the 16-bit
 halves of each register, the recurrence in DPX instructions ("s16x2");
 every other row runs the int32 kernels, one pass or striped ("int32").
-K1 and K4 widen it to rows past ONE_PASS_LANES (:func:`k1k4_form`): a
-striped row whose longest segment scores fit int16 runs its pair of rows
-in stripes, the carry between stripes in 16-bit halves; K2, K5 and K8
-keep :func:`k1_form`, their striped rows int32.
+K1, K2 and K4 widen it to rows past ONE_PASS_LANES (:func:`k1k4_form`):
+a striped row whose longest segment scores fit int16 runs its pair of
+rows in stripes, the carry between stripes in 16-bit halves.  K5, whose
+row form has no stripes, takes the rule without its lane limit
+(:func:`k5_form`); K8 keeps :func:`k1_form`, its wide rows int32.
 :data:`K1_FORMS`, :data:`K2_FORMS`, :data:`K4_FORMS`, :data:`K5_FORMS`
 and :data:`K8_FORMS` count the launches of each.  K3, whose left column
 adds to every cell, and K6 and K7, whose circular shift lets a value grow
@@ -81,7 +82,8 @@ lanes a warp sweeps a row in one pass; a wider row runs in stripes of
 :data:`STRIPE_LANES` lanes (:data:`STRIPE16_LANES` in K1's and K4's s16x2
 form), top to bottom, each stripe's last lane handed
 to the next through carry rows in a scratch buffer that the wrapper
-allocates (:func:`carry_elems`; K5 carries one column per read).  The
+allocates (:func:`carry_elems`; K5 carries one column per read, per pair
+of reads in its s16x2 form).  The
 scratch of one launch is held to :data:`CARRY_BUDGET`: a launch whose rows
 need more runs as several launches of whole blocks of rows, one after
 another on the stream, that share one scratch (:func:`carry_rows`).  The
@@ -132,7 +134,7 @@ LAUNCHES = {
     "fill_walk": 0,
 }
 
-# K1's, K2's, K4's, K5's and K8's launches per form (k1_form) since the last reset_launches().
+# K1's, K2's, K4's, K5's and K8's launches per form (k1_form, k1k4_form, k5_form) since the last reset_launches().
 K1_FORMS = {"s16x2": 0, "int32": 0}
 K2_FORMS = {"s16x2": 0, "int32": 0}
 K4_FORMS = {"s16x2": 0, "int32": 0}
@@ -157,6 +159,10 @@ CARRY_BUDGET = 1 << 28
 _LANES_PER_THREAD = (1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 24, 32)
 # Rows (warps) per thread block of K1-K5 (csrc/wavefront.cuh kWarps).
 _BLOCK_ROWS = 4
+# Carry rows a block of K2's striped s16x2 kernel holds: one for the
+# stripe each of its warps sweeps and one for the stripe above them
+# (csrc/argmax.cu argmax_wide_s16x2_kernel; its entry refuses less).
+_K2_CARRY_ROWS = _BLOCK_ROWS + 1
 # Slots of one read that K8's finish sorts in shared memory
 # (csrc/max_cells.cu kFinishKeys); more go through a scratch of 64-bit keys.
 _FINISH_KEYS = 4096
@@ -208,17 +214,18 @@ def carry_elems(m: int, rows: int, cols: int, *, row_form: bool = False, pair: b
     ``cols`` in all, in K1-K4) costs a launch of ``rows`` rows (reads) of
     ``m`` lanes, rows rounded up to the kernels' blocks of four: none up
     to ONE_PASS_LANES; two carry rows of ``cols`` per row in K1-K4; one
-    carried column of ``m`` per read in K5 (``row_form``).  ``pair``: K1's
-    and K4's s16x2 form, two carry rows of ``cols`` 32-bit words (both
-    rows' 16-bit halves) per pair of rows, rows rounded up to its blocks
-    of eight; never more than the int32 form's, which the backends' chunk
+    carried column of ``m`` per read in K5 (``row_form``).  ``pair``: the
+    s16x2 forms of K1 and K4, two carry rows of ``cols`` 32-bit words (both
+    rows' 16-bit halves) per pair of rows, and of K5, one carried column of
+    ``m`` words per pair of reads, rows rounded up to their blocks of
+    eight; never more than the int32 form's, which the backends' chunk
     plans keep as an upper bound."""
     if m <= ONE_PASS_LANES:
         return 0
     block = 2 * _BLOCK_ROWS if pair else _BLOCK_ROWS
     rows = -(-rows // block) * block
     if row_form:
-        return rows * m
+        return (rows // 2 if pair else rows) * m
     return rows * cols if pair else 2 * rows * cols
 
 
@@ -316,6 +323,24 @@ def k1_form(m: int, match: int, mismatch: int, gap: int) -> str:
 
 def _fits_int16(lanes: int, match: int, mismatch: int, gap: int) -> bool:
     return 0 <= match and match * lanes <= _INT16_MAX and _INT16_MIN <= min(mismatch, gap) and max(mismatch, gap) <= 0
+
+
+def k5_form(m: int, match: int, mismatch: int, gap: int) -> str:
+    """The form K5 (the row form, unpacked reads of width ``m``) takes:
+    :func:`k1_form`'s up to ONE_PASS_LANES, and past it ``"s16x2"`` (two
+    reads a warp in 16-bit halves, the carried column in both halves)
+    wherever the scores fit int16, else ``"int32"``.
+
+    The row form has no stripes: a warp scans whole DP rows, tile by tile,
+    one carried column between tiles.  A cell of row i is at most match x
+    (i + 1) <= match x m however many columns the row has, and the scan's
+    constants across the warp (``ScanGaps``, ``csrc/row_scan.cuh``) are
+    clamped at -32,768 whatever m is.  So :func:`k1_form`'s bound holds at
+    any width, and K5 takes it without its lane limit: match x m <= 32767,
+    -32768 <= mismatch, gap <= 0 <= match (under the default scheme (5,
+    -3, -4), reads of up to 6,553 positions).
+    """
+    return "s16x2" if _fits_int16(m, match, mismatch, gap) else "int32"
 
 
 def k1k4_form(m: int, match: int, mismatch: int, gap: int, *, longest: int | None = None) -> str:
@@ -549,22 +574,41 @@ def argmax_merge_plain(best, bestd, count):
 
 def argmax_segments(m: int, n: int, match: int, mismatch: int, gap: int, blocks: int, sms: int):
     """(stride, length, offset, count) of K2's column segments for a
-    s16x2 launch of ``blocks`` blocks (blocks of eight reads x references)
-    on a card of ``sms`` SMs: segment s covers the columns [s stride, s
+    s16x2 launch of ``blocks`` blocks (blocks of eight reads, or of one
+    pair of reads wider than ONE_PASS_LANES, x references) on a card of
+    ``sms`` SMs: segment s covers the columns [s stride, s
     stride + length) and counts the cells of the global diagonals it owns,
     segment 0 from 0, segment s >= 1 from s stride + offset, up to where
     the next starts and the last to m + n - 1; (n, n, 0, 1) is one segment.
 
-    K5's split (:func:`row_segments`) at _K2_BLOCKS_PER_SM blocks per SM:
-    K2 is a chain of m + n - 1 dependent diagonals a warp, so more warps
-    hide more of it.  offset = W + m - 2 (W = m + match m // |gap|) puts
-    every owned cell of every lane at a local column >= W - 1, where a
-    segment's cells are exact (``csrc/argmax.cu``)."""
-    stride, _ = row_segments(m, n, match, mismatch, gap, blocks, sms, per_sm=_K2_BLOCKS_PER_SM)
+    K5's split (:func:`row_segments`) at _K2_BLOCKS_PER_SM blocks per SM,
+    at any width of the reads under the same signs: K2 is a chain of m + n
+    - 1 dependent diagonals a warp, so more warps hide more of it.  offset
+    = W + m - 2 (W = m + match m // |gap|) puts every owned cell of every
+    lane at a local column >= W - 1, where a segment's cells are exact
+    (``csrc/argmax.cu``) whatever m is."""
+    if not (m > 0 and n > 0 and match > 0 and mismatch <= 0 and gap < 0 and blocks > 0):
+        return n, n, 0, 1
+    stride = _split_stride(m, n, match, gap, blocks, sms, _K2_BLOCKS_PER_SM)
     if stride >= n:
         return n, n, 0, 1
     offset = m + match * m // -gap + m - 2
     return stride, stride + offset, offset, max(1, -(-(m + n - 1 - offset) // stride))
+
+
+def _argmax_carry(m: int, r: int, blocks_per_pair: int, length: int, device):
+    """(scratch or None, its row length, reads per launch) of K2's s16x2
+    form on reads of ``m`` positions: none up to ONE_PASS_LANES; past it
+    _K2_CARRY_ROWS carry rows a block, of ``length`` + m uint32 (a segment's columns and those right of the reference that a
+    cell can reach), for each of a pair's ``blocks_per_pair`` blocks
+    (references x segments), pairs of reads per launch held to
+    CARRY_BUDGET (``csrc/argmax.cu``)."""
+    if m <= ONE_PASS_LANES:
+        return None, 0, 0
+    cols = length + m
+    per_pair = _K2_CARRY_ROWS * cols * blocks_per_pair
+    pairs = max(1, min(-(-r // 2), CARRY_BUDGET // per_pair))
+    return torch.empty(pairs * per_pair, dtype=torch.int32, device=device), cols, 2 * pairs
 
 
 def argmax_lane(reads_u8, refs_u8, match, mismatch, gap):
@@ -579,9 +623,10 @@ def argmax_lane(reads_u8, refs_u8, match, mismatch, gap):
     lanes from which ``longseq.find_max_cells_batched`` rebuilds cells
     as (lane, bestd - lane).  Other lanes are not part of the contract.
 
-    K2's form follows from M and the scheme alone (:func:`k1_form`, the
-    rule of K1, K4, K5 and K8); a s16x2 launch with too few blocks for the
-    card cuts each reference into column segments
+    K2's form follows from M and the scheme alone (:func:`k1k4_form`, the
+    rule of K1 and K4: reads wider than ONE_PASS_LANES in stripes, in the
+    16-bit form where they fit it); a s16x2 launch with too few blocks for
+    the card cuts each reference into column segments
     (:func:`argmax_segments`), which gives the same lanes.
     """
     return _argmax_lane(reads_u8, refs_u8, match, mismatch, gap)
@@ -589,14 +634,14 @@ def argmax_lane(reads_u8, refs_u8, match, mismatch, gap):
 
 def _argmax_lane(reads_u8, refs_u8, match, mismatch, gap, *, form=None, split=True):
     """:func:`argmax_lane` with K2's form given (``form=None``:
-    :func:`k1_form`'s), so that the two forms can be timed on the same
-    inputs; ``"s16x2"`` where k1_form says ``"int32"`` raises.
+    :func:`k1k4_form`'s), so that the two forms can be timed on the same
+    inputs; ``"s16x2"`` where k1k4_form says ``"int32"`` raises.
     ``split=False`` runs each reference as one segment."""
     device = _check_grid_inputs("argmax_lane", reads_u8, refs_u8)
     match, mismatch, gap = int(match), int(mismatch), int(gap)
     r, m = reads_u8.shape
     c, n = refs_u8.shape
-    form = _check_form("K2", K2_FORMS, form, k1_form(m, match, mismatch, gap))
+    form = _check_form("K2", K2_FORMS, form, k1k4_form(m, match, mismatch, gap))
     if device.type == "cpu":
         return argmax_lane_plain(reads_u8, refs_u8, match, mismatch, gap)
     _check_stripes("argmax_lane", m, mismatch, gap)
@@ -614,14 +659,17 @@ def _argmax_lane(reads_u8, refs_u8, match, mismatch, gap, *, form=None, split=Tr
     lib = _cuda.lib()
     if form == "s16x2":
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        plan = argmax_segments(m, n, match, mismatch, gap, -(-r // (2 * _BLOCK_ROWS)) * c, sms) if split else (
+        reads_per_block = 2 if m > ONE_PASS_LANES else 2 * _BLOCK_ROWS
+        plan = argmax_segments(m, n, match, mismatch, gap, -(-r // reads_per_block) * c, sms) if split else (
             n, n, 0, 1)
         segs = plan[3]
         parts = outs if segs == 1 else tuple(
             torch.empty((segs, r, c, m), dtype=torch.int32, device=device) for _ in range(3))
+        carry, cols, part = _argmax_carry(m, r, c * segs, min(plan[1], n), device)
         rc = lib.swt_argmax_lane_s16x2(
             reads_u8.data_ptr(), r, m, refs_u8.data_ptr(), n, c, n, match, mismatch, gap,
-            *(o.data_ptr() for o in parts), *plan, *_launch_target(device),
+            *(o.data_ptr() for o in parts), *plan, _ptr(carry), 0 if carry is None else carry.numel(), cols, part,
+            *_launch_target(device),
         )
         _cuda.check(rc, "argmax_lane")
         if segs > 1:
@@ -900,7 +948,7 @@ def _check_grid_inputs(what, reads_u8, refs_u8):
 
 def _carry_grid(m, r, c, n, row_form, device, pair=False):
     """(scratch or None, reads per launch) of an unpacked launch (K2, K4,
-    K5; ``pair``: K4's s16x2 form) of r reads of m positions against c
+    K5; ``pair``: K4's and K5's s16x2 forms) of r reads of m positions against c
     references of n columns."""
     elems = c * carry_elems(m, r, n, row_form=row_form, pair=pair)
     if not elems:
@@ -925,8 +973,7 @@ def _launch_grid(entry, name, forms, form, reads_u8, refs_u8, match, mismatch, g
         return out.zero_()
     reads_u8 = reads_u8.contiguous()
     refs_u8 = refs_u8.contiguous()
-    carry, part = _carry_grid(m, r, c, n, name == "score_grid_row", reads_u8.device,
-                              pair=name == "score_grid_diag" and form == "s16x2")
+    carry, part = _carry_grid(m, r, c, n, name == "score_grid_row", reads_u8.device, pair=form == "s16x2")
     rc = entry(
         reads_u8.data_ptr(), r, m, refs_u8.data_ptr(), c, n,
         match, mismatch, gap, out.data_ptr(), _ptr(carry), part, *segments, *_launch_target(reads_u8.device),
@@ -1003,8 +1050,7 @@ _K8_BLOCKS_PER_SM = 4
 _ROW_TILE = 512
 
 
-def row_segments(m: int, n: int, match: int, mismatch: int, gap: int, blocks: int, sms: int, *,
-                 per_sm: int = _SPLIT_BLOCKS_PER_SM):
+def row_segments(m: int, n: int, match: int, mismatch: int, gap: int, blocks: int, sms: int):
     """(stride, length) of the column segments into which K5 cuts each
     reference of ``n`` columns, for a launch of ``blocks`` blocks (read
     blocks x references) on a card of ``sms`` SMs: segment k covers the
@@ -1017,18 +1063,23 @@ def row_segments(m: int, n: int, match: int, mismatch: int, gap: int, blocks: in
     |gap| columns; segments that overlap by W - 1 hold every run of W
     columns, and the max of their bests is the pair's best
     (``pallas_score._propagation_window`` bounds the same reach).  Only
-    reads of at most ONE_PASS_LANES positions under those signs split,
-    and only until the launch has ``per_sm`` blocks per SM, with a stride
-    of at least _SEGMENT_WINDOWS x W; else one segment.
+    reads of at most ONE_PASS_LANES positions under those signs split
+    (:func:`_split_stride`); else one segment.
     """
     if not (0 < m <= ONE_PASS_LANES and n > 0 and match > 0 and mismatch <= 0 and gap < 0 and blocks > 0):
         return n, n
+    stride = _split_stride(m, n, match, gap, blocks, sms, _SPLIT_BLOCKS_PER_SM)
+    return (n, n) if stride >= n else (stride, stride + m + match * m // -gap - 1)
+
+
+def _split_stride(m: int, n: int, match: int, gap: int, blocks: int, sms: int, per_sm: int) -> int:
+    """The stride of K2's and K5's column segments (n: one segment): a
+    launch of ``blocks`` blocks splits until it has ``per_sm`` blocks per
+    SM, with a stride of at least _SEGMENT_WINDOWS x W (W = m + match m
+    // |gap|, match > 0 > gap)."""
     w = m + match * m // -gap
     segs = min(-(-per_sm * sms // blocks), n // (_SEGMENT_WINDOWS * w))
-    if segs <= 1:
-        return n, n
-    stride = -(-n // segs)
-    return stride, stride + w - 1
+    return n if segs <= 1 else -(-n // segs)
 
 
 def score_grid_row(reads_u8, refs_u8, match, mismatch, gap):
@@ -1036,24 +1087,25 @@ def score_grid_row(reads_u8, refs_u8, match, mismatch, gap):
     row form (a scan along each DP row), K4's contract.  Its plain version
     is :func:`..ops.recurrence.score_grid`.
 
-    K5's form follows from M and the scheme alone (:func:`k1_form`, the
-    rule of K1 and K4); a launch with too few blocks for the card cuts
-    each reference into column segments (:func:`row_segments`), which
-    gives the same scores.
+    K5's form follows from M and the scheme alone (:func:`k5_form`, K1's
+    and K4's rule without its lane limit, as the row form has no stripes);
+    a launch of reads of at most ONE_PASS_LANES positions with too few
+    blocks for the card cuts each reference into column segments
+    (:func:`row_segments`), which gives the same scores.
     """
     return _score_grid_row(reads_u8, refs_u8, match, mismatch, gap)
 
 
 def _score_grid_row(reads_u8, refs_u8, match, mismatch, gap, *, form=None, split=True):
     """:func:`score_grid_row` with K5's form given (``form=None``:
-    :func:`k1_form`'s), so that the two forms can be timed on the same
-    inputs; ``"s16x2"`` where k1_form says ``"int32"`` raises.
+    :func:`k5_form`'s), so that the two forms can be timed on the same
+    inputs; ``"s16x2"`` where k5_form says ``"int32"`` raises.
     ``split=False`` runs each reference as one segment."""
     device = _check_grid_inputs("score_grid_row", reads_u8, refs_u8)
     match, mismatch, gap = int(match), int(mismatch), int(gap)
     r, m = reads_u8.shape
     c, n = refs_u8.shape
-    form = _check_form("K5", K5_FORMS, form, k1_form(m, match, mismatch, gap))
+    form = _check_form("K5", K5_FORMS, form, k5_form(m, match, mismatch, gap))
     if device.type == "cpu":
         if m == 0 or n == 0:
             return torch.zeros((r, c), dtype=torch.int32)

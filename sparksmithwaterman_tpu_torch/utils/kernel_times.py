@@ -43,7 +43,11 @@ no lane 0 as the public wrapper does, ``K6_bench_int32``, ``K7_int32``).
 K1 and K4 at rows (reads) of 4,096 lanes, 64 reads of 500-4,096 bp x 64
 refs, run striped (``K1_wide``, ``K4_wide``: the form the rule picks;
 ``K1_wide_int32``, ``K4_wide_int32`` where the tree has the striped
-16-bit form).
+16-bit form); K5 on the same reads (``K5_wide``), K2 on 128 such reads
+x one ref (``K2_wide``) and as the windowed traceback calls it on a file
+of 120 short reads and 7 of 1,025-6,000 bp, all padded to 6,000, x one
+3,258 bp ref (``K2_wide_tb``), and ``K5_wide_int32``, ``K2_wide_int32``,
+``K2_wide_tb_int32`` where the tree has their wide 16-bit forms.
 """
 
 from __future__ import annotations
@@ -137,6 +141,27 @@ def _times(root: str) -> dict:
     out["K4_wide"] = ms(lambda: cuda_score.score_grid_diag(*grid_wide, *PARAMS), 3)
     if hasattr(cuda_score, "k1k4_form"):
         out["K4_wide_int32"] = ms(lambda: cuda_score._score_grid_diag(*grid_wide, *PARAMS, form="int32"), 3)
+    # K5 on the same grid, K2 on 128 reads of 500-4,096 bp (those 64 and 64
+    # more from a generator of their own, so the later keys' inputs stay as
+    # they were) x one ref.
+    out["K5_wide"] = ms(lambda: cuda_score.score_grid_row(*grid_wide, *PARAMS), 3)
+    rng_2w = np.random.default_rng(SEED + 1)
+    more = [np.frombuffer(b"ACGT", np.uint8)[rng_2w.integers(0, 4, int(n))].tobytes().decode()
+            for n in rng_2w.integers(500, 4097, 64)]
+    args_2w = (up(encode_batch(wide_reads + more, 4096, READ_PAD)), up(encode_batch(refs[:1], len(refs[0]), REF_PAD)))
+    out["K2_wide"] = ms(lambda: cuda_score.argmax_lane(*args_2w, *PARAMS), 3)
+    # K2 as the windowed traceback calls it on a file with a few long
+    # reads: 120 reads of 80-150 bp and 7 of 1,025-6,000 bp, every read
+    # padded to the longest, x one 3,258 bp ref.
+    tb_reads = [np.frombuffer(b"ACGT", np.uint8)[rng_2w.integers(0, 4, int(n))].tobytes().decode()
+                for n in [*rng_2w.integers(80, 151, 120), 1025, 1100, 1500, 2048, 3000, 4096, 6000]]
+    tb_ref = np.frombuffer(b"ACGT", np.uint8)[rng_2w.integers(0, 4, 3258)].tobytes().decode()
+    args_tb = (up(encode_batch(tb_reads, 6000, READ_PAD)), up(encode_batch([tb_ref], 3258, REF_PAD)))
+    out["K2_wide_tb"] = ms(lambda: cuda_score.argmax_lane(*args_tb, *PARAMS), 3)
+    if hasattr(cuda_score, "k5_form"):  # a tree with K5's and K2's wide 16-bit forms
+        out["K5_wide_int32"] = ms(lambda: cuda_score._score_grid_row(*grid_wide, *PARAMS, form="int32"), 3)
+        out["K2_wide_int32"] = ms(lambda: cuda_score._argmax_lane(*args_2w, *PARAMS, form="int32"), 3)
+        out["K2_wide_tb_int32"] = ms(lambda: cuda_score._argmax_lane(*args_tb, *PARAMS, form="int32"), 3)
     out["K5"] = ms(lambda: cuda_score.score_grid_row(*grid, *PARAMS))
     out["K5_150"] = ms(lambda: cuda_score.score_grid_row(*grid_150, *PARAMS))
     grid_131k = (up(encode_batch(reads[:16], 152, READ_PAD)), up(encode_batch(seqs([131_072]), 131_072, REF_PAD)))

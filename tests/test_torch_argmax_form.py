@@ -1,7 +1,7 @@
 """K2's s16x2 form and column segments, and K8's segments and finish, on the CPU.
 
 ``cuda_score.argmax_lane`` takes its s16x2 form (two reads per warp in the
-16-bit halves of each register) exactly when ``cuda_score.k1_form`` says
+16-bit halves of each register) exactly when ``cuda_score.k1k4_form`` says
 every score fits int16, and a launch with few blocks cuts the reference
 into column segments (``cuda_score.argmax_segments``), each counting the
 cells of the diagonals it owns, merged lane by lane afterwards; the kernels
@@ -105,7 +105,9 @@ def test_segment_plan_owns_every_diagonal_once():
     assert cuda_score.argmax_segments(152, 2000, *PARAMS, 1, 132) == (2000, 2000, 0, 1)  # under 4 W a segment
     for params in ((5, -3, 0), (5, 0, 0), (0, -3, -4), (5, 1, -4)):
         assert cuda_score.argmax_segments(16, 50_000, *params, 1, 132) == (50_000, 50_000, 0, 1)
-    assert cuda_score.argmax_segments(1025, 50_000, *PARAMS, 1, 132) == (50_000, 50_000, 0, 1)
+    # Reads wider than one pass split too (the striped s16x2 form), at the same offset.
+    wide = cuda_score.argmax_segments(1025, 50_000, *PARAMS, 1, 132)
+    assert wide[3] > 1 and wide[2] == 1025 + 5 * 1025 // 4 + 1025 - 2 and wide[1] == wide[0] + wide[2]
 
 
 def _small_plan(m, n, params, stride):
@@ -209,7 +211,8 @@ def test_merge_takes_the_lowest_segment_and_sums_its_ties():
 
 
 def test_k2_form_rule_and_refusals():
-    """K2 takes k1_form's form; s16x2 where the rule says int32 raises, on
+    """K2 takes k1k4_form's form (k1_form's up to 1,024 lanes); s16x2
+    where the rule says int32 raises, on
     any device; the CPU runs the plain version and launches nothing;
     reset_launches clears K2_FORMS."""
     reads_t, refs_t = _grid(["ACGT", "GGA"], "TTACGTAA", 8)

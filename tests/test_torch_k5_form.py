@@ -3,8 +3,10 @@ form, a plain model of that form's arithmetic, and the plan that splits a
 long reference over blocks.
 
 ``cuda_score.score_grid_row`` takes the s16x2 form (two reads per warp in
-the 16-bit halves of each register) exactly when ``cuda_score.k1_form``
-says every score fits int16, with m the width of the reads tensor; the
+the 16-bit halves of each register) exactly when ``cuda_score.k5_form``
+(``cuda_score.k1_form`` up to 1,024 positions, then the same bound at
+any width) says every score fits int16, with m the width of the reads
+tensor; the
 kernels run only on the card (``chip_smoke.py`` [0], [8]).  Here
 :func:`_row_s16x2_model` computes what that kernel computes, in 16-bit
 values wrapped after every add: the tiles, the lanes, the decaying scan
@@ -125,7 +127,7 @@ def _split_best(reads_t, refs_t, params, stride, length):
     [
         (1024, (31, -3, -4), "s16x2"),  # 31 x 1,024 = 31,744 fits
         (1024, (32, -3, -4), "int32"),  # 32 x 1,024 = 32,768 does not
-        (1025, (5, -3, -4), "int32"),  # reads wider than one pass
+        (1025, (5, -3, -4), "s16x2"),  # wider than one pass: the row form has no stripes (k5_form)
         (150, (5, -3, -32768), "s16x2"),
         (150, (5, -3, -32769), "int32"),
     ],
@@ -133,7 +135,7 @@ def _split_best(reads_t, refs_t, params, stride, length):
 def test_k5_form_at_the_edges_of_its_rule(m, params, form):
     """The rule at K5's widths, and the private entry of the A/B refusing
     the s16x2 form exactly where the rule says int32."""
-    assert cuda_score.k1_form(m, *params) == form
+    assert cuda_score.k5_form(m, *params) == form
     reads_t, refs_t = _grid(["ACGT"], ["ACGTT"], m)
     want = score_grid(reads_t, refs_t, *params)
     np.testing.assert_array_equal(cuda_score._score_grid_row(reads_t, refs_t, *params, form="int32"), want)

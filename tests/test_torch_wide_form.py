@@ -74,9 +74,9 @@ def _wide_reads(rng, m, refs):
 
 @pytest.mark.parametrize("kernel", ["K1", "K4"])
 def test_k1k4_form_at_the_edges_of_its_rule(kernel):
-    """The rule past one pass, for both kernels: match x the longest
-    segment <= 32,767, mismatch < 0 and gap < 0; k1_form (K2, K5, K8)
-    unchanged."""
+    """The rule past one pass, for both kernels (and K2's): match x the
+    longest segment <= 32,767, mismatch < 0 and gap < 0; k1_form (K8's,
+    and K5's up to one pass) unchanged."""
     form = cuda_score.k1k4_form
     for m in (1025, 4096, 6553):
         assert form(m, *PARAMS) == "s16x2", m  # 5 x 6,553 = 32,765
@@ -106,8 +106,8 @@ def test_k1k4_form_at_the_edges_of_its_rule(kernel):
 
 def test_private_entries_take_the_16bit_form_only_inside_the_rule():
     """The A/B entries accept ``form="s16x2"`` on wide rows exactly where
-    k1k4_form says so (K1 with its longest read), and K2, K5 and K8, which
-    keep k1_form, refuse it past one pass."""
+    k1k4_form says so (K1 with its longest read, K2 and K4) or k5_form (K5),
+    and K8, which keeps k1_form, refuses it past one pass."""
     rng = np.random.default_rng(3)
     (ref,) = _seqs(rng, [300])
     packed, _ = pack_reads([ref, ref[:40]], 2048)
@@ -127,10 +127,15 @@ def test_private_entries_take_the_16bit_form_only_inside_the_rule():
     wide = torch.from_numpy(encode_batch([ref], 6554, READ_PAD))
     with pytest.raises(ValueError, match="cannot take form"):
         cuda_score._score_grid_diag(wide, refs, *PARAMS, form="s16x2")
+    np.testing.assert_array_equal(cuda_score._score_grid_row(reads, refs, *PARAMS, form="s16x2"),
+                                  cuda_score.score_grid_diag_plain(reads, refs, *PARAMS))
+    for got, want in zip(cuda_score._argmax_lane(reads, refs, *PARAMS, form="s16x2"),
+                         cuda_score.argmax_lane_plain(reads, refs, *PARAMS)):
+        np.testing.assert_array_equal(got, want)
     with pytest.raises(ValueError, match="cannot take form"):
-        cuda_score._score_grid_row(reads, refs, *PARAMS, form="s16x2")
+        cuda_score._score_grid_row(wide, refs, *PARAMS, form="s16x2")
     with pytest.raises(ValueError, match="cannot take form"):
-        cuda_score._argmax_lane(reads, refs, *PARAMS, form="s16x2")
+        cuda_score._argmax_lane(wide, refs, *PARAMS, form="s16x2")
     best = torch.zeros(2, dtype=torch.int32)
     with pytest.raises(ValueError, match="cannot take form"):
         cuda_score._max_cells_row(reads, refs[0], best, *PARAMS, 4, form="s16x2")
