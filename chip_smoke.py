@@ -25,10 +25,13 @@ port's main path (``swtorch align --strategy batch``) end to end:
    (K4's) at L = 4, the bench's width; K1's and K4's striped s16x2 kernels
    (``lane_best_wide_s16x2_kernel``, ``score_grid_wide_s16x2_kernel``) run
    it and spill nothing, their stripe step's ALU instructions a cell beside
-   the int32 striped kernels'; and the s16x2 kernels that share
-   ``sweep_s16x2`` (K1, K2, K3, K4, and K1's and K4's striped ones) or the
-   row step (K5) have the parent trees' SASS (``KEPT_SASS``, compared where
-   the toolkit is the one named there);
+   the int32 striped kernels'; K3's and K8's wide s16x2 kernels
+   (``band_wide_s16x2_kernel``, ``max_cells_wide_s16x2_kernel``) run it and
+   spill nothing, their registers and loops' ALU instructions a cell
+   printed; and the s16x2 kernels that share ``sweep_s16x2`` (K1, K2, K3,
+   K4, and K1's, K2's and K4's striped ones) or the row step (K5, K8, and
+   K5's wide one) have the parent trees' SASS (``KEPT_SASS``, compared
+   where the toolkit is the one named there);
 1. K1 (packed lane best) against its plain version, in both forms
    (``cuda_score.k1_form``): 512 reads x 256 RefSeq-shaped refs, every
    start lane, and the two forms timed on them in turns (int32, s16x2,
@@ -176,14 +179,19 @@ port's main path (``swtorch align --strategy batch``) end to end:
     budget of 1, every launch then run in parts of one block (four rows,
     eight in the s16x2 forms' pairs, a pair in K2's), equal to the one
     launch on every lane; K2's s16x2 form in column segments (reads of
-    1,025 and 2,048 positions against a 40 kb reference, which its plan
-    cuts) equal to plain on every lane and to the int32 form, at the
-    default carry budget and at 1; K1 at 2,048
+    1,025 and 2,048 positions against 20 kb and 40 kb of a genome, which
+    its plan cuts) equal to plain on every lane and to the int32 form, at the
+    default carry budget and at 1; K3's two wide forms (``k3_form``, at
+    4,096 lanes on reads of at most 3,276 bp, the longest given) and K8's
+    (``k5_form``) against plain and each other at 1,025-4,096 positions,
+    and cut into column pieces (segments) against whole at 45 kb and 131
+    kb (ties planted at K8's segment borders); K1 at 2,048
     lanes against one 131,072 bp ref and the row-form recurrence; K8
-    (int32 wide form) against its plain version on reads of 1,025-8,000 bp
-    and a repeat; each kernel's time at 4,096 lanes, K1's, K2's, K4's and
-    K5's two wide forms in turns by events (the s16x2 one must be the
-    faster); then ``swtorch align`` with batch, wavefront, shard_refs,
+    against its plain version on reads of 1,025-8,000 bp and a repeat;
+    K1's, K2's, K3's, K4's, K5's and K8's two wide forms at 4,096 lanes in
+    turns by events (the s16x2 one must be the faster), and K3 on a 1 Mb
+    segment and K8 on a tied 2,048 bp read x 131 kb, each cut against
+    whole; then ``swtorch align`` with batch, wavefront, shard_refs,
     shard_reads and shard_seq, and ``run_pipeline`` with
     ``pack_reads=False`` and ``kernel='row'``, on 128 reads (8 of
     1,025-8,000 bp) x 64 refs: reports equal, the winners' totals equal
@@ -195,7 +203,12 @@ port's main path (``swtorch align --strategy batch``) end to end:
     the 8,000 bp one (the batch run's winners through the windowed
     traceback, so K2 pads every read to 6,000): K1's, K2's, K4's and K5's
     wide launches in s16x2, the reports equal to the same runs with the
-    rules giving int32 past 1,024 lanes;
+    rules giving int32 past 1,024 lanes; and ``swtorch align`` with batch
+    and shard_seq on 64 reads (four of 1,025-3,000 bp, a 2,000 bp one
+    twice in a 48 kb winner) x refs of 9-48 kb: K3's and K8's launches
+    past one pass in s16x2 and cut into pieces, the reports equal to each
+    other and to shard_seq with ``k3_form`` giving int32 and batch with
+    K8's rule ``k1_form``;
 15. the rest of the CLI, multi-host runs and the dry run: ``swtorch gen``
     writes the read_num, read_len and ref_len sweeps at ``--scale 1.0``
     and ref_num cut to ``--scale`` ``REF_NUM_SCALE`` (9 of its 28 dirs);
@@ -352,10 +365,14 @@ WIDE_KERNELS = ("lane_best_wide_kernel", "lane_best_wide_s16x2_kernel", "score_g
                 "score_grid_wide_s16x2_kernel")
 # K5's and K2's 16-bit kernels for reads wider than one pass.
 WIDE16_ROW_ARGMAX = ("score_row_wide_s16x2_kernel", "argmax_wide_s16x2_kernel")
+# K3's and K8's 16-bit kernels for rows (reads) wider than one pass.
+WIDE16_BAND_CELLS = ("band_wide_s16x2_kernel", "max_cells_wide_s16x2_kernel")
 # The s16x2 kernels that share sweep_s16x2 (K1-K4's one-pass kernels,
-# K1's and K4's striped ones) or the row step (K5's one-pass kernel), as
-# the commit before the striped s16x2 forms built the one-pass K1-K4
-# kernels and the commit before K2's and K5's wide forms built the rest:
+# K1's, K2's and K4's striped ones) or the row step (K5's and K8's
+# one-pass kernels, K5's wide one), as the commit before the striped
+# s16x2 forms built the one-pass K1-K4 kernels, the commit before K2's and
+# K5's wide forms built K1's and K4's striped ones and the one-pass K5,
+# and the commit before K3's and K8's wide forms built the rest:
 # sass_digests' {kernel: (functions, digest)} and the toolkit that built
 # them.
 KEPT_SASS = {
@@ -368,6 +385,9 @@ KEPT_SASS = {
         "score_row_s16x2_kernel": (1, "fafdfdb02684b75d"),
         "lane_best_wide_s16x2_kernel": (1, "4657a8262741f800"),
         "score_grid_wide_s16x2_kernel": (1, "921cd39e73354478"),
+        "max_cells_s16x2_kernel": (1, "8f9dadcd4402db97"),
+        "argmax_wide_s16x2_kernel": (1, "6c481f549c1b8042"),
+        "score_row_wide_s16x2_kernel": (1, "8323adcf8b4894d9"),
     },
 }
 
@@ -748,8 +768,8 @@ def main() -> int:
     nvcc_version = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
                                   check=True).stdout.strip().splitlines()[-1]
     kept = sass_digests(os.path.join(os.path.dirname(nvcc), "cuobjdump"), _cuda.build_info["path"],
-                        r"(lane_best|argmax|band|score_grid|score_row)_s16x2_kernel"
-                        r"|(lane_best|score_grid)_wide_s16x2_kernel")
+                        r"(lane_best|argmax|band|score_grid|score_row|max_cells)_s16x2_kernel"
+                        r"|(lane_best|score_grid|argmax|score_row)_wide_s16x2_kernel")
     if nvcc_version == KEPT_SASS["nvcc"]:
         fail_unless(kept == KEPT_SASS["kernels"],
                     f"the s16x2 kernels' SASS changed: {kept} against {KEPT_SASS['kernels']}")
@@ -779,7 +799,7 @@ def main() -> int:
                 f"K8's s16x2 kernel ({len(k8_sass)} found) lacks {relu_ops[0]}")
     k8_regs = {k: w for k, w in register_summary(_cuda.build_info["log"]).items() if k.startswith("max_cells")}
     fail_unless(sorted(k8_regs) == ["max_cells_finish_kernel", "max_cells_kernel", "max_cells_s16x2_kernel",
-                                    "max_cells_wide_kernel"]
+                                    "max_cells_wide_kernel", "max_cells_wide_s16x2_kernel"]
                 and not any("s" in w for ws in k8_regs.values() for w in ws), f"K8's kernels: {k8_regs}")
     print(f"[0] K8 SASS: max_cells_s16x2_kernel runs {relu_ops[0]}; registers {k8_regs} (no spill)", flush=True)
     # K2's s16x2 kernel at every L runs the DPX instruction and spills
@@ -822,6 +842,26 @@ def main() -> int:
           f"ALU instructions of its diagonal loop (a plain and an edge step) | K1's (a plain step), L: "
           + ", ".join(f"{l}: {k3_loop[l]} | {k1_loop[l]}" for l in _LANES)
           + f"; the int32 kernels: {k3_regs.get('band_kernel')}, {k3_regs.get('band_wide_kernel')}", flush=True)
+    # K3's and K8's wide s16x2 kernels: the DPX instruction, no spill, and
+    # the ALU instructions a cell of their loops (K3's stripe loop, a plain
+    # and an edge step, two cells a register; K8's row loop, 32 cells a
+    # thread a row, the listing's branch, which runs only on a row that
+    # reaches a best, counted in it).
+    wide38 = {}
+    for fname, instrs in lib_sass.items():
+        kernel = kernel_identifier(fname)
+        if kernel in WIDE16_BAND_CELLS:
+            fail_unless(relu_ops[0] in {op for _, op, _ in instrs}, f"{kernel} lacks {relu_ops[0]}")
+            loop = inner_loop_alu(instrs)
+            wide38[kernel] = (len(loop) / (2 * max(1, sum(op.startswith("HSET2") for op in loop))) if "band" in kernel
+                              else len(loop) / 32)
+    wide38_regs = {k: register_summary(_cuda.build_info["log"]).get(k, []) for k in WIDE16_BAND_CELLS}
+    fail_unless(sorted(wide38) == sorted(WIDE16_BAND_CELLS)
+                and all(len(w) == 1 and "s" not in w[0].split(":")[-1] for w in wide38_regs.values()),
+                f"K3's and K8's wide s16x2 kernels: {sorted(wide38)}, {wide38_regs}")
+    print(f"[0] K3 and K8 wide s16x2 SASS: band_wide_s16x2_kernel and max_cells_wide_s16x2_kernel run "
+          f"{relu_ops[0]} and spill nothing; registers and ALU instructions per cell of the loop: "
+          + ", ".join(f"{k} {wide38_regs[k][0]} {wide38[k]:.3f}" for k in WIDE16_BAND_CELLS), flush=True)
     # K9's two kernels (one per tie order) and K10's, and the kernels of
     # both in one launch (fill_walk_kernel: two tie orders x three tile
     # widths x two modes): none spills.
@@ -1191,7 +1231,7 @@ def main() -> int:
         equal; the cells equal where the count fits the capacity, else the
         slots distinct cells of the full listing in row-major order.
         Returns (want, reads past the capacity)."""
-        form = kw.get("form") or cuda_score.k1_form(reads.shape[1], *PARAMS)
+        form = kw.get("form") or cuda_score.k5_form(reads.shape[1], *PARAMS)
         before = dict(cuda_score.K8_FORMS)
         count, cells = cuda_score._max_cells_row(reads, ref, best, *PARAMS, capacity, **kw)
         fail_unless(cuda_score.K8_FORMS[form] == before[form] + 1, f"K8 took {cuda_score.K8_FORMS}, not {form} ({what})")
@@ -2562,8 +2602,12 @@ def main() -> int:
 
         # -- 14. long reads: K1-K5 on rows wider than 1,024 lanes (stripes) ---------
         t14 = time.perf_counter()
-        forms_14 = {k: dict(getattr(cuda_score, f"{k}_FORMS")) for k in ("K1", "K2", "K4", "K5")}
+        forms_14 = {k: dict(getattr(cuda_score, f"{k}_FORMS")) for k in ("K1", "K2", "K3", "K4", "K5", "K8")}
         genome = rand_seqs(rng, [40_000])[0]
+        # K3's and K8's wide cases draw from a generator of their own, so that
+        # the inputs of the rest of the phase and the later phases stay as
+        # they were.
+        k38_rng = np.random.default_rng(SEED + 16)
 
         def piece(n, g=None):
             """A slice of n bp of the genome with about one base in 30
@@ -2610,12 +2654,14 @@ def main() -> int:
             return [[piece(m)], filled([piece(512), piece(512), piece(1)]), filled([piece(511), piece(2)]),
                     filled([piece(255), piece(2)]), filled([]), filled([piece(1)]), []]
 
-        def chain_k3(packed_t, start_t, refs, segs, bnd_rng=None):
+        def chain_k3(packed_t, start_t, refs, segs, bnd_rng=None, longest=None):
             """K3 over ``segs`` segments of every ref, each bnd_out into the
             next from a zero left column (or, with bnd_rng, each segment
-            from a random left column and held against the plain version):
-            (the max of the start lanes over segments, max abs err against
-            plain)."""
+            from a random left column and held against the plain version,
+            and, where k3_form gives s16x2, against the int32 form), the
+            pack's longest read given as ``longest``, each call in k3_form's
+            form: (the max of the start lanes over segments, max abs err
+            against plain)."""
             flat, lens = encode_concat(refs)
             offsets = np.concatenate(([0], np.cumsum(lens)[:-1])).astype(np.int64)
             ns = np.maximum(1, -(-lens // segs)).astype(np.int32)
@@ -2627,11 +2673,16 @@ def main() -> int:
                 if bnd_rng is not None:
                     bnd = up(bnd_rng.integers(0, 120, size=tuple(bnd.shape)).astype(np.int32))
                 args = (packed_t, up(flat), up(seg_offs), up(seg_lens), up(ns), bnd, *PARAMS)
-                lane, bnd_next = cuda_score.band_lane_best(*args)
+                form = cuda_score.k3_form(packed_t.shape[1], *PARAMS, longest=longest)
+                lane, bnd_next = formed("K3", lambda: cuda_score.band_lane_best(*args, longest=longest), form)
                 if bnd_rng is not None:
                     pl, pb = cuda_score.band_lane_best_plain(*args)
                     err = max(err, max_err(lane.reshape(len(refs), -1)[:, start_t], pl.reshape(len(refs), -1)[:, start_t]),
                               max_err(bnd_next, pb))
+                    if form == "s16x2":
+                        held_to_int32("K3", packed_t.shape[1], k3_lanes(lane, bnd_next, start_t),
+                                      lambda: k3_lanes(*cuda_score._band_lane_best(*args, longest=longest, form="int32"),
+                                                       start_t))
                 got = lane.reshape(len(refs), -1)[:, start_t]
                 best = got if best is None else torch.maximum(best, got)
                 bnd = bnd_next
@@ -2639,19 +2690,23 @@ def main() -> int:
 
         widths = (1025, 2048, 4096, 16384)
         wide_err = dict.fromkeys(("K1", "K2", "K3", "K4", "K5"), 0)
-        # K1's, K2's, K4's and K5's s16x2 wide form against the int32 one:
-        # max abs err (K2 on the traceback's lanes), and the widths at which
-        # it was held to it.
-        s16_vs_int32 = {k: [0, []] for k in ("K1", "K2", "K4", "K5")}
+        # K1's, K2's, K3's, K4's, K5's and K8's s16x2 wide form against the
+        # int32 one: max abs err (K2 on the traceback's lanes, K3 on the
+        # start and bnd_out lanes), and the widths at which it was held to it.
+        s16_vs_int32 = {k: [0, []] for k in ("K1", "K2", "K3", "K4", "K5", "K8")}
+
+        def k3_lanes(lane, bnd_out, start_t):
+            """K3's start lanes and bnd_out lanes, flat."""
+            return torch.cat([lane.reshape(lane.shape[0], -1)[:, start_t].reshape(-1), bnd_out.reshape(-1)])
 
         def formed(k, fn, want_form):
-            """fn()'s result, failing unless its launches of kernel k (K1,
-            K2, K4 or K5) all took want_form (k1k4_form's or k5_form's)."""
+            """fn()'s result, failing unless its launches of kernel k (K1-K5,
+            K8) all took want_form (k1k4_form's, k3_form's or k5_form's)."""
             counts = getattr(cuda_score, f"{k}_FORMS")
             before = dict(counts)
             out = fn()
             took = {form: n - before[form] for form, n in counts.items() if n != before[form]}
-            fail_unless(list(took) == [want_form], f"{k} took {took} where k1k4_form says {want_form}")
+            fail_unless(list(took) == [want_form], f"{k} took {took} where its rule says {want_form}")
             return out
 
         def held_to_int32(k, m, got, int32_fn):
@@ -2686,6 +2741,18 @@ def main() -> int:
             for segs in (2, 4):
                 fail_unless(torch.equal(chain_k3(packed_t, start_t, refs_w, segs)[0], k1_w.T),
                             f"{segs} chained K3 segments differ from K1 at {m} lanes")
+            if m == 4096:
+                # K3's 16-bit form at 4,096 lanes: reads of at most 3,276 bp,
+                # the longest given (k3_form: 5 x 6,551 <= 32,767).
+                packed_k3, _, start_k3 = lay([[piece(3276, k38_rng), piece(m - 3276, k38_rng)]] + rows_m[1:], m)
+                pk3_t, sk3_t = up(packed_k3), up(start_k3)
+                _, err = chain_k3(pk3_t, sk3_t, refs_w, 1, bnd_rng=k38_rng, longest=3276)
+                wide_err["K3"] = max(wide_err["K3"], err)
+                k1_k3 = read_best(cuda_score.lane_best_packed_varlen(*k1_w_args(pk3_t), *PARAMS, offsets=offs_w,
+                                                                     longest=3276), start_k3)
+                for segs in (2, 4):
+                    fail_unless(torch.equal(chain_k3(pk3_t, sk3_t, refs_w, segs, longest=3276)[0], k1_k3.T),
+                                f"{segs} chained K3 segments (s16x2, longest 3,276) differ from K1 at {m} lanes")
             reads_g = [piece(m), piece(m - 1), piece(600), piece(1), piece(513), piece(min(m, 1100)), piece(m - 512), ""]
             args_2w = k2_grid(reads_g, refs_w[0])
             k2_form_m = cuda_score.k1k4_form(args_2w[0].shape[1], *PARAMS)
@@ -2745,7 +2812,12 @@ def main() -> int:
                 m8 = min(m, 8000)
                 args_8w = up(encode_batch([r[:m8] for r in reads_g[:-1]] + [("ACGT" * m8)[: m8 - 3]], m8, READ_PAD))
                 best_8w = score_grid(args_8w, args_2w[1], *PARAMS)[:, 0].to(torch.int32).contiguous()
-                k8_check(f"{m8} lanes", args_8w, args_2w[1][0], best_8w, 1024)
+                want_8w, _ = k8_check(f"{m8} lanes", args_8w, args_2w[1][0], best_8w, 1024)
+                if cuda_score.k5_form(m8, *PARAMS) == "s16x2":  # K8's wide s16x2 form held to int32 too
+                    k8_check(f"{m8} lanes, int32", args_8w, args_2w[1][0], best_8w, 1024, want_8w, form="int32")
+                    k8_check(f"{m8} lanes, one segment", args_8w, args_2w[1][0], best_8w, 1024, want_8w,
+                             split=False)
+                    s16_vs_int32["K8"][1].append(m8)
             if m == 2048:
                 # Again with a carry budget of 1: each launch then runs in
                 # parts of one block of four rows (reads), sharing one scratch.
@@ -2755,6 +2827,7 @@ def main() -> int:
                 # Three times the rows (reads), so that the s16x2 forms' blocks
                 # of eight rows (four pairs) also split.
                 packed_3 = up(lay(rows_m * 3, m)[0])
+                bnd_w3 = up(split_rng.integers(0, 120, size=(len(refs_w),) + tuple(packed_3.shape)).astype(np.int32))
                 args_g3 = grid_args(reads_g * 3, refs_w, m)
                 calls = {
                     "K1": lambda: cuda_score.lane_best_packed_varlen(packed_t, flat_w, lens_w_t, *PARAMS, offsets=offs_w),
@@ -2766,6 +2839,14 @@ def main() -> int:
                     "K4 int32 (24 reads)": lambda: cuda_score._score_grid_diag(*args_g3, *PARAMS, form="int32"),
                     "K3": lambda: cuda_score.band_lane_best(packed_t, flat_w, offs_w, lens_w_t, lens_w_t.clamp_min(1),
                                                             bnd_w, *PARAMS),
+                    "K3 (24 rows)": lambda: cuda_score.band_lane_best(packed_3, flat_w, offs_w, lens_w_t,
+                                                                      lens_w_t.clamp_min(1), bnd_w3, *PARAMS),
+                    "K3 int32 (24 rows)": lambda: cuda_score._band_lane_best(packed_3, flat_w, offs_w, lens_w_t,
+                                                                             lens_w_t.clamp_min(1), bnd_w3, *PARAMS,
+                                                                             form="int32"),
+                    "K8": lambda: cuda_score.max_cells_row(args_8w, args_2w[1][0], best_8w, *PARAMS, 1024),
+                    "K8 int32": lambda: cuda_score._max_cells_row(args_8w, args_2w[1][0], best_8w, *PARAMS, 1024,
+                                                                  form="int32"),
                     "K2": lambda: cuda_score.argmax_lane(*args_2w, *PARAMS),
                     "K2 int32": lambda: cuda_score._argmax_lane(*args_2w, *PARAMS, form="int32"),
                     "K4": lambda: cuda_score.score_grid_diag(*args_g, *PARAMS),
@@ -2789,33 +2870,39 @@ def main() -> int:
               f"max abs err {wide_err} against the plain versions (K1, K3 at every start lane, K3 at every bnd_out lane "
               f"with a random left column; K2 in s16x2 on every lane, in int32 on the traceback's lanes; K4, K5 every "
               f"pair, K5 against K4's plain version, its contract); every K1, K2 and K4 "
-              f"call in k1k4_form's form and every K5 call in k5_form's, the s16x2 wide form equal to the int32 one "
-              f"(max abs err, K2 on the traceback's lanes: "
+              f"call in k1k4_form's form, every K3 call in k3_form's and every K5 and K8 call in k5_form's, the s16x2 "
+              f"wide form equal to the int32 one (max abs err, K2 on the traceback's lanes, K3 on the start and "
+              f"bnd_out lanes, K8 both forms equal to plain: "
               + ", ".join(f"{k} {e} at {w}" for k, (e, w) in s16_vs_int32.items())
-              + f"; at 16,384 K1 on reads of at most 6,553 bp and K1, K2, K4 and K5 at match 1); reads over every "
+              + f"; at 16,384 K1 on reads of at most 6,553 bp and K1, K2, K4 and K5 at match 1; at 4,096 K3 on "
+              f"reads of at most 3,276 bp, the longest given); reads over every "
               f"stripe, starting on stripe boundaries and crossing them; K3 "
-              f"chained over 2 and 4 segments equal to K1 at every width; K8 (int32 wide form) equal to plain at "
-              f"1,025-8,000 lanes; at 2,048 lanes with a carry budget of 1 (K1 s16x2 and int32 on 24 rows in "
+              f"chained over 2 and 4 segments equal to K1 at every width (at 4,096 in both forms); K8 equal to plain "
+              f"at 1,025-8,000 lanes (s16x2 to 4,096, also as one segment; int32 at 8,000); at 2,048 lanes with a "
+              f"carry budget of 1 (K1 and K3 s16x2 and int32 on 24 rows in "
               f"{split_parts[2]} launches of 8 and {2 * split_parts[2]} of 4, K4 and K5 on 24 reads likewise in "
-              f"{split_parts[3]} and {2 * split_parts[3]}, K3 in {split_parts[0]} launches of 4 rows, K2 in "
-              f"{split_parts[4]} launches of a pair and int32 in {split_parts[1]} of 4 reads) equal to one launch on "
-              f"every lane ({time.perf_counter() - t14:.1f} s)",
+              f"{split_parts[3]} and {2 * split_parts[3]}, K3 on 8 rows in {split_parts[0] // 2} launch, K2 in "
+              f"{split_parts[4]} launches of a pair and int32 in {split_parts[1]} of 4 reads, K8 in one launch of 8 "
+              f"reads and int32 in two of 4) equal to one launch on every lane ({time.perf_counter() - t14:.1f} s)",
               flush=True)
 
         # K2's striped s16x2 form in column segments: reads of 1,025 and
-        # 2,048 positions against the 40 kb genome, which argmax_segments
-        # cuts (the references above are too short to); every lane against
+        # 2,048 positions against 20 kb and 40 kb of the genome, which
+        # argmax_segments cuts (the references above are too short to); every lane against
         # plain and the traceback's lanes against the int32 form, at the
         # default carry budget and at a budget of 1 (a pair a launch).
         # Its own generator leaves the later phases' inputs as they were.
         cut_rng = np.random.default_rng(SEED + 15)
         k2_cut = {}
         for m in (1025, 2048):
-            reads_s = [piece(m, cut_rng), piece(m - 1, cut_rng), genome[-(m - 3):], genome[:700], piece(600, cut_rng),
+            # 1,025 positions split against the genome's first 20 kb already
+            # (the plain version's diagonals are most of this check's time).
+            ref_s = genome if m == 2048 else genome[:20_000]
+            reads_s = [piece(m, cut_rng), piece(m - 1, cut_rng), ref_s[-(m - 3):], ref_s[:700], piece(600, cut_rng),
                        piece(513, cut_rng), piece(1, cut_rng), ""]
-            args_s = k2_grid(reads_s, genome)
-            plan_s = cuda_score.argmax_segments(args_s[0].shape[1], len(genome), *PARAMS, -(-len(reads_s) // 2), sms)
-            fail_unless(plan_s[3] > 1, f"K2 at {m} positions against {len(genome)} bp does not split: {plan_s}")
+            args_s = k2_grid(reads_s, ref_s)
+            plan_s = cuda_score.argmax_segments(args_s[0].shape[1], len(ref_s), *PARAMS, -(-len(reads_s) // 2), sms)
+            fail_unless(plan_s[3] > 1, f"K2 at {m} positions against {len(ref_s)} bp does not split: {plan_s}")
             want_s = cuda_score.argmax_lane_plain(*args_s, *PARAMS)
             int32_s = cuda_score._argmax_lane(*args_s, *PARAMS, form="int32")
             for budget in (cuda_score.CARRY_BUDGET, 1):
@@ -2829,11 +2916,65 @@ def main() -> int:
                 fail_unless(err == 0, f"K2 in segments at {m} positions (carry budget {budget}) differs from plain "
                                       f"({err})")
                 held_to_int32("K2", m, got, lambda: int32_s)
-            k2_cut[m] = plan_s[3]
-        print(f"[14] K2 s16x2 striped in column segments against the {len(genome)} bp genome: "
-              + ", ".join(f"{m} positions in {k} segments" for m, k in k2_cut.items())
-              + f", 8 reads each (one of the genome's last bp), equal to plain on every lane and to the int32 form on "
-              f"the traceback's lanes, at the default carry budget and at 1", flush=True)
+            k2_cut[m] = plan_s[3], len(ref_s)
+        print(f"[14] K2 s16x2 striped in column segments against the genome: "
+              + ", ".join(f"{m} positions x {n} bp in {k} segments" for m, (k, n) in k2_cut.items())
+              + f", 8 reads each (one of the reference's last bp), equal to plain on every lane and to the int32 form "
+              f"on the traceback's lanes, at the default carry budget and at 1", flush=True)
+
+        # K3's and K8's wide forms cut into column pieces (segments), each
+        # plan checked to cut: K3 on rows of 2,048 lanes (and of 4,096,
+        # reads of at most 3,000 bp, the longest given) x one segment of the
+        # 40 kb genome and 5 kb more, a random left column, every start lane
+        # and bnd_out lane; K8 on two tied reads of 2,048 positions (A, C and
+        # G) planted in a LONG_N ref of Ts around the borders of the columns
+        # its segments own.  Each against the same form as one piece and the
+        # int32 form (both held to plain above), cut and whole.
+        cut38 = {}
+        ref_45 = genome + piece(5000, k38_rng)
+        flat_45, lens_45 = encode_concat([ref_45])
+        for m, longest in ((2048, None), (4096, 3000)):
+            top = longest or m
+            packed_c, _, start_c = lay([[piece(top, k38_rng)], [piece(700, k38_rng), piece(900, k38_rng)],
+                                        [piece(1000, k38_rng), piece(1040, k38_rng)]], m)
+            args_c = (up(packed_c), up(flat_45), up(np.zeros(1, np.int64)), up(lens_45.astype(np.int32)),
+                      up(lens_45.astype(np.int32)),
+                      up(k38_rng.integers(0, 120, size=(1,) + packed_c.shape).astype(np.int32)), *PARAMS)
+            plan_c = cuda_score.band_segments(m, len(ref_45), 1, -(-packed_c.shape[0] // 8), *PARAMS, sms,
+                                              longest=longest)
+            fail_unless(plan_c[0] < len(ref_45), f"K3 does not cut {m}-lane rows x {len(ref_45)} bp: {plan_c}")
+            outs = {(form, split): k3_lanes(*cuda_score._band_lane_best(*args_c, longest=longest, form=form,
+                                                                         split=split), up(start_c))
+                    for form in ("s16x2", "int32") for split in (True, False)}
+            err = max(max_err(o, outs["int32", False]) for o in outs.values())
+            s16_vs_int32["K3"][0] = max(s16_vs_int32["K3"][0], err)
+            fail_unless(err == 0, f"K3 in pieces at {m} lanes differs from one piece or from int32 ({err})")
+            cut38["K3", m] = len(cuda_score.band_pieces(len(ref_45), *plan_c))
+        reads_c = ["".join(k38_rng.choice(list("ACG"), size=2048)) for _ in range(2)]
+        stride_c, length_c, skip_c = cuda_score.max_cells_segments(2048, LONG_N, *PARAMS, 1, sms)
+        fail_unless(stride_c < LONG_N, f"K8 does not cut 2 reads of 2,048 x {LONG_N} bp: {(stride_c, skip_c)}")
+        ends_c = [[10 * stride_c + skip_c - 1, 10 * stride_c + skip_c + 4101, 40 * stride_c + skip_c, LONG_N - 1],
+                  [60 * stride_c + skip_c + 1, 110_000]]
+        ref_c = bytearray(b"T" * LONG_N)
+        for read, ends in zip(reads_c, ends_c):
+            for end in ends:
+                ref_c[end - 2047 : end + 1] = read.encode()
+        args_8c = (up(encode_batch(reads_c, 2048, READ_PAD)), up(encode_batch([ref_c.decode()], LONG_N, REF_PAD)[0]),
+                   up(np.full(2, 5 * 2048, np.int32)), *PARAMS, 64)
+        outs = {(form, split): cuda_score._max_cells_row(*args_8c, form=form, split=split)
+                for form in ("s16x2", "int32") for split in (True, False)}
+        want_c = outs["int32", False]
+        fail_unless(want_c[0].tolist() == [4, 2] and want_c[1][0, :4, 1].tolist() == sorted(ends_c[0])
+                    and want_c[1][1, :2, 1].tolist() == sorted(ends_c[1]),
+                    f"the ties planted for K8 are not its int32 listing's: {want_c[0].tolist()}")
+        fail_unless(all(torch.equal(a, b) for o in outs.values() for a, b in zip(o, want_c)),
+                    "K8 in segments at 2,048 positions differs from one segment or from int32")
+        cut38["K8", 2048] = -(-LONG_N // stride_c)
+        print(f"[14] K3 and K8 wide in column pieces: K3 at 2,048 and 4,096 lanes (reads of at most 3,000 bp) x "
+              f"{len(ref_45)} bp in {cut38['K3', 2048]} and {cut38['K3', 4096]} pieces, s16x2 and int32, cut and "
+              f"whole, equal at every start lane and bnd_out lane; K8 two reads of 2,048 positions x {LONG_N} bp in "
+              f"{cut38['K8', 2048]} segments (stride {stride_c}, skip {skip_c}), ties planted at columns "
+              f"{ends_c} listed once each, s16x2 and int32, cut and whole, equal", flush=True)
 
         long_ref = genome + rand_seqs(rng, [LONG_N - len(genome)])[0]
         packed, order, start = lay([[piece(2048)], [piece(1000), piece(1048)], [piece(700), piece(900), piece(300)]], 2048)
@@ -2856,14 +2997,7 @@ def main() -> int:
         packed_t4 = up(packed_t4)
         ref_bp = int(lens_t.sum())
         wide_t = {}
-
-        def time_wide(name, fn, cells, nbytes):
-            ms = cuda_ms(fn, 3)
-            wide_t[name] = (ms, *bound(cells, nbytes, sms, clock_mhz))
-            print(f"[14] {name} at 4,096 lanes: {ms:.3f} ms ({cells / ms / 1e6:.1f} GCUPS real cells); bound "
-                  f"{wide_t[name][1]:.3f} ms by {wide_t[name][2]} = {100 * wide_t[name][1] / ms:.1f}%", flush=True)
-
-        wide_int32_ms = {}  # K1's and K4's int32 striped form at 4,096 lanes, beside wide_t's s16x2
+        wide_int32_ms = {}  # each kernel's int32 wide form at 4,096 lanes, beside wide_t's s16x2
 
         def turns_wide(name, fn, rows, cells, nbytes, lanes=lambda out: out, blocks=None):
             """A kernel's two striped forms at 4,096 lanes, fn(form), in
@@ -2895,10 +3029,17 @@ def main() -> int:
                                                                           offsets=k1_t[2], form=form),
                    packed_t4.shape[0], sum(map(len, reads_t)) * ref_bp,
                    packed_t4.numel() * 4 + ref_bp + 64 * 12 + out_bytes, lambda out: read_best(out, start_t4))
-        zero_bnd = torch.zeros((64,) + tuple(packed_t4.shape), dtype=torch.int32, device=dev)
-        ns_t = k1_t[1]
-        time_wide("K3", lambda: cuda_score.band_lane_best(packed_t4, k1_t[0], k1_t[2], k1_t[1], ns_t, zero_bnd, *PARAMS),
-                  sum(map(len, reads_t)) * ref_bp, packed_t4.numel() * 4 + ref_bp + 64 * 16 + 3 * out_bytes)
+        # K3 on 64 reads of 500-3,276 bp (the longest given, so that its rule
+        # admits 4,096-lane rows) x the 64 refs, a random left column.
+        reads_3t = [piece(n, k38_rng) for n in k38_rng.integers(500, 3277, 64)]
+        packed_3t, start_3t = pack_reads(reads_3t, 4096)
+        packed_3t, start_3t = up(packed_3t), up(start_3t.astype(np.int64))
+        bnd_3t = up(k38_rng.integers(0, 120, size=(64,) + tuple(packed_3t.shape)).astype(np.int32))
+        out_3t = 64 * packed_3t.numel() * 4
+        turns_wide("K3", lambda form: cuda_score._band_lane_best(packed_3t, k1_t[0], k1_t[2], k1_t[1], k1_t[1], bnd_3t,
+                                                                 *PARAMS, carry_cols=ref_bp, longest=3276, form=form),
+                   packed_3t.shape[0], sum(map(len, reads_3t)) * ref_bp,
+                   packed_3t.numel() * 4 + ref_bp + 64 * 16 + 3 * out_3t, lambda out: k3_lanes(*out, start_3t))
         args_t = grid_args(reads_t, refs_t, 4096)
         grid_bytes = sum(t.numel() for t in args_t) + 4 * 64 * 64
         turns_wide("K4", lambda form: cuda_score._score_grid_diag(*args_t, *PARAMS, form=form),
@@ -2919,20 +3060,77 @@ def main() -> int:
         turns_wide("K2", lambda form: cuda_score._argmax_lane(*args_2t, *PARAMS, form=form), len(reads_2t),
                    sum(map(len, reads_2t)) * len(refs_t[0]), args_2t[0].numel() + args_2t[1].numel()
                    + 3 * 4 * args_2t[0].numel(), k2_lanes, {"s16x2": len(reads_2t) // 2, "int32": len(reads_2t) // 4})
-        # K8's int32 wide form on the same reads, at their bests (the
+        # K8's two wide forms on the same reads, at their bests (the
         # row-form recurrence), capacity 64: inputs, the count and the slots.
         best_8t = score_grid(*args_2t, *PARAMS)[:, 0].to(torch.int32).contiguous()
-        time_wide("K8", lambda: cuda_score.max_cells_row(args_2t[0], args_2t[1][0], best_8t, *PARAMS, 64),
-                  sum(map(len, reads_2t)) * len(refs_t[0]),
-                  args_2t[0].numel() + args_2t[1].numel() + 4 * 128 + 128 * (8 + 64 * 2 * 4))
+        segs_8t = -(-len(refs_t[0]) // cuda_score.max_cells_segments(4096, len(refs_t[0]), *PARAMS, 64, sms)[0])
+        turns_wide("K8", lambda form: cuda_score._max_cells_row(args_2t[0], args_2t[1][0], best_8t, *PARAMS, 64,
+                                                                form=form),
+                   len(reads_2t), sum(map(len, reads_2t)) * len(refs_t[0]),
+                   args_2t[0].numel() + args_2t[1].numel() + 4 * 128 + 128 * (8 + 64 * 2 * 4),
+                   lambda out: torch.cat([out[0], out[1].reshape(-1).to(torch.int64)]),
+                   {"s16x2": len(reads_2t) // 2 * segs_8t, "int32": len(reads_2t) // 4 * segs_8t})
 
-        # Every public K1, K2 and K4 call above took k1k4_form's form and
-        # every K5 call k5_form's (formed); the int32 launches are the forms
-        # given for the comparisons and the widths outside the rules.
+        # The cliffs: each cut against the same form whole (s16x2), events,
+        # outputs equal.  K3: 256 reads of 80-150 bp and one of 2,000 bp in
+        # rows of 2,048 lanes (as band_prepack packs them) x one 1 Mb
+        # segment; K8: one tied 2,048 bp read x a 131,072 bp ref holding it
+        # twice.
+        reads_3l = [piece(n, k38_rng) for n in k38_rng.integers(80, 151, 256)] + [piece(2000, k38_rng)]
+        packed_3l, start_3l = pack_reads(reads_3l, 2048)
+        packed_3l, start_3l = up(packed_3l), up(start_3l.astype(np.int64))
+        flat_3l = up(encode_concat(rand_seqs(k38_rng, [1_000_000]))[0])
+        n_3l = up(np.array([1_000_000], np.int32))
+        args_3l = (packed_3l, flat_3l, up(np.zeros(1, np.int64)), n_3l, n_3l,
+                   torch.zeros((1,) + tuple(packed_3l.shape), dtype=torch.int32, device=dev), *PARAMS)
+        plan_3l = cuda_score.band_segments(2048, 1_000_000, 1, -(-packed_3l.shape[0] // 8), *PARAMS, sms, longest=2000)
+        fail_unless(plan_3l[0] < 1_000_000, f"K3 does not cut the 1 Mb segment: {plan_3l}")
+        cut_3l = k3_lanes(*cuda_score.band_lane_best(*args_3l, carry_cols=1_000_000, longest=2000), start_3l)
+        # One piece takes about half a second: one call, timed by events, gives its output too.
+        events_3l = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        events_3l[0].record()
+        whole_3l = cuda_score._band_lane_best(*args_3l, carry_cols=1_000_000, longest=2000, split=False)
+        events_3l[1].record()
+        torch.cuda.synchronize()
+        fail_unless(torch.equal(cut_3l, k3_lanes(*whole_3l, start_3l)),
+                    "K3 on the 1 Mb segment in pieces differs from one piece")
+        pieces_3l = len(cuda_score.band_pieces(1_000_000, *plan_3l))
+        rb_3l = -(-packed_3l.shape[0] // 8)
+        long_t = {"K3": (cuda_ms(lambda: cuda_score.band_lane_best(*args_3l, carry_cols=1_000_000, longest=2000), 3),
+                         events_3l[0].elapsed_time(events_3l[1]),
+                         *bound(sum(map(len, reads_3l)) * 1_000_000,
+                                packed_3l.numel() * 4 + 1_000_000 + 3 * packed_3l.numel() * 4, sms, clock_mhz),
+                         rb_3l * pieces_3l / sms, rb_3l / sms)}
+        read_8l = "".join(k38_rng.choice(list("ACGT"), size=2048))
+        ref_8l = rand_seqs(k38_rng, [LONG_N])[0]
+        ref_8l = ref_8l[:20_000] + read_8l + ref_8l[22_048:90_000] + read_8l + ref_8l[92_048:]
+        args_8l = (up(encode_batch([read_8l], 2048, READ_PAD)), up(encode_batch([ref_8l], LONG_N, REF_PAD)))
+        best_8l = up(np.array([5 * 2048], np.int32))  # its two copies
+        cut_8l = cuda_score.max_cells_row(args_8l[0], args_8l[1][0], best_8l, *PARAMS, 64)
+        whole_8l = cuda_score._max_cells_row(args_8l[0], args_8l[1][0], best_8l, *PARAMS, 64, split=False)
+        fail_unless(int(cut_8l[0][0]) == 2 and all(torch.equal(a, b) for a, b in zip(cut_8l, whole_8l)),
+                    f"K8 on the tied 2,048 bp read x {LONG_N} bp in segments differs from one segment "
+                    f"({cut_8l[0].tolist()}, {whole_8l[0].tolist()})")
+        segs_8l = -(-LONG_N // cuda_score.max_cells_segments(2048, LONG_N, *PARAMS, 1, sms)[0])
+        long_t["K8"] = (cuda_ms(lambda: cuda_score.max_cells_row(args_8l[0], args_8l[1][0], best_8l, *PARAMS, 64), 3),
+                        cuda_ms(lambda: cuda_score._max_cells_row(args_8l[0], args_8l[1][0], best_8l, *PARAMS, 64,
+                                                                  split=False), 1),
+                        *bound(2048 * LONG_N, 2048 + LONG_N + 4 + 8 + 64 * 8, sms, clock_mhz), segs_8l / sms, 1 / sms)
+        shapes = {"K3": f"{packed_3l.shape[0]} rows of 2,048 lanes x 1 Mb in {pieces_3l} pieces",
+                  "K8": f"one tied 2,048 bp read x {LONG_N} bp in {segs_8l} segments"}
+        for k, (cut_ms, whole_ms, bound_ms, bound_by, cut_bps, whole_bps) in long_t.items():
+            print(f"[14] {k} wide s16x2 on its long-reference shape ({shapes[k]}): cut {cut_ms:.3f} ms ({cut_bps:.2f} blocks an SM), whole {whole_ms:.3f} ms ({whole_bps:.2f}), "
+                  f"{whole_ms / cut_ms:.1f}x, outputs equal; bound {bound_ms:.3f} ms by {bound_by} = "
+                  f"{100 * bound_ms / cut_ms:.1f}% of the cut's time", flush=True)
+
+        # Every public K1, K2 and K4 call above took k1k4_form's form, every
+        # K3 call k3_form's and every K5 and K8 call k5_form's (formed,
+        # k8_check); the int32 launches are the forms given for the
+        # comparisons and the widths outside the rules.
         wide_forms = {k: {form: n - forms_14[k][form] for form, n in getattr(cuda_score, f"{k}_FORMS").items()}
                       for k in forms_14}
         fail_unless(all(min(f.values()) > 0 for f in wide_forms.values()),
-                    f"K1, K2, K4 and K5 at rows (reads) of more than 1,024 lanes took {wide_forms}")
+                    f"K1-K5 and K8 at rows (reads) of more than 1,024 lanes took {wide_forms}")
         print(f"[14] launches at rows (reads) of 1,025-16,384 lanes by form: "
               + ", ".join(f"{k} {f}" for k, f in wide_forms.items()), flush=True)
 
@@ -2953,30 +3151,50 @@ def main() -> int:
             f.write("\n".join(lr_reads))
         lr_config = AlignConfig(ref_dir=os.path.join(lr_root, "refs"), in_dir=os.path.join(lr_root, "inputs"),
                                 out_dir=os.path.join(lr_root, "out_batch"))
+        def k3_cut(args, kw):
+            """Whether a K3 call's plan cuts its segments into pieces."""
+            packed_a, ns_a = args[0], args[4]
+            per = 8 if cuda_score.k3_form(packed_a.shape[1], *args[6:9], longest=kw.get("longest")) == "s16x2" else 4
+            cols = kw.get("carry_cols") or int(ns_a.clamp_min(1).sum())
+            return cuda_score.band_segments(packed_a.shape[1], cols, ns_a.shape[0], -(-packed_a.shape[0] // per),
+                                            *args[6:9], sms, longest=kw.get("longest"))[0] < cols
+
+        def k8_cut(args, kw):
+            """Whether a K8 call's plan cuts its reference into segments."""
+            (r_a, m_a), n_a = args[0].shape, args[1].shape[0]
+            blocks = cuda_score._max_cells_blocks(r_a, m_a, cuda_score.k5_form(m_a, *args[3:6]))
+            return cuda_score.max_cells_segments(m_a, n_a, *args[3:6], blocks, sms)[0] < n_a
+
         @contextlib.contextmanager
         def launch_log():
-            """[(kernel, m, longest, forms)] of every K1, K2, K4 and K5
+            """[(kernel, m, longest, forms, cut)] of every K1-K5 and K8
             launch the backends and the traceback make inside the block:
-            their references to the four public wrappers wrapped for it,
-            each launch's form read from K1_FORMS .. K5_FORMS."""
+            their references to the six public wrappers wrapped for it,
+            each launch's form read from K1_FORMS .. K8_FORMS, and for K3
+            and K8 whether its plan cut it into column pieces (None
+            elsewhere)."""
             from sparksmithwaterman_tpu_torch.models import batch_backend
-            from sparksmithwaterman_tpu_torch.parallel import engine
+            from sparksmithwaterman_tpu_torch.parallel import engine, seqparallel
 
             log = []
 
             def spy(kernel, fn, counts):
+                cut = {"K3": k3_cut, "K8": k8_cut}.get(kernel)
+
                 def call(*args, **kw):
                     before = dict(counts)
                     out = fn(*args, **kw)
                     log.append((kernel, args[0].shape[1], kw.get("longest"),
-                                [form for form in counts if counts[form] != before[form]]))
+                                [form for form in counts if counts[form] != before[form]],
+                                cut and cut(args, kw)))
                     return out
                 return call
 
             kernel_of = {"lane_best_packed_varlen": "K1", "argmax_lane": "K2", "score_grid_diag": "K4",
-                         "score_grid_row": "K5"}
+                         "score_grid_row": "K5", "band_lane_best": "K3", "max_cells_row": "K8"}
             saved = [(batch_backend, "lane_best_packed_varlen"), (engine, "lane_best_packed_varlen"),
-                     (batch_backend, "score_grid_diag"), (batch_backend, "score_grid_row"), (longseq, "argmax_lane")]
+                     (batch_backend, "score_grid_diag"), (batch_backend, "score_grid_row"), (longseq, "argmax_lane"),
+                     (seqparallel, "band_lane_best"), (longseq, "max_cells_row")]
             saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
             for mod, name, fn in saved:
                 k = kernel_of[name]
@@ -2988,14 +3206,15 @@ def main() -> int:
                     setattr(mod, name, fn)
 
         def check_log(log, what, rule=None):
-            """Every launch of the log in the form its rule gives it (K5
-            k5_form, the others k1k4_form; ``rule(kernel, m, longest)``:
-            another rule's), each launch one form; the wide launches by
-            kernel and form."""
-            rule = rule or (lambda kernel, m, longest: cuda_score.k5_form(m, *PARAMS) if kernel == "K5" else
+            """Every launch of the log in the form its rule gives it (K5 and
+            K8 k5_form, K3 k3_form, the others k1k4_form; ``rule(kernel, m,
+            longest)``: another rule's), each launch one form; the wide
+            launches by kernel and form."""
+            rule = rule or (lambda kernel, m, longest: cuda_score.k5_form(m, *PARAMS) if kernel in ("K5", "K8") else
+                            cuda_score.k3_form(m, *PARAMS, longest=longest) if kernel == "K3" else
                             cuda_score.k1k4_form(m, *PARAMS, longest=longest))
             wide = collections.Counter()
-            for kernel, m, longest, forms in log:
+            for kernel, m, longest, forms, _ in log:
                 fail_unless(forms == [rule(kernel, m, longest)],
                             f"{what}: {kernel} at {m} lanes (longest {longest}) took {forms}")
                 if m > cuda_score.ONE_PASS_LANES:
@@ -3159,8 +3378,95 @@ def main() -> int:
               f"wide forms and to each other; winners {sorted(lr6_winners)} through the windowed traceback; wide "
               f"launches by form {dict(lr6_wide)} (int32 runs {dict(lr6_int32_wide)}); LAUNCHES {lr6_launches}; "
               f"{time.perf_counter() - t14s:.1f} s", flush=True)
-        wide_main_forms = {k: {form: lr_wide[k, form] + lr6_wide[k, form] for form in ("s16x2", "int32")}
-                           for k in ("K1", "K2", "K4", "K5")}
+
+        # The main path past one pass for K3 and K8 in s16x2: 60 reads of
+        # 80-150 bp and four of 1,025-3,000 bp, one of 2,000 bp held twice by
+        # a 48 kb winner (a tie inside its last DP row, which the windowed
+        # traceback lists with K8 at 2,000 positions, in segments), x that
+        # winner and four refs of 9-40 kb.  shard_seq packs every read in
+        # rows of 4,096 lanes (the longest read 3,000 bp: K3 in s16x2) and
+        # cuts the refs past 4 W = 27,000 columns into pieces.  The batch and
+        # shard_seq reports equal each other, shard_seq's with k3_form patched
+        # to int32 past one pass, and batch's with K8's rule patched to
+        # k1_form.
+        t14b = time.perf_counter()
+        kb_root = os.path.join(work, "long_band")
+        os.makedirs(os.path.join(kb_root, "refs"))
+        os.makedirs(os.path.join(kb_root, "inputs"))
+        tie_read = "".join(k38_rng.choice(list("ACGT"), size=2000))
+        win = rand_seqs(k38_rng, [48_000])[0]
+        win = win[:6_000] + tie_read + win[8_000:30_000] + tie_read + win[32_000:]
+        kb_refs = [win] + rand_seqs(k38_rng, [40_000, 33_000, 9_000, 15_000])
+        with open(os.path.join(kb_root, "refs", "kb.rna.fna"), "w") as f:
+            f.write("\n".join(f">gi|9{k}|kb{k}\n{seq}" for k, seq in enumerate(kb_refs)))
+
+        def from_win(n):
+            """n bp of the winner with about one base in 30 changed."""
+            o = int(k38_rng.integers(0, len(win) - n + 1))
+            arr = np.frombuffer(win[o : o + n].encode(), np.uint8).copy()
+            hit = k38_rng.random(n) < 1 / 30
+            arr[hit] = np.frombuffer(b"ACGT", np.uint8)[k38_rng.integers(0, 4, int(hit.sum()))]
+            return arr.tobytes().decode()
+
+        kb_reads = [from_win(int(n)) for n in k38_rng.integers(80, 151, 60)]
+        kb_reads[10:10] = [from_win(1025), from_win(1500), tie_read, from_win(3000)]
+        with open(os.path.join(kb_root, "inputs", "input1.fa"), "w") as f:
+            f.write("\n".join(kb_reads))
+        cuda_score.reset_launches()
+        with launch_log() as kb_log:
+            kb_s = {strategy: align(kb_root, strategy, f"out_{strategy}") for strategy in ("batch", "shard_seq")}
+        kb_launches = dict(cuda_score.LAUNCHES)
+        kb_forms = {k: dict(getattr(cuda_score, f"{k}_FORMS")) for k in ("K1", "K2", "K3", "K4", "K5", "K8")}
+        kb_wide = check_log(kb_log, "the long-band corpus")
+        kb_cut = {k: [(forms, cut) for kernel, m, _, forms, cut in kb_log if kernel == k and m > cuda_score.ONE_PASS_LANES]
+                  for k in ("K3", "K8")}
+        fail_unless(all(kb_cut[k] and all(forms == ["s16x2"] and cut for forms, cut in kb_cut[k]) for k in kb_cut),
+                    f"K3's and K8's launches past one pass on the long-band corpus (form, cut): {kb_cut}")
+        kb_winners = parse_report(os.path.join(kb_root, "out_batch", "result1.txt"))[1]
+        fail_unless(list(kb_winners) == [">gi|90|kb0"] and TorchBatchBackend(lr_config, dev)._windowed(win, kb_reads),
+                    f"the long-band corpus's winner is not its 48 kb ref through the windowed branch: {list(kb_winners)}")
+        rules = cuda_score.k3_form, cuda_score.k5_form
+        cuda_score.k3_form = lambda m, *a, **kw: "int32" if m > cuda_score.ONE_PASS_LANES else rules[0](m, *a, **kw)
+        try:
+            with launch_log() as kb3_log:
+                align(kb_root, "shard_seq", "out_shard_seq_int32")
+        finally:
+            cuda_score.k3_form = rules[0]
+        cuda_score.k5_form = cuda_score.k1_form
+        try:
+            with launch_log() as kb8_log:
+                align(kb_root, "batch", "out_batch_int32")
+        finally:
+            cuda_score.k5_form = rules[1]
+        kb3_wide = check_log(kb3_log, "the long-band corpus, K3 in int32",
+                             lambda kernel, m, longest: "int32" if kernel == "K3" and m > cuda_score.ONE_PASS_LANES
+                             else rules[1](m, *PARAMS) if kernel in ("K5", "K8")
+                             else cuda_score.k1k4_form(m, *PARAMS, longest=longest))
+        kb8_wide = check_log(kb8_log, "the long-band corpus, K8 by k1_form",
+                             lambda kernel, m, longest: cuda_score.k1_form(m, *PARAMS) if kernel in ("K5", "K8")
+                             else cuda_score.k1k4_form(m, *PARAMS, longest=longest))
+        fail_unless(kb3_wide["K3", "int32"] > 0 and kb8_wide["K8", "int32"] > 0
+                    and all(cut for kernel, m, _, _, cut in kb3_log if kernel == "K3" and m > cuda_score.ONE_PASS_LANES),
+                    f"the int32-patched runs' wide launches: {dict(kb3_wide)}, {dict(kb8_wide)}")
+        kb_reports = [stripped(os.path.join(kb_root, out, "result1.txt"))
+                      for out in ("out_batch", "out_shard_seq", "out_shard_seq_int32", "out_batch_int32")]
+        fail_unless(all(r == kb_reports[0] for r in kb_reports),
+                    "the long-band corpus's reports differ between batch, shard_seq and their int32-patched runs")
+        k1_main_forms.update(kb_forms["K1"])
+        k2_main_forms.update(kb_forms["K2"])
+        k4_main_forms.update(kb_forms["K4"])
+        k5_main_forms.update(kb_forms["K5"])
+        k8_main_forms.update(kb_forms["K8"])
+        k3_main_forms = {form: k3_main_forms[form] + kb_forms["K3"][form] for form in k3_main_forms}
+        print(f"[14] {len(kb_reads)} reads (4 of 1,025-3,000 bp, one of 2,000 bp tied in the winner) x "
+              f"{len(kb_refs)} refs of 9-48 kb: batch {kb_s['batch']:.2f} s and shard_seq {kb_s['shard_seq']:.2f} s, "
+              f"reports equal to each other and to shard_seq with K3 int32 past one pass and batch with K8 by "
+              f"k1_form; winner {list(kb_winners)} through the windowed traceback; K3's and K8's launches past one "
+              f"pass (form, cut into pieces) {kb_cut}; wide launches by form {dict(kb_wide)} (int32 runs "
+              f"{dict(kb3_wide)}, {dict(kb8_wide)}); LAUNCHES {kb_launches}; {time.perf_counter() - t14b:.1f} s",
+              flush=True)
+        wide_main_forms = {k: {form: lr_wide[k, form] + lr6_wide[k, form] + kb_wide[k, form] for form in ("s16x2", "int32")}
+                           for k in ("K1", "K2", "K3", "K4", "K5", "K8")}
         clock.done(14)
 
         # -- 15. swtorch gen, info, bench and diff; two processes; the dry run --
@@ -3371,7 +3677,7 @@ def main() -> int:
         clock.done(15)
 
     legs = (launches, seq_launches, seq_batch_launches, shard_launches, unpacked_launches, scaling_launches,
-            *bench_launches.values(), *probe_launches.values(), lr_launches, lr6_launches, *launches_15)
+            *bench_launches.values(), *probe_launches.values(), lr_launches, lr6_launches, kb_launches, *launches_15)
     main_launches = {name: sum(leg[name] for leg in legs) for name in cuda_score.LAUNCHES}
     fail_unless(main_launches["fill_list"] > 0 and main_launches["fill_walk"] > 0,
                 f"the main-path legs did not run both branches of the traceback: {main_launches}")
@@ -3654,7 +3960,15 @@ def main() -> int:
             "long_bound_ms": fw_long[3][0],
         },
     ]
-    kernels[7].update(wide_ms=wide_t["K8"][0], wide_bound_ms=wide_t["K8"][1])  # K8 (max_cells_row) at 4,096 lanes
+    # K8 (max_cells_row) at 4,096 lanes in both wide forms
+    kernels[7].update(wide_max_abs_err=0, wide_ms=wide_t["K8"][0], wide_bound_ms=wide_t["K8"][1],
+                      wide_forms=wide_main_forms["K8"], wide_int32_ms=wide_int32_ms["K8"],
+                      wide_int32_bound_ms=wide_t["K8"][1])
+    for entry, k in ((kernels[2], "K3"), (kernels[7], "K8")):  # the long-reference shapes, cut and whole
+        cut_ms, whole_ms, bound_ms, _, cut_bps, whole_bps = long_t[k]
+        entry.update(wide_long_ms=cut_ms, wide_long_bound_ms=bound_ms, wide_long_blocks_per_sm=cut_bps,
+                     wide_long_unsplit_ms=whole_ms, wide_long_unsplit_bound_ms=bound_ms,
+                     wide_long_unsplit_blocks_per_sm=whole_bps)
     for entry, k in zip(kernels, ("K1", "K2", "K3", "K4", "K5")):  # rows of 4,096 lanes, in stripes
         entry.update(wide_max_abs_err=wide_err[k], wide_ms=wide_t[k][0], wide_bound_ms=wide_t[k][1])
         if k in wide_int32_ms:  # K1's, K2's, K4's and K5's two wide forms, and their wide launches over the legs
@@ -3680,7 +3994,12 @@ def main() -> int:
     fail_unless(not leaked, f"the run loaded JAX or the JAX package: {leaked[:5]}")
     print("[end] seconds by phase: " + ", ".join(f"[{k}] {v:.1f}" for k, v in sorted(clock.seconds.items())),
           flush=True)
-    print(f"[end] every phase passed in {time.perf_counter() - t_start:.1f} s")
+    total_s = time.perf_counter() - t_start
+    if total_s > 540:
+        slowest = max(clock.seconds, key=clock.seconds.get)
+        print(f"[end] the run took {total_s:.1f} s, past 540 s: its longest phase is [{slowest}] "
+              f"({clock.seconds[slowest]:.1f} s)", flush=True)
+    print(f"[end] every phase passed in {total_s:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

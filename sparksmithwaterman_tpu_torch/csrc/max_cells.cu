@@ -31,8 +31,8 @@
 //
 // What bounds it on the H100: integer operations, as K5 (the inputs are
 // read once per tile, and the output is a counter and a few slots a read).
-// Three forms, picked by the wrapper from the data alone (ops/cuda_score.py
-// k1_form, the rule of K1, K4 and K5, m the width of the reads tensor):
+// Four forms, picked by the wrapper from the data alone (ops/cuda_score.py
+// k5_form, K5's rule, m the width of the reads tensor):
 //
 // - s16x2 (max_cells_s16x2_kernel), reads of at most 1,024 positions whose
 //   scores fit int16: K5's s16x2 form, warp w of a block on reads 2w and
@@ -42,10 +42,16 @@
 //   packed bests by __vcmpges2; a listed register is compared half by half.
 // - int32 (max_cells_kernel, one warp per read, the prefix max of
 //   A[k] - gap*k): every other read of at most 1,024 positions.
-// - int32 wide (max_cells_wide_kernel): reads of more than 1,024
+// - s16x2 wide (max_cells_wide_s16x2_kernel): reads of more than 1,024
+//   positions whose scores fit int16 (ops/cuda_score.py k5_form: K8's
+//   recurrence is K5's row scan, which has no stripes, so K5's bound
+//   match x m holds at any width).  A block a pair and segment, its four
+//   warps on four tiles at once, a tile's last column passed to the next
+//   tile's warp through a scratch of one uint32 a row (see the kernel).
+// - int32 wide (max_cells_wide_kernel): other reads of more than 1,024
 //   positions.  Codes are read from global memory and the carried column
-//   lives in a scratch row of m int32 per read, which the wrapper
-//   allocates, as in score_row_wide_kernel.
+//   lives in a scratch row of m int32 per read and segment, which the
+//   wrapper allocates, as in score_row_wide_kernel.
 //
 // Rows: trailing pad rows are skipped only when mismatch < 0 and gap < 0
 // (`trim`): a pad row (READ_PAD matches nothing) then stays strictly below
@@ -198,26 +204,28 @@ max_cells_kernel(const uint8_t* __restrict__ reads, int r, int m, int read_block
             read, p.j0, owned(p, sg), out);
 }
 
-// The wide form, over reads read0 .. read0 + read_blocks * kWarps - 1: the
-// codes stay in global memory and the carried column is carry + m *
-// (read - read0).  One segment: the whole reference.
+// The wide form, over reads read0 .. read0 + read_blocks * kWarps - 1 in
+// each column segment: the codes stay in global memory and the carried
+// column is carry + m x (its read of the part x segments + its segment).
 __global__ void __launch_bounds__(kThreads)
-max_cells_wide_kernel(const uint8_t* __restrict__ reads, int r, int m, int read0,
-                      const uint8_t* __restrict__ ref, int n,
+max_cells_wide_kernel(const uint8_t* __restrict__ reads, int r, int m, int read0, int read_blocks,
+                      const uint8_t* __restrict__ ref, int n, Segments sg,
                       const int32_t* __restrict__ best, int match, int mismatch, int gap,
                       int trim, Listing out, int32_t* __restrict__ carry) {
   const int lane = threadIdx.x & 31;
-  const int part_read = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const Place p = place(blockIdx.x, read_blocks, n, sg);
+  const int part_read = p.rb * kWarps + (threadIdx.x >> 5);
   const int read = read0 + part_read;
   if (read >= r || best[read] <= 0) return;
   const uint8_t* rd = reads + (long long)read * m;
-  int* col = carry + (long long)m * part_read;
+  int* col = carry + (long long)m * ((long long)part_read * sg.count + blockIdx.x / read_blocks);
   int used = 0;
   for (int i = lane; i < m; i += 32) {
     col[i] = 0;
     if (rd[i] != kReadPad) used = i + 1;
   }
-  list_read(rd, col, used, m, ref, n, match, mismatch, gap, trim, best[read], read, 0, {0, n}, out);
+  list_read(rd, col, used, m, ref + p.j0, p.span, match, mismatch, gap, trim, best[read], read, p.j0,
+            owned(p, sg), out);
 }
 
 // A best in one 16-bit half of the row max's compare: 0x7FFF where the
@@ -225,6 +233,18 @@ max_cells_wide_kernel(const uint8_t* __restrict__ reads, int r, int m, int read0
 // at 32,767, and then list_pair lists nothing for it.
 __device__ __forceinline__ uint32_t best_half(int b) {
   return b > 0 && b <= 32767 ? (uint32_t)b : 0x7FFFu;
+}
+
+// Lists a row of a tile of a pair in the s16x2 forms, the pair's reads,
+// bests and owned columns given.  The whole warp calls it.
+__device__ __forceinline__ void list_tile(const uint32_t (&h)[kRowCols], int i, int jl, int read, int b_lo,
+                                          int b_hi, Own own, int j0, Listing out) {
+#pragma unroll
+  for (int k = 0; k < kRowCols; ++k) {
+    const bool own_k = jl + k >= own.lo && jl + k < own.hi;
+    append(own_k && b_lo > 0 && (int)(h[k] & 0xFFFFu) == b_lo, read, i, j0 + jl + k, out);
+    append(own_k && b_hi > 0 && (int)(h[k] >> 16) == b_hi, read + 1, i, j0 + jl + k, out);
+  }
 }
 
 // Lists a row of a pair in the s16x2 form: the pair, its bests and the
@@ -240,12 +260,7 @@ __device__ __forceinline__ void list_pair(const uint32_t (&h)[kRowCols], int i, 
   const int read = q.rb * (2 * kWarps) + 2 * (threadIdx.x >> 5);
   const int b_lo = best[read];
   const int b_hi = read + 1 < r ? best[read + 1] : 0;
-#pragma unroll
-  for (int k = 0; k < kRowCols; ++k) {
-    const bool own_k = jl + k >= own.lo && jl + k < own.hi;
-    append(own_k && b_lo > 0 && (int)(h[k] & 0xFFFFu) == b_lo, read, i, q.j0 + jl + k, out);
-    append(own_k && b_hi > 0 && (int)(h[k] >> 16) == b_hi, read + 1, i, q.j0 + jl + k, out);
-  }
+  list_tile(h, i, jl, read, b_lo, b_hi, own, q.j0, out);
 }
 
 // The s16x2 form (see the top of this file): block b takes reads 8 rb ..
@@ -309,6 +324,104 @@ max_cells_s16x2_kernel(const uint8_t* __restrict__ reads, int r, int m, int read
   }
 }
 
+// The wide s16x2 form's pipeline of tiles: warp w runs kTileLag rows
+// behind warp w - 1, and the block meets at a barrier every kTileSync
+// rows, so a row's carried word, stored by warp w - 1 on that row, is
+// loaded by warp w (a row ahead, on the row before) only after a barrier
+// (kTileLag > kTileSync).
+constexpr int kTileSync = 32;
+constexpr int kTileLag = kTileSync + 1;
+
+// The s16x2 form of reads wider than kMaxLanes (see the top of this
+// file): a block takes one pair of reads (read0 + 2 rb, + 1, one in each
+// 16-bit half of every register) and one column segment, and its warps
+// take consecutive tiles of it at once: in round q warp w runs tile 4q +
+// w, kTileLag rows behind warp w - 1.  Each tile's last column, H of
+// both reads as one uint32 a row, goes through a global scratch (column w
+// of the pair's 4 m words a segment, carry + 4 m x (pair of the part x
+// segments + segment), stored by lane 0 of warp w) to the warp on the
+// next tile (warp w + 1, or warp 0 in the next round), which loads it a
+// row ahead with lane 0 alone, off the row step's chain (as K5's wide s16x2
+// form).  A launch of one or two tied reads, as the windowed traceback
+// makes, is a chain of dependent row steps, a row of each tile after the
+// other: four tiles in flight cut it to a row of each round.  The row
+// step, the row's max, the vote and the listing are
+// max_cells_s16x2_kernel's.
+__global__ void __launch_bounds__(kThreads)
+max_cells_wide_s16x2_kernel(const uint8_t* __restrict__ reads, int r, int m, int read0, int pairs,
+                            const uint8_t* __restrict__ ref, int n, Segments sg,
+                            const int32_t* __restrict__ best, int trim, uint32_t k_sub,
+                            uint32_t mismatch2, uint32_t gap2, ScanGaps scan, Listing out,
+                            uint32_t* __restrict__ carry) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const Place p = place(blockIdx.x, pairs, n, sg);
+  const int read = read0 + 2 * p.rb;
+  if (read >= r) return;  // the whole block
+  const bool has_hi = read + 1 < r;
+  const int b_lo = best[read];
+  const int b_hi = has_hi ? best[read + 1] : 0;
+  if (b_lo <= 0 && b_hi <= 0) return;
+  const uint32_t best2 = best_half(b_lo) | best_half(b_hi) << 16;
+  const uint8_t* rd = reads + (long long)read * m;
+  const uint8_t* rd_hi = has_hi ? rd + m : nullptr;
+  const auto code2 = [&](int i) {
+    return code_half(rd[i]) | code_half(rd_hi != nullptr ? rd_hi[i] : kReadPad) << 16;
+  };
+  uint32_t* cols = carry + (long long)m * kWarps * ((long long)p.rb * sg.count + blockIdx.x / pairs);
+  uint32_t* mine = cols + (long long)m * warp;                                // this warp's tiles' last column
+  const uint32_t* theirs = cols + (long long)m * ((warp + kWarps - 1) % kWarps);  // the tile to the left's
+  int used = 0;  // 1 + the last position of the pair that is not pad (the same in every warp)
+  for (int i = lane; i < m; i += 32)
+    if (rd[i] != kReadPad || (has_hi && rd[m + i] != kReadPad)) used = i + 1;
+  used = trim ? __reduce_max_sync(0xffffffffu, used) : m;
+  const uint8_t* seg = ref + p.j0;
+  const int span = p.span;
+  const Own own = owned(p, sg);
+  const int tiles = used > 0 ? (span + kRowTile - 1) / kRowTile : 0;
+  const int lag = warp * kTileLag;
+  const int steps = used + (kWarps - 1) * kTileLag;
+
+  for (int t0 = 0; t0 < tiles; t0 += kWarps) {
+    const int t = t0 + warp;
+    const bool busy = t < tiles;
+    const int jl = t * kRowTile + lane * kRowCols;
+    uint32_t rf2[kRowCols], h[kRowCols];
+#pragma unroll
+    for (int k = 0; k < kRowCols; ++k) {
+      rf2[k] = code_half(busy && jl + k < span ? seg[jl + k] : kRefPad) * 0x00010001u;
+      h[k] = 0;  // H[-1][j]
+    }
+    const bool carried = t > 0 && lane == 0;  // lane 0 reads the column (row_step_s16x2 uses its west only)
+    uint32_t above = 0, ch = 0, west = 0;  // H[i-1][base-1]; row i's codes and H[i][base-1]
+    for (int s = 0; s < steps; ++s) {
+      const int i = s - lag;
+      if (busy && i >= 0 && i < used) {  // the whole warp
+        if (i == 0) {
+          ch = code2(0);
+          west = carried ? __ldcg(theirs) : 0u;
+        }
+        const int next = i + 1 < used ? i + 1 : i;
+        const uint32_t ch_next = code2(next), west_next = carried ? __ldcg(theirs + next) : 0u;
+        row_step_s16x2(h, rf2, ch, west, above, k_sub, mismatch2, gap2, scan);
+        // The row's max in each half, against the pair's bests.
+        uint32_t top = __vimax3_s16x2(h[0], h[1], h[2]);
+#pragma unroll
+        for (int k = 3; k < kRowCols; k += 2) top = __vimax3_s16x2(top, h[k], h[k + 1 < kRowCols ? k + 1 : k]);
+        if (__any_sync(0xffffffffu, __vcmpges2(top, best2) != 0u))
+          list_tile(h, i, jl, read, b_lo, b_hi, own, p.j0, out);
+        above = west;
+        const uint32_t last = __shfl_sync(0xffffffffu, h[kRowCols - 1], 31);
+        if (lane == 0) __stcg(mine + i, last);  // through L2, where the next tile's warp loads it
+        ch = ch_next;
+        west = west_next;
+      }
+      if (s % kTileSync == kTileSync - 1) __syncthreads();
+    }
+    __syncthreads();  // the round's last columns before the next round's loads
+  }
+}
+
 // The finish: keys of at most kFinishKeys slots are sorted in shared
 // memory; more, in the wrapper's scratch (a power of two of keys a read).
 constexpr int kFinishThreads = 256;
@@ -349,13 +462,13 @@ max_cells_finish_kernel(const int32_t* __restrict__ best, int m, int n,
 }
 
 // The wrapper's split of the reference (stride, length, skip), checked:
-// one segment when stride and length cover n; else segments of reads of
-// at most kMaxLanes under match > 0, mismatch <= 0 and gap < 0 that overlap
-// by at least skip >= W - 1 columns (see the top of this file).  count 0:
+// one segment when stride and length cover n; else segments under match
+// > 0, mismatch <= 0 and gap < 0 that overlap by at least skip >= W - 1
+// columns (see the top of this file; reads of any width).  count 0:
 // refused.
 Segments plan(int m, int n, int match, int mismatch, int gap, int stride, int length, int skip) {
   if (stride >= n && length >= n) return {n, n, 1, 0};
-  if (stride <= 0 || m > kMaxLanes || match <= 0 || mismatch > 0 || gap >= 0) return {stride, length, 0, skip};
+  if (stride <= 0 || match <= 0 || mismatch > 0 || gap >= 0) return {stride, length, 0, skip};
   const long long w = m + (long long)match * m / -(long long)gap;
   if (skip < w - 1 || length < (long long)stride + skip) return {stride, length, 0, skip};
   return {stride, length, (int)(((long long)n + stride - 1) / stride), skip};
@@ -365,20 +478,21 @@ Segments plan(int m, int n, int match, int mismatch, int gap, int stride, int le
 
 // K8 in the int32 forms: reads (r, m) uint8, ref (n,) uint8, best (r,)
 // int32 on the card; count (r,) int64, zeroed, and cells (r, capacity, 2)
-// int32 filled in by the launch.  carry: m int32 per read of a part of
-// part_reads reads, for reads wider than kMaxLanes (unused otherwise).
+// int32 filled in by the launch.  carry: for reads wider than kMaxLanes
+// (unused otherwise), carry_n int32, at least m per read of a part of
+// part_reads reads per column segment.
 extern "C" int swt_max_cells_row(const void* reads, int r, int m, const void* ref, int n,
                                  const void* best, int match, int mismatch, int gap,
                                  void* count, void* cells, long long capacity, void* carry,
-                                 int part_reads, int seg_stride, int seg_length, int seg_skip,
-                                 int device, void* stream) {
+                                 long long carry_n, int part_reads, int seg_stride, int seg_length,
+                                 int seg_skip, int device, void* stream) {
   const bool wide = m > swt::kMaxLanes;
   const Segments sg = plan(m, n, match, mismatch, gap, seg_stride, seg_length, seg_skip);
-  if (r <= 0 || m <= 0 || n <= 0 || capacity <= 0 || (wide && (carry == nullptr || sg.count != 1)) ||
-      sg.count == 0)
+  if (r <= 0 || m <= 0 || n <= 0 || capacity <= 0 || sg.count == 0 ||
+      (wide && (carry == nullptr || part_reads <= 0 || carry_n < (long long)m * sg.count * part_reads)))
     return (int)cudaErrorInvalidValue;
   const long long read_blocks = (r + swt::kWarps - 1) / swt::kWarps;
-  const long long blocks = read_blocks * sg.count;
+  const long long blocks = (wide ? (part_reads + swt::kWarps - 1) / swt::kWarps : read_blocks) * sg.count;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const int trim = mismatch < 0 && gap < 0;
   const Listing out{(unsigned long long*)count, (int2*)cells, capacity};
@@ -387,8 +501,8 @@ extern "C" int swt_max_cells_row(const void* reads, int r, int m, const void* re
   cudaStream_t s = (cudaStream_t)stream;
   if (wide)
     return swt::launch_parts(r, part_reads, [&](int read0, int part_blocks) {
-      max_cells_wide_kernel<<<(unsigned)part_blocks, swt::kThreads, 0, s>>>(
-          (const uint8_t*)reads, r, m, read0, (const uint8_t*)ref, n, (const int32_t*)best,
+      max_cells_wide_kernel<<<(unsigned)(part_blocks * sg.count), swt::kThreads, 0, s>>>(
+          (const uint8_t*)reads, r, m, read0, part_blocks, (const uint8_t*)ref, n, sg, (const int32_t*)best,
           match, mismatch, gap, trim, out, (int32_t*)carry);
     });
   max_cells_kernel<<<(unsigned)blocks, swt::kThreads, 0, s>>>(
@@ -398,21 +512,27 @@ extern "C" int swt_max_cells_row(const void* reads, int r, int m, const void* re
 }
 
 // K8 in the s16x2 form; the wrapper takes it only where ops/cuda_score.py
-// k1_form says so, and this entry refuses a scheme under which a value
-// could leave int16 or reads wider than kMaxLanes.  Its arguments are
-// swt_max_cells_row's; carry and part_reads are unused.
+// k5_form says so, and this entry refuses a scheme under which a value
+// could leave int16 (match x m > 32,767: K5's bound, at any width), and
+// reads wider than kMaxLanes (max_cells_wide_s16x2_kernel, a block a
+// pair) without a carry of carry_n >= kWarps x m uint32 per pair of a
+// part of part_reads reads (even) per column segment.  Its arguments are
+// swt_max_cells_row's.
 extern "C" int swt_max_cells_row_s16x2(const void* reads, int r, int m, const void* ref, int n,
                                        const void* best, int match, int mismatch, int gap,
-                                       void* count, void* cells, long long capacity, void*, int,
-                                       int seg_stride, int seg_length, int seg_skip, int device,
-                                       void* stream) {
+                                       void* count, void* cells, long long capacity, void* carry,
+                                       long long carry_n, int part_reads, int seg_stride, int seg_length,
+                                       int seg_skip, int device, void* stream) {
+  const bool wide = m > swt::kMaxLanes;
   const bool fits = match >= 0 && (long long)match * m <= 32767 && mismatch >= -32768 &&
                     mismatch <= 0 && gap >= -32768 && gap <= 0;
   const Segments sg = plan(m, n, match, mismatch, gap, seg_stride, seg_length, seg_skip);
-  if (r <= 0 || m <= 0 || n <= 0 || capacity <= 0 || m > swt::kMaxLanes || !fits || sg.count == 0)
+  if (r <= 0 || m <= 0 || n <= 0 || capacity <= 0 || !fits || sg.count == 0 ||
+      (wide && (carry == nullptr || part_reads <= 0 || part_reads % 2 ||
+                carry_n < (long long)swt::kWarps * m * sg.count * (part_reads / 2))))
     return (int)cudaErrorInvalidValue;
   const long long read_blocks = (r + 2 * swt::kWarps - 1) / (2 * swt::kWarps);
-  const long long blocks = read_blocks * sg.count;
+  const long long blocks = (wide ? part_reads / 2 : read_blocks) * sg.count;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const ScanGaps scan = swt::scan_gaps(gap);
   const int trim = mismatch < 0 && gap < 0;
@@ -420,10 +540,17 @@ extern "C" int swt_max_cells_row_s16x2(const void* reads, int r, int m, const vo
   swt::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   cudaStream_t s = (cudaStream_t)stream;
+  const uint32_t k_sub = (uint32_t)(match - mismatch);
+  if (wide)
+    return swt::launch_parts(r, part_reads, [&](int read0, int part_blocks) {
+      max_cells_wide_s16x2_kernel<<<(unsigned)(part_blocks * sg.count), swt::kThreads, 0, s>>>(
+          (const uint8_t*)reads, r, m, read0, part_blocks, (const uint8_t*)ref, n, sg, (const int32_t*)best, trim,
+          k_sub, swt::pair16(mismatch), swt::pair16(gap), scan, out, (uint32_t*)carry);
+    }, 2);
   const size_t smem = sizeof(uint32_t) * 2 * m * swt::kWarps;
   max_cells_s16x2_kernel<<<(unsigned)blocks, swt::kThreads, smem, s>>>(
       (const uint8_t*)reads, r, m, (int)read_blocks, (const uint8_t*)ref, n, sg,
-      (const int32_t*)best, trim, (uint32_t)(match - mismatch), swt::pair16(mismatch),
+      (const int32_t*)best, trim, k_sub, swt::pair16(mismatch),
       swt::pair16(gap), scan, out);
   return (int)cudaGetLastError();
 }

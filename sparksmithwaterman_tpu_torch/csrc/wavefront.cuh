@@ -339,7 +339,8 @@ constexpr int kS16x2RingPad = 16;  // >= every kS16x2Unroll<L>
 // h_prev.  `edges` may also be a StripeEdge16x2 (a stripe of a wide pair
 // of rows, below): every step is then a stripe step, the plain one with
 // lane 0's N term from the stripe above and the last lane's value stored
-// for the stripe below.
+// for the stripe below; or a BandStripe16x2 (K3's wide kernel): stripe
+// steps, those that reach below head or up to tail with the hooks.
 struct NoEdges {};
 
 template <class Enter, class Leave>
@@ -438,6 +439,43 @@ struct IsStripeEdge16x2 : std::false_type {};
 template <int L, bool kPipe>
 struct IsStripeEdge16x2<StripeEdge16x2<L, kPipe>> : std::true_type {};
 
+// K3's boundary columns on a stripe of a wide pair of rows: the stripe
+// carry (`stripe`) on every step, and Edges' hooks on the steps whose
+// diagonals reach below head or up to tail, on the stripe's own
+// diagonals and lanes; `corner` (both rows' left column at the lane above
+// the stripe's lane 0, the NW term of its first cell) starts lane 0's U.
+template <int L, class Enter, class Leave>
+struct BandStripe16x2 {
+  StripeEdge16x2<L> stripe;
+  int head, tail;
+  uint32_t corner;
+  Enter enter;
+  Leave leave;
+};
+
+template <int L, class Enter, class Leave>
+__device__ __forceinline__ BandStripe16x2<L, Enter, Leave> make_band_stripe(StripeEdge16x2<L> stripe, int head,
+                                                                            int tail, uint32_t corner, Enter enter,
+                                                                            Leave leave) {
+  return {stripe, head, tail, corner, enter, leave};
+}
+
+template <class Ed>
+struct IsBandStripe16x2 : std::false_type {};
+template <int L, class Enter, class Leave>
+struct IsBandStripe16x2<BandStripe16x2<L, Enter, Leave>> : std::true_type {};
+
+// The stripe carry of sweep_s16x2's `edges`: itself, or a BandStripe16x2's.
+template <int L, bool kPipe>
+__device__ __forceinline__ StripeEdge16x2<L, kPipe>& stripe_edge(StripeEdge16x2<L, kPipe>& edges) {
+  return edges;
+}
+
+template <int L, class Enter, class Leave>
+__device__ __forceinline__ StripeEdge16x2<L>& stripe_edge(BandStripe16x2<L, Enter, Leave>& edges) {
+  return edges.stripe;
+}
+
 template <int L, class OnCell, class OnTile, class Ed = NoEdges>
 __device__ __forceinline__ void sweep_s16x2(const uint32_t (&rd2)[L],
                                             const uint32_t (&keep2)[L], int nd,
@@ -447,7 +485,8 @@ __device__ __forceinline__ void sweep_s16x2(const uint32_t (&rd2)[L],
                                             OnCell&& on_cell, OnTile&& on_tile,
                                             Ed edges = Ed{}) {
   constexpr bool kStripeEdge = IsStripeEdge16x2<Ed>::value;
-  constexpr bool kEdges = !std::is_same<Ed, NoEdges>::value && !kStripeEdge;
+  constexpr bool kBandStripe = IsBandStripe16x2<Ed>::value;
+  constexpr bool kEdges = !std::is_same<Ed, NoEdges>::value && !kStripeEdge && !kBandStripe;
   constexpr int R = kS16x2Unroll<L>;
   constexpr int T = kS16x2Tile<L>;
   constexpr bool kBytes = L > 8;      // window as bytes, four a register
@@ -462,6 +501,9 @@ __device__ __forceinline__ void sweep_s16x2(const uint32_t (&rd2)[L],
   }
 #pragma unroll
   for (int q = 0; q < NW; ++q) w[q] = kBytes ? (uint32_t)kRefPad * 0x01010101u : pad;
+  if constexpr (kBandStripe) {
+    if (first == 0) U[0] = edges.corner & keep2[0];
+  }
   // Columns left of 0 alias the ring's top, which no first tile writes.
   for (int t = T + threadIdx.x; t < kRing; t += blockDim.x) ring[t] = pad;
   nd = (nd + R - 1) / R * R;
@@ -515,17 +557,56 @@ __device__ __forceinline__ void sweep_s16x2(const uint32_t (&rd2)[L],
           continue;
         }
       }
-      if constexpr (kStripeEdge) {
-        // A stripe step (StripeEdge16x2): the plain step below with lane
-        // 0's N term from the stripe above and the last lane handed to
-        // the stripe below, written out apart for the reason the edge
-        // step is.  It repeats the plain step's recurrence: a change to
+      if constexpr (kBandStripe) {
+        // K3's stripe step where its boundary columns enter or leave
+        // (BandStripe16x2): the stripe step below with the edge step's
+        // hooks, written out apart for the reason the edge step is (every
+        // other step of K3's stripes is the stripe step below).  It
+        // repeats the plain step's recurrence, as those two do.
+        if (d < edges.head || d + R > edges.tail) {
+          edges.stripe.begin(d);
+#pragma unroll
+          for (int u = 0; u < R; ++u) {
+            if (d + u < edges.head) edges.enter(d + u, u, H);
+            const uint32_t col = at[u];
+            if (!kBytes) {
+              w[u % L] = col;
+            } else {
+#pragma unroll
+              for (int q = NW - 1; q > 0; --q) w[q] = __funnelshift_l(w[q - 1], w[q], 8);
+              w[0] = __byte_perm(w[0], col, 0x2104);
+            }
+            const uint32_t up0 = edges.stripe.up(d, u, __shfl_up_sync(0xffffffffu, H[L - 1], 1));
+#pragma unroll
+            for (int k = L - 1; k >= 0; --k) {
+              const uint32_t rw = kBytes ? __byte_perm(w[k / 4], 0x3C3C3C3Cu, 0x4040 + 0x0101 * (k % 4))
+                                         : w[((u - k) % L + L) % L];
+              const uint32_t up = (k > 0 ? H[k - 1] : up0) & keep2[k];
+              const uint32_t v = eq_unit16x2(rd2[k], rw) * k_sub + U[k];
+              const uint32_t h = __viaddmax_s16x2_relu(v, mismatch2, __vadd2(__vmaxs2(up, H[k]), gap2));
+              on_cell(k, true, h, h, d + u);
+              U[k] = up;
+              H[k] = h;
+            }
+            edges.stripe.put(u, H[L - 1]);
+            if (d + u >= edges.tail) edges.leave(d + u, H);
+          }
+          edges.stripe.end(d);
+          continue;
+        }
+      }
+      if constexpr (kStripeEdge || kBandStripe) {
+        auto& stripe = stripe_edge(edges);
+        // A stripe step (StripeEdge16x2, or a BandStripe16x2's carry):
+        // the plain step below with lane 0's N term from the stripe above
+        // and the last lane handed to the stripe below, written out apart
+        // for the reason the edge step is.  It repeats the plain step's recurrence: a change to
         // one must be made in both, and chip_smoke.py [14] holds the
         // striped kernels to the int32 ones.  It runs on the stripe's own
         // diagonal dl (d less the edge's shift: 0 but in K2's pipeline).
-        const int dl = d - edges.shift();
+        const int dl = d - stripe.shift();
         const uint32_t* at_l = ring + ((dl - first) & (kRing - 1));
-        edges.begin(dl);
+        stripe.begin(dl);
 #pragma unroll
         for (int u = 0; u < R; ++u) {
           const uint32_t col = at_l[u];
@@ -536,7 +617,7 @@ __device__ __forceinline__ void sweep_s16x2(const uint32_t (&rd2)[L],
             for (int q = NW - 1; q > 0; --q) w[q] = __funnelshift_l(w[q - 1], w[q], 8);
             w[0] = __byte_perm(w[0], col, 0x2104);
           }
-          const uint32_t up0 = edges.up(dl, u, __shfl_up_sync(0xffffffffu, H[L - 1], 1));
+          const uint32_t up0 = stripe.up(dl, u, __shfl_up_sync(0xffffffffu, H[L - 1], 1));
 #pragma unroll
           for (int k = L - 1; k >= 0; --k) {
             const uint32_t rw = kBytes ? __byte_perm(w[k / 4], 0x3C3C3C3Cu, 0x4040 + 0x0101 * (k % 4))
@@ -548,9 +629,9 @@ __device__ __forceinline__ void sweep_s16x2(const uint32_t (&rd2)[L],
             U[k] = up;
             H[k] = h;
           }
-          edges.put(u, H[L - 1]);
+          stripe.put(u, H[L - 1]);
         }
-        edges.end(dl);
+        stripe.end(dl);
         continue;
       }
 #pragma unroll
@@ -661,7 +742,13 @@ __device__ __forceinline__ void store_suffix_max(int (&best)[L],
 // final value at stripe s+1's first lane flows into stripe s's last
 // segment when that lane does not start a read.  `row` is the packed row
 // (m lanes), o its output; the whole warp calls it.
-template <int L>
+//
+// kAtomic: for a row whose column pieces meet in o by atomicMax (K3): each
+// piece carries the value at stripe s+1's first lane, read from o by an
+// atomic (o holds at any time the max of what the pieces stored there, at
+// least this piece's own value, at most the read's best), and takes the
+// max into o by atomicMax.
+template <int L, bool kAtomic = false>
 __device__ __forceinline__ void stripe_suffix_max(const int32_t* row, int m,
                                                   int32_t* o) {
   constexpr int W = 32 * L;
@@ -669,7 +756,13 @@ __device__ __forceinline__ void stripe_suffix_max(const int32_t* row, int m,
   __syncwarp();  // every lane's stores are visible to the warp
   for (int s = (m + W - 1) / W - 2; s >= 0; --s) {
     const int next = (s + 1) * W;
-    const int tail = row[next] < kStartBit ? o[next] : 0;
+    int tail;
+    if constexpr (kAtomic) {
+      tail = (threadIdx.x & 31) == 0 && row[next] < kStartBit ? atomicAdd(o + next, 0) : 0;
+      tail = __shfl_sync(0xffffffffu, tail, 0);
+    } else {
+      tail = row[next] < kStartBit ? o[next] : 0;
+    }
     if (tail > 0) {
       int last = 0;  // the last segment start in stripe s
 #pragma unroll
@@ -681,7 +774,12 @@ __device__ __forceinline__ void stripe_suffix_max(const int32_t* row, int m,
 #pragma unroll
       for (int k = 0; k < L; ++k) {
         const int i = s * W + first + k;
-        if (i >= last) o[i] = max(o[i], tail);
+        if (i >= last) {
+          if constexpr (kAtomic)
+            atomicMax(o + i, tail);
+          else
+            o[i] = max(o[i], tail);
+        }
       }
     }
     __syncwarp();

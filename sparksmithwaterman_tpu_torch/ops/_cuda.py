@@ -156,18 +156,11 @@ def lib() -> ctypes.CDLL:
                 _VP, _VP, _VP, _VP, _I,  # segs, offsets, seg_lens, ns, c
                 _VP, _I, _I, _I,  # bnd, match, mismatch, gap
                 _VP, _VP, _VP, _VP, _I,  # out, bnd_out, carry, carry offsets, rows per launch
-                _I, _I, _VP, _I,  # piece stride, look-back, pieces' prefix sum (or null), pieces
+                _I, _I, _VP, _I, _I,  # piece stride, look-back, pieces' prefix sum (or null), pieces, read lanes
                 _I, _VP,  # device, stream
             ]
             handle.swt_band_lane_best_s16x2.restype = _I
-            handle.swt_band_lane_best_s16x2.argtypes = [
-                _VP, _I, _I,  # packed, rows, m
-                _VP, _VP, _VP, _VP, _I,  # segs, offsets, seg_lens, ns, c
-                _VP, _I, _I, _I,  # bnd, match, mismatch, gap
-                _VP, _VP,  # out, bnd_out
-                _I, _I, _VP, _I,  # piece stride, look-back, pieces' prefix sum (or null), pieces
-                _I, _VP,  # device, stream
-            ]
+            handle.swt_band_lane_best_s16x2.argtypes = handle.swt_band_lane_best.argtypes
             for grid, segments in ((handle.swt_score_grid_diag, []), (handle.swt_score_grid_diag_s16x2, []),
                                    (handle.swt_score_grid_row, [_I, _I]),
                                    (handle.swt_score_grid_row_s16x2, [_I, _I])):
@@ -187,7 +180,7 @@ def lib() -> ctypes.CDLL:
                     _VP, _I,  # ref, n
                     _VP, _I, _I, _I,  # best, match, mismatch, gap
                     _VP, _VP, _LL,  # count, cells, capacity
-                    _VP, _I,  # carry, reads per launch
+                    _VP, _LL, _I,  # carry, its elements, reads per launch
                     _I, _I, _I,  # segment stride, length and skip
                     _I, _VP,  # device, stream
                 ]

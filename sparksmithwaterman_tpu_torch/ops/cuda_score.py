@@ -261,17 +261,23 @@ def _check_stripes(what: str, m: int, mismatch: int, gap: int) -> None:
         )
 
 
-def _carry_rows(m: int, rows: int, cols: torch.Tensor, total, *, pair: bool = False):
+def _carry_rows(m: int, rows: int, cols: torch.Tensor, total, *, pair: bool = False, stride: int = 0,
+                back: int = 0):
     """(scratch, (C,) int64 offsets, rows per launch) of K1's or K3's
     carry rows for references of ``cols`` ((C,) tensor) columns, at most
     ``total`` of them in all (read from the card when None); (None, None,
-    0) for rows of at most ONE_PASS_LANES lanes.  ``pair``: K1's s16x2
-    form (:func:`carry_elems`)."""
+    0) for rows of at most ONE_PASS_LANES lanes.  ``pair``: the s16x2
+    forms (:func:`carry_elems`).  ``stride``, ``back``: K3's column pieces
+    (:func:`band_segments`), each with carry rows of its own width, so a
+    reference cut into k pieces costs (k - 1) x back columns more."""
     if m <= ONE_PASS_LANES:
         return None, None, 0
     cols = cols.to(torch.int64)
     if total is None:
         total = int(cols.sum())
+    if stride:
+        cols = cols + ((cols + stride - 1) // stride - 1) * back
+        total += back * (total // stride)
     part = carry_rows(rows, carry_elems(m, rows, total, pair=pair), pair=pair)
     per = carry_elems(m, part, 1, pair=pair)
     offs = (torch.cumsum(cols, 0) - cols) * per
@@ -361,9 +367,15 @@ def k1k4_form(m: int, match: int, mismatch: int, gap: int, *, longest: int | Non
     """
     if m <= ONE_PASS_LANES:
         return k1_form(m, match, mismatch, gap)
-    lanes = m if longest is None else min(m, max(1, int(longest)))
-    fits = _fits_int16(lanes, match, mismatch, gap) and mismatch < 0 and gap < 0
+    fits = _fits_int16(_segment_lanes(m, longest), match, mismatch, gap) and mismatch < 0 and gap < 0
     return "s16x2" if fits else "int32"
+
+
+def _segment_lanes(m: int, longest) -> int:
+    """The lanes of a row's longest segment (read) that the wide forms'
+    rules take: ``m`` for rows of one pass or without ``longest``, else
+    min(m, longest)."""
+    return m if m <= ONE_PASS_LANES or longest is None else min(m, max(1, int(longest)))
 
 
 def segmented_suffix_max(x: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
@@ -733,32 +745,41 @@ def band_lane_best_plain(packed, seg_u8, offsets, seg_lens, ns, bnd, match, mism
     return segmented_suffix_max(best, start), bnd_out
 
 
-def k3_form(m: int, match: int, mismatch: int, gap: int) -> str:
+def k3_form(m: int, match: int, mismatch: int, gap: int, *, longest: int | None = None) -> str:
     """The form K3 takes for packed rows of ``m`` lanes under a scheme:
     ``"s16x2"`` (K1's 16-bit design, two rows a warp in the halves of
-    each register) when every value of the sweep provably fits int16 for
-    every left column within :func:`band_lane_best`'s contract, else
-    ``"int32"``.
+    each register; past ONE_PASS_LANES in stripes) when every value of the
+    sweep provably fits int16 for every left column within
+    :func:`band_lane_best`'s contract, else ``"int32"``.
 
-    The contract bounds the left column: 0 <= bnd <= match * m.  With
-    mismatch <= 0 and gap <= 0 a path gains at most ``match`` per lane it
-    moves down, and within a read at most m - 1 lanes lie below a lane
-    whose left value it starts from, so every cell is at most match * m +
-    match * (m - 1) = match * (2m - 1) (a path from zero gains at most
-    match * m).  The NW term U of a lane is a value of the lane above, at
-    most match * (2m - 2), so U + (match - mismatch) <= match * (2m - 1) -
-    mismatch <= 65,535 and the IMAD carries nothing across halves exactly
-    when match * (2m - 1) <= 32,767; every negative intermediate is at
-    least min(mismatch, gap).  So the rule is k1_form's with 2m - 1 in
-    place of m: match * (2m - 1) <= 32767, -32768 <= mismatch, gap <= 0
-    <= match, and m <= ONE_PASS_LANES.  It is exact: at match * (2m - 1)
-    = 32,768 or more, bnd = match * m on lane 0 and a read whose lanes 1
-    .. m - 1 match the segment's columns 0 .. m - 2 reach match * (2m - 1)
-    on lane m - 1.
+    The contract bounds the left column: 0 <= bnd <= match * L, L = m, or
+    min(m, ``longest``) past ONE_PASS_LANES when the caller gives the
+    longest read of the pack (up to ONE_PASS_LANES ``longest`` is not
+    read).  With mismatch <= 0 and gap <= 0 a path gains at most ``match``
+    per lane it moves down its read, so a cell of the one DP of a read
+    against the reference is at most match x the read's lanes <= match *
+    L: every ``bnd_out`` of K3 meets the contract, and so do the zeros of
+    a reference's first segment.  Within a read at most L - 1 lanes lie
+    below a lane whose left value a path starts from, so every cell of the
+    band is at most match * L + match * (L - 1) = match * (2L - 1).  The
+    NW term U of a lane is a value of the lane above, at most match * (2L
+    - 2), so U + (match - mismatch) <= match * (2L - 1) - mismatch <=
+    65,535 and the IMAD carries nothing across halves exactly when match *
+    (2L - 1) <= 32,767; every negative intermediate is at least
+    min(mismatch, gap).  So the rule is k1_form's with 2L - 1 in place of
+    m: match * (2L - 1) <= 32767, -32768 <= mismatch, gap <= 0 <= match,
+    and past ONE_PASS_LANES (stripes) mismatch < 0 and gap < 0.  It is
+    exact: at match * (2L - 1) = 32,768 or more, bnd = match * L on lane 0
+    and a read whose lanes 1 .. L - 1 match the segment's columns 0 .. L -
+    2 reach match * (2L - 1) on lane L - 1.  Under (5, -3, -4), 2,048-lane
+    rows fit by width alone, 4,096-lane rows only with longest <= 3,277.
     """
-    fits = (0 <= match and match * (2 * m - 1) <= _INT16_MAX and _INT16_MIN <= min(mismatch, gap)
+    lanes = _segment_lanes(m, longest)
+    fits = (0 <= match and match * (2 * lanes - 1) <= _INT16_MAX and _INT16_MIN <= min(mismatch, gap)
             and max(mismatch, gap) <= 0)
-    return "s16x2" if fits and m <= ONE_PASS_LANES else "int32"
+    if m > ONE_PASS_LANES:
+        fits = fits and mismatch < 0 and gap < 0
+    return "s16x2" if fits else "int32"
 
 
 # A K3 launch that cuts its segments into pieces aims at this many blocks
@@ -768,10 +789,11 @@ _K3_BLOCKS_PER_SM = 8
 
 
 def _band_splits(m: int, match: int, mismatch: int, gap: int) -> bool:
-    return 0 < m <= ONE_PASS_LANES and match > 0 and mismatch <= 0 and gap < 0
+    return m > 0 and match > 0 and mismatch <= 0 and gap < 0
 
 
-def band_segments(m: int, cols: int, refs: int, row_blocks: int, match: int, mismatch: int, gap: int, sms: int):
+def band_segments(m: int, cols: int, refs: int, row_blocks: int, match: int, mismatch: int, gap: int, sms: int, *,
+                  longest: int | None = None):
     """(stride, back) of the column pieces into which a K3 launch cuts its
     segments: ``refs`` segments of ``cols`` columns in all (each counted
     as at least one), ``row_blocks`` blocks of rows each, on a card of
@@ -779,11 +801,16 @@ def band_segments(m: int, cols: int, refs: int, row_blocks: int, match: int, mis
     piece k >= 1 beginning ``back`` = W - 1 columns before k * stride
     (:func:`band_pieces`); ``(cols, 0)`` is one piece a segment.
 
-    Exact under the signs of :func:`row_segments` for rows of at most
-    ONE_PASS_LANES lanes (``csrc/band.cu``): an alignment of positive
-    score spans at most W = m + match m // |gap| columns, and with stride
-    >= _SEGMENT_WINDOWS x W no path from the left column reaches a piece
-    after the first.  The stride is the launch's columns over the pieces
+    Exact under the signs of :func:`row_segments` (``csrc/band.cu``), for
+    rows of any width: an alignment of positive score of a read of at
+    most L lanes spans at most W = L + match L // |gap| columns (L = m,
+    or min(m, ``longest``) past ONE_PASS_LANES, as :func:`k3_form`), and
+    with stride >= _SEGMENT_WINDOWS x W no path from the left column
+    (at most match x L) reaches a piece after the first.  Neither bound
+    depends on the row being swept in one pass: a wide row's piece sweeps
+    its stripes over the piece's columns, its carry rows as wide as the
+    piece, so it computes the DP of those columns exactly as one pass
+    would.  The stride is the launch's columns over the pieces
     that _K3_BLOCKS_PER_SM blocks per SM need, so a long segment is cut into more
     pieces than a short one and no block sweeps much more than the
     launch's columns per block it keeps running at once; a segment
@@ -792,7 +819,8 @@ def band_segments(m: int, cols: int, refs: int, row_blocks: int, match: int, mis
     """
     if not (_band_splits(m, match, mismatch, gap) and cols > 0 and refs > 0 and row_blocks > 0):
         return cols, 0
-    w = m + match * m // -gap
+    lanes = _segment_lanes(m, longest)
+    w = lanes + match * lanes // -gap
     pieces = -(-_K3_BLOCKS_PER_SM * sms // row_blocks)
     stride = max(_SEGMENT_WINDOWS * w, -(-cols // pieces))
     return (cols, 0) if stride >= cols else (stride, w - 1)
@@ -809,7 +837,8 @@ def band_pieces(n: int, stride: int, back: int):
     return [(k * stride - back if k else 0, (k + 1) * stride if k + 1 < count else n) for k in range(count)]
 
 
-def band_lane_best(packed, seg_u8, offsets, seg_lens, ns, bnd, match, mismatch, gap, *, carry_cols=None):
+def band_lane_best(packed, seg_u8, offsets, seg_lens, ns, bnd, match, mismatch, gap, *, carry_cols=None,
+                   longest=None):
     """(lane_best, bnd_out), two (C, ROWS, M) int32: packed read rows
     against one segment of each of C references, the DP's left boundary
     column in and its right boundary column out.
@@ -820,9 +849,12 @@ def band_lane_best(packed, seg_u8, offsets, seg_lens, ns, bnd, match, mismatch, 
     taken as at least 1), those past ``seg_lens[c]`` reading as REF_PAD,
     and runs exactly m + ns[c] - 1 diagonals.  bnd: (C, ROWS, M) int32,
     the column H[i, -1] left of the segment (zero for a reference's first
-    segment).  It is a column of the same DP, so 0 <= bnd <= match * M:
-    every ``bnd_out`` of this function and the zeros of a first segment
-    meet that contract, and the kernel's 16-bit form relies on it.
+    segment).  It is a column of the same DP, so 0 <= bnd <= match * M,
+    and with ``longest`` (the longest read of the pack, which the caller
+    holds on the host) 0 <= bnd <= match * longest: every ``bnd_out`` of
+    this function and the zeros of a first segment meet that contract
+    (:func:`k3_form`), and the kernel's 16-bit form and its column pieces
+    rely on it.
 
     Defined lanes: ``lane_best`` at each read's START lane (the read's
     best over this segment's cells, as K1's contract); ``bnd_out`` =
@@ -838,15 +870,17 @@ def band_lane_best(packed, seg_u8, offsets, seg_lens, ns, bnd, match, mismatch, 
     their carry scratch from it (else the wrapper reads it: one host
     sync).
 
-    K3's form follows from M and the scheme alone (:func:`k3_form`); a
-    launch with too few blocks for the card cuts each long segment into
-    column pieces (:func:`band_segments`), which gives the same lanes.
+    K3's form follows from M, ``longest`` and the scheme alone
+    (:func:`k3_form`); a launch with too few blocks for the card cuts
+    each long segment into column pieces (:func:`band_segments`), rows of
+    any width, which gives the same lanes.
     """
-    return _band_lane_best(packed, seg_u8, offsets, seg_lens, ns, bnd, match, mismatch, gap, carry_cols=carry_cols)
+    return _band_lane_best(packed, seg_u8, offsets, seg_lens, ns, bnd, match, mismatch, gap, carry_cols=carry_cols,
+                           longest=longest)
 
 
-def _band_lane_best(packed, seg_u8, offsets, seg_lens, ns, bnd, match, mismatch, gap, *, carry_cols=None, form=None,
-                    split=True):
+def _band_lane_best(packed, seg_u8, offsets, seg_lens, ns, bnd, match, mismatch, gap, *, carry_cols=None,
+                    longest=None, form=None, split=True):
     """:func:`band_lane_best` with K3's form given (``form=None``:
     :func:`k3_form`'s), so that the two forms can be timed on the same
     inputs; ``"s16x2"`` where k3_form says ``"int32"`` raises.
@@ -867,7 +901,7 @@ def _band_lane_best(packed, seg_u8, offsets, seg_lens, ns, bnd, match, mismatch,
     if bnd.shape != (c, rows, m) or bnd.dtype != torch.int32:
         raise ValueError(f"bnd must be a ({c}, {rows}, {m}) int32 tensor")
     match, mismatch, gap = int(match), int(mismatch), int(gap)
-    form = _check_form("K3", K3_FORMS, form, k3_form(m, match, mismatch, gap))
+    form = _check_form("K3", K3_FORMS, form, k3_form(m, match, mismatch, gap, longest=longest))
     if device.type == "cpu":
         return band_lane_best_plain(packed, seg_u8, offsets, seg_lens, ns, bnd, match, mismatch, gap)
     _check_stripes("band_lane_best", m, mismatch, gap)
@@ -881,10 +915,10 @@ def _band_lane_best(packed, seg_u8, offsets, seg_lens, ns, bnd, match, mismatch,
     cols = ns.clamp_min(1)
     stride, back, cum, pieces = 0, 0, None, c
     if split and _band_splits(m, match, mismatch, gap):
-        total = int(cols.sum()) if carry_cols is None else int(carry_cols)
+        total = carry_cols = int(cols.sum()) if carry_cols is None else int(carry_cols)
         per_block = 2 * _BLOCK_ROWS if form == "s16x2" else _BLOCK_ROWS
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        stride, back = band_segments(m, total, c, -(-rows // per_block), match, mismatch, gap, sms)
+        stride, back = band_segments(m, total, c, -(-rows // per_block), match, mismatch, gap, sms, longest=longest)
         if stride < total:
             cum = torch.cumsum((cols + (stride - 1)) // stride, 0, dtype=torch.int32)
             pieces = c + total // stride
@@ -894,12 +928,10 @@ def _band_lane_best(packed, seg_u8, offsets, seg_lens, ns, bnd, match, mismatch,
     lib = _cuda.lib()
     common = (packed.data_ptr(), rows, m, seg_u8.data_ptr(), offsets.data_ptr(), seg_lens.data_ptr(), ns.data_ptr(),
               c, bnd.data_ptr(), match, mismatch, gap, out.data_ptr(), bnd_out.data_ptr())
-    plan = (stride, back, _ptr(cum), pieces)
-    if form == "s16x2":
-        rc = lib.swt_band_lane_best_s16x2(*common, *plan, *_launch_target(device))
-    else:
-        carry, carry_offs, part = _carry_rows(m, rows, cols, carry_cols)
-        rc = lib.swt_band_lane_best(*common, _ptr(carry), _ptr(carry_offs), part, *plan, *_launch_target(device))
+    carry, carry_offs, part = _carry_rows(m, rows, cols, carry_cols, pair=form == "s16x2", stride=stride, back=back)
+    plan = (_ptr(carry), _ptr(carry_offs), part, stride, back, _ptr(cum), pieces, _segment_lanes(m, longest))
+    entry = lib.swt_band_lane_best_s16x2 if form == "s16x2" else lib.swt_band_lane_best
+    rc = entry(*common, *plan, *_launch_target(device))
     _cuda.check(rc, "band_lane_best")
     LAUNCHES["band_lane_best"] += 1
     K3_FORMS[form] += 1
@@ -1153,15 +1185,22 @@ def max_cells_segments(m: int, n: int, match: int, mismatch: int, gap: int, bloc
     match m // |gap|) the columns at the start of each segment after the
     first that it does not list (:func:`owned_columns`).  The stride may be
     below W: each column is listed by the one segment where it is exact.
-    Under the signs of :func:`row_segments` only."""
-    if not (0 < m <= ONE_PASS_LANES and n > 0 and match > 0 and mismatch <= 0 and gap < 0 and blocks > 0):
+    Where the first segment would cover the whole reference (a long read
+    against a short one) the plan is one segment.
+    Under the signs of :func:`row_segments` only, and for reads of any
+    width: the row form has no stripes, so a wide read's segment is the
+    one-pass form's with its carried column in a scratch (one per read,
+    or pair, and segment)."""
+    if not (0 < m and n > 0 and match > 0 and mismatch <= 0 and gap < 0 and blocks > 0):
         return n, n, 0
     segs = -(-_K8_BLOCKS_PER_SM * sms // blocks)
     if segs <= 1:
         return n, n, 0
     skip = m + match * m // -gap - 1
     stride = -(-(-(-n // segs) + skip) // _ROW_TILE) * _ROW_TILE - skip
-    return (n, n, 0) if stride >= n else (stride, stride + skip, skip)
+    # A first segment that already covers the reference lists every column:
+    # the others would list none.
+    return (n, n, 0) if stride + skip >= n else (stride, stride + skip, skip)
 
 
 def argwhere_rows(eq: torch.Tensor, capacity: int) -> torch.Tensor:
@@ -1244,9 +1283,10 @@ def max_cells_row(reads_u8, ref_u8, best, match, mismatch, gap, capacity):
     N and the first cells of the plane, as the plain version and the JAX
     package give, by arithmetic and without the kernel.
 
-    K8's form follows from M and the scheme alone (:func:`k1_form`); a
+    K8's form follows from M and the scheme alone (:func:`k5_form`); a
     launch with too few blocks for the card cuts the reference into column
-    segments (:func:`max_cells_segments`), which gives the same listing.
+    segments (:func:`max_cells_segments`, reads of any width), which
+    gives the same listing.
     On the card a second kernel sorts each read's slots row-major, fills
     the rest with -1 and lists the plane of a read of best 0
     (:func:`max_cells_finish`).
@@ -1256,9 +1296,11 @@ def max_cells_row(reads_u8, ref_u8, best, match, mismatch, gap, capacity):
 
 def _max_cells_row(reads_u8, ref_u8, best, match, mismatch, gap, capacity, *, form=None, split=True):
     """:func:`max_cells_row` with K8's form given (``form=None``:
-    :func:`k1_form`'s), so that the two forms can be timed on the same
-    inputs; ``"s16x2"`` where k1_form says ``"int32"`` raises.
-    ``split=False`` runs the reference as one segment."""
+    :func:`k5_form`'s), so that the two forms can be timed on the same
+    inputs; ``"s16x2"`` where k5_form says ``"int32"`` raises.
+    ``split=False`` runs the reference as one segment.  K8 takes K5's
+    rule because its recurrence is K5's row scan (``csrc/row_scan.cuh``),
+    which has no stripes, so K5's bound, match x m, holds at any width."""
     device = _device_of(reads_u8, ref_u8, best)
     if reads_u8.dim() != 2 or reads_u8.dtype != torch.uint8:
         raise ValueError("max_cells_row: reads_u8 must be an (R, M) uint8 tensor")
@@ -1271,7 +1313,7 @@ def _max_cells_row(reads_u8, ref_u8, best, match, mismatch, gap, capacity, *, fo
     capacity, match, mismatch, gap = int(capacity), int(match), int(mismatch), int(gap)
     if capacity < 1:
         raise ValueError(f"max_cells_row: capacity must be >= 1, got {capacity}")
-    form = _check_form("K8", K8_FORMS, form, k1_form(m, match, mismatch, gap))
+    form = _check_form("K8", K8_FORMS, form, k5_form(m, match, mismatch, gap))
     if device.type == "cpu":
         return max_cells_row_plain(reads_u8, ref_u8, best, match, mismatch, gap, capacity)
     count = torch.zeros((r,), dtype=torch.int64, device=device)
@@ -1280,23 +1322,35 @@ def _max_cells_row(reads_u8, ref_u8, best, match, mismatch, gap, capacity, *, fo
         return count, cells
     reads_u8, ref_u8, best = reads_u8.contiguous(), ref_u8.contiguous(), best.contiguous()
     if m > 0 and n > 0:
-        reads_per_block = 2 * _BLOCK_ROWS if form == "s16x2" else _BLOCK_ROWS
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        segments = (max_cells_segments(m, n, match, mismatch, gap, -(-r // reads_per_block), sms)
+        segments = (max_cells_segments(m, n, match, mismatch, gap, _max_cells_blocks(r, m, form), sms)
                     if split else (n, n, 0))
-        carry, part = _carry_grid(m, r, 1, n, True, device)
+        # Wide reads: one carried column per read and segment, or per pair,
+        # segment and warp of the s16x2 form's pipeline of tiles.
+        pipeline = _BLOCK_ROWS if form == "s16x2" and m > ONE_PASS_LANES else 1
+        carry, part = _carry_grid(m, r, -(-n // segments[0]) * pipeline, n, True, device, pair=form == "s16x2")
         lib = _cuda.lib()
         entry = lib.swt_max_cells_row_s16x2 if form == "s16x2" else lib.swt_max_cells_row
         rc = entry(
             reads_u8.data_ptr(), r, m, ref_u8.data_ptr(), n,
             best.data_ptr(), match, mismatch, gap,
-            count.data_ptr(), cells.data_ptr(), capacity, _ptr(carry), part,
+            count.data_ptr(), cells.data_ptr(), capacity, _ptr(carry), 0 if carry is None else carry.numel(), part,
             *segments, *_launch_target(device),
         )
         _cuda.check(rc, "max_cells_row")
         LAUNCHES["max_cells_row"] += 1
         K8_FORMS[form] += 1
     return max_cells_finish(count, cells, best, m, n)
+
+
+def _max_cells_blocks(r: int, m: int, form: str) -> int:
+    """Blocks of a K8 launch of ``r`` reads of ``m`` positions a segment:
+    four warps of one read (int32) or pair (s16x2) each, but one pair a
+    block in the wide s16x2 form, whose warps take a pair's tiles at once
+    (``csrc/max_cells.cu``)."""
+    if form != "s16x2":
+        return -(-r // _BLOCK_ROWS)
+    return -(-r // (2 if m > ONE_PASS_LANES else 2 * _BLOCK_ROWS))
 
 
 def max_cells_finish(count, cells, best, m, n):

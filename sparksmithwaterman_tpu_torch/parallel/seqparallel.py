@@ -167,7 +167,7 @@ def seqparallel_scores_batch(reads_enc: np.ndarray, refs_enc: np.ndarray, match:
 def band_prepack(reads: Sequence[str], devices) -> dict:
     """Packed read rows and start lanes, uploaded once to each distinct
     device (JAX ``band_prepack``: packing and upload, no read block or
-    interleave)."""
+    interleave), and the longest read (K3's ``longest``)."""
     m_pack = 128
     longest = max((len(r) for r in reads), default=1)
     while m_pack < longest:
@@ -177,7 +177,7 @@ def band_prepack(reads: Sequence[str], devices) -> dict:
     for dev in devices:
         if dev not in on:
             on[dev] = (torch.from_numpy(packed).to(dev), torch.from_numpy(start_idx.astype(np.int64)).to(dev))
-    return dict(m_pack=m_pack, rows=packed.shape[0], on=on)
+    return dict(m_pack=m_pack, rows=packed.shape[0], longest=longest, on=on)
 
 
 def _segment_tables(lens: np.ndarray, offsets: np.ndarray, size: int):
@@ -234,7 +234,7 @@ def _band_ring(pp: dict, refs_on: dict, tables_on: dict, ns: np.ndarray, bounds,
                 left, best = (x.to(dev, non_blocking=True) for x in carry[k])
             lane, right = band_lane_best(
                 packed, refs_on[dev], seg_offs[s, lo:hi], seg_lens[s, lo:hi], ns_t[lo:hi], left, *params,
-                carry_cols=int(ns[lo:hi].sum()),
+                carry_cols=int(ns[lo:hi].sum()), longest=pp["longest"],
             )
             scores = lane.reshape(hi - lo, -1).index_select(1, start_idx)
             best = scores if s == 0 else torch.maximum(best, scores)

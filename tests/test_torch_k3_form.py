@@ -133,7 +133,7 @@ def _by_pieces(args, params, stride, back):
         (4, (4681, -3, -4), "s16x2"),  # 4,681 x (2 x 4 - 1) = 32,767 fits
         (4, (4682, -3, -4), "int32"),  # 32,774 does not
         (1024, (16, -3, -4), "s16x2"),  # 16 x 2,047 = 32,752
-        (1025, (5, -3, -4), "int32"),  # rows wider than one pass
+        (4096, (5, -3, -4), "int32"),  # wide rows: 5 x 8,191 > 32,767 by width alone
     ],
 )
 def test_k3_form_at_the_edges_of_its_rule(m, params, form):
@@ -298,8 +298,9 @@ def test_pieces_of_short_empty_and_mixed_length_refs():
 def test_pieces_fall_back_to_one_where_the_plan_cannot_split():
     """One piece a segment, (cols, 0), wherever the bound does not hold or
     a cut buys nothing: a positive mismatch, a zero gap, a zero match,
-    rows wider than one pass, a launch whose rows alone fill the card,
-    segments shorter than 4 W in all, and empty shapes; at the card's
+    rows wider than one pass whose segments are shorter than 4 W in all,
+    a launch whose rows alone fill the card, segments shorter than 4 W in
+    all, and empty shapes; at the card's
     scale, a 1 Mb segment among 8 kb ones is cut and the 8 kb ones are
     not."""
     cols = 1_000_000 + 63 * 8000
@@ -312,7 +313,7 @@ def test_pieces_fall_back_to_one_where_the_plan_cannot_split():
         (256, (5, 1, -4), 1, 4, cols),
         (256, (5, -3, 0), 1, 4, cols),
         (256, (0, -3, -4), 1, 4, cols),
-        (1025, PARAMS, 1, 4, cols),
+        (1025, PARAMS, 1, 4, 4 * (1025 + 5 * 1025 // 4)),
         (256, PARAMS, 1, cuda_score._K3_BLOCKS_PER_SM * 132, cols),
         (256, PARAMS, 2, 4, 4 * (256 + 5 * 256 // 4)),
         (0, PARAMS, 1, 4, cols),
@@ -330,7 +331,7 @@ def test_no_public_function_takes_a_form():
         if fn.__module__ == cuda_score.__name__ and not name.startswith("_"):
             assert "form" not in inspect.signature(fn).parameters, name
     assert list(inspect.signature(cuda_score.band_lane_best).parameters) == [
-        "packed", "seg_u8", "offsets", "seg_lens", "ns", "bnd", "match", "mismatch", "gap", "carry_cols",
+        "packed", "seg_u8", "offsets", "seg_lens", "ns", "bnd", "match", "mismatch", "gap", "carry_cols", "longest",
     ]
     cuda_score.reset_launches()
     assert cuda_score.K3_FORMS == {"s16x2": 0, "int32": 0}

@@ -75,8 +75,8 @@ def _wide_reads(rng, m, refs):
 @pytest.mark.parametrize("kernel", ["K1", "K4"])
 def test_k1k4_form_at_the_edges_of_its_rule(kernel):
     """The rule past one pass, for both kernels (and K2's): match x the
-    longest segment <= 32,767, mismatch < 0 and gap < 0; k1_form (K8's,
-    and K5's up to one pass) unchanged."""
+    longest segment <= 32,767, mismatch < 0 and gap < 0; k1_form (K5's
+    and K8's up to one pass) unchanged."""
     form = cuda_score.k1k4_form
     for m in (1025, 4096, 6553):
         assert form(m, *PARAMS) == "s16x2", m  # 5 x 6,553 = 32,765
@@ -107,7 +107,7 @@ def test_k1k4_form_at_the_edges_of_its_rule(kernel):
 def test_private_entries_take_the_16bit_form_only_inside_the_rule():
     """The A/B entries accept ``form="s16x2"`` on wide rows exactly where
     k1k4_form says so (K1 with its longest read, K2 and K4) or k5_form (K5),
-    and K8, which keeps k1_form, refuses it past one pass."""
+    and K8, which takes k5_form too, refuses it past 6,553 positions."""
     rng = np.random.default_rng(3)
     (ref,) = _seqs(rng, [300])
     packed, _ = pack_reads([ref, ref[:40]], 2048)
@@ -136,9 +136,9 @@ def test_private_entries_take_the_16bit_form_only_inside_the_rule():
         cuda_score._score_grid_row(wide, refs, *PARAMS, form="s16x2")
     with pytest.raises(ValueError, match="cannot take form"):
         cuda_score._argmax_lane(wide, refs, *PARAMS, form="s16x2")
-    best = torch.zeros(2, dtype=torch.int32)
+    best = torch.zeros(1, dtype=torch.int32)
     with pytest.raises(ValueError, match="cannot take form"):
-        cuda_score._max_cells_row(reads, refs[0], best, *PARAMS, 4, form="s16x2")
+        cuda_score._max_cells_row(wide, refs[0], best, *PARAMS, 4, form="s16x2")
 
 
 @pytest.mark.parametrize("m", [1025, 2100])
