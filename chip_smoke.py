@@ -83,7 +83,11 @@ port's main path (``swtorch align --strategy batch``) end to end:
    launch alone (``entry_events``) against the plain version, K9 then K10
    as two launches (as the traceback ran them before) and the bound, the
    public wrapper and its route given in turns (one launch: the run fails
-   if their two medians differ by more than 5%);
+   if their two medians differ by more than 5%); ``sites_for_pair_long``
+   (one read against a long reference, through K5, K8 and ``fill_walk``,
+   each of which must launch) for a 150 bp read planted three times: x a
+   2 kb ref equal to the oracle, with ``max_cells=`` too, and x a 131 kb
+   ref equal to ``sites_for_ref_long_batched`` on the card;
 3. correctness leg: ``cli.main(["align", ...])`` on a ~1 Mbp RefSeq-shaped
    corpus with a 512-read input (full-fill traceback) and a 2,000-read
    input (windowed traceback through K2); each report's max score and
@@ -1663,6 +1667,38 @@ def main() -> int:
               + f" (public and its route in turns, spread {100 * spread:.2f}%)"
               + f"; K9 with H, the torch listing and K10 {parent_ms:.3f} ms; plain {plain_ms:.1f} ms; bound "
                 f"{b_ms:.5f} ms by {b_by}", flush=True)
+
+    # sites_for_pair_long, one read against a long reference: its best by
+    # K5, its cells by K8, a window walked at each by fill_walk.
+    t_pl = time.perf_counter()
+    rng_pl = np.random.default_rng(SEED + 21)  # its own stream: the other inputs stay as they were
+    read_pl = rand_seqs(rng_pl, [150])[0]
+    pair_refs = {}
+    for n_pl, at_pl in ((2_000, (120, 900, 1_700)), (LONG_N, (5_000, 64_000, 130_000))):
+        ref_pl = list(rand_seqs(rng_pl, [n_pl])[0])
+        for p in at_pl:
+            ref_pl[p : p + 150] = read_pl
+        pair_refs[n_pl] = "".join(ref_pl)
+    before_pl = dict(cuda_score.LAUNCHES)
+    got_pl = longseq.sites_for_pair_long(pair_refs[2_000], read_pl, PARAMS, device=dev)
+    pl_launches = {k: cuda_score.LAUNCHES[k] - before_pl[k] for k in ("score_grid_row", "max_cells_row", "fill_walk")}
+    fail_unless(all(pl_launches.values()), f"sites_for_pair_long did not launch K5, K8 and fill_walk: {pl_launches}")
+    want_pl = oracle.opt_alignments(pair_refs[2_000], read_pl)[1]
+    fail_unless(got_pl == want_pl and len(got_pl) == 3, f"sites_for_pair_long x 2 kb differs from the oracle "
+                f"({len(got_pl)} sites against {len(want_pl)})")
+    cells_pl = longseq.find_max_cells(read_pl, pair_refs[2_000], PARAMS, device=dev)
+    fail_unless(longseq.sites_for_pair_long(pair_refs[2_000], read_pl, PARAMS, max_cells=cells_pl, device=dev)
+                == want_pl, "sites_for_pair_long with max_cells= differs from the oracle")
+    got_long_pl = longseq.sites_for_pair_long(pair_refs[LONG_N], read_pl, PARAMS, device=dev)
+    want_long_pl = sites_for_ref_long_batched(
+        pair_refs[LONG_N], [read_pl], PARAMS,
+        cell_lists=find_max_cells_batched([read_pl], pair_refs[LONG_N], PARAMS, device=dev), device=dev,
+    )[0]
+    fail_unless(got_long_pl == want_long_pl and len(got_long_pl) == 3,
+                f"sites_for_pair_long x {LONG_N} bp differs from sites_for_ref_long_batched")
+    print(f"[2] sites_for_pair_long, a 150 bp read planted 3 times: x 2 kb equal to the oracle, with max_cells= too; "
+          f"x {LONG_N} bp equal to sites_for_ref_long_batched (cells by K2); launches of the 2 kb call {pl_launches}; "
+          f"{time.perf_counter() - t_pl:.2f} s", flush=True)
 
     clock.done(2)
 

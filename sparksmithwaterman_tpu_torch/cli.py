@@ -21,9 +21,7 @@ the command exits 2 and does not run on the CPU instead.  ``info`` and
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
-import os
 import sys
 
 import torch
@@ -133,6 +131,7 @@ def _align(args, device: torch.device) -> int:
     from sparksmithwaterman_tpu_torch.config import AlignConfig
     from sparksmithwaterman_tpu_torch.models.aligner import get_backend
     from sparksmithwaterman_tpu_torch.models.pipeline import run_pipeline
+    from sparksmithwaterman_tpu_torch.utils.profiling import profiler_trace
 
     config = AlignConfig(
         ref_dir=args.ref_dir,
@@ -145,7 +144,7 @@ def _align(args, device: torch.device) -> int:
         strategy=args.strategy,
     )
     backend = get_backend(config, device)
-    with _profiled(args.profile_dir, device):
+    with profiler_trace(args.profile_dir, device):
         paths = run_pipeline(config, backend=backend, resume=args.resume)
     for p in paths:
         print(p)
@@ -217,22 +216,6 @@ def _scaling(args, device: torch.device) -> int:
     )
     print(json.dumps(rows, indent=1))
     return 0
-
-
-@contextlib.contextmanager
-def _profiled(log_dir, device: torch.device):
-    if not log_dir:
-        yield
-        return
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield
-    os.makedirs(log_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 def main(argv=None) -> int:

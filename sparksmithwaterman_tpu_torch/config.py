@@ -11,21 +11,27 @@ TPU grid block) have no counterpart: every path runs its own kernel.
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 
 @dataclasses.dataclass(frozen=True)
 class ScoringScheme:
     """Smith-Waterman scoring parameters with a linear gap penalty.
 
-    ``tie_semantics`` picks which of the reference's two cell engines the
-    traceback mirrors on tied paths (scores are identical either way):
-    ``"serial"`` (``>=``, ties a > i > d) or ``"distributed"`` (strict
-    ``>``, ties d > i > a).
+    The fields keep the JAX package's order, so a positional construction
+    means the same in both packages.  ``types`` are the characters of the
+    direction codes (alignment, insertion, deletion, none), as
+    :func:`..core.oracle.align_chars` renders them.  ``tie_semantics``
+    picks which of the reference's two cell engines the traceback mirrors
+    on tied paths (scores are identical either way): ``"serial"``
+    (``>=``, ties a > i > d) or ``"distributed"`` (strict ``>``, ties
+    d > i > a).
     """
 
     match: int = 5
     mismatch: int = -3
     gap: int = -4
+    types: Tuple[str, str, str, str] = ("a", "i", "d", "-")
     gap_char: str = "_"
     tie_semantics: str = "serial"
 
@@ -39,6 +45,10 @@ class ScoringScheme:
                 f"tie_semantics must be 'serial' or 'distributed', "
                 f"got {self.tie_semantics!r}"
             )
+
+    @property
+    def align_scores(self) -> Tuple[int, int, int]:
+        return (self.match, self.mismatch, self.gap)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -113,3 +113,10 @@ def opt_alignments(
         for cell in max_cells
     ]
     return max_score, sites
+
+
+def align_chars(dirs: np.ndarray, scoring: ScoringScheme = ScoringScheme()) -> np.ndarray:
+    """A direction matrix as the scheme's characters ('a'/'i'/'d'/'-' by
+    default), for ``io.report.format_matrices``."""
+    lut = np.array([scoring.types[3], scoring.types[0], scoring.types[1], scoring.types[2]])
+    return lut[dirs]

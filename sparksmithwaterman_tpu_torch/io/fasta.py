@@ -5,7 +5,8 @@ semantics (the same contract as :mod:`sparksmithwaterman_tpu.io.fasta`).
   the first line is skipped only if it is metadata.
 - ``get_ref_seqs``: a metadata line starts a (metadata, sequence) record;
   sequence lines are concatenated untrimmed.  Parsed in C
-  (``csrc/fasta.c`` through :mod:`sparksmithwaterman_tpu_torch._native`).
+  (``csrc/fasta.c`` through :mod:`sparksmithwaterman_tpu_torch._native`),
+  or in Python when ``USE_NATIVE_PARSER`` is False.
 - Encoding upper-cases, so base comparison is case-insensitive.
 """
 
@@ -44,14 +45,55 @@ def get_reads(path: str | os.PathLike, delimiter: str) -> List[str]:
     return reads
 
 
+# Set False to force the pure-Python parser (parity tests, debugging).
+USE_NATIVE_PARSER = True
+
+
 def get_ref_seqs(path: str | os.PathLike, delimiter: str) -> List[Tuple[str, str]]:
-    """(metadata, sequence) records of a reference file."""
-    return _native.parse_ref(path, delimiter)
+    """(metadata, sequence) records of a reference file.
+
+    Parsed by ``csrc/fasta.c`` unless ``USE_NATIVE_PARSER`` is False; both
+    parsers give the same records and raise ValueError for an empty file
+    or one that does not start with metadata.  Unlike the JAX package,
+    a C parser that fails to build or load raises here and does not fall
+    back to the Python parser, so a broken build cannot pass unseen.
+    """
+    if USE_NATIVE_PARSER:
+        return _native.parse_ref(path, delimiter)
+    return _get_ref_seqs_py(path, delimiter)
+
+
+def _get_ref_seqs_py(path: str | os.PathLike, delimiter: str) -> List[Tuple[str, str]]:
+    sequences: List[Tuple[str, str]] = []
+    meta = None
+    chunks: List[str] = []
+    with open(path, "r") as f:
+        for raw in f.read().splitlines():
+            if is_metadata(raw, delimiter):
+                if meta is not None:
+                    sequences.append((meta, "".join(chunks)))
+                meta = raw
+                chunks = []
+            else:
+                if meta is None:
+                    raise ValueError(
+                        f"Reference file does not start with metadata (delimiter {delimiter!r}): {path}"
+                    )
+                chunks.append(raw)
+    if meta is None:
+        raise ValueError(f"Reference file has no metadata lines: {path}")
+    sequences.append((meta, "".join(chunks)))
+    return sequences
 
 
 def encode_seq(seq: str) -> np.ndarray:
     """Upper-cased ASCII codes of a sequence (uint8)."""
     return np.frombuffer(seq.upper().encode("latin-1"), dtype=np.uint8).copy()
+
+
+def decode_seq(codes: np.ndarray) -> str:
+    """The string of a code array (latin-1)."""
+    return codes.tobytes().decode("latin-1")
 
 
 def encode_concat(seqs: List[str]) -> Tuple[np.ndarray, np.ndarray]:

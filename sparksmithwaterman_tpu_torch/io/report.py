@@ -1,6 +1,7 @@
 """The result report, byte for byte the format of
 :mod:`sparksmithwaterman_tpu.io.report` (the reference's
-``InOutOps.GetOutputStr``)."""
+``InOutOps.GetOutputStr``), and the score and direction matrices of one
+pair as text (``InOutOps.PrintMatrices``)."""
 
 from __future__ import annotations
 
@@ -62,6 +63,36 @@ def build_report(
             parts.append(f"{TAB}{aligned_ref}{NEWLINE}")
             parts.append(f"{TAB}{aligned_read}{NEWLINE}")
             parts.append(NEWLINE)
+    return "".join(parts)
+
+
+def format_matrices(scores, aligns, ref_seq: str, read_seq: str) -> str:
+    """The score and alignment-type matrices of one pair as text.
+
+    ``scores`` is an (m+1, n+1) int matrix, ``aligns`` the matching char
+    matrix (``core.oracle.align_chars``), ``ref_seq`` the column sequence,
+    ``read_seq`` the row sequence.
+    """
+    parts: List[str] = [NEWLINE, "   _  "]
+    for ch in ref_seq:
+        parts.append(f"{ch.upper()}  ")
+    parts.append(NEWLINE)
+    for i in range(len(scores)):
+        parts.append("_  " if i == 0 else f"{read_seq[i - 1].upper()}  ")
+        for j in range(len(scores[i])):
+            score = int(scores[i][j])
+            parts.append(f"{score}  " if score < 10 else f"{score} ")
+        parts.append(NEWLINE)
+    parts.append(NEWLINE)
+    parts.append("   _  ")
+    for ch in ref_seq:
+        parts.append(f"{ch.upper()}  ")
+    parts.append(NEWLINE)
+    for i in range(len(aligns)):
+        parts.append("_  " if i == 0 else f"{read_seq[i - 1].upper()}  ")
+        for j in range(len(aligns[i])):
+            parts.append(f"{aligns[i][j]}  ")
+        parts.append(NEWLINE)
     return "".join(parts)
 
 

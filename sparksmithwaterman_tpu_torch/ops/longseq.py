@@ -13,6 +13,9 @@ for long references and large read sets:
    (K9 and K10, ``ops.cuda_score.fill_walk``: each window's codes stay on
    chip, or in a scratch its block walks).
 
+:func:`sites_for_pair_long` is the one-read form: :func:`find_max_cells`
+(K5 for the best, K8 for the cells), then step 2 for that read.
+
 Window soundness, for any scoring scheme: a path with score >= 1 has
 (mismatches + deletions) * min(|mismatch|, |gap|) < match * m, so its
 reference span is below m + match*m / min(|mismatch|, |gap|).  A window
@@ -305,3 +308,30 @@ def sites_for_ref_long_batched(
                 )
             )
     return out
+
+
+def sites_for_pair_long(
+    ref_seq: str,
+    read_seq: str,
+    params,
+    gap_char: str = "_",
+    ref_bucket: int = 256,
+    max_cells: Optional[Cells] = None,
+    tie_semantics: str = "serial",
+    device="cuda",
+) -> List[Site]:
+    """Every optimal site of one (read, long-ref) pair without an O(m*n)
+    traceback fill, in the oracle's row-major max-cell order.
+
+    ``max_cells``: a precomputed (best, cells), e.g. one element of
+    :func:`find_max_cells_batched`, to skip the search.  A best of 0 gives
+    ``degenerate_sites`` (capped, with its truncation note); an empty read
+    or reference gives no site.
+    """
+    if not read_seq or not ref_seq:
+        return []
+    cells = max_cells if max_cells is not None else find_max_cells(read_seq, ref_seq, params, device)
+    return sites_for_ref_long_batched(
+        ref_seq, [read_seq], params, gap_char=gap_char, ref_bucket=ref_bucket, cell_lists=[cells],
+        tie_semantics=tie_semantics, device=device,
+    )[0]

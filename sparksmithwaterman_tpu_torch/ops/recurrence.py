@@ -19,7 +19,10 @@ independent check of the scoring kernels on the card.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from sparksmithwaterman_tpu_torch.io.fasta import encode_batch
 
 DIR_NONE = 0
 DIR_ALIGN = 1
@@ -134,3 +137,8 @@ def fill_pairs(
         h_all[:, i] = h
         dir_all[:, i] = torch.where(h > 0, code, DIR_NONE)
     return h_all, dir_all
+
+
+def encode_padded(seqs, pad_to: int, pad_value: int) -> np.ndarray:
+    """Host-side helper: strings into a (len(seqs), pad_to) uint8 array."""
+    return encode_batch(list(seqs), pad_to, pad_value)

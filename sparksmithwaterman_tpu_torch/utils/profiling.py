@@ -1,11 +1,14 @@
-"""Performance counters: the DP fill rate in GCUPS (giga cell updates per
-second, cells = sum |ref| * |read|)."""
+"""Performance counters and traces: the DP fill rate in GCUPS (giga cell
+updates per second, cells = sum |ref| * |read|), and on-demand
+``torch.profiler`` chrome traces."""
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import time
+from typing import Iterator, Optional
 
 
 @dataclasses.dataclass
@@ -20,6 +23,13 @@ class GcupsCounter:
         self.cells += cells
         self.seconds += seconds
         self.calls += 1
+
+    @contextlib.contextmanager
+    def measure(self, cells: int) -> Iterator[None]:
+        """Time the block as ``cells`` DP cells (no device synchronise)."""
+        t0 = time.perf_counter()
+        yield
+        self.add(cells, time.perf_counter() - t0)
 
     @contextlib.contextmanager
     def measure_lazy(self):
@@ -39,3 +49,24 @@ class GcupsCounter:
             f"{self.cells:,} cells in {self.seconds:.3f}s over "
             f"{self.calls} calls = {self.gcups:.2f} GCUPS"
         )
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: Optional[str], device="cuda") -> Iterator[None]:
+    """A ``torch.profiler`` chrome trace of the block in
+    ``log_dir/trace.json``, with CUDA activity when ``device`` is a CUDA
+    device; a no-op when ``log_dir`` is falsy, so call sites can be
+    unconditional."""
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    os.makedirs(log_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

@@ -1,7 +1,8 @@
 """The port stands alone: copied into a tree that holds only the port and
-the C sources it builds (no JAX package), every module imports and a tiny
-CPU pipeline runs (batch packed and unpacked, and shard_seq and
-shard_refs on a mesh of two CPU entries), and so do ``swtorch
+the C sources it builds (no JAX package), every module imports, every
+re-exporting subpackage gives its ``__all__``, ``sites_for_pair_long``
+runs, a tiny CPU pipeline runs (batch packed and unpacked, and shard_seq
+and shard_refs on a mesh of two CPU entries), and so do ``swtorch
 scaling``, ``gen``, ``info``, ``bench`` and ``diff``, the multi-chip dry
 run, the step-chain roofline, both experiments and ``python -m
 sparksmithwaterman_tpu_torch.bench --help``, with neither ``jax`` nor
@@ -28,6 +29,14 @@ _SCRIPT = textwrap.dedent(
     import sparksmithwaterman_tpu_torch as pkg
     for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
         __import__(mod.name)
+    import importlib
+    for sub in ("core", "io", "models", "ops", "utils", "parallel", "metrics"):
+        sub_pkg = importlib.import_module(pkg.__name__ + "." + sub)
+        assert sub_pkg.__all__ and all(hasattr(sub_pkg, name) for name in sub_pkg.__all__), sub
+    from sparksmithwaterman_tpu_torch.core import opt_alignments
+    from sparksmithwaterman_tpu_torch.ops.longseq import sites_for_pair_long
+    pair = ("TTACGTACGTAA", "CGTA")
+    assert sites_for_pair_long(*pair, (5, -3, -4), device="cpu") == opt_alignments(*pair)[1]
     from sparksmithwaterman_tpu_torch import cli
     from sparksmithwaterman_tpu_torch.config import AlignConfig
     from sparksmithwaterman_tpu_torch.models.pipeline import run_pipeline
