@@ -1,0 +1,3 @@
+"""``kernel_busy_share`` of the four-card cells, which move ``real_gcups.4gpu``."""
+
+from swbench.layers.kernel_busy_share import ENTRIES, SPANS, read  # noqa: F401

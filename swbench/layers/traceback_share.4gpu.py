@@ -1,0 +1,3 @@
+"""``traceback_share`` of the four-card cells, which move ``real_gcups.4gpu``."""
+
+from swbench.layers.traceback_share import ENTRIES, SPANS, read  # noqa: F401
