@@ -1753,7 +1753,7 @@ def main() -> int:
         fail_unless(sum(len(s) for _, s in scale_refs) == ref_bp, "scale corpus size mismatch")
         print(f"[4] run_pipeline: 512 reads ({scale_read_bp} bp) x {len(scale_refs)} refs ({ref_bp} bp, "
               f"{corpus['files']} files): wall {scale_s:.3f} s, real {scale_read_bp * ref_bp / scale_s / 1e9:.1f} GCUPS; "
-              f"scoring dispatch window {backend.gcups.report()}; host parse {parse_s:.3f} s", flush=True)
+              f"host parse {parse_s:.3f} s", flush=True)
         print(f"[4] launches over phases 3-4: {launches}; K1 forms {dict(k1_main_forms)}; the traceback's "
               f"{traced(launches, 'phases 3-4')}", flush=True)
 
@@ -2309,8 +2309,8 @@ def main() -> int:
         unpacked_s = time.perf_counter() - t
         fail_unless(stripped(unpacked_report) == stripped(scale_report), "pack_reads=False scale report differs from phase 4's")
         print(f"[9] run_pipeline pack_reads=False on the phase-4 corpus: wall {unpacked_s:.3f} s, real "
-              f"{scale_read_bp * ref_bp / unpacked_s / 1e9:.1f} GCUPS (phase 4 packed: {scale_s:.3f} s); scoring "
-              f"dispatch window {backend_u.gcups.report()}; report equal to phase 4's apart from the time line", flush=True)
+              f"{scale_read_bp * ref_bp / unpacked_s / 1e9:.1f} GCUPS (phase 4 packed: {scale_s:.3f} s); "
+              f"report equal to phase 4's apart from the time line", flush=True)
         config_r = AlignConfig(
             ref_dir=os.path.join(slice_root, "refs"), in_dir=os.path.join(slice_root, "inputs"),
             out_dir=os.path.join(slice_root, "out_row"), kernel="row",

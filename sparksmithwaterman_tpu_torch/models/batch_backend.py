@@ -35,7 +35,6 @@ import torch
 from sparksmithwaterman_tpu_torch.config import AlignConfig
 from sparksmithwaterman_tpu_torch.io.fasta import READ_PAD, REF_PAD, encode_batch, encode_concat
 from sparksmithwaterman_tpu_torch.io.report import Site
-from sparksmithwaterman_tpu_torch.utils.profiling import GcupsCounter
 from sparksmithwaterman_tpu_torch.ops import cuda_score
 from sparksmithwaterman_tpu_torch.ops.cuda_score import (
     carry_elems, lane_best_packed_varlen, score_grid_diag, score_grid_row,
@@ -50,6 +49,7 @@ from sparksmithwaterman_tpu_torch.ops.longseq import (
     sites_for_ref_long_batched,
 )
 from sparksmithwaterman_tpu_torch.ops.packing import pack_reads, packed_col_sums
+from sparksmithwaterman_tpu_torch.utils.profiling import span
 
 # Max cells per pair listed by the first fill and walk; a pair with more is
 # filled, listed at its own count and walked again, still on the device.
@@ -150,15 +150,14 @@ class TorchBatchBackend:
         # kernel='row' ignores pack_reads, as in the JAX package.
         self.pack = config.pack_reads and config.kernel == "diag"
         self._params = (self.scoring.match, self.scoring.mismatch, self.scoring.gap)
-        # DP cells over the dispatch window (real cells = sum |read|*|ref|).
-        self.gcups = GcupsCounter()
         # Packs of the last reads list (identity, length and total bp
         # checked): the pipeline scores one reads list against every
         # flush of an input file.
         self._pack_cache: Tuple[object, int, int, int, List[dict]] = (None, -1, -1, 0, [])
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        with span("wait", on="upload"):
+            return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
     def _mark(self, events: list) -> None:
         """Record the end of a dispatch; keep at most _MAX_IN_FLIGHT
@@ -169,7 +168,8 @@ class TorchBatchBackend:
         event.record(torch.cuda.current_stream(self.device))
         events.append(event)
         if len(events) >= _MAX_IN_FLIGHT:
-            events[-_MAX_IN_FLIGHT].synchronize()
+            with span("wait", on="throttle"):
+                events[-_MAX_IN_FLIGHT].synchronize()
 
     # -- scoring ------------------------------------------------------------
 
@@ -177,11 +177,7 @@ class TorchBatchBackend:
         """Per-reference total score over all reads (int64)."""
         if not reads or not ref_seqs:
             return np.zeros(len(ref_seqs), dtype=np.int64)
-        with self.gcups.measure_lazy() as done:
-            totals, cells = self._totals_dev(reads, ref_seqs)
-            out = totals.cpu().numpy()
-            done(cells)
-        return out
+        return self._flush(reads, ref_seqs).cpu().numpy()
 
     def best_of(self, reads: Sequence[str], ref_seqs: Sequence[str]) -> Tuple[int, List[int]]:
         """(best_total, tie_indices): the winner reduce of one flush; tie
@@ -200,17 +196,15 @@ class TorchBatchBackend:
         if not reads or not ref_seqs:
             return lambda: (0, list(range(c)))
         cuda = self.device.type == "cuda"
-        with self.gcups.measure_lazy() as done:
-            totals, cells = self._totals_dev(reads, ref_seqs)
-            best = totals.max()
-            combined = torch.cat([(totals == best).to(torch.int64), best.view(1)])
-            host = torch.empty(c + 1, dtype=torch.int64, pin_memory=cuda)
-            host.copy_(combined, non_blocking=cuda)
-            event = None
-            if cuda:
-                event = torch.cuda.Event()
-                event.record(torch.cuda.current_stream(self.device))
-            done(cells)
+        totals = self._flush(reads, ref_seqs)
+        best = totals.max()
+        combined = torch.cat([(totals == best).to(torch.int64), best.view(1)])
+        host = torch.empty(c + 1, dtype=torch.int64, pin_memory=cuda)
+        host.copy_(combined, non_blocking=cuda)
+        event = None
+        if cuda:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
 
         def resolve() -> Tuple[int, List[int]]:
             if event is not None:
@@ -219,6 +213,15 @@ class TorchBatchBackend:
             return int(arr[c]), [int(i) for i in np.flatnonzero(arr[:c])]
 
         return resolve
+
+    def _flush(self, reads, ref_seqs) -> torch.Tensor:
+        """One scoring flush (:meth:`_totals_dev`), traced as span ``flush``
+        with its real cells: (C,) int64 totals on the device, not waited on."""
+        with span("flush", refs=len(ref_seqs)) as flush:
+            totals, cells = self._totals_dev(reads, ref_seqs)
+            if flush:
+                flush.set(cells=cells, ref_bp=sum(map(len, ref_seqs)))
+        return totals
 
     def _totals_dev(self, reads, ref_seqs) -> Tuple[torch.Tensor, int]:
         pending, cells = self._dispatch_cols(reads, ref_seqs)
@@ -248,11 +251,12 @@ class TorchBatchBackend:
         """
         r_limit = max(1, _INT32_SAFE // max(1, self.scoring.match))
         packs = self._pack_chunks(reads, r_limit)
-        flat, lens = encode_concat(list(ref_seqs))
-        offsets = np.zeros_like(lens)
-        np.cumsum(lens[:-1], out=offsets[1:])
-        order = np.argsort(-lens, kind="stable")
-        lens_o = lens[order]
+        with span("encode"):
+            flat, lens = encode_concat(list(ref_seqs))
+            offsets = np.zeros_like(lens)
+            np.cumsum(lens[:-1], out=offsets[1:])
+            order = np.argsort(-lens, kind="stable")
+            lens_o = lens[order]
         flat_t = self._upload(flat)
         order_t = self._upload(order)
         lens_t = self._upload(lens_o.astype(np.int32))
@@ -291,14 +295,16 @@ class TorchBatchBackend:
         device.
         """
         read_groups = sorted(_group_by_padded_len(reads, self.read_bucket).items())
-        reads_enc = {
-            m_pad: encode_batch([reads[i] for i in idx], max(len(reads[i]) for i in idx), READ_PAD)
-            for m_pad, idx in read_groups
-        }
+        with span("encode"):
+            reads_enc = {
+                m_pad: encode_batch([reads[i] for i in idx], max(len(reads[i]) for i in idx), READ_PAD)
+                for m_pad, idx in read_groups
+            }
         staged = []
         cells = 0
         for n_pad, ref_idx in sorted(_group_by_padded_len(ref_seqs, self.ref_bucket, geometric=True).items()):
-            refs_enc = encode_batch([ref_seqs[i] for i in ref_idx], n_pad, REF_PAD)
+            with span("encode"):
+                refs_enc = encode_batch([ref_seqs[i] for i in ref_idx], n_pad, REF_PAD)
             ref_bp = sum(len(ref_seqs[i]) for i in ref_idx)
             for m_pad, read_idx in read_groups:
                 # The int32 form's carry sizes: an upper bound of the s16x2 form's.
@@ -381,15 +387,17 @@ class TorchBatchBackend:
             return []
         gap_char = self.scoring.gap_char
         tie = self.scoring.tie_semantics
-        if self._windowed(ref_seq, reads):
-            cell_lists = find_max_cells_batched(list(reads), ref_seq, self._params, device=self.device)
-            per_read = sites_for_ref_long_batched(
-                ref_seq, list(reads), self._params,
-                gap_char=gap_char, ref_bucket=self.ref_bucket,
-                cell_lists=cell_lists, tie_semantics=tie, device=self.device,
-            )
-        else:
-            per_read = self._sites_full_fill(ref_seq, reads)
+        windowed = self._windowed(ref_seq, reads)
+        with span("traceback", branch="windowed" if windowed else "full"):
+            if windowed:
+                cell_lists = find_max_cells_batched(list(reads), ref_seq, self._params, device=self.device)
+                per_read = sites_for_ref_long_batched(
+                    ref_seq, list(reads), self._params,
+                    gap_char=gap_char, ref_bucket=self.ref_bucket,
+                    cell_lists=cell_lists, tie_semantics=tie, device=self.device,
+                )
+            else:
+                per_read = self._sites_full_fill(ref_seq, reads)
         merged: List[Site] = []
         for sites in per_read:  # read order (Distribution.java:589-597)
             merged.extend(sites)
@@ -412,7 +420,8 @@ class TorchBatchBackend:
             )
 
         def collect(idx, outs, skip=()):
-            best, counts, cells, begins, codes = (t.cpu().numpy() for t in outs)
+            with span("wait", on="readback"):
+                best, counts, cells, begins, codes = (t.cpu().numpy() for t in outs)
             for k, ridx in enumerate(idx):
                 if k not in skip:
                     per_read[ridx] = sites_from_trace(
@@ -429,7 +438,8 @@ class TorchBatchBackend:
                 reads_enc = encode_batch([reads[i] for i in chunk], m_pad, READ_PAD)
                 dispatched.append((chunk, reads_enc, cap, trace(reads_enc, _TRACE_CAPACITY, cap)))
         for chunk, reads_enc, cap, outs in dispatched:
-            best, counts = outs[0].cpu().numpy(), outs[1].cpu().numpy()
+            with span("wait", on="readback"):
+                best, counts = outs[0].cpu().numpy(), outs[1].cpu().numpy()
             overflow = sorted((k for k in range(len(chunk)) if best[k] > 0 and counts[k] > _TRACE_CAPACITY),
                               key=lambda k: counts[k])
             collect(chunk, outs, skip=set(overflow))

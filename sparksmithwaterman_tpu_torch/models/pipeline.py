@@ -17,6 +17,7 @@ from sparksmithwaterman_tpu_torch.config import AlignConfig
 from sparksmithwaterman_tpu_torch.io import build_report, get_reads, get_ref_seqs, iter_files
 from sparksmithwaterman_tpu_torch.io.report import OptEntry, write_str_to_file
 from sparksmithwaterman_tpu_torch.models.aligner import get_backend
+from sparksmithwaterman_tpu_torch.utils.profiling import span
 
 _JOURNAL = ".journal.jsonl"
 
@@ -50,7 +51,8 @@ class DoubleBufferedFlushes:
 
     def _drain_one(self) -> None:
         entries, resolve = self._in_flight.pop(0)
-        best, ties = resolve()
+        with span("wait", on="resolve"):
+            best, ties = resolve()
         if best > self.best:
             self.best = best
             self.winners = [entries[i] for i in ties]
@@ -113,34 +115,45 @@ def run_pipeline(
         ):
             out_paths.append(prior["report"])
             continue
+        with span("file", path=in_file):
+            out_paths.append(_run_file(config, backend, in_file, input_num))
+    return out_paths
+
+
+def _run_file(config: AlignConfig, backend, in_file: str, input_num: int) -> str:
+    """Score one input file against the reference tree, trace its winners
+    and write its report and journal line; returns the report's path."""
+    with span("parse", what="reads"):
         reads = get_reads(in_file, config.delimiter)
 
-        t0 = time.monotonic()
-        num_refs = 0
-        # Reference files stream in; sequences accumulate across files up
-        # to ref_batch_bp base pairs per scoring flush.
-        merge = DoubleBufferedFlushes(backend, reads)
-        pending: List[Tuple[str, str]] = []
-        pending_bp = 0
-        for ref_file in iter_files(config.ref_dir):
+    t0 = time.monotonic()
+    num_refs = 0
+    # Reference files stream in; sequences accumulate across files up
+    # to ref_batch_bp base pairs per scoring flush.
+    merge = DoubleBufferedFlushes(backend, reads)
+    pending: List[Tuple[str, str]] = []
+    pending_bp = 0
+    for ref_file in iter_files(config.ref_dir):
+        with span("parse", what="refs"):
             ref_seqs = get_ref_seqs(ref_file, config.delimiter)
-            num_refs += len(ref_seqs)
-            for metadata, seq in ref_seqs:
-                pending.append((metadata, seq))
-                pending_bp += len(seq)
-                if pending_bp >= config.ref_batch_bp:
-                    merge.dispatch(pending, [s for _, s in pending])
-                    pending, pending_bp = [], 0
-        merge.dispatch(pending, [s for _, s in pending])
-        merge.finish()
+        num_refs += len(ref_seqs)
+        for metadata, seq in ref_seqs:
+            pending.append((metadata, seq))
+            pending_bp += len(seq)
+            if pending_bp >= config.ref_batch_bp:
+                merge.dispatch(pending, [s for _, s in pending])
+                pending, pending_bp = [], 0
+    merge.dispatch(pending, [s for _, s in pending])
+    merge.finish()
 
-        # Traceback of the winning references only.
-        opt: List[OptEntry] = [
-            ((metadata, seq), backend.sites_for_ref(seq, reads))
-            for metadata, seq in merge.winners
-        ]
-        exec_ms = int((time.monotonic() - t0) * 1000)
+    # Traceback of the winning references only.
+    opt: List[OptEntry] = [
+        ((metadata, seq), backend.sites_for_ref(seq, reads))
+        for metadata, seq in merge.winners
+    ]
+    exec_ms = int((time.monotonic() - t0) * 1000)
 
+    with span("report"):
         opt.sort(key=lambda entry: entry[0][0])
         report = build_report(
             reads=reads,
@@ -162,5 +175,4 @@ def run_pipeline(
                 "exec_ms": exec_ms,
             },
         )
-        out_paths.append(out_path)
-    return out_paths
+    return out_path

@@ -52,8 +52,9 @@ Twelve kernels, each with its plain PyTorch version of the same function:
 
 A wrapper takes the plain version only for tensors on the CPU.  For CUDA
 tensors it launches the kernel or raises; it never falls back.  Each
-launch adds one to :data:`LAUNCHES`, so a run can show that its main path
-went through the kernels.
+launch goes through :func:`_launch`, adds one to :data:`LAUNCHES`, so a
+run can show that its main path went through the kernels, and is
+recorded by ``utils.profiling`` while that traces.
 
 K1, K2, K4, K5 and K8 have two forms each, and the data alone picks one,
 by one rule (:func:`k1_form`): rows (reads) of at most ONE_PASS_LANES
@@ -117,6 +118,7 @@ from sparksmithwaterman_tpu_torch.ops.packing import START_BIT
 from sparksmithwaterman_tpu_torch.ops.recurrence import (
     DIR_ALIGN, DIR_DEL, DIR_INS, _ramp, _row_update, _sub_scores, fill_pairs, score_grid,
 )
+from sparksmithwaterman_tpu_torch.utils import profiling
 
 # Launches per kernel since the last reset_launches().
 LAUNCHES = {
@@ -207,6 +209,23 @@ def _launch_target(device: torch.device):
     """(device index, current stream handle) for a C entry point."""
     index = device.index if device.index is not None else torch.cuda.current_device()
     return index, torch.cuda.current_stream(device).cuda_stream
+
+
+def _launch(what: str, entry: str, *args, count: bool = True) -> None:
+    """Call the library's C entry ``entry`` with ``args`` (the last two the
+    device index and the stream, :func:`_launch_target`), raise on a CUDA
+    error as ``what``, and with ``count`` add one to ``LAUNCHES[what]``.
+    While ``utils.profiling`` traces, the call is recorded there.  The
+    entry is looked up on the library at each call."""
+    fn = getattr(_cuda.lib(), entry)
+    if profiling.tracing():
+        with profiling.TRACER.launch(entry, args[-2], args[-1]):
+            rc = fn(*args)
+    else:
+        rc = fn(*args)
+    _cuda.check(rc, what)
+    if count:
+        LAUNCHES[what] += 1
 
 
 def carry_elems(m: int, rows: int, cols: int, *, row_form: bool = False, pair: bool = False) -> int:
@@ -514,21 +533,21 @@ def _lane_best_packed_varlen(packed, refs_u8, lens, match, mismatch, gap, offset
     if m > ONE_PASS_LANES:
         carry, carry_offs, part = _carry_rows(m, rows, lens.clamp_min(0), carry_cols, pair=form == "s16x2")
     if form == "s16x2":
-        rc = _cuda.lib().swt_lane_best_varlen_s16x2(
+        _launch(
+            "lane_best_packed_varlen", "swt_lane_best_varlen_s16x2",
             packed.data_ptr(), rows, m,
             refs_u8.data_ptr(), offsets.data_ptr(), lens.data_ptr(), c,
             match, mismatch, gap, out.data_ptr(), _ptr(carry), _ptr(carry_offs), part, seg,
             *_launch_target(device),
         )
     else:
-        rc = _cuda.lib().swt_lane_best_varlen(
+        _launch(
+            "lane_best_packed_varlen", "swt_lane_best_varlen",
             packed.data_ptr(), rows, m,
             refs_u8.data_ptr(), offsets.data_ptr(), lens.data_ptr(), c,
             match, mismatch, gap,
             out.data_ptr(), _ptr(carry), _ptr(carry_offs), part, *_launch_target(device),
         )
-    _cuda.check(rc, "lane_best_packed_varlen")
-    LAUNCHES["lane_best_packed_varlen"] += 1
     K1_FORMS[form] += 1
     return out
 
@@ -668,7 +687,6 @@ def _argmax_lane(reads_u8, refs_u8, match, mismatch, gap, *, form=None, split=Tr
         return outs
     reads_u8 = reads_u8.contiguous()
     refs_u8 = refs_u8.contiguous()
-    lib = _cuda.lib()
     if form == "s16x2":
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         reads_per_block = 2 if m > ONE_PASS_LANES else 2 * _BLOCK_ROWS
@@ -678,26 +696,24 @@ def _argmax_lane(reads_u8, refs_u8, match, mismatch, gap, *, form=None, split=Tr
         parts = outs if segs == 1 else tuple(
             torch.empty((segs, r, c, m), dtype=torch.int32, device=device) for _ in range(3))
         carry, cols, part = _argmax_carry(m, r, c * segs, min(plan[1], n), device)
-        rc = lib.swt_argmax_lane_s16x2(
+        _launch(
+            "argmax_lane", "swt_argmax_lane_s16x2",
             reads_u8.data_ptr(), r, m, refs_u8.data_ptr(), n, c, n, match, mismatch, gap,
             *(o.data_ptr() for o in parts), *plan, _ptr(carry), 0 if carry is None else carry.numel(), cols, part,
             *_launch_target(device),
         )
-        _cuda.check(rc, "argmax_lane")
         if segs > 1:
-            rc = lib.swt_argmax_merge(*(o.data_ptr() for o in parts), segs, r * c * m,
-                                      *(o.data_ptr() for o in outs), *_launch_target(device))
-            _cuda.check(rc, "argmax_lane (merge)")
+            _launch("argmax_lane (merge)", "swt_argmax_merge", *(o.data_ptr() for o in parts), segs, r * c * m,
+                    *(o.data_ptr() for o in outs), *_launch_target(device), count=False)
     else:
         carry, part = _carry_grid(m, r, c, n, False, device)
-        rc = lib.swt_argmax_lane(
+        _launch(
+            "argmax_lane", "swt_argmax_lane",
             reads_u8.data_ptr(), r, m,
             refs_u8.data_ptr(), n, c, n,
             match, mismatch, gap,
             *(o.data_ptr() for o in outs), _ptr(carry), part, *_launch_target(device),
         )
-        _cuda.check(rc, "argmax_lane")
-    LAUNCHES["argmax_lane"] += 1
     K2_FORMS[form] += 1
     return outs
 
@@ -925,15 +941,12 @@ def _band_lane_best(packed, seg_u8, offsets, seg_lens, ns, bnd, match, mismatch,
             out.zero_()  # the pieces take their max into it
         else:
             stride, back = 0, 0
-    lib = _cuda.lib()
     common = (packed.data_ptr(), rows, m, seg_u8.data_ptr(), offsets.data_ptr(), seg_lens.data_ptr(), ns.data_ptr(),
               c, bnd.data_ptr(), match, mismatch, gap, out.data_ptr(), bnd_out.data_ptr())
     carry, carry_offs, part = _carry_rows(m, rows, cols, carry_cols, pair=form == "s16x2", stride=stride, back=back)
     plan = (_ptr(carry), _ptr(carry_offs), part, stride, back, _ptr(cum), pieces, _segment_lanes(m, longest))
-    entry = lib.swt_band_lane_best_s16x2 if form == "s16x2" else lib.swt_band_lane_best
-    rc = entry(*common, *plan, *_launch_target(device))
-    _cuda.check(rc, "band_lane_best")
-    LAUNCHES["band_lane_best"] += 1
+    entry = "swt_band_lane_best_s16x2" if form == "s16x2" else "swt_band_lane_best"
+    _launch("band_lane_best", entry, *common, *plan, *_launch_target(device))
     K3_FORMS[form] += 1
     return out, bnd_out
 
@@ -990,8 +1003,8 @@ def _carry_grid(m, r, c, n, row_form, device, pair=False):
     return scratch, part
 
 
-def _launch_grid(entry, name, forms, form, reads_u8, refs_u8, match, mismatch, gap, segments=()):
-    """(R, C) int32 from a C entry with K4's arguments, or K5's with
+def _launch_grid(entry: str, name, forms, form, reads_u8, refs_u8, match, mismatch, gap, segments=()):
+    """(R, C) int32 from C entry ``entry`` with K4's arguments, or K5's with
     ``segments`` = (stride, length) of :func:`row_segments`; the launch
     counts in LAUNCHES[name] and in ``forms[form]``."""
     r, m = reads_u8.shape
@@ -1006,12 +1019,10 @@ def _launch_grid(entry, name, forms, form, reads_u8, refs_u8, match, mismatch, g
     reads_u8 = reads_u8.contiguous()
     refs_u8 = refs_u8.contiguous()
     carry, part = _carry_grid(m, r, c, n, name == "score_grid_row", reads_u8.device, pair=form == "s16x2")
-    rc = entry(
-        reads_u8.data_ptr(), r, m, refs_u8.data_ptr(), c, n,
+    _launch(
+        name, entry, reads_u8.data_ptr(), r, m, refs_u8.data_ptr(), c, n,
         match, mismatch, gap, out.data_ptr(), _ptr(carry), part, *segments, *_launch_target(reads_u8.device),
     )
-    _cuda.check(rc, name)
-    LAUNCHES[name] += 1
     forms[form] += 1
     return out
 
@@ -1065,8 +1076,7 @@ def _score_grid_diag(reads_u8, refs_u8, match, mismatch, gap, *, form=None):
     if device.type == "cpu":
         return score_grid_diag_plain(reads_u8, refs_u8, match, mismatch, gap)
     _check_stripes("score_grid_diag", reads_u8.shape[1], mismatch, gap)
-    lib = _cuda.lib()
-    entry = lib.swt_score_grid_diag_s16x2 if form == "s16x2" else lib.swt_score_grid_diag
+    entry = "swt_score_grid_diag_s16x2" if form == "s16x2" else "swt_score_grid_diag"
     return _launch_grid(entry, "score_grid_diag", K4_FORMS, form, reads_u8, refs_u8, match, mismatch, gap)
 
 
@@ -1145,8 +1155,7 @@ def _score_grid_row(reads_u8, refs_u8, match, mismatch, gap, *, form=None, split
     reads_per_block = 2 * _BLOCK_ROWS if form == "s16x2" else _BLOCK_ROWS
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     segments = row_segments(m, n, match, mismatch, gap, -(-r // reads_per_block) * c, sms) if split else (n, n)
-    lib = _cuda.lib()
-    entry = lib.swt_score_grid_row_s16x2 if form == "s16x2" else lib.swt_score_grid_row
+    entry = "swt_score_grid_row_s16x2" if form == "s16x2" else "swt_score_grid_row"
     return _launch_grid(entry, "score_grid_row", K5_FORMS, form, reads_u8, refs_u8, match, mismatch, gap, segments)
 
 
@@ -1329,16 +1338,13 @@ def _max_cells_row(reads_u8, ref_u8, best, match, mismatch, gap, capacity, *, fo
         # segment and warp of the s16x2 form's pipeline of tiles.
         pipeline = _BLOCK_ROWS if form == "s16x2" and m > ONE_PASS_LANES else 1
         carry, part = _carry_grid(m, r, -(-n // segments[0]) * pipeline, n, True, device, pair=form == "s16x2")
-        lib = _cuda.lib()
-        entry = lib.swt_max_cells_row_s16x2 if form == "s16x2" else lib.swt_max_cells_row
-        rc = entry(
+        _launch(
+            "max_cells_row", "swt_max_cells_row_s16x2" if form == "s16x2" else "swt_max_cells_row",
             reads_u8.data_ptr(), r, m, ref_u8.data_ptr(), n,
             best.data_ptr(), match, mismatch, gap,
             count.data_ptr(), cells.data_ptr(), capacity, _ptr(carry), 0 if carry is None else carry.numel(), part,
             *segments, *_launch_target(device),
         )
-        _cuda.check(rc, "max_cells_row")
-        LAUNCHES["max_cells_row"] += 1
         K8_FORMS[form] += 1
     return max_cells_finish(count, cells, best, m, n)
 
@@ -1375,9 +1381,8 @@ def max_cells_finish(count, cells, best, m, n):
         return count, cells
     keys = 1 << (capacity - 1).bit_length()
     scratch = torch.empty(r * keys, dtype=torch.int64, device=device) if keys > _FINISH_KEYS else None
-    rc = _cuda.lib().swt_max_cells_finish(best.data_ptr(), r, m, n, count.data_ptr(), cells.data_ptr(), capacity,
-                                          _ptr(scratch), keys, *_launch_target(device))
-    _cuda.check(rc, "max_cells_finish")
+    _launch("max_cells_finish", "swt_max_cells_finish", best.data_ptr(), r, m, n, count.data_ptr(), cells.data_ptr(),
+            capacity, _ptr(scratch), keys, *_launch_target(device), count=False)
     return count, cells
 
 
@@ -1422,13 +1427,12 @@ def fill_dirs(reads_u8, refs_u8, match, mismatch, gap, *, tie_semantics, want_h)
         return h, dirs
     reads_u8, refs_u8 = reads_u8.contiguous(), refs_u8.contiguous()
     carry = torch.empty(b * m, dtype=torch.int32, device=device) if n > _FILL_TILE else None
-    rc = _cuda.lib().swt_fill_dirs(
+    _launch(
+        "fill_dirs", "swt_fill_dirs",
         reads_u8.data_ptr(), b, m, refs_u8.data_ptr(), 0 if refs_u8.shape[0] == 1 else n, n,
         match, mismatch, gap, int(tie_semantics == "serial"),
         dirs.data_ptr(), _ptr(h), _ptr(carry), *_launch_target(device),
     )
-    _cuda.check(rc, "fill_dirs")
-    LAUNCHES["fill_dirs"] += 1
     return h, dirs
 
 
@@ -1485,12 +1489,11 @@ def trace_walk(dirs: torch.Tensor, cells: torch.Tensor, cap: int):
     dirs, cells = dirs.contiguous(), cells.contiguous()
     if cells.data_ptr() % 8:  # the kernel reads each cell as one int2
         cells = cells.clone()
-    rc = _cuda.lib().swt_trace_walk(
+    _launch(
+        "trace_walk", "swt_trace_walk",
         dirs.data_ptr(), b, m, n, cells.data_ptr(), k, cap, begins.data_ptr(), codes.data_ptr(),
         *_launch_target(device),
     )
-    _cuda.check(rc, "trace_walk")
-    LAUNCHES["trace_walk"] += 1
     return begins, codes
 
 
@@ -1648,14 +1651,13 @@ def _fill_list(reads_u8, refs_u8, match, mismatch, gap, *, capacity, cap, tie_se
     meta = torch.empty((b, tiles, 2), **i32)
     keys = 1 << (tiles * capacity - 1).bit_length()
     sort = torch.empty(b * keys, dtype=torch.int64, device=device) if keys > _FILL_SORT_KEYS else None
-    rc = _cuda.lib().swt_fill_list(
+    _launch(
+        "fill_list", "swt_fill_list",
         reads_u8.data_ptr(), b, m, refs_u8.data_ptr(), 0 if refs_u8.shape[0] == 1 else n, n,
         match, mismatch, gap, int(tie_semantics == "serial"), cols, warps, _ptr(scratch), stride,
         capacity, cap, best.data_ptr(), counts.data_ptr(), cells.data_ptr(), begins.data_ptr(), codes.data_ptr(),
         lists.data_ptr(), meta.data_ptr(), _ptr(sort), keys, *_launch_target(device),
     )
-    _cuda.check(rc, "fill_list")
-    LAUNCHES["fill_list"] += 1
     return best, counts, cells, begins, codes
 
 
@@ -1663,7 +1665,9 @@ def _check_known_cells(cells, m, n):
     """Raises ValueError unless every cell is inside the (m, n) plane or
     (-1, -1), none (one host sync on the card)."""
     inside = (cells >= 0).all(dim=1) & (cells[:, 0] < m) & (cells[:, 1] < n)
-    if not bool((inside | (cells == -1).all(dim=1)).all()):
+    with profiling.span("wait", on="readback"):
+        known = bool((inside | (cells == -1).all(dim=1)).all())
+    if not known:
         raise ValueError(f"fill_walk: every cell must lie inside the ({m}, {n}) plane or be (-1, -1)")
 
 
@@ -1717,13 +1721,12 @@ def _fill_walk(reads_u8, refs_u8, cells, match, mismatch, gap, *, cap, tie_seman
     if cells.data_ptr() % 8:  # the kernel reads each cell as one int2
         cells = cells.clone()
     cols, warps, scratch, stride, _ = _fill_launch(reads_u8, refs_u8, route, tie_semantics)
-    rc = _cuda.lib().swt_fill_walk(
+    _launch(
+        "fill_walk", "swt_fill_walk",
         reads_u8.data_ptr(), b, m, refs_u8.data_ptr(), 0 if refs_u8.shape[0] == 1 else n, n,
         match, mismatch, gap, int(tie_semantics == "serial"), cols, warps, _ptr(scratch), stride,
         cells.data_ptr(), cap, begins.data_ptr(), codes.data_ptr(), *_launch_target(device),
     )
-    _cuda.check(rc, "fill_walk")
-    LAUNCHES["fill_walk"] += 1
     return begins, codes
 
 
@@ -1915,14 +1918,11 @@ def _step_chain_best(reads, *, steps, unroll=64, match=5, mismatch=-3, gap=-4, m
     if rb == 0:
         return out
     reads = reads.contiguous()
-    lib = _cuda.lib()
-    entry = lib.swt_step_chain_best_s16x2 if form == "s16x2" else lib.swt_step_chain_best
-    rc = entry(
+    _launch(
+        "step_chain_best", "swt_step_chain_best_s16x2" if form == "s16x2" else "swt_step_chain_best",
         reads.data_ptr(), rb, m, steps, unroll, match, mismatch, gap, int(masked),
         out.data_ptr(), *_launch_target(device),
     )
-    _cuda.check(rc, "step_chain_best")
-    LAUNCHES["step_chain_best"] += 1
     K6_FORMS[form] += 1
     return out
 
@@ -2022,14 +2022,11 @@ def _step_variant_best(packed, refs_u8, *, variant, unroll=16, match=5, mismatch
         return out
     packed = packed.contiguous()
     refs_u8 = refs_u8.contiguous()
-    lib = _cuda.lib()
-    entry = lib.swt_step_variant_best_s16x2 if form == "s16x2" else lib.swt_step_variant_best
-    rc = entry(
+    _launch(
+        "step_variant_best", "swt_step_variant_best_s16x2" if form == "s16x2" else "swt_step_variant_best",
         packed.data_ptr(), rows, m, refs_u8.data_ptr(), c, n,
         STEP_VARIANTS.index(variant), steps, match, mismatch, gap,
         out.data_ptr(), *_launch_target(device),
     )
-    _cuda.check(rc, "step_variant_best")
-    LAUNCHES["step_variant_best"] += 1
     K7_FORMS[form] += 1
     return out

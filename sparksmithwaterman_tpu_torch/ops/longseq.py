@@ -37,6 +37,7 @@ from sparksmithwaterman_tpu_torch.ops.cuda_score import (
 )
 from sparksmithwaterman_tpu_torch.ops.device_traceback import assemble_site
 from sparksmithwaterman_tpu_torch.ops.traceback import degenerate_sites
+from sparksmithwaterman_tpu_torch.utils.profiling import span
 
 Cells = Tuple[int, np.ndarray]
 
@@ -56,7 +57,14 @@ _FILL_CELLS = 1 << 30
 
 
 def _to(arr: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    with span("wait", on="upload"):
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+
+def _host(*tensors: torch.Tensor) -> List[np.ndarray]:
+    """The tensors copied to the host, a wait on their device."""
+    with span("wait", on="readback"):
+        return [t.cpu().numpy() for t in tensors]
 
 
 def _max_cells_host(read_enc: np.ndarray, ref_enc: np.ndarray, match, mismatch, gap) -> Cells:
@@ -105,7 +113,7 @@ def _exact_max_cells(
     ref_t = _to(ref_enc, device)
     reads_t = _to(reads_enc, device)
     best_t = _to(best.astype(np.int32), device)
-    count, cells = (t.cpu().numpy() for t in max_cells_row(reads_t, ref_t, best_t, *params, capacity))
+    count, cells = _host(*max_cells_row(reads_t, ref_t, best_t, *params, capacity))
     cells = list(cells)
     caps = np.full(len(count), capacity)
     flat = (best <= 0) & (count > _CAPACITY_CAP)
@@ -116,7 +124,7 @@ def _exact_max_cells(
             cap = min(_CAPACITY_CAP, 1 << (cap - 1).bit_length())
         idx = _to(group, reads_t.device)
         _, more = max_cells_row(reads_t[idx], ref_t, best_t[idx], *params, cap)
-        for k, listed in zip(group, more.cpu().numpy()):
+        for k, listed in zip(group, _host(more)[0]):
             cells[k], caps[k] = listed, cap
     out: List[Cells] = []
     for k in range(reads_enc.shape[0]):
@@ -154,7 +162,7 @@ def find_max_cells(read_seq: str, ref_seq: str, params, device="cuda") -> Cells:
     m, n = len(read_seq), len(ref_seq)
     reads_enc = encode_batch([read_seq], m, READ_PAD)
     ref_enc = encode_batch([ref_seq], n, REF_PAD)
-    best = score_grid_row(_to(reads_enc, device), _to(ref_enc, device), *params)[:, 0].cpu().numpy()
+    (best,) = _host(score_grid_row(_to(reads_enc, device), _to(ref_enc, device), *params)[:, 0])
     return _exact_max_cells(reads_enc, ref_enc[0], best, params, device)[0]
 
 
@@ -172,9 +180,7 @@ def find_max_cells_batched(reads: List[str], ref_seq: str, params, device="cuda"
     reads_enc = encode_batch(reads, m_pad, READ_PAD)
     ref_enc = encode_batch([ref_seq], len(ref_seq), REF_PAD)
     best, bestd, count = argmax_lane(_to(reads_enc, device), _to(ref_enc, device), *params)
-    best = best[:, 0].cpu().numpy()  # (R, M) per-lane best
-    bestd = bestd[:, 0].cpu().numpy()
-    count = count[:, 0].cpu().numpy()
+    best, bestd, count = _host(best[:, 0], bestd[:, 0], count[:, 0])  # (R, M) per lane
 
     out: List[Optional[Cells]] = []
     ties: List[int] = []
@@ -297,7 +303,7 @@ def sites_for_ref_long_batched(
         )
         dispatched.append((chunk, w_pad, outs))
     for chunk, w_pad, (begins, codes) in dispatched:
-        begins, codes = begins.cpu().numpy(), codes.cpu().numpy()
+        begins, codes = _host(begins, codes)
         for t, (ridx, i, j) in enumerate(chunk):
             off = j - w_pad  # window col c <-> ref col c + off
             beg_w = int(begins[t])

@@ -46,6 +46,7 @@ from sparksmithwaterman_tpu_torch.models.batch_backend import (
 from sparksmithwaterman_tpu_torch.ops.cuda_score import carry_elems, lane_best_packed_varlen
 from sparksmithwaterman_tpu_torch.ops.packing import packed_col_sums
 from sparksmithwaterman_tpu_torch.parallel.mesh import DeviceMesh, build_mesh, mesh_devices, split_by_bp
+from sparksmithwaterman_tpu_torch.utils.profiling import span
 
 
 def _shares(total: int, parts: int) -> List[slice]:
@@ -71,7 +72,8 @@ def _stage_grid(reads_enc: np.ndarray, refs_enc: np.ndarray, mesh: DeviceMesh, r
 
     def upload(arr, sl, dev, key):
         if (key, sl.start, dev) not in on:
-            on[(key, sl.start, dev)] = torch.from_numpy(np.ascontiguousarray(arr[sl])).to(dev)
+            with span("wait", on="upload"):
+                on[(key, sl.start, dev)] = torch.from_numpy(np.ascontiguousarray(arr[sl])).to(dev)
         return on[(key, sl.start, dev)]
 
     blocks = []
@@ -161,7 +163,8 @@ class ShardedBackend(TorchBatchBackend):
             lo, hi = min(rows, i * per), min(rows, (i + 1) * per)
             start = pack["start_idx"]
             local = start[(start >= lo * m) & (start < hi * m)] - lo * m
-            shares[(i, dev)] = None if local.numel() == 0 else (pack["packed"][lo:hi].to(dev), local.to(dev))
+            with span("wait", on="upload"):
+                shares[(i, dev)] = None if local.numel() == 0 else (pack["packed"][lo:hi].to(dev), local.to(dev))
         return shares[(i, dev)]
 
     def _stage(self, reads_enc, refs_enc):
@@ -182,8 +185,9 @@ class ShardedBackend(TorchBatchBackend):
         if self.mesh.size == 1:
             return super()._dispatch_packed(reads, ref_seqs)
         packs = self._pack_chunks(reads, max(1, _INT32_SAFE // max(1, self.scoring.match)))
-        lens_all = np.fromiter((len(s) for s in ref_seqs), np.int64, len(ref_seqs))
-        parts = split_by_bp(lens_all, self._dc)
+        with span("encode"):
+            lens_all = np.fromiter((len(s) for s in ref_seqs), np.int64, len(ref_seqs))
+            parts = split_by_bp(lens_all, self._dc)
         order_t = self._upload(np.concatenate(parts))
         jobs = []  # (ref indices, ref lengths, flat refs, lens, offsets, [(packed rows, start lanes)])
         lo = 0
@@ -191,17 +195,18 @@ class ShardedBackend(TorchBatchBackend):
             idx_t, lo = order_t[lo : lo + len(part)], lo + len(part)
             if not len(part):
                 continue
-            flat, lens = encode_concat([ref_seqs[k] for k in part])
-            offsets = np.zeros_like(lens)
-            np.cumsum(lens[:-1], out=offsets[1:])
+            with span("encode"):
+                flat, lens = encode_concat([ref_seqs[k] for k in part])
+                offsets = np.zeros_like(lens)
+                np.cumsum(lens[:-1], out=offsets[1:])
             for i in range(self._dr):
                 dev = self.mesh.devices[j, i]
                 shares = [(*share, pack["longest"]) for pack in packs
                           if (share := self._row_share(pack, i, dev)) is not None]
-                jobs.append((
-                    idx_t, lens, torch.from_numpy(flat).to(dev), torch.from_numpy(lens.astype(np.int32)).to(dev),
-                    torch.from_numpy(offsets).to(dev), shares,
-                ))
+                with span("wait", on="upload"):
+                    inputs = (torch.from_numpy(flat).to(dev), torch.from_numpy(lens.astype(np.int32)).to(dev),
+                              torch.from_numpy(offsets).to(dev))
+                jobs.append((idx_t, lens, *inputs, shares))
         pending: List[Tuple[torch.Tensor, torch.Tensor]] = []
         events: list = []
         m_pack = packs[0]["m_pack"]

@@ -38,6 +38,7 @@ from sparksmithwaterman_tpu_torch.models.batch_backend import _OUT_BUDGET, Torch
 from sparksmithwaterman_tpu_torch.ops.cuda_score import band_lane_best, carry_elems
 from sparksmithwaterman_tpu_torch.ops.packing import pack_reads
 from sparksmithwaterman_tpu_torch.parallel.mesh import DeviceMesh, build_mesh, mesh_devices, split_by_bp
+from sparksmithwaterman_tpu_torch.utils.profiling import span
 
 
 def _seq_devices(mesh: DeviceMesh, axis: str) -> list:
@@ -319,13 +320,15 @@ class SeqParallelBackend(TorchBatchBackend):
 
     def _totals_dev(self, reads, ref_seqs):
         pp = self._prepack(reads)
-        flat, lens = encode_concat(list(ref_seqs))
-        offsets = np.zeros_like(lens)
-        np.cumsum(lens[:-1], out=offsets[1:])
+        with span("encode"):
+            flat, lens = encode_concat(list(ref_seqs))
+            offsets = np.zeros_like(lens)
+            np.cumsum(lens[:-1], out=offsets[1:])
         chunks = self._chunks(lens, pp)
         order = np.concatenate(chunks)
         tables = _segment_tables(lens[order], offsets[order], len(self._devices))
-        refs_on, tables_on = _upload_refs(flat, tables, self._devices)
+        with span("wait", on="upload"):
+            refs_on, tables_on = _upload_refs(flat, tables, self._devices)
         order_t = self._upload(order)
         sizes = [len(chunk) for chunk in chunks]
         bounds = [(int(end - size), int(end)) for end, size in zip(np.cumsum(sizes), sizes)]

@@ -1,0 +1,3 @@
+"""``encode_share`` of the four-card cells, which move ``real_gcups.4gpu``."""
+
+from swbench.layers.encode_share import ENTRIES, SPANS, read  # noqa: F401
