@@ -195,14 +195,18 @@ port's main path (``swtorch align --strategy batch``) end to end:
     K1's, K2's, K3's, K4's, K5's and K8's two wide forms at 4,096 lanes in
     turns by events (the s16x2 one must be the faster), and K3 on a 1 Mb
     segment and K8 on a tied 2,048 bp read x 131 kb, each cut against
-    whole; then ``swtorch align`` with batch, wavefront, shard_refs,
+    whole; K1's wide launches of few rows (``k1_few_wide_rows``: 1 int32
+    row, 1 and 3 s16x2 pairs, 8 rows with the last all-pad, and 5 rows
+    and 5 pairs as one launch and in parts, against plain; the long-read
+    cell's lone 8,039 bp int32 row against the same row padded to 8 rows
+    by events, at most half its time); then ``swtorch align`` with batch, wavefront, shard_refs,
     shard_reads and shard_seq, and ``run_pipeline`` with
     ``pack_reads=False`` and ``kernel='row'``, on 128 reads (8 of
     1,025-8,000 bp) x 64 refs: reports equal, the winners' totals equal
     the row-form recurrence, every site equal to the per-read
     recomputation, every K1, K2, K4 and K5 launch in its rule's form (K1
-    and K2 int32: the 8,000 bp read's 8,192-lane rows, every read padded
-    to it); and ``swtorch align --strategy batch``, ``wavefront`` with
+    in both: the 8,000 bp read alone in an int32 row, the other reads in
+    s16x2 pairs; K2 int32, every read padded to 8,000); and ``swtorch align --strategy batch``, ``wavefront`` with
     ``pack_reads=False`` and ``kernel='row'`` on the same reads without
     the 8,000 bp one (the batch run's winners through the windowed
     traceback, so K2 pads every read to 6,000): K1's, K2's, K4's and K5's
@@ -376,7 +380,9 @@ WIDE16_BAND_CELLS = ("band_wide_s16x2_kernel", "max_cells_wide_s16x2_kernel")
 # one-pass kernels, K5's wide one), as the commit before the striped
 # s16x2 forms built the one-pass K1-K4 kernels, the commit before K2's and
 # K5's wide forms built K1's and K4's striped ones and the one-pass K5,
-# and the commit before K3's and K8's wide forms built the rest:
+# and the commit before K3's and K8's wide forms built the rest, but K1's
+# striped one, as the commit that sized K1's wide blocks to their rows
+# built it (its pair index reads the block's warps, no longer kWarps):
 # sass_digests' {kernel: (functions, digest)} and the toolkit that built
 # them.
 KEPT_SASS = {
@@ -387,7 +393,7 @@ KEPT_SASS = {
         "lane_best_s16x2_kernel": (12, "55a50e233ea8841a"),
         "score_grid_s16x2_kernel": (12, "7c63227b398f92a7"),
         "score_row_s16x2_kernel": (1, "fafdfdb02684b75d"),
-        "lane_best_wide_s16x2_kernel": (1, "4657a8262741f800"),
+        "lane_best_wide_s16x2_kernel": (1, "40713eb2a19f55f8"),
         "score_grid_wide_s16x2_kernel": (1, "921cd39e73354478"),
         "max_cells_s16x2_kernel": (1, "8f9dadcd4402db97"),
         "argmax_wide_s16x2_kernel": (1, "6c481f549c1b8042"),
@@ -639,6 +645,113 @@ def parse_report(path):
         else:
             i += 1
     return max_score, winners
+
+
+def k1_few_wide_rows(dev, sms: int, clock_mhz: float) -> str:
+    """K1's striped launches of few rows, as the batch backend's packs of
+    one form give them (one int32 row; s16x2 pairs; no row past the last
+    read but where a form pairs): blocks of as many warps as the rows need.
+    Against the plain version at every start lane (2,048-lane rows at
+    match 20, where reads past 1,638 bp take int32): 1 int32 row, 1 and 3
+    s16x2 pairs, 1 row in the s16x2 form (its pair's other half past the
+    rows), 8 int32 rows with the last all-pad, and 5 int32 rows and 5
+    s16x2 pairs (a block of four and a block of one) as one launch and in
+    parts of one block (carry budget 1).  Then by events in turns at the
+    long-read cell's 8,192-lane rows (scheme 5/-3/-4, 2,048 refs of
+    500-4,000 bp): one 8,039 bp read as its own int32 row against the same
+    row padded to 8 rows, which must take at least twice as long, and the
+    cell's other 19 reads in 3 s16x2 pairs against the same padded to 8
+    rows.
+    Returns the line to print."""
+    import torch
+
+    from sparksmithwaterman_tpu_torch.io.fasta import encode_concat
+    from sparksmithwaterman_tpu_torch.ops import cuda_score
+    from sparksmithwaterman_tpu_torch.ops.packing import pack_reads, read_best
+
+    rng = np.random.default_rng(SEED + 25)  # its own stream: the other inputs stay as they were
+    genome = rand_seqs(rng, [20_000])[0]
+
+    def piece(n):
+        o = int(rng.integers(0, len(genome) - n + 1))
+        return genome[o : o + n]
+
+    def refs_on_card(refs):
+        flat, lens = encode_concat(refs)
+        order = np.argsort(-lens, kind="stable")
+        offs = np.concatenate(([0], np.cumsum(lens)[:-1])).astype(np.int64)
+        return (torch.from_numpy(flat).to(dev), torch.from_numpy(lens[order].astype(np.int32)).to(dev),
+                torch.from_numpy(offs[order]).to(dev))
+
+    def k1(reads, m, ref_args, params, row_multiple):
+        """(K1's call in its rule's form, the packed rows, the start lanes)."""
+        packed, start = pack_reads(reads, m, row_multiple)
+        packed = torch.from_numpy(packed).to(dev)
+        flat, lens, offs = ref_args
+        longest = max(map(len, reads))
+        return (lambda: cuda_score.lane_best_packed_varlen(packed, flat, lens, *params, offsets=offs, longest=longest),
+                packed, start)
+
+    params = (20, -3, -4)  # 16 bits up to 1,638 bp
+    ref_args = refs_on_card([piece(600), piece(1), piece(250), "", piece(90)])
+    cases = {
+        "1 int32 row": ([1700, 300], 1, "int32", 1),
+        "1 s16x2 pair": ([1600, 1200, 400], 2, "s16x2", 2),
+        "1 s16x2 row": ([1600], 1, "s16x2", 1),
+        "3 s16x2 pairs": ([1600, 1500, 1400, 1300, 1200, 1100], 2, "s16x2", 6),
+        "8 int32 rows, the last all-pad": ([1700, 1650, 1640, 1630, 1620, 1610, 1600], 8, "int32", 8),
+        "5 int32 rows": ([1700, 1600, 1500, 1400, 1300], 1, "int32", 5),
+        "5 s16x2 pairs": ([1600, 1550, 1500, 1450, 1400, 1350, 1300, 1250, 1200, 1150], 2, "s16x2", 10),
+    }
+    checked = []
+    for name, (lens, multiple, form, rows) in cases.items():
+        reads = [piece(n) for n in lens]
+        fn, packed, start = k1(reads, 2048, ref_args, params, multiple)
+        fail_unless(packed.shape[0] == rows and cuda_score.k1k4_form(2048, *params, longest=max(lens)) == form,
+                    f"K1 few wide rows, {name}: {packed.shape[0]} rows, form "
+                    f"{cuda_score.k1k4_form(2048, *params, longest=max(lens))}")
+        before = dict(cuda_score.K1_FORMS)
+        got = read_best(fn(), start)
+        fail_unless(cuda_score.K1_FORMS[form] == before[form] + 1, f"K1 few wide rows, {name}: not in {form}")
+        want = read_best(cuda_score.lane_best_packed_varlen_plain(packed, *ref_args[:2], *params, ref_args[2]), start)
+        fail_unless(torch.equal(got, want), f"K1 few wide rows, {name}: differs from the plain version")
+        if rows == 5 or rows == 10:
+            budget, cuda_score.CARRY_BUDGET = cuda_score.CARRY_BUDGET, 1
+            try:
+                parts = read_best(fn(), start)
+            finally:
+                cuda_score.CARRY_BUDGET = budget
+            fail_unless(torch.equal(parts, want), f"K1 few wide rows, {name}: in parts of one block differs")
+        checked.append(f"{name} (best {int(want.max())})")
+
+    # The long-read cell's shape, by events in turns.
+    long_lens = [1067, 1154, 1243, 1337, 1435, 1538, 1649, 1768, 1897, 2038, 2195, 2371, 2571, 2804, 3082, 3425,
+                 3871, 4497, 5518, 8039]
+    refs = [piece(int(n)) for n in rng.integers(500, 4001, 2048)]
+    ref_args = refs_on_card(refs)
+    ref_bp = sum(map(len, refs))
+    reads = [piece(n) for n in long_lens]
+    pairs = {form: tuple(k1(reads[sl], 8192, ref_args, (5, -3, -4), multiple) for multiple in (own, 8))
+             for form, sl, own in (("int32", slice(19, None), 1), ("s16x2", slice(None, 19), 2))}
+    times = {}
+    for form, ((fn, packed, start), (fn_pad, packed_pad, start_pad)) in pairs.items():
+        fail_unless(torch.equal(read_best(fn(), start), read_best(fn_pad(), start_pad)),
+                    f"K1 at 8,192 lanes in {form}: the padded rows change the reads' bests")
+        turns = [cuda_ms(f, 2) for f in (fn, fn_pad, fn_pad, fn)]
+        times[form] = (packed.shape[0], packed_pad.shape[0], turns)
+    t32 = times["int32"][2]
+    fail_unless(2 * max(t32[0], t32[3]) <= min(t32[1], t32[2]),
+                f"K1 at 8,192 lanes: one int32 row takes {t32[0]:.3f}, {t32[3]:.3f} ms, more than half of the same row "
+                f"padded to 8 ({t32[1]:.3f}, {t32[2]:.3f} ms)")
+    timed = []
+    for form, (rows, rows_pad, turns) in times.items():
+        cells = sum(long_lens[19:] if form == "int32" else long_lens[:19]) * ref_bp
+        least = bound(cells, 0, sms, clock_mhz)[0]
+        own, pad = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        timed.append(f"{form} {rows} rows against {rows_pad} in turns " + ", ".join(f"{t:.3f}" for t in turns)
+                     + f" ms ({own / pad:.3f}x; {cells / own / 1e6:.1f} GCUPS, {100 * least / own:.1f}% of the bound)")
+    return ("K1 wide launches of few rows, equal to the plain version at every start lane: " + "; ".join(checked)
+            + f". At 8,192 lanes x {len(refs)} refs ({ref_bp} bp), by events: " + "; ".join(timed))
 
 
 def main() -> int:
@@ -3159,6 +3272,8 @@ def main() -> int:
                   f"{whole_ms / cut_ms:.1f}x, outputs equal; bound {bound_ms:.3f} ms by {bound_by} = "
                   f"{100 * bound_ms / cut_ms:.1f}% of the cut's time", flush=True)
 
+        print(f"[14] {k1_few_wide_rows(dev, sms, clock_mhz)}", flush=True)
+
         # Every public K1, K2 and K4 call above took k1k4_form's form, every
         # K3 call k3_form's and every K5 and K8 call k5_form's (formed,
         # k8_check); the int32 launches are the forms given for the
@@ -3269,13 +3384,12 @@ def main() -> int:
                              device=dev)
                 torch.cuda.synchronize()
                 lr_s[name] = time.perf_counter() - t
-        # The 8,000 bp read puts every read in 8,192-lane rows, outside the
-        # rule: K1 stays int32 there, and K2, whose call pads every read to
-        # the longest; K4's and K5's read groups of 1,025-6,000 bp take
-        # s16x2, the 8,000 bp one int32.
+        # The 8,000 bp read is outside the rule: K1 packs it alone in int32
+        # and the other reads in s16x2 (8,192-lane rows both), K2 pads every
+        # read to the longest and stays int32; K4's and K5's read groups of
+        # 1,025-6,000 bp take s16x2, the 8,000 bp one int32.
         lr_wide = check_log(lr_log, "the long-read paths")
-        fail_unless(lr_wide["K1", "int32"] > 0 and not lr_wide["K1", "s16x2"]
-                    and all(lr_wide[k, form] > 0 for k in ("K4", "K5") for form in ("s16x2", "int32")),
+        fail_unless(all(lr_wide[k, form] > 0 for k in ("K1", "K4", "K5") for form in ("s16x2", "int32")),
                     f"the long-read paths' wide launches by form: {dict(lr_wide)}")
         lr_launches = dict(cuda_score.LAUNCHES)
         lr_forms = dict(cuda_score.K1_FORMS)

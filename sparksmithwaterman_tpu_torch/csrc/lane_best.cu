@@ -222,8 +222,9 @@ lane_best_s16x2_kernel(const int32_t* __restrict__ packed, int rows, int m,
 // A row wider than kMaxLanes, in stripes of 32 * L lanes (wavefront.cuh):
 // each stripe sweeps and stores its own segmented suffix max, then
 // stripe_suffix_max carries each read's max back over the stripe
-// boundaries it crosses.  The launch covers rows row0 .. row0 +
-// row_blocks * kWarps - 1; carry + carry_offs[c] holds two carry rows of
+// boundaries it crosses.  Blocks hold 1 to kWarps warps, a row each
+// (launch_wide): the launch covers rows row0 .. row0 + row_blocks x the
+// block's warps - 1, and carry + carry_offs[c] holds two carry rows of
 // len int32 for each of them.
 template <int L>
 __global__ void __launch_bounds__(kThreads)
@@ -238,7 +239,7 @@ lane_best_wide_kernel(const int32_t* __restrict__ packed, int rows, int m,
   constexpr int W = 32 * L;
   __shared__ uint8_t ring[kRing];
   const int c = blockIdx.x / row_blocks;
-  const int part_row = (blockIdx.x % row_blocks) * kWarps + (threadIdx.x >> 5);
+  const int part_row = (blockIdx.x % row_blocks) * (blockDim.x >> 5) + (threadIdx.x >> 5);
   const int row = row0 + part_row;
   const int first = (threadIdx.x & 31) * L;
   const bool live = row < rows;
@@ -282,21 +283,22 @@ struct WidePair {
 __device__ __forceinline__ WidePair wide_pair(int row0, int row_blocks) {
   int block;
   asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(block));
-  const int part_pair = (block % row_blocks) * kWarps + (threadIdx.x >> 5);
+  const int part_pair = (block % row_blocks) * (blockDim.x >> 5) + (threadIdx.x >> 5);
   return {block / row_blocks, part_pair, row0 + 2 * part_pair};
 }
 
-// The s16x2 form of a row wider than kMaxLanes: warp w of a block takes
-// the pair of packed rows row0 + 8 (b % row_blocks) + 2w, + 1, one in each
-// 16-bit half, and sweeps it in stripes of 32 * L lanes through
-// sweep_s16x2 with a StripeEdge16x2, whose carry rows hold both rows'
-// halves.  A stripe's lane starts a segment only where its packed lane
-// has START_BIT (or is the row's lane 0): lane 0 of a later stripe
-// continues the read above it.  Each stripe stores each row's own
-// segmented suffix max, unpacked to int32, then stripe_suffix_max carries
-// each read's max back over the stripe boundaries it crosses, as in
-// lane_best_wide_kernel.  carry + carry_offs[c] holds two carry rows of
-// len uint32_t for each pair of the launch.
+// The s16x2 form of a row wider than kMaxLanes: warp w of a block of W
+// warps (1 to kWarps, launch_wide) takes the pair of packed rows row0 +
+// 2W (b % row_blocks) + 2w, + 1, one in each 16-bit half, and sweeps it
+// in stripes of 32 * L lanes through sweep_s16x2 with a StripeEdge16x2,
+// whose carry rows hold both rows' halves.  A stripe's lane starts a
+// segment only where its packed lane has START_BIT (or is the row's lane
+// 0): lane 0 of a later stripe continues the read above it.  Each stripe
+// stores each row's own segmented suffix max, unpacked to int32, then
+// stripe_suffix_max carries each read's max back over the stripe
+// boundaries it crosses, as in lane_best_wide_kernel.  carry +
+// carry_offs[c] holds two carry rows of len uint32_t for each pair of the
+// launch.
 template <int L>
 __global__ void __launch_bounds__(kThreads)
 lane_best_wide_s16x2_kernel(const int32_t* __restrict__ packed, int rows, int m,
@@ -363,6 +365,26 @@ lane_best_wide_s16x2_kernel(const int32_t* __restrict__ packed, int rows, int m,
   if (q.row + 1 < rows) stripe_suffix_max<L>(prow + m, m, o + m);
 }
 
+// Launches a striped kernel over rows [0, rows), per_warp rows a warp (1 in
+// the int32 form, a pair in s16x2), in parts of part_rows rows as
+// launch_parts does, so that the parts reuse one carry scratch.  Each part
+// runs as blocks of kWarps warps and, for the warps left over, one more
+// launch of blocks of as many warps as remain, so that no warp of either
+// sweeps past the last row: a lone int32 row is a block of one warp.
+// launch(row0, row_blocks, warps) launches row_blocks x c blocks of
+// `warps` warps over the rows from row0.  Returns the first launch error,
+// or cudaSuccess.
+template <class Launch>
+int launch_wide(int rows, int part_rows, int per_warp, Launch&& launch) {
+  return launch_parts(rows, part_rows, [&](int row0, int) {
+    const int part = rows - row0 < part_rows ? rows - row0 : part_rows;
+    const int warps = (part + per_warp - 1) / per_warp;
+    const int full = warps / kWarps, rest = warps % kWarps;
+    if (full > 0) launch(row0, full, kWarps);
+    if (rest > 0 && cudaPeekAtLastError() == cudaSuccess) launch(row0 + full * kWarps * per_warp, 1, rest);
+  }, per_warp * kWarps);
+}
+
 }  // namespace
 
 extern "C" int swt_lane_best_varlen(const void* packed, int rows, int m,
@@ -380,8 +402,8 @@ extern "C" int swt_lane_best_varlen(const void* packed, int rows, int m,
   if (guard.err != cudaSuccess) return (int)guard.err;
   cudaStream_t s = (cudaStream_t)stream;
   if (L == 0) {
-    return swt::launch_parts(rows, part_rows, [&](int row0, int part_blocks) {
-      lane_best_wide_kernel<swt::kStripeL><<<(unsigned)(part_blocks * c), swt::kThreads, 0, s>>>(
+    return launch_wide(rows, part_rows, 1, [&](int row0, int part_blocks, int warps) {
+      lane_best_wide_kernel<swt::kStripeL><<<(unsigned)(part_blocks * c), 32 * warps, 0, s>>>(
           (const int32_t*)packed, rows, m, row0, part_blocks,
           (const uint8_t*)refs, (const long long*)offs, (const int32_t*)lens,
           match, mismatch, gap, (int32_t*)out, (int32_t*)carry,
@@ -435,12 +457,12 @@ extern "C" int swt_lane_best_varlen_s16x2(const void* packed, int rows, int m,
   cudaStream_t s = (cudaStream_t)stream;
   const uint32_t k_sub = (uint32_t)(match - mismatch);
   if (wide) {
-    return swt::launch_parts(rows, part_rows, [&](int row0, int part_blocks) {
-      lane_best_wide_s16x2_kernel<swt::kStripe16L><<<(unsigned)(part_blocks * c), swt::kThreads, 0, s>>>(
+    return launch_wide(rows, part_rows, 2, [&](int row0, int part_blocks, int warps) {
+      lane_best_wide_s16x2_kernel<swt::kStripe16L><<<(unsigned)(part_blocks * c), 32 * warps, 0, s>>>(
           (const int32_t*)packed, rows, m, row0, part_blocks, (const uint8_t*)refs,
           (const long long*)offs, (const int32_t*)lens, k_sub, pair16(mismatch), pair16(gap),
           (int32_t*)out, (uint32_t*)carry, (const long long*)carry_offs);
-    }, 2 * swt::kWarps);
+    });
   }
   switch (L) {
 #define SWT_LAUNCH(l)                                                           \

@@ -4,8 +4,9 @@ Port of :class:`sparksmithwaterman_tpu.models.batch_backend.BatchBackend`
 (its scoring paths and both traceback branches):
 
 - the packed path (``kernel='diag'``, ``pack_reads=True``, the default)
-  bin-packs the reads into lane rows (``ops.packing``) and makes one K1
-  dispatch (``ops.cuda_score.lane_best_packed_varlen``) per reference
+  bin-packs the reads into lane rows (``ops.packing``), a pack for each
+  form K1 takes, and makes one K1 dispatch
+  (``ops.cuda_score.lane_best_packed_varlen``) per pack and reference
   chunk; start lanes are gathered and summed per reference in int64 on
   the device, and the best total and its tie mask are reduced there too,
   so one small copy reaches the host per flush;
@@ -216,11 +217,13 @@ class TorchBatchBackend:
 
     def _flush(self, reads, ref_seqs) -> torch.Tensor:
         """One scoring flush (:meth:`_totals_dev`), traced as span ``flush``
-        with its real cells: (C,) int64 totals on the device, not waited on."""
+        with its real cells, and those K1 scores in its 16-bit form
+        (``cells_s16x2``): (C,) int64 totals on the device, not waited on."""
         with span("flush", refs=len(ref_seqs)) as flush:
             totals, cells = self._totals_dev(reads, ref_seqs)
             if flush:
-                flush.set(cells=cells, ref_bp=sum(map(len, ref_seqs)))
+                ref_bp = sum(map(len, ref_seqs))
+                flush.set(cells=cells, cells_s16x2=self._s16x2_read_bp(reads) * ref_bp, ref_bp=ref_bp)
         return totals
 
     def _totals_dev(self, reads, ref_seqs) -> Tuple[torch.Tensor, int]:
@@ -328,35 +331,56 @@ class TorchBatchBackend:
         return [(slice(None), slice(None), self._upload(reads_enc), self._upload(refs_enc))]
 
     def _pack_chunks(self, reads: Sequence[str], r_limit: int) -> List[dict]:
-        """Bin the reads into packed rows at one lane width (the longest
-        read's power-of-two tier, at least 2 * read_bucket and 128), in
-        chunks whose total bp respects ``r_limit``; uploaded once and
-        cached for the same reads list."""
+        """Bin the reads into packed rows, one K1 form a pack: the reads
+        group by the form K1 takes for each read alone
+        (:func:`cuda_score.k1k4_form` at the read's own lane tier, the read
+        its longest segment), and each group packs at the lane tier of its
+        own longest read, in chunks whose total bp respects ``r_limit``.  So
+        a read past the 16-bit rule never puts reads inside it into the
+        int32 form; reads of one form give the packs of one group.
+        Uploaded once and cached for the same reads list."""
         total_bp = sum(len(r) for r in reads)
         obj, n, bp, limit, packs = self._pack_cache
         if obj is reads and n == len(reads) and bp == total_bp and limit == r_limit:
             return packs
-        m_pack = max(2 * self.read_bucket, 128)
-        longest = max(len(r) for r in reads)
-        while m_pack < longest:
-            m_pack *= 2
-        budget = max(m_pack, r_limit)
-        packs = []
-        chunk: List[int] = []
-        chunk_bp = 0
+        groups: Dict[str, List[int]] = {}
         for i, read in enumerate(reads):
-            size = max(1, len(read))
-            if chunk and chunk_bp + size > budget:
-                packs.append(self._pack(reads, chunk, m_pack))
-                chunk, chunk_bp = [], 0
-            chunk.append(i)
-            chunk_bp += size
-        packs.append(self._pack(reads, chunk, m_pack))
+            groups.setdefault(self._read_form(len(read)), []).append(i)
+        packs = []
+        for idx in groups.values():
+            m_pack = self._lane_tier(max(len(reads[i]) for i in idx))
+            budget = max(m_pack, r_limit)
+            chunk: List[int] = []
+            chunk_bp = 0
+            for i in idx:
+                size = max(1, len(reads[i]))
+                if chunk and chunk_bp + size > budget:
+                    packs.append(self._pack(reads, chunk, m_pack))
+                    chunk, chunk_bp = [], 0
+                chunk.append(i)
+                chunk_bp += size
+            packs.append(self._pack(reads, chunk, m_pack))
         self._pack_cache = (reads, len(reads), total_bp, r_limit, packs)
         return packs
 
+    def _lane_tier(self, longest: int) -> int:
+        """Lanes of a packed row for reads of up to ``longest`` bp: the
+        smallest power-of-two multiple of max(2 * read_bucket, 128) that
+        holds it."""
+        m_pack = max(2 * self.read_bucket, 128)
+        while m_pack < longest:
+            m_pack *= 2
+        return m_pack
+
     def _pack(self, reads, idx: List[int], m_pack: int) -> dict:
-        packed, start_idx = pack_reads([reads[i] for i in idx], m_pack)
+        # K1's bound on a segment's lanes (cuda_score.k1k4_form), on the host.
+        longest = max(1, max(len(reads[i]) for i in idx))
+        form = cuda_score.k1k4_form(m_pack, *self._params, longest=longest)
+        # Rows of one pass stay in blocks of eight.  A striped launch sweeps
+        # every row it is given, so a wide pack pads only to its form's
+        # pairing: two rows a warp in s16x2, none in int32.
+        multiple = 8 if m_pack <= cuda_score.ONE_PASS_LANES else 2 if form == "s16x2" else 1
+        packed, start_idx = pack_reads([reads[i] for i in idx], m_pack, multiple)
         return dict(
             m_pack=m_pack,
             rows=packed.shape[0],
@@ -364,9 +388,22 @@ class TorchBatchBackend:
             start_idx=self._upload(start_idx.astype(np.int64)),
             read_idx=list(idx),
             read_bp=sum(len(reads[i]) for i in idx),
-            # K1's bound on a segment's lanes (cuda_score.k1k4_form), on the host.
-            longest=max(1, max(len(reads[i]) for i in idx)),
+            longest=longest,
+            form=form,
         )
+
+    def _read_form(self, length: int) -> str:
+        """The form K1 takes for one read of ``length`` bp alone, at its own
+        lane tier (:func:`cuda_score.k1k4_form`): the form of its pack."""
+        length = max(1, length)
+        return cuda_score.k1k4_form(self._lane_tier(length), *self._params, longest=length)
+
+    def _s16x2_read_bp(self, reads) -> int:
+        """Bases of the reads that K1 scores in its 16-bit form (none on
+        the unpacked path): a flush's ``cells_s16x2`` over its ref bp."""
+        if not self.pack:
+            return 0
+        return sum(len(r) for r in reads if self._read_form(len(r)) == "s16x2")
 
     # -- traceback ------------------------------------------------------------
 

@@ -209,10 +209,9 @@ class ShardedBackend(TorchBatchBackend):
                 jobs.append((idx_t, lens, *inputs, shares))
         pending: List[Tuple[torch.Tensor, torch.Tensor]] = []
         events: list = []
-        m_pack = packs[0]["m_pack"]
         for idx_t, lens, flat_t, lens_t, offsets_t, shares in jobs:
             for packed, start, longest in shares:
-                rows = packed.shape[0]
+                rows, m_pack = packed.shape  # each pack at its own lane tier
                 carry = carry_elems(m_pack, rows, 1) * lens  # the int32 form's: an upper bound of the s16x2 form's
                 for sl in ref_chunks(rows * m_pack, carry, _OUT_BUDGET):
                     lane = lane_best_packed_varlen(packed, flat_t, lens_t[sl], *self._params, offsets=offsets_t[sl],

@@ -20,11 +20,12 @@ The tracer keeps everything in memory and is off until :func:`enable`:
 
 The program opens ``file`` (one input file of ``run_pipeline``),
 ``parse`` (the reads, each reference file), ``flush`` (one scoring
-flush: ``cells``, ``refs``, ``ref_bp``), ``encode`` (a flush's reference
-encoding, and its split over the cards), ``wait`` (the host blocked on a
-card: ``on=`` ``throttle``, ``upload``, ``resolve`` or ``readback``),
-``traceback`` (one winner, ``branch=`` ``windowed`` or ``full``) and
-``report`` (the report and the journal).
+flush: ``cells``, those K1 scores in its 16-bit form ``cells_s16x2``,
+``refs``, ``ref_bp``), ``encode`` (a flush's reference encoding, and its
+split over the cards), ``wait`` (the host blocked on a card: ``on=``
+``throttle``, ``upload``, ``resolve`` or ``readback``), ``traceback``
+(one winner, ``branch=`` ``windowed`` or ``full``) and ``report`` (the
+report and the journal).
 """
 
 from __future__ import annotations
