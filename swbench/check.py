@@ -16,19 +16,27 @@ each also reported:
   whose reference total reaches its maximum score (a missed winner or a
   missed tie), among the winners' likeliest rivals (the LONGEST_REFS
   longest references, and up to SOURCE_REFS of those the reads came
-  from) and RANDOM_REFS more at random;
+  from) and RANDOM_REFS more at random, taken one of each list in turn
+  and cut to the longest prefix of at most RIVAL_BP base pairs;
 - ``report_lines_differing``: lines of the report, without its Execution
   Time line, that differ from the report the reference writes with its
   own sites of every read against every named winner.
 
 The sample is CHECK_FILES files, or all the window's files where it
 holds fewer; sample sizes belong to the check, not to a cell, so every
-cell is checked alike.  The control (``swbench/control.py``) fails it
-through the last part.
+cell is checked alike.  RIVAL_BP bounds the reference's work on the
+rivals at RIVAL_BP x a file's read bp: about 23 s a file of 512 short
+reads on an H100, where the reference scores about 10.6 G cells/s.  It
+is over (LONGEST_REFS + SOURCE_REFS + RANDOM_REFS) x the longest
+reference of a RefSeq-shaped tree (72 x 49,092 bp at 256 Mbp), so it
+cuts no sample there on any seed; on a tree of contigs of up to 1 Mb it
+keeps a few of each kind.  The control (``swbench/control.py``) fails
+the check through the last part.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 import time
 from typing import List
@@ -44,6 +52,7 @@ CHECK_FILES = 3
 LONGEST_REFS = 8
 SOURCE_REFS = 32
 RANDOM_REFS = 32
+RIVAL_BP = 1 << 22
 PARTS = ("reports_missing", "winners_off", "sampled_refs_at_or_above_best", "report_lines_differing")
 
 
@@ -60,6 +69,26 @@ def parse_report(text: str):
     return None if best is None else (best, winners)
 
 
+def rivals(g: np.random.Generator, corpus: gen.Corpus, rf: gen.ReadsFile, known=()) -> List[int]:
+    """The references scored against the file's reads besides ``known``,
+    ascending: the LONGEST_REFS longest, up to SOURCE_REFS of the file's
+    sources and up to RANDOM_REFS of the tree (the last two drawn from
+    ``g`` in that order), taken one of each list in turn, and of those the
+    longest prefix whose bp fit RIVAL_BP."""
+    longest = np.argsort(-corpus.lens, kind="stable")[:LONGEST_REFS]
+    sources = np.unique(rf.sources)
+    from_sources = g.choice(sources, min(SOURCE_REFS, len(sources)), replace=False)
+    at_random = g.choice(len(corpus.lens), min(RANDOM_REFS, len(corpus.lens)), replace=False)
+    seen = {int(k) for k in known}
+    order: List[int] = []
+    for r in itertools.chain.from_iterable(itertools.zip_longest(longest, from_sources, at_random)):
+        if r is not None and int(r) not in seen:
+            seen.add(int(r))
+            order.append(int(r))
+    fit = int(np.searchsorted(np.cumsum(corpus.lens[order]), RIVAL_BP, side="right"))
+    return sorted(order[:fit])
+
+
 def check(corpus: gen.Corpus, files: List[gen.ReadsFile], reports: List[str], cfg: dict, seed: int, device,
           log=print) -> dict:
     """``mismatches`` and its parts, summed over the sampled files,
@@ -72,7 +101,6 @@ def check(corpus: gen.Corpus, files: List[gen.ReadsFile], reports: List[str], cf
     g = gen.rng(seed, 3)
     picked = sorted(g.choice(len(files), min(CHECK_FILES, len(files)), replace=False).tolist())
     by_name = {name: k for k, name in enumerate(corpus.names)}
-    longest = np.argsort(-corpus.lens, kind="stable")[:LONGEST_REFS].tolist()
     out = dict.fromkeys(PARTS + ("winner_total_gap", "bad_files"), 0)
     for f in picked:
         t0 = time.perf_counter()
@@ -101,12 +129,10 @@ def check(corpus: gen.Corpus, files: List[gen.ReadsFile], reports: List[str], cf
             off += int(totals[w] != best)
             entries.append((corpus.names[w], corpus.text(w), sw.winner_sites(per_read)))
         # Rivals: the longest, the reads' sources, a random sample.
-        rivals = set(longest)
-        sources = np.unique(rf.sources)
-        rivals.update(int(s) for s in g.choice(sources, min(SOURCE_REFS, len(sources)), replace=False))
-        rivals.update(int(r) for r in g.choice(len(corpus.lens), min(RANDOM_REFS, len(corpus.lens)), replace=False))
-        rivals = sorted(rivals - set(known))
-        rival_totals = sw.totals(rf.reads, [corpus.seq(r) for r in rivals], scheme, device)
+        group = rivals(g, corpus, rf, known)
+        t_rivals = time.perf_counter()
+        rival_totals = sw.totals(rf.reads, [corpus.seq(r) for r in group], scheme, device)
+        spent = f"{int(corpus.lens[group].sum())} bp in {time.perf_counter() - t_rivals:.2f} s"
         above = int((rival_totals >= best).sum())
         ref_best = max(totals.values()) if totals else 0
         expected = ref_report.report_lines(rf.texts, len(corpus.names), ref_best, entries)
@@ -116,9 +142,9 @@ def check(corpus: gen.Corpus, files: List[gen.ReadsFile], reports: List[str], cf
         out["sampled_refs_at_or_above_best"] += above
         out["report_lines_differing"] += differing
         out["bad_files"] += int(off > 0 or above > 0 or differing > 0)
-        log(f"check file {f + 1}: best {best}, winners {len(names)}, rivals {len(rivals)} (best rival "
-            f"{int(rival_totals.max()) if len(rivals) else 0}), gap {gap}, above {above}, lines differing "
-            f"{differing}, {time.perf_counter() - t0:.2f} s")
+        log(f"check file {f + 1}: best {best}, winners {len(names)}, rivals {len(rival_totals)} (best rival "
+            f"{int(rival_totals.max()) if len(rival_totals) else 0}), gap {gap}, above {above}, lines differing "
+            f"{differing}, {time.perf_counter() - t0:.2f} s; rivals {spent}")
     out["mismatches"] = sum(out[k] for k in PARTS)
     out["files_checked"] = len(picked)
     return out

@@ -2,10 +2,10 @@
 and input files of reads sampled from it by a traffic mix.
 
 Every seed gets the same set of sizes in another order: reference lengths
-are the quantiles of the configuration's length law, read lengths the
-quantiles of the mix's (a uniform law, or the tree's own lengths), so two
-seeds differ in sequence content, in which reference each read comes
-from, and in order, not in the amount of work.
+are the quantiles of the configuration's length law, or the lengths of
+its table, read lengths the quantiles of the mix's (a uniform law, or the
+tree's own lengths), so two seeds differ in sequence content, in which
+reference each read comes from, and in order, not in the amount of work.
 """
 
 from __future__ import annotations
@@ -50,6 +50,27 @@ def lognormal_lengths(median: float, mean: float, lo: int, hi: int, total_bp: in
     return at(n)
 
 
+def table_lengths(path: str) -> np.ndarray:
+    """The ascending lengths of a length table: a CSV file of ``length,count``
+    rows under one header line, each length taken ``count`` times."""
+    rows = np.loadtxt(path, delimiter=",", skiprows=1, dtype=np.int64, ndmin=2)
+    return np.sort(np.repeat(rows[:, 0], rows[:, 1]))
+
+
+def reference_lengths(cfg: dict) -> np.ndarray:
+    """The ascending lengths of the configuration's tree: those of its
+    ``length_table`` where it names one (a path that ``spec.config`` makes
+    absolute), which sum to ``total_bp``; else the log-normal law of
+    ``median_bp`` and ``mean_bp`` on [``min_bp``, ``max_bp``]."""
+    if "length_table" in cfg:
+        lens = table_lengths(cfg["length_table"])
+        if int(lens.sum()) != cfg["total_bp"]:
+            raise ValueError(f"the length table sums to {int(lens.sum())} bp, the configuration's total_bp to "
+                             f"{cfg['total_bp']}")
+        return lens
+    return lognormal_lengths(cfg["median_bp"], cfg["mean_bp"], cfg["min_bp"], cfg["max_bp"], cfg["total_bp"])
+
+
 def uniform_lengths(lo: int, hi: int, n: int) -> np.ndarray:
     """The n quantiles (k + 1/2) / n of the uniform law on [lo, hi]."""
     k = np.arange(n, dtype=np.float64)
@@ -78,8 +99,7 @@ def make_corpus(cfg: dict, seed: int, directory: str) -> Corpus:
     """The configuration's reference tree, written under ``directory`` in
     files of about ``file_bp`` base pairs each, lines of LINE bases."""
     g = rng(seed, 1)
-    lens = g.permutation(lognormal_lengths(cfg["median_bp"], cfg["mean_bp"], cfg["min_bp"], cfg["max_bp"],
-                                           cfg["total_bp"]))
+    lens = g.permutation(reference_lengths(cfg))
     offsets = np.zeros_like(lens)
     np.cumsum(lens[:-1], out=offsets[1:])
     codes = g.integers(0, 4, int(lens.sum()), dtype=np.uint8)
@@ -142,6 +162,25 @@ def read_lengths(corpus: Corpus, mix: dict) -> np.ndarray:
     raise ValueError(f"unknown read lengths {mix['lengths']!r}")
 
 
+def by_bases(sorted_lens: np.ndarray, lens: np.ndarray, lo: np.ndarray, g: np.random.Generator):
+    """(index into ``sorted_lens``, offset) of each read: one draw of a
+    uniform position among every start in the tree where a read of its
+    length fits, that is, of a source among the references at least as
+    long (from ``lo``, ascending ``sorted_lens``) with weight
+    ``len - read_len + 1``, and a uniform offset in it."""
+    # Per read length, the count of starts that fit before each reference
+    # from the first long enough, and through the last.
+    ends = {n: np.concatenate(([0], np.cumsum(sorted_lens[first:] - n + 1)))
+            for n, first in dict(zip(lens.tolist(), lo.tolist())).items()}
+    pos = g.integers(0, np.array([ends[n][-1] for n in lens.tolist()], np.int64))
+    picked = np.empty_like(lo)
+    within = np.empty_like(lo)
+    for k, (n, first, p) in enumerate(zip(lens.tolist(), lo.tolist(), pos.tolist())):
+        j = int(np.searchsorted(ends[n], p, side="right")) - 1
+        picked[k], within[k] = first + j, p - ends[n][j]
+    return picked, within
+
+
 def make_reads_files(corpus: Corpus, mix: dict, seed: int, directory: str, first: int, count: int) -> List[ReadsFile]:
     """Input files ``first`` to ``first + count - 1`` of the mix, each from
     a stream of its own, so that file k is the same however many are made.
@@ -152,7 +191,10 @@ def make_reads_files(corpus: Corpus, mix: dict, seed: int, directory: str, first
     uniformly, and the read sits at a uniform offset in it; under
     ``"whole"`` the source is one of the NEAREST shortest such
     references, chosen uniformly, so that the read is the whole of it but
-    for the few bases by which it is longer (cut at a uniform offset)."""
+    for the few bases by which it is longer (cut at a uniform offset);
+    under ``"bases"`` the read starts at a uniform position of the whole
+    tree among those where it fits (:func:`by_bases`), as reads of an
+    assembly cover its contigs in proportion to their length."""
     lengths = read_lengths(corpus, mix)
     by_len = np.argsort(corpus.lens, kind="stable")
     sorted_lens = corpus.lens[by_len]
@@ -164,14 +206,19 @@ def make_reads_files(corpus: Corpus, mix: dict, seed: int, directory: str, first
         g = rng(seed, 2, k)
         lens = g.permutation(lengths)
         lo = np.searchsorted(sorted_lens, lens, side="left")
-        if mix["sampling"] == "substring":
-            hi = np.full_like(lo, len(sorted_lens))
-        elif mix["sampling"] == "whole":
-            hi = np.minimum(lo + NEAREST, len(sorted_lens))
+        if mix["sampling"] == "bases":
+            picked, within = by_bases(sorted_lens, lens, lo, g)
+            sources = by_len[picked]
         else:
-            raise ValueError(f"unknown sampling {mix['sampling']!r}")
-        sources = by_len[g.integers(lo, hi)]
-        starts = corpus.offsets[sources] + g.integers(0, corpus.lens[sources] - lens + 1)
+            if mix["sampling"] == "substring":
+                hi = np.full_like(lo, len(sorted_lens))
+            elif mix["sampling"] == "whole":
+                hi = np.minimum(lo + NEAREST, len(sorted_lens))
+            else:
+                raise ValueError(f"unknown sampling {mix['sampling']!r}")
+            sources = by_len[g.integers(lo, hi)]
+            within = g.integers(0, corpus.lens[sources] - lens + 1)
+        starts = corpus.offsets[sources] + within
         j = np.arange(int(lens.sum())) - np.repeat(np.cumsum(lens) - lens, lens)
         codes = corpus.codes[np.repeat(starts, lens) + j]
         subs = g.random(codes.size) < mix["substitution_rate"]

@@ -10,5 +10,8 @@ A reader module declares what it reads and how:
   traced run brackets every launching entry, so this declares, it does
   not select;
 - ``read(trace)``: the metric's value from a closed
-  :class:`swbench.trace.Trace`, or None where it finds nothing to read.
+  :class:`swbench.trace.Trace`; None where it finds nothing to read, which
+  makes a traced run on a card incorrect; ``swbench.spec.ABSENT`` where
+  the program under test has no span, counter or kernel of the kind it
+  reads (a parent older than the reader), which leaves the metric out.
 """

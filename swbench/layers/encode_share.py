@@ -5,9 +5,9 @@ flush around ``encode_concat``, the argsort and the offsets;
 card's encode.  Read from the port's own tracer
 (``utils.profiling``), which importing this module switches on
 (``swbench.program_trace``); nothing where the run launched nothing on a
-card."""
+card, and ``spec.ABSENT`` on a tree without the tracer."""
 
-from swbench import program_trace
+from swbench import program_trace, spec
 
 SPANS = {}
 ENTRIES = ()
@@ -17,6 +17,8 @@ program_trace.switch_on()
 
 def read(trace):
     rec = program_trace.records()
+    if rec is spec.ABSENT:
+        return rec
     if rec is None or trace.window_s <= 0:
         return None
     return 100.0 * program_trace.total(program_trace.spans(rec, "encode", trace.window)) / trace.window_s

@@ -4,7 +4,7 @@ the host clock by the tracer's anchors) less the time under the
 program's ``wait`` spans, averaged over the cards, in %.  Read from the
 port's own tracer, which importing this module switches on
 (``swbench.program_trace``); nothing where the run launched nothing on a
-card.
+card, and ``spec.ABSENT`` on a tree without the tracer.
 
 The run's notes (standard error) get the anchors' drift on each card, the
 earliest a launch's first event falls before its enqueue, the ten longest
@@ -13,6 +13,7 @@ spans whose self time covers it with seconds per span, and the idle
 seconds of every gap by span."""
 
 from swbench import program_trace as pt
+from swbench import spec
 
 SPANS = {}
 ENTRIES = ()
@@ -28,6 +29,8 @@ def _named(by: dict) -> str:
 
 def read(trace):
     rec = pt.records()
+    if rec is spec.ABSENT:
+        return rec
     if rec is None or trace.window_s <= 0:
         return None
     window = trace.window

@@ -6,9 +6,10 @@ between cards (``"upload"``), the wait for a flush's best
 (``"resolve"``) and each copy of a traceback result to the host
 (``"readback"``).  Read from the port's own tracer, which importing this
 module switches on (``swbench.program_trace``); nothing where the run
-launched nothing on a card."""
+launched nothing on a card, and ``spec.ABSENT`` on a tree without the
+tracer."""
 
-from swbench import program_trace
+from swbench import program_trace, spec
 
 SPANS = {}
 ENTRIES = ()
@@ -18,6 +19,8 @@ program_trace.switch_on()
 
 def read(trace):
     rec = program_trace.records()
+    if rec is spec.ABSENT:
+        return rec
     if rec is None or trace.window_s <= 0:
         return None
     return 100.0 * program_trace.total(program_trace.spans(rec, "wait", trace.window)) / trace.window_s

@@ -5,9 +5,9 @@ The readers that use it switch the tracer on when they are imported
 (:func:`switch_on`).  ``spec.reader`` imports readers only in ``--trace 1``
 runs, before the backend is made, so end-to-end runs keep it off.  The
 program's spans and its launches, placed on the host clock by the
-tracer's anchors, share the window's clock (``time.perf_counter``).  A
-tree without the tracer, or a run that launched nothing on a card, gives
-no records, and these readers then read nothing.
+tracer's anchors, share the window's clock (``time.perf_counter``).  On
+a tree without the tracer these readers return ``spec.ABSENT``; where a
+run launched nothing on a card, they read nothing.
 
 Intervals are (start, end) pairs of host seconds.
 """
@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import bisect
 from typing import Dict, Iterable, List, Tuple
+
+from swbench import spec
 
 Interval = Tuple[float, float]
 
@@ -36,12 +38,12 @@ def switch_on() -> None:
 
 def records():
     """The program's records (``profiling.Records``) once the window has
-    closed and the cards are synchronised (``Trace.close``); None where
-    the program has no tracer or recorded no launch."""
+    closed and the cards are synchronised (``Trace.close``); ``spec.ABSENT``
+    where the program has no tracer, None where it recorded no launch."""
     try:
         rec = _profiling().records()
     except (ImportError, AttributeError):
-        return None
+        return spec.ABSENT
     return rec if rec.launches else None
 
 

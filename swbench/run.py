@@ -22,7 +22,10 @@ standard error.  With ``--trace 0`` the
 metrics are the cell's end-to-end ones (each named by its quantity,
 ``real_gcups`` or ``setup_s``, and a suffix after a dot where a group of
 cells has a bound of its own), with ``--trace 1`` its per-layer ones, each
-read by ``swbench/layers/<name>.py``.  Without CUDA, or with fewer cards than
+read by ``swbench/layers/<name>.py``.  A run that lacks one of its
+metrics is incorrect (:func:`unread`), but for a per-layer metric whose
+reader says the program has nothing of its kind (``spec.ABSENT``), and
+for per-layer metrics in a run without a card (tests).  Without CUDA, or with fewer cards than
 the cell asks for, the run prints no result and exits 2; with JAX or the
 JAX package loaded once the window has closed, it exits 3; where the pool
 of input files runs out before the window's end, it exits 4.
@@ -124,6 +127,16 @@ def _breakdown(tr: tracing.Trace) -> dict:
     gaps = sorted(tr.gaps(), key=lambda g: -g[1])[:10]
     return {"device_ops": sorted(([k, v] for k, v in ops.items()), key=lambda e: -e[1])[:10],
             "idle_gaps": [[label, s] for label, s in gaps]}
+
+
+def unread(units: dict, values: dict, absent: set, trace: bool, card: bool) -> list:
+    """The cell's metrics that a correct run reads and this one did not:
+    untraced, every end-to-end one; traced on a card, every per-layer one
+    but those ``absent`` from the program; traced on the CPU, none, since
+    the card's readers read nothing there."""
+    if trace and not card:
+        return []
+    return [name for name in units if name not in values and name not in absent]
 
 
 def run_cell(workload: str, seed: int, seconds: float, trace: bool = False, device: str = "cuda",
@@ -232,12 +245,14 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool = False, devi
             f"{' '.join(f'{x:.3f}' for x in file_s)}")
 
         result = {"correct": False, "attempted": len(counted) + int(error is not None), "failed": int(error is not None)}
-        values = {}
+        values, absent = {}, set()
         if trace:
             tr.remove()
             for name, mod in readers.items():
                 value = mod.read(tr)
-                if value is not None:
+                if value is spec.ABSENT:
+                    absent.add(name)
+                elif value is not None:
                     values[name] = value
             for note in tr.notes:
                 log(note)
@@ -283,7 +298,11 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool = False, devi
         result["check_parts"] = {k: numbers[k] for k in check.PARTS + ("winner_total_gap", "files_checked")}
         log("check parts: " + ", ".join(f"{k} {v}" for k, v in result["check_parts"].items()))
         result["failed"] += numbers["bad_files"]
-        result["correct"] = (error is None and bool(counted) and set(units) <= set(values)
+        missing = unread(units, values, absent, trace, device == "cuda")
+        if missing or absent:
+            log(f"metrics not read: {', '.join(missing) or 'none'}; absent from the program: "
+                f"{', '.join(sorted(absent)) or 'none'}")
+        result["correct"] = (error is None and bool(counted) and not missing
                              and all(c["value"] <= c["limit"] for c in checks.values()))
         result["checks"] = checks
         return result

@@ -1,6 +1,7 @@
 """The benchmark's description, found by name: ``BENCHMARK.json`` at the
 root of the checkout, the configuration file each cell's configuration
-names, the traffic mix ``swbench/traffic/<traffic>.json``, and the reader
+names (and the length table it may name, a path from the root), the
+traffic mix ``swbench/traffic/<traffic>.json``, and the reader
 ``swbench/layers/<metric>.py`` of each per-layer metric."""
 
 from __future__ import annotations
@@ -29,7 +30,10 @@ def config(bench: dict, entry: dict, root: str = ROOT) -> dict:
     for cfg in bench["configs"]:
         if cfg["name"] == entry["config"]:
             with open(os.path.join(root, cfg["file"])) as f:
-                return json.load(f)
+                out = json.load(f)
+            if "length_table" in out:
+                out["length_table"] = os.path.join(root, out["length_table"])
+            return out
     raise KeyError(f"no configuration {entry['config']!r} in BENCHMARK.json")
 
 
@@ -43,6 +47,19 @@ def metrics(bench: dict, entry: dict, trace: bool) -> List[dict]:
     those that list it, or list no cells."""
     kind = "per_layer" if trace else "end_to_end"
     return [m for m in bench[kind] if entry["name"] in m.get("workloads", [entry["name"]])]
+
+
+class _Absent:
+    def __repr__(self) -> str:
+        return "ABSENT"
+
+
+# What a reader returns where the program under test has no span, counter
+# or kernel of the kind it reads (a parent older than the reader): its
+# metric is left out of the line, and the run is judged without it.  None
+# says that the reader found nothing where the program should have left
+# something.
+ABSENT = _Absent()
 
 
 def reader(name: str):

@@ -43,3 +43,14 @@ def tiny_root(path, strategy="batch", reads=6, moves="real_gcups"):
 @pytest.fixture
 def tiny(tmp_path):
     return tiny_root(tmp_path)
+
+
+@pytest.fixture(autouse=True)
+def program_tracer_off():
+    """The port's tracer off and empty after each test: a traced run's
+    readers switch it on when they are imported."""
+    yield
+    from sparksmithwaterman_tpu_torch.utils import profiling
+
+    profiling.disable()
+    profiling.reset()

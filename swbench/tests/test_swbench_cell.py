@@ -23,11 +23,89 @@ def test_a_cell_added_as_files_runs(tiny):
 def test_a_traced_cpu_run_reads_its_host_spans(tiny):
     result = run.run_cell("tiny.x", 2**31 + 4, 8.0, True, "cpu", root=tiny, log=lambda m: None)
     metrics = result["metrics"]
-    # No card: the kernel readers find nothing to read and are left out.
+    # No card: the kernel readers and the program tracer's find nothing to
+    # read and are left out, and the run is correct all the same.
+    assert result["correct"], result["checks"]
     assert set(metrics) == {"parse_share", "dispatch_share", "traceback_share"}
     assert 0 < metrics["dispatch_share"]["value"] < 100
     assert all(v["unit"] == "%" for v in metrics.values())
     assert {name for name, _ in result["host_spans"]} >= {"file", "parse", "dispatch", "traceback", "report"}
+
+
+def _readers(monkeypatch, **reads):
+    """``spec.reader`` with the named readers' ``read`` replaced."""
+    found = spec.reader
+
+    def reader(name):
+        module = found(name)
+        if name in reads:
+            module.read = reads[name]
+        return module
+
+    monkeypatch.setattr(spec, "reader", reader)
+
+
+def _as_on_a_card(monkeypatch):
+    """``run.unread`` judging a CPU run as it judges one on a card."""
+    judge = run.unread
+    monkeypatch.setattr(run, "unread", lambda units, values, absent, trace, card: judge(units, values, absent,
+                                                                                       trace, True))
+
+
+def test_a_traced_run_on_a_card_needs_every_per_layer_metric(tiny, monkeypatch):
+    """Judged as on a card, a traced run whose readers read nothing is
+    incorrect, though its outputs pass the check."""
+    _as_on_a_card(monkeypatch)
+    result = run.run_cell("tiny.x", 2**31 + 8, 8.0, True, "cpu", root=tiny, log=lambda m: None)
+    assert result["checks"]["mismatches"]["value"] == 0
+    assert not result["correct"]
+
+
+def test_a_metric_absent_from_the_program_is_left_out(tiny, monkeypatch):
+    """A reader that says the program has nothing of its kind, as on a
+    parent older than its spans, leaves its metric out, and the run is
+    correct, also when judged as on a card; one that reads nothing is
+    left out too, and on a card makes the run incorrect."""
+    _as_on_a_card(monkeypatch)
+    cannot = ("k1_roofline", "k1_wide_roofline", "kernel_busy_share", "encode_share", "host_wait_share",
+              "host_bound_idle_share")
+    _readers(monkeypatch, parse_share=lambda trace: spec.ABSENT, **{n: lambda trace: spec.ABSENT for n in cannot})
+    notes = []
+    result = run.run_cell("tiny.x", 2**31 + 10, 8.0, True, "cpu", root=tiny, log=notes.append)
+    assert result["correct"], result["checks"]
+    assert set(result["metrics"]) == {"dispatch_share", "traceback_share"}
+    assert any(n.startswith("metrics not read: none; absent from the program: encode_share") for n in notes)
+    monkeypatch.undo()
+    _as_on_a_card(monkeypatch)
+    _readers(monkeypatch, parse_share=lambda trace: None, **{n: lambda trace: spec.ABSENT for n in cannot})
+    result = run.run_cell("tiny.x", 2**31 + 11, 8.0, True, "cpu", root=tiny, log=notes.append)
+    assert set(result["metrics"]) == {"dispatch_share", "traceback_share"}
+    assert not result["correct"] and notes[-1].startswith("metrics not read: parse_share;")
+
+
+def test_unread_names_what_a_correct_run_lacks():
+    units = {"a": "%", "b": "%", "c": "%"}
+    assert run.unread(units, {"a": 1.0}, {"b"}, True, True) == ["c"]
+    assert run.unread(units, {"a": 1.0}, set(), True, False) == []
+    assert run.unread(units, {"a": 1.0, "b": 2.0, "c": 3.0}, set(), True, True) == []
+    assert run.unread({"real_gcups": "GCUPS", "setup_s": "s"}, {"setup_s": 1.0}, set(), False, False) == ["real_gcups"]
+
+
+def test_an_untraced_run_without_an_end_to_end_metric_is_incorrect(tmp_path):
+    """An end-to-end metric that the run cannot measure makes it
+    incorrect, though its outputs pass the check."""
+    from swbench.tests.conftest import tiny_root
+
+    root = tiny_root(tmp_path)
+    path = tmp_path / "BENCHMARK.json"
+    bench = json.loads(path.read_text())
+    bench["end_to_end"].append({"name": "file_s_p95", "unit": "s", "better": "lower", "bound": 0.1,
+                                "source": "host_clock", "workloads": ["tiny.x"]})
+    path.write_text(json.dumps(bench))
+    result = run.run_cell("tiny.x", 2**31 + 9, 8.0, False, "cpu", root=root, log=lambda m: None)
+    assert result["checks"]["mismatches"]["value"] == 0
+    assert set(result["metrics"]) == {"real_gcups", "setup_s"}
+    assert not result["correct"]
 
 
 def test_a_four_card_cell_reports_the_twins(tmp_path, monkeypatch):

@@ -1,7 +1,11 @@
 """The generators: repeatable from a seed, the same sizes for every seed,
 RefSeq's median and mean, reads that sit in their sources."""
 
+import json
+import math
+
 import numpy as np
+import pytest
 from numpy.lib.stride_tricks import sliding_window_view
 
 from swbench import gen
@@ -122,3 +126,100 @@ def test_at_the_configurations_size_a_long_read_is_its_whole_source():
     longest_source = lens[np.searchsorted(lens, reads) + gen.NEAREST - 1]
     assert (longest_source <= reads * 1.01).all()
     assert reads.min() > 1024
+
+
+def _table(path, lens):
+    """A length table of ``lens`` at ``path``: ``length,count`` rows."""
+    values, counts = np.unique(lens, return_counts=True)
+    path.write_text("length,count\n" + "".join(f"{v},{c}\n" for v, c in zip(values, counts)))
+    return str(path)
+
+
+def test_a_length_table_of_the_laws_lengths_makes_the_same_tree(tmp_path):
+    """A configuration that names a table of the lengths its law gives
+    gets the same tree, byte for byte, from the same seed; without a
+    table the law's lengths are used, as before."""
+    lens = gen.lognormal_lengths(1609, 2160, 80, 131072, 400_000)
+    assert np.array_equal(gen.reference_lengths(SMALL), lens)
+    table = _table(tmp_path / "lengths.csv", gen.rng(5, 9).permutation(lens))
+    with_table = dict(file_bp=150_000, total_bp=int(lens.sum()), length_table=table)
+    assert np.array_equal(gen.table_lengths(table), lens)
+    a = gen.make_corpus(SMALL, 2**33 + 1, str(tmp_path / "a"))
+    b = gen.make_corpus(with_table, 2**33 + 1, str(tmp_path / "b"))
+    assert np.array_equal(a.lens, b.lens) and np.array_equal(a.codes, b.codes)
+    for x, y in zip(a.files, b.files):
+        with open(x, "rb") as fx, open(y, "rb") as fy:
+            assert fx.read() == fy.read()
+
+
+def test_a_length_table_that_misses_total_bp_is_refused(tmp_path):
+    table = _table(tmp_path / "lengths.csv", [8192, 8192, 1_048_576])
+    assert gen.table_lengths(table).tolist() == [8192, 8192, 1_048_576]
+    with pytest.raises(ValueError, match="sums to 1064960 bp"):
+        gen.reference_lengths(dict(total_bp=1_064_961, length_table=table))
+
+
+def test_a_configuration_names_its_table_from_the_root(tmp_path):
+    from swbench import spec
+    from swbench.tests.conftest import tiny_root
+
+    root = tiny_root(tmp_path)
+    table = _table(tmp_path / "swbench" / "configs" / "tiny.lengths.csv", [3000] * 10)
+    path = tmp_path / "swbench" / "configs" / "tiny.json"
+    cfg = json.loads(path.read_text())
+    cfg["length_table"] = "swbench/configs/tiny.lengths.csv"
+    path.write_text(json.dumps(cfg))
+    bench = spec.load(root)
+    got = spec.config(bench, spec.cell(bench, "tiny.x"), root)
+    assert got["length_table"] == table
+    assert gen.reference_lengths(got).tolist() == [3000] * 10
+
+
+BASES_MIX = dict(reads_per_file=500, lengths="uniform", read_min_bp=80, read_max_bp=150, sampling="bases",
+                 substitution_rate=0.01)
+
+
+def test_reads_drawn_by_bases_cover_the_tree_in_proportion(tmp_path):
+    """On a tree of lengths 1:10:100, over 3,000 reads, each reference's
+    share of the reads is within 3 standard errors of its share of the
+    starts where a read fits (len - read_len + 1, all but proportional to
+    its length); the reads sit in their sources, and file k is the same
+    however many files are made."""
+    lens = np.array([200_000, 2_000, 20_000], np.int64)
+    codes = gen.rng(1, 1).integers(0, 4, int(lens.sum()), dtype=np.uint8)
+    corpus = gen.Corpus(codes, np.array([0, 200_000, 202_000]), lens, [], [])
+    files = gen.make_reads_files(corpus, BASES_MIX, 2**32 + 9, str(tmp_path / "in"), 0, 6)
+    again = gen.make_reads_files(corpus, BASES_MIX, 2**32 + 9, str(tmp_path / "again"), 4, 2)
+    assert [f.texts for f in files[4:]] == [f.texts for f in again]
+    sources = np.concatenate([f.sources for f in files])
+    read_lens = np.concatenate([[len(r) for r in f.reads] for f in files])
+    fits = lens[None, :] - read_lens[:, None] + 1
+    expected = (fits / fits.sum(axis=1, keepdims=True)).mean(axis=0)
+    n = len(sources)
+    assert n == 3000
+    for k in range(3):
+        share = float((sources == k).mean())
+        assert abs(share - expected[k]) <= 3 * math.sqrt(expected[k] * (1 - expected[k]) / n), (k, share)
+    subs = total = 0
+    for read, src in zip(files[0].reads[:100], files[0].sources[:100]):
+        subs += _subs(read, corpus.seq(src))
+        total += len(read)
+    assert 0.004 < subs / total < 0.016
+
+
+def test_by_bases_places_every_start_where_a_read_fits():
+    """Every start of the tree is drawn, each once a position: the
+    inverse of the draw is a bijection onto the starts that fit."""
+    sorted_lens = np.array([90, 100, 130, 400], np.int64)
+
+    class Counter:
+        def integers(self, lo, hi):
+            return np.arange(int(hi[0]))
+
+    n = 100
+    fits = sum(int(x) - n + 1 for x in sorted_lens if x >= n)
+    lens = np.full(fits, n)
+    lo = np.searchsorted(sorted_lens, lens, side="left")
+    picked, within = gen.by_bases(sorted_lens, lens, lo, Counter())
+    pairs = list(zip(picked.tolist(), within.tolist()))
+    assert pairs == [(k, o) for k in (1, 2, 3) for o in range(int(sorted_lens[k]) - n + 1)]

@@ -4,8 +4,6 @@ tiny CPU cell the program records its spans but no launch, so the three
 read nothing; on synthetic records each reads what the arithmetic says,
 and the idle gaps are named by the program's spans."""
 
-import json
-import os
 import types
 
 import pytest
@@ -14,36 +12,12 @@ from sparksmithwaterman_tpu_torch.utils import profiling
 from swbench import program_trace, run, spec
 
 READERS = ("encode_share", "host_wait_share", "host_bound_idle_share")
-LAYERS = {"encode_share": ("program_span", "reference encoding and split on the host"),
-          "host_wait_share": ("program_span", "host blocked on the card"),
-          "host_bound_idle_share": ("device_trace", "card idle while the host works")}
 
 
-def with_readers(root):
-    """``root``'s BENCHMARK.json with the three metrics listed for the tiny
-    cell, as per-layer entries moving ``real_gcups``."""
-    path = os.path.join(root, "BENCHMARK.json")
-    with open(path) as f:
-        bench = json.load(f)
-    for name, (source, layer) in LAYERS.items():
-        bench["per_layer"].append({"name": name, "unit": "%", "better": "lower", "source": source,
-                                   "layer": layer, "moves": "real_gcups", "workloads": ["tiny.x"]})
-    with open(path, "w") as f:
-        json.dump(bench, f)
-    return root
-
-
-@pytest.fixture
-def tracer_off_after():
-    yield
-    profiling.disable()
-    profiling.reset()
-
-
-def test_the_tiny_cpu_cell_records_spans_but_no_launch(tiny, tracer_off_after):
-    result = run.run_cell("tiny.x", 2**31 + 7, 8.0, True, "cpu", root=with_readers(tiny), log=lambda m: None)
+def test_the_tiny_cpu_cell_records_spans_but_no_launch(tiny):
+    result = run.run_cell("tiny.x", 2**31 + 7, 8.0, True, "cpu", root=tiny, log=lambda m: None)
     # No card: these readers, like the kernel readers, are left out.
-    assert result["checks"]["mismatches"]["value"] == 0
+    assert result["checks"]["mismatches"]["value"] == 0 and result["correct"]
     assert not set(READERS) & set(result["metrics"])
     assert profiling.tracing()
     rec = profiling.records()
@@ -98,6 +72,18 @@ def test_the_readers_on_synthetic_records(monkeypatch, suffix):
            "wait:resolve 0.5000, wait:readback 0.3000" in notes
     assert "gap 2: 3.2000 s on card 1 from +0.000 s: parse 2.0000, encode 1.0000, flush 0.2000" in notes
     assert "idle seconds of all 5 gaps by span: " in notes
+
+
+@pytest.mark.parametrize("suffix", ["", ".4gpu"])
+def test_on_a_tree_without_the_tracer_the_readers_say_absent(monkeypatch, suffix):
+    """A program with no tracer (a parent older than it) has nothing of
+    their kind: the readers say so, not that they read nothing."""
+    def missing():
+        raise ImportError("no tracer")
+
+    monkeypatch.setattr(program_trace, "_profiling", missing)
+    trace = types.SimpleNamespace(window=(0.0, 10.0), window_s=10.0, cards=2, notes=[])
+    assert all(spec.reader(name + suffix).read(trace) is spec.ABSENT for name in READERS)
 
 
 def test_interval_arithmetic():
